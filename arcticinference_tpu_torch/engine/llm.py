@@ -16,11 +16,13 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from arcticinference_tpu_torch.config import EngineConfig
 from arcticinference_tpu_torch.engine.engine import LLMEngine
 from arcticinference_tpu_torch.engine.request import Request, SamplingParams
+from arcticinference_tpu_torch.ops.fp8 import FP8_MAX
 
 
 @dataclass
@@ -30,6 +32,18 @@ class RequestOutput:
     token_ids: list[int]
     text: Optional[str] = None
     finish_reason: str = "stop"
+
+
+def fp8_kv_scales(kv: torch.Tensor, old_scale: torch.Tensor,
+                  margin: float = 1.0) -> np.ndarray:
+    """Per-layer ``[k_scale, v_scale]`` ([L, 2] float32) that map each
+    layer's K and V amax in the fp8 cache ``kv`` [L, N, 2, Bs, Hkv*D] to
+    the e4m3 maximum.  The cache holds values divided by ``old_scale``
+    (the scales they were written with), so the true amax is the cached
+    amax times ``old_scale``."""
+    amax = kv.float().abs().amax(dim=(1, 3, 4)) * old_scale.to(kv.device)
+    amax = amax.cpu().numpy()
+    return np.maximum(amax, 1e-6) / FP8_MAX * margin
 
 
 class LLM:
@@ -103,3 +117,23 @@ class LLM:
                 finish_reason=req.status.name.lower(),
             ))
         return outputs
+
+    def calibrate_kv_scales(self, prompt_token_ids,
+                            margin: float = 1.0) -> np.ndarray:
+        """Calibrate the fp8 KV cache's per-layer scales from data.
+
+        Prefills ``prompt_token_ids`` once (one output token each), reads
+        each layer's K and V amax from the cache (:func:`fp8_kv_scales`)
+        and keeps the resulting scales for every later write and read.
+        This is how fp8-KV checkpoints ship ``k_scale`` / ``v_scale``;
+        for checkpoints without them it derives them.  Returns the
+        [L, 2] scales."""
+        runner = self.engine.runner
+        if runner.kv.dtype != torch.float8_e4m3fn:
+            raise ValueError("kv cache is not fp8; nothing to calibrate")
+        old = runner.kv_scale.clone()
+        self.generate(prompt_token_ids=prompt_token_ids,
+                      sampling_params=SamplingParams(max_tokens=1))
+        scales = fp8_kv_scales(runner.kv, old, margin)
+        runner.kv_scale = torch.from_numpy(scales).to(runner.device)
+        return scales

@@ -7,9 +7,10 @@ runner (same keys, same bucketed shapes ``t_pad`` / ``s_pad``, same
 attention work-item schedule), so the two compare element for element.
 Every array then goes to the device in one int32 and one float32 copy.
 
-Not ported yet (they raise ``NotImplementedError``): meshes (tp / sp /
-dp / pp), token-tree drafts, guided decoding and
-penalties, and quantized weights.
+Weights may be plain or weight-only quantized (``QuantizedLinear``
+leaves: fp8, int8, int4).  Not ported yet (they raise
+``NotImplementedError``): meshes (tp / sp / dp / pp), token-tree drafts,
+guided decoding and penalties.
 """
 
 from __future__ import annotations
@@ -92,10 +93,11 @@ class ModelRunner:
             max(16, config.scheduler.max_num_batched_tokens))
 
     def _auto_num_blocks(self, kv_dtype: torch.dtype) -> int:
-        """Size the cache from the device's memory, less the weights and
-        a 1 GiB reserve for activations."""
+        """Size the cache from the device's memory, less the weights (a
+        quantized weight's values and scales) and a 1 GiB reserve for
+        activations."""
         param_bytes = sum(
-            x.numel() * x.element_size()
+            x.nbytes
             for x in (*self.params["layers"].values(),
                       *(v for k, v in self.params.items() if k != "layers")))
         budget = (int(device_memory_bytes(self.device)

@@ -10,6 +10,11 @@ indexes its weights in place, so no weight is copied per step.
 The paged cache ``[L, N_blk, 2, Bs, Hkv*D]`` is written in place
 (``_write_kv_layer``), and attention receives the whole stacked cache
 plus the layer index, so no per-layer cache slice is copied either.
+
+Weight-only quantization (``quantization="fp8" | "int8" | "int4"``)
+turns the matmul weights and the LM head into ``QuantizedLinear`` leaves
+(``ops/fp8.py``) and, when the LM head is untied, the embedding table
+into fp8.
 """
 
 from __future__ import annotations
@@ -23,7 +28,10 @@ from arcticinference_tpu_torch.ops.attention import (
     ragged_paged_attention_reference)
 from arcticinference_tpu_torch.ops.cuda.ragged_attention import (
     grouped_decode_attention_kernel, ragged_paged_attention_kernel)
-from arcticinference_tpu_torch.ops.fp8 import matmul
+from arcticinference_tpu_torch.ops.fp8 import (QuantizedLinear,
+                                               fp8_quantize, fuse_quantized,
+                                               matmul, quantize_layers,
+                                               weight_quantize)
 from arcticinference_tpu_torch.ops.kv_cache import write_kv
 from arcticinference_tpu_torch.ops.layers import (apply_rope,
                                                   compute_rope_freqs,
@@ -86,11 +94,7 @@ def _first_eos(eos):
     return eos
 
 
-def _check_supported(arch: LlamaArch, quantization: Optional[str]) -> None:
-    if quantization is not None:
-        raise NotImplementedError(
-            f"quantization={quantization!r} is not ported yet (bf16/f32 "
-            "weights only)")
+def _check_supported(arch: LlamaArch) -> None:
     if arch.attention_bias or arch.qk_norm:
         raise NotImplementedError(
             "attention biases / qk-norm (Qwen variants) are not ported yet")
@@ -105,62 +109,108 @@ def init_params(arch: LlamaArch, generator: torch.Generator,
     Drawn on ``device`` (by default the generator's) from ``generator``
     (which must live on that device), so the weights of a full-size model
     never pass through the host.  Normal(0, 0.02) like the JAX package,
-    not the same numbers.
+    not the same numbers.  With ``quantization`` each matmul weight is
+    quantized as soon as it is drawn (one layer's float32 copy at a
+    time), so the full bf16 model never exists; the untied embedding is
+    fp8 in every mode, as in the JAX package.
     """
     if device is None:
         device = generator.device
-    _check_supported(arch, quantization)
+    _check_supported(arch)
     d, hq, hkv, dh = (arch.hidden_size, arch.num_heads, arch.num_kv_heads,
                       arch.head_dim)
     li, nl = arch.intermediate_size, arch.num_layers
+    quant = quantization is not None
 
     def w(*shape):
         x = torch.randn(shape, generator=generator, dtype=dtype,
                         device=device)
         return x.mul_(0.02)
 
+    def qw(*shape):
+        if not quant:
+            return w(*shape)
+        return quantize_layers(w(*shape), quantization)
+
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
+    embed = w(arch.vocab_size, d)
+    if quant and not arch.tie_word_embeddings:
+        # A row gather dequantizes with a scalar scale: fp8 in every mode.
+        embed = fp8_quantize(embed)
     params = {
-        "embed": w(arch.vocab_size, d),
+        "embed": embed,
         "layers": {
             "input_norm": ones(nl, d),
             "post_norm": ones(nl, d),
-            "wq": w(nl, d, hq * dh),
-            "wk": w(nl, d, hkv * dh),
-            "wv": w(nl, d, hkv * dh),
-            "wo": w(nl, hq * dh, d),
-            "w_gate": w(nl, d, li),
-            "w_up": w(nl, d, li),
-            "w_down": w(nl, li, d),
+            "wq": qw(nl, d, hq * dh),
+            "wk": qw(nl, d, hkv * dh),
+            "wv": qw(nl, d, hkv * dh),
+            "wo": qw(nl, hq * dh, d),
+            "w_gate": qw(nl, d, li),
+            "w_up": qw(nl, d, li),
+            "w_down": qw(nl, li, d),
         },
         "final_norm": ones(d),
     }
     if not arch.tie_word_embeddings:
-        params["lm_head"] = w(d, arch.vocab_size)
+        head = w(d, arch.vocab_size)
+        params["lm_head"] = (weight_quantize(head, quantization)
+                             if quant else head)
     return params
 
 
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+               "wqkv", "w_gateup")
+
+
+def quantize_params(params: dict, mode: str = "fp8") -> dict:
+    """Convert the large matmul weights to weight-only fp8 / int8 / int4.
+
+    Norms stay as they are; the LM head quantizes in ``mode`` and, when
+    there is one (untied), the input embedding to fp8.  Tied-embedding
+    models keep the table unquantized (the tied logits read it
+    transposed).  Stacked weights are quantized one layer at a time
+    (:func:`quantize_layers`: the same bytes and scales).
+    """
+    out = dict(params)
+    layers = dict(params["layers"])
+    for k in _QUANT_KEYS:
+        if k in layers and not isinstance(layers[k], QuantizedLinear):
+            layers[k] = quantize_layers(layers[k], mode)
+    out["layers"] = layers
+    if "lm_head" in out and not isinstance(out["lm_head"], QuantizedLinear):
+        out["lm_head"] = weight_quantize(out["lm_head"], mode)
+    if "lm_head" in out and not isinstance(out["embed"], QuantizedLinear):
+        out["embed"] = fp8_quantize(out["embed"])
+    return out
+
+
 def embed_lookup(params: dict, ids: torch.Tensor) -> torch.Tensor:
-    """Input-embedding gather."""
-    return params["embed"][ids.long()]
+    """Input-embedding gather; an fp8 table is dequantized row by row
+    (gathered rows times the scalar scale, in the norms' dtype)."""
+    e = params["embed"]
+    if isinstance(e, QuantizedLinear):
+        rows = e.weight[ids.long()].float() * e.scale
+        return rows.to(params["final_norm"].dtype)
+    return e[ids.long()]
 
 
 def fuse_params(params: dict, interleave: int = 1) -> dict:
     """Fuse q|k|v -> ``wqkv`` and gate|up -> ``w_gateup`` (one matmul
-    each).  The unfused tensors are dropped as soon as their fused one
-    exists, so at most one extra group is alive at a time."""
-    if interleave != 1:
-        raise NotImplementedError("interleaved (sharded) fusion is not "
-                                  "ported; the port runs on one device")
+    each), quantized parts through :func:`fuse_quantized` (per-part
+    scales kept exactly, as per-column scales).  The unfused tensors are
+    dropped as soon as their fused one exists, so at most one extra group
+    is alive at a time.  ``interleave > 1`` (sharded fusion) raises."""
     layers = dict(params["layers"])
     if "wq" in layers:
-        layers["wqkv"] = torch.cat(
-            [layers.pop("wq"), layers.pop("wk"), layers.pop("wv")], dim=-1)
+        layers["wqkv"] = fuse_quantized(
+            [layers.pop("wq"), layers.pop("wk"), layers.pop("wv")],
+            interleave)
     if "w_gate" in layers:
-        layers["w_gateup"] = torch.cat(
-            [layers.pop("w_gate"), layers.pop("w_up")], dim=-1)
+        layers["w_gateup"] = fuse_quantized(
+            [layers.pop("w_gate"), layers.pop("w_up")], interleave)
     out = dict(params)
     out["layers"] = layers
     return out
@@ -300,7 +350,8 @@ _default_attn = make_attn_impl()
 
 
 def compute_logits(params: dict, hidden_rows: torch.Tensor) -> torch.Tensor:
-    """LM head over selected hidden rows; fp32 logits."""
+    """LM head over selected hidden rows; fp32 logits (a quantized head
+    goes through its matmul kernel with a float32 output)."""
     head = params.get("lm_head")
     if head is None:
         return matmul(hidden_rows, params["embed"].t(), torch.float32)
@@ -331,12 +382,19 @@ def load_hf_state(arch: LlamaArch, tensors: dict[str, torch.Tensor],
                   device: torch.device | str | None = None) -> dict:
     """Assemble the parameters from a flat HF state dict (name ->
     tensor, as safetensors gives it) on ``device`` (``cuda:0`` by
-    default).  Optional per-layer fp8-KV scales (``k_scale``/``v_scale``)
-    land in ``params["kv_scales"]`` [L, 2]."""
+    default).
+
+    A pre-quantized fp8 checkpoint (``<name>.weight_scale`` beside each
+    weight) keeps its values, with the per-layer scales stacked ``[L]``.
+    Otherwise ``quantization`` quantizes the weights on the device
+    (:func:`quantize_params`); with it, an untied embedding becomes fp8.
+    Optional per-layer fp8-KV scales (``k_scale``/``v_scale``) land in
+    ``params["kv_scales"]`` [L, 2]."""
     device = resolve_device(device)
-    _check_supported(arch, quantization)
+    _check_supported(arch)
     nl = arch.num_layers
     stacks: dict[str, list] = {k: [None] * nl for k, _ in _LAYER_MAP.values()}
+    scales: dict[str, list] = {k: [None] * nl for k, _ in _LAYER_MAP.values()}
     kv_scales = torch.ones((nl, 2), dtype=torch.float32)
     have_kv_scales = False
     params: dict = {"layers": {}}
@@ -359,19 +417,36 @@ def load_hf_state(arch: LlamaArch, tensors: dict[str, torch.Tensor],
                 col = 0 if leaf.endswith("k_scale") else 1
                 kv_scales[layer, col] = float(arr.reshape(()))
                 have_kv_scales = True
-            elif leaf.endswith(".weight_scale"):
-                raise NotImplementedError(
-                    "pre-quantized (fp8) checkpoints are not ported yet")
-            elif leaf in _LAYER_MAP:
-                key, transpose = _LAYER_MAP[leaf]
+                continue
+            is_scale = leaf.endswith(".weight_scale")
+            base = leaf.replace(".weight_scale", ".weight")
+            if base not in _LAYER_MAP:
+                continue
+            key, transpose = _LAYER_MAP[base]
+            if is_scale:
+                scales[key][layer] = arr.float().reshape(())
+            else:
                 stacks[key][layer] = arr.t() if transpose else arr
     for key, stack in stacks.items():
         missing = [i for i, s in enumerate(stack) if s is None]
         if missing:
             raise ValueError(f"missing layers {missing} for {key}")
-        params["layers"][key] = put(torch.stack(stack))
+        if all(s is not None for s in scales[key]):
+            # Pre-quantized fp8: values as stored, scales stacked per layer.
+            params["layers"][key] = QuantizedLinear(
+                torch.stack(stack).to(device),
+                torch.stack(scales[key]).to(device))
+        else:
+            params["layers"][key] = put(torch.stack(stack))
     if arch.tie_word_embeddings:
         params.pop("lm_head", None)
+    if quantization and not isinstance(params["layers"]["wq"],
+                                       QuantizedLinear):
+        params = quantize_params(params, quantization)
+    if quantization and "lm_head" in params and \
+            not isinstance(params["embed"], QuantizedLinear):
+        # Pre-quantized checkpoints ship an unquantized embedding.
+        params["embed"] = fp8_quantize(params["embed"])
     if have_kv_scales:
         params["kv_scales"] = kv_scales
     return params

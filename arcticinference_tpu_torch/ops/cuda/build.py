@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under
 ``arcticinference_tpu_torch/csrc/_build/`` (git-ignored), named by a hash
-of the source and the flags so an edited source is rebuilt.  Nothing is
-built when a module is imported: the CPU paths never reach this file.
+of the source, every shared header (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt.  :func:`build_all` starts one
+``nvcc`` per source at once.  Nothing is built when a module is
+imported: the CPU paths never reach this file.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -22,6 +25,9 @@ BUILD_DIR = CSRC / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# The build's flags: nvcc's report (registers, shared memory, spills) too.
+_FLAGS = NVCC_FLAGS + ("-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -39,18 +45,26 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_digest(source: str) -> str:
+    """Hash of ``csrc/<source>``, every shared header (``csrc/*.cuh``)
+    and the build flags: the name of the source's library."""
+    digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` (if its library is not built yet) and
     return the library path.  Raises with nvcc's output on failure."""
     src = CSRC / source
-    flags = NVCC_FLAGS + ("-Xptxas", "-v")
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
-    out = BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"lib{src.stem}-{source_digest(source)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -61,6 +75,15 @@ def build(source: str) -> Path:
     os.replace(tmp, out)
     build_logs[source] = log
     return out
+
+
+def build_all(sources) -> list[Path]:
+    """Build every source in ``sources`` at once, one ``nvcc`` each;
+    raises the first failure after all have ended."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+        futures = [pool.submit(build, s) for s in sources]
+        return [f.result() for f in futures]
 
 
 def load(source: str) -> ctypes.CDLL:

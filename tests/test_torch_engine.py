@@ -38,10 +38,10 @@ TINY = dict(vocab_size=97, hidden_size=64, intermediate_size=128,
             num_key_value_heads=2)
 
 
-def config_dict(model="llama", hf=None, dtype="float32"):
+def config_dict(model="llama", hf=None, dtype="float32", quantization=None):
     return dict(
         model=dict(model=model, hf_overrides=hf or {}, max_model_len=256,
-                   dtype=dtype),
+                   dtype=dtype, quantization=quantization),
         cache=dict(num_blocks=64),
         scheduler=dict(max_num_seqs=4, max_num_batched_tokens=32))
 
@@ -102,9 +102,13 @@ def trained(tmp_path_factory):
     return str(d), heldout
 
 
-def test_greedy_tokens_match_jax_engine(trained):
+@pytest.mark.parametrize("quantization", [None, "fp8", "int8", "int4"])
+def test_greedy_tokens_match_jax_engine(trained, quantization):
+    """Quantized: both engines quantize the checkpoint's float32 weights
+    on load (the same bytes and scales) and run the kernels' plain
+    versions on the CPU."""
     path, heldout = trained
-    d = config_dict(model=path)
+    d = config_dict(model=path, quantization=quantization)
     prompts = [[int(t) for t in heldout[s:s + n]]
                for s, n in ((0, 12), (40, 45), (120, 25), (200, 70),
                             (300, 8))]
@@ -180,6 +184,28 @@ def test_unported_features_raise(tiny_llm):
     with pytest.raises(NotImplementedError):     # SwiftKV schedules
         LLM(tcfg.EngineConfig.from_dict(config_dict("llama_swiftkv", TINY)),
             device="cpu")
+
+
+@pytest.mark.parametrize("quantization", [None, "int4"])
+def test_auto_num_blocks_counts_quantized_weights(quantization):
+    """The cache is sized from device memory less the weights: values
+    and scales of a quantized weight, bytes of a plain one."""
+    d = config_dict(hf=dict(TINY, hidden_size=128, intermediate_size=256),
+                    quantization=quantization)
+    d["cache"]["num_blocks"] = None
+    conf = tcfg.EngineConfig.from_dict(d)
+    runner = ModelRunner(conf, *load_model(conf.model, "cpu"),
+                         torch.device("cpu"))
+    weight_bytes = sum(v.nbytes for v in (
+        *runner.params["layers"].values(),
+        *(v for k, v in runner.params.items() if k != "layers")))
+    wq = runner.params["layers"]["wqkv"]
+    if quantization:
+        assert wq.nbytes == wq.weight.numel() + wq.scale.numel() * 4
+    budget = int(2 * 1024 ** 3 * conf.cache.hbm_utilization) - \
+        weight_bytes - (1 << 30)
+    assert runner.num_blocks == min(
+        max(budget // runner.kv_spec.bytes_per_block, 16), 1 << 17)
 
 
 def test_cuda_default_never_falls_back_to_cpu():

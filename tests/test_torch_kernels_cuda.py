@@ -12,6 +12,10 @@ Tolerance: bf16 outputs at atol = rtol = 2e-2 (tests/test_kernels.py),
 and ||out - plain|| <= 1e-3 ||plain|| over the valid rows.  q is drawn
 with std 5 against K of std 0.5, so the softmax is peaked and outputs are
 O(|V|): a mask or page off by one token moves them far past both bounds.
+The quantized matmuls draw x and the weights (before quantization) from
+N(0, 1), so outputs are O(sqrt(K)); kernel and plain version multiply
+the same bf16 values and differ only in the order of the float32 sums,
+and so by rare one-ulp flips of the bf16 output: the same bounds hold.
 """
 
 import numpy as np
@@ -20,6 +24,9 @@ import torch
 
 from arcticinference_tpu_torch.ops.attention import (
     ragged_paged_attention_reference)
+from arcticinference_tpu_torch.ops import fp8 as tfp8
+from arcticinference_tpu_torch.ops.cuda import fp8_matmul as tfm
+from arcticinference_tpu_torch.ops.cuda import int4_matmul as tim
 from arcticinference_tpu_torch.ops.cuda import ragged_attention as tra
 
 TOL = 2e-2
@@ -137,3 +144,98 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         tra.ragged_paged_attention_kernel(q[..., :96].contiguous(), kv, pos,
                                           req, bt, sl, layer=1)
+
+
+def quantized_case(mode, m, k, n, device, per_column=False, seed=0):
+    """x [m, k] and layer 1 of a 2-layer stacked quantized weight, as the
+    model indexes it (a scalar scale is then an unaligned [L] entry)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn((2, k, n), generator=gen, device=device)
+    if per_column:      # a fused weight: per-part scales, per column
+        half = n // 2
+        q = tfp8.fuse_quantized([tfp8.weight_quantize(w[..., :half], mode),
+                                 tfp8.weight_quantize(w[..., half:], mode)])
+    else:
+        q = tfp8.weight_quantize(w, mode)
+    return x, q[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 16, 40, 200])
+@pytest.mark.parametrize("mode,per_column", [
+    ("fp8", False), ("fp8", True), ("int8", False)])
+def test_fp8_matmul_kernel_matches_plain(cuda_device, mode, per_column, m,
+                                         out_dtype):
+    """M=1..200 covers one to eight m16 tiles per CTA, padded rows and
+    split K (small grids) and no split."""
+    x, q = quantized_case(mode, m, 1024, 384, cuda_device, per_column)
+    tfm.reset_launch_counts()
+    out = tfm.fp8_matmul_kernel(x, q.weight, q.scale, out_dtype)
+    ref = tfm.fp8_matmul_reference(x, q.weight, q.scale, out_dtype)
+    torch.cuda.synchronize()
+    assert tfm.fp8_matmul_launches == 1
+    assert out.dtype == out_dtype and out.shape == (m, 384)
+    assert_matches(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 16, 40, 200])
+@pytest.mark.parametrize("k", [1024, 384, 128])
+def test_int4_matmul_kernel_matches_plain(cuda_device, k, m, out_dtype):
+    """K=384 and 128: the high half's rows start inside a scale group
+    (K/2 = 192, 64), so they take another group than the low half's."""
+    x, q = quantized_case("int4", m, k, 256, cuda_device)
+    assert q.scale.shape == (k // 128, 256)
+    tim.reset_launch_counts()
+    out = tim.int4_matmul_kernel(x, q.weight, q.scale, out_dtype)
+    ref = tim.int4_matmul_reference(x, q.weight, q.scale, out_dtype)
+    torch.cuda.synchronize()
+    assert tim.int4_matmul_launches == 1
+    assert_matches(out, ref)
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_is_deterministic(cuda_device):
+    """Split-K partial sums are added in a fixed order."""
+    x, q = quantized_case("fp8", 16, 4096, 512, cuda_device)
+    a = tfm.fp8_matmul_kernel(x, q.weight, q.scale)
+    b = tfm.fp8_matmul_kernel(x, q.weight, q.scale)
+    assert tfm.launch_plan(16, 512, 4096 // 64, x.get_device())[1] > 1
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_matmul_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """CUDA tensors the kernels do not take raise: no plain-version or
+    CPU fallback, and no launch is counted."""
+    x, q = quantized_case("fp8", 16, 256, 256, cuda_device)
+    tfm.reset_launch_counts()
+    tim.reset_launch_counts()
+    with pytest.raises(ValueError):              # N not a multiple of 128
+        tfm.fp8_matmul_kernel(x, q.weight[:, :96].contiguous(), q.scale)
+    with pytest.raises(ValueError):              # K not a multiple of 64
+        tfm.fp8_matmul_kernel(x[:, :96].contiguous(),
+                              q.weight[:96].contiguous(), q.scale)
+    with pytest.raises(TypeError):               # bf16 weights
+        tfm.fp8_matmul_kernel(x, q.weight.to(torch.bfloat16), q.scale)
+    with pytest.raises(TypeError):               # float16 output
+        tfm.fp8_matmul_kernel(x, q.weight, q.scale, torch.float16)
+    with pytest.raises(ValueError):              # a scale of another shape
+        tfm.fp8_matmul_kernel(x, q.weight, q.scale.expand(3).contiguous())
+    with pytest.raises(ValueError):              # weight on the CPU
+        tfm.fp8_matmul_kernel(x, q.weight.cpu(), q.scale)
+    with pytest.raises(ValueError):              # non-contiguous weight
+        tfm.fp8_matmul_kernel(x, q.weight.t(), q.scale)
+    x4, q4 = quantized_case("int4", 16, 256, 256, cuda_device)
+    with pytest.raises(ValueError):              # scale not [K/128, N]
+        tim.int4_matmul_kernel(x4, q4.weight, q4.scale[:1].contiguous())
+    with pytest.raises(TypeError):               # unpacked values
+        tim.int4_matmul_kernel(x4, q4.weight.to(torch.int16), q4.scale)
+    with pytest.raises(ValueError):              # K not a multiple of 128
+        tim.int4_matmul_kernel(x4[:, :192].contiguous(),
+                               q4.weight[:96].contiguous(),
+                               q4.scale[:1].contiguous())
+    assert tfm.fp8_matmul_launches == 0 and tim.int4_matmul_launches == 0

@@ -20,6 +20,7 @@ from arcticinference_tpu.models import llama as jllama
 from arcticinference_tpu.ops.kv_cache import (KVCacheSpec as JSpec,
                                               allocate_kv_cache as jalloc)
 from arcticinference_tpu_torch.models import llama as tllama
+from arcticinference_tpu_torch.ops import fp8 as tfp8
 from arcticinference_tpu_torch.ops.cuda.ragged_attention import (
     build_work_items)
 from arcticinference_tpu_torch.ops.kv_cache import compute_slot_mapping
@@ -94,13 +95,14 @@ def run_both(arch, jparams, tparams, steps, rng):
     return out
 
 
-def make_models(head_dim, fused):
-    cfg = dict(vocab_size=96, hidden_size=64, intermediate_size=128,
+def make_models(head_dim, fused, quantization=None, hidden=64):
+    cfg = dict(vocab_size=96, hidden_size=hidden, intermediate_size=128,
                num_hidden_layers=2, num_attention_heads=4,
                num_key_value_heads=2, head_dim=head_dim,
                rope_theta=500000.0)
     arch = jllama.LlamaArch.from_hf_config(cfg)
-    jparams = jllama.init_params(arch, jax.random.PRNGKey(0), jnp.float32)
+    jparams = jllama.init_params(arch, jax.random.PRNGKey(0), jnp.float32,
+                                 quantization=quantization)
     if fused:
         jparams = jllama.fuse_params(jparams)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
@@ -136,6 +138,61 @@ def test_logits_match_jax_reference(head_dim, fused):
         np.testing.assert_allclose(tl, jl, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("quantization", ["fp8", "int8", "int4"])
+def test_quantized_logits_match_jax(quantization, fused):
+    """Weight-only quantized models from the JAX package's quantized
+    parameters (``params_from_jax``: the same bytes).  Hidden 128 packs
+    int4 wq..wo in one scale group and w_down in two; the LM head and
+    the fp8 embedding quantize too.  fp8 and int8 agree to ~3e-8 on
+    these logits (~0.2 in size; bound 1e-5).  int4: in the JAX decode
+    step XLA's default excess precision (``xla_allow_excess_precision``)
+    drops the bf16 rounding of the dequantized weight, which moves the
+    logits by up to 2.6e-4 (3e-8 with the flag off, the port being the
+    function as written): bound 1e-3."""
+    arch, jparams, tparams = make_models(32, fused, quantization, hidden=128)
+    assert isinstance(tparams["lm_head"], tfp8.QuantizedLinear)
+    rng = np.random.default_rng(2)
+    atol = 1e-3 if quantization == "int4" else 1e-5
+    for tl, jl in run_both(arch, jparams, tparams, STEPS, rng):
+        assert np.abs(jl).max() > 1e-2
+        np.testing.assert_allclose(tl, jl, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [None, "fp8", "int8", "int4"])
+def test_fused_weights_exact_parity(quant):
+    """``fuse_params`` (wqkv / w_gateup) against the unfused layout, on
+    the port's own random parameters: per-part scales are kept (as
+    per-column scales), not re-derived, so every quantized mode is
+    exact; plain float32 weights within 1e-5 (another matmul shape may
+    sum in another order)."""
+    arch = tllama.LlamaArch(
+        vocab_size=128, hidden_size=128, intermediate_size=256,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32)
+    params = tllama.init_params(arch, torch.Generator().manual_seed(1),
+                                torch.float32, quantization=quant)
+    fused = tllama.fuse_params(params)
+    assert "wqkv" in fused["layers"] and "wq" not in fused["layers"]
+    assert "w_gateup" in fused["layers"]
+    if quant is not None:
+        assert fused["layers"]["wqkv"].scale.shape[-1] == 256
+    arrays, rows = step_inputs([(0, 20), (0, 7)], np.array(
+        [[3, 7, 0, 0], [5, 0, 0, 0], [0] * 4, [0] * 4], np.int32), 32, 32)
+    arrays["input_ids"] = np.random.default_rng(0).integers(
+        0, 128, 32).astype(np.int32)
+    inputs = {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+
+    def run(p):
+        kv = torch.zeros((2, 16, 2, BS, 2 * 32), dtype=torch.bfloat16)
+        _, h = tllama.forward(p, arch, kv, inputs)
+        return tllama.compute_logits(p, h[torch.from_numpy(rows).long()])
+
+    a, b = run(params).numpy(), run(fused).numpy()
+    assert np.abs(a).max() > 1e-2
+    np.testing.assert_allclose(a, b, atol=1e-5 if quant is None else 0.0,
+                               rtol=0)
+
+
 def test_params_from_jax_keeps_keys_and_layout():
     arch, jparams, tparams = make_models(32, True)
     jflat = jax.tree_util.tree_flatten_with_path(jparams)[0]
@@ -148,9 +205,14 @@ def test_params_from_jax_keeps_keys_and_layout():
 
 
 def test_init_params_refuses_unported_variants():
+    """Qwen variants still raise; weight-only quantization is ported."""
     arch = tllama.LlamaArch(attention_bias=True)
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError):
         tllama.init_params(arch, gen, torch.float32)
-    with pytest.raises(NotImplementedError):
-        tllama.init_params(tllama.LlamaArch(), gen, quantization="fp8")
+    small = tllama.LlamaArch(vocab_size=64, hidden_size=128,
+                             intermediate_size=256, num_layers=1,
+                             num_heads=4, num_kv_heads=2, head_dim=32)
+    params = tllama.init_params(small, gen, quantization="fp8")
+    assert isinstance(params["layers"]["wq"], tfp8.QuantizedLinear)
+    assert params["layers"]["wq"].weight.dtype == torch.float8_e4m3fn
