@@ -2,7 +2,8 @@
 // kernel and the grouped uniform-decode kernel.
 //
 // Replaces (arcticinference_tpu/ops/pallas/ragged_attention.py):
-//   ragged_paged_attention_kernel   (_ragged_attention_call / _attn_kernel)
+//   ragged_paged_attention_kernel   (_ragged_attention_call / _attn_kernel,
+//                                    with its use_tree branch)
 //   grouped_decode_attention_kernel (_grouped_decode_call /
 //                                    _grouped_decode_kernel)
 //
@@ -30,6 +31,14 @@
 //     output, so fp8 pages are only converted, never multiplied.
 //   * Rows beyond the CTA's row tile of RW rows are done in further
 //     passes over the pages (the repeat reads mostly hit L2).
+//
+// Token-tree verification (the ragged kernel's tree-mask path): a work
+// item may carry the frontier slot ts of its request and, per window
+// offset, an ancestor bitmask.  A row whose mask is non-zero attends kv
+// slot ts + r (r in 1..31) iff bit r is set, and every slot up to ts as
+// usual; rows with mask 0 stay causal.  The causal limit stays on slots
+// (a tree node's ancestors all sit at lower slots than the node), so the
+// page and token cut-offs below need no change.
 //
 // The layout contract is the JAX package's: cache [L, N, 2, 32, Hkv*D],
 // q / out [T, Hq, D] bf16, block_tables [B, MaxBlk] int32.  block_size is 32.
@@ -107,14 +116,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---- the shared online-softmax loop ---------------------------------------
 
-// The rows of one CTA: row i is token tok0 + i / group (position
+// The rows of one CTA: row i is token tok0 + i / group (cache slot
 // pos0 + i / group) under q head h * group + i % group.  Tokens at or past
-// t_limit do not exist (their rows are neither read nor written).
+// t_limit do not exist (their rows are neither read nor written).  With a
+// tree mask, token tok0 + j has ancestor bitmask tree_mask[j] against the
+// frontier slot tree_start; tree_mask == nullptr means no tree.
 struct Rows {
   int tok0;
   int pos0;
   int ntok;
   int t_limit;
+  const int* tree_mask = nullptr;
+  int tree_start = -1;
 };
 
 template <int D, int RW>
@@ -153,13 +166,17 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
       sm.q[r][dd] = val;
     }
     int pos[RW];
+    unsigned mask[RW];  // ancestor bitmask of each row (0: causal)
     int max_pos = -1;
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       const int i = tile0 + r;
       const int tok = rows.tok0 + i / group;
-      pos[r] = (i < nrows && tok < rows.t_limit) ? rows.pos0 + i / group
-                                                   : -1;
+      const bool live = i < nrows && tok < rows.t_limit;
+      pos[r] = live ? rows.pos0 + i / group : -1;
+      mask[r] = (live && rows.tree_mask != nullptr)
+                    ? static_cast<unsigned>(rows.tree_mask[i / group])
+                    : 0u;
       max_pos = max(max_pos, pos[r]);
     }
     __syncthreads();
@@ -181,6 +198,7 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
       const typename KV::T* vbase =
           kv_layer + ((page * 2 + 1) * kPage) * hkv_d + h * D + lane * DPL;
       const int kv_pos = pg_i * kPage + lane;
+      const int rel = kv_pos - rows.tree_start;  // slot past the frontier
 
       float s[RW];
 #pragma unroll
@@ -199,7 +217,9 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
       }
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
-        const bool ok = kv_pos <= pos[r];
+        bool ok = kv_pos <= pos[r];
+        if (mask[r] != 0u && rel >= 1)
+          ok = rel < 32 && ((mask[r] >> rel) & 1u);
         const float sv = ok ? s[r] : kNegInf;
         const float m_new = fmaxf(m[r], warp_max(sv));
         // m_safe: an all-masked row keeps exp(-inf - 0) = 0 (no NaN).
@@ -276,8 +296,11 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
     const int* __restrict__ item_qlen, const int* __restrict__ item_pages,
     const int* __restrict__ item_pos_base,
     const int* __restrict__ token_item, const int* __restrict__ req_idx,
-    const int* __restrict__ block_tables, int layer, int n_items, int t,
-    int hq, int hkv, int max_blk, int64_t layer_stride, float scale) {
+    const int* __restrict__ block_tables,
+    const int* __restrict__ item_tree_start,
+    const int* __restrict__ item_tree_mask, int tree_qw, int layer,
+    int n_items, int t, int hq, int hkv, int max_blk, int64_t layer_stride,
+    float scale) {
   __shared__ __align__(16) Smem<D, RW> sm;
   const int item = blockIdx.x, h = blockIdx.y;
   const int group = hq / hkv;
@@ -302,6 +325,12 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
   int o0 = 0;
   while (o0 < 7 && qstart + o0 < t && token_item[qstart + o0] != item) ++o0;
   Rows rows{qstart + o0, item_pos_base[item] + o0, qlen, t};
+  if (item_tree_mask != nullptr && item_tree_start[item] >= 0) {
+    // The mask is indexed by window offset: row 0 of the window is the
+    // 8-aligned qstart, and this CTA's first token sits at offset o0.
+    rows.tree_mask = item_tree_mask + (int64_t)item * tree_qw + o0;
+    rows.tree_start = item_tree_start[item];
+  }
   attend<KV, D, RW>(sm, q, out, kv + layer * layer_stride,
                         block_tables + (int64_t)item_req[item] * max_blk,
                         item_pages[item], rows, h, hq, hkv,
@@ -342,8 +371,9 @@ cudaError_t launch_ragged(void* q, void* out, const void* kv,
                           const int* item_qstart, const int* item_qlen,
                           const int* item_pages, const int* item_pos_base,
                           const int* token_item, const int* req_idx,
-                          const int* block_tables, int layer, int n_items,
-                          int t, int hq, int hkv, int max_blk,
+                          const int* block_tables, const int* item_tree_start,
+                          const int* item_tree_mask, int tree_qw, int layer,
+                          int n_items, int t, int hq, int hkv, int max_blk,
                           int64_t layer_stride, float scale,
                           cudaStream_t stream) {
   dim3 grid(n_items + (t + kZeroTokens - 1) / kZeroTokens, hkv);
@@ -351,7 +381,8 @@ cudaError_t launch_ragged(void* q, void* out, const void* kv,
       static_cast<const uint16_t*>(q), static_cast<uint16_t*>(out),
       static_cast<const typename KV::T*>(kv), kv_scale, item_req, item_qstart,
       item_qlen, item_pages, item_pos_base, token_item, req_idx, block_tables,
-      layer, n_items, t, hq, hkv, max_blk, layer_stride, scale);
+      item_tree_start, item_tree_mask, tree_qw, layer, n_items, t, hq, hkv,
+      max_blk, layer_stride, scale);
   return cudaGetLastError();
 }
 
@@ -407,12 +438,14 @@ struct GroupedF {
 
 // Plain C interface (loaded with ctypes).  Pointers are device pointers;
 // q and out are bf16, the int32 metadata arrays are contiguous.  Returns cudaGetLastError()
-// right after the launch (0 = launched).
+// right after the launch (0 = launched).  item_tree_start [n_items] and
+// item_tree_mask [n_items, tree_qw] are null for a step without a tree.
 extern "C" int ragged_attention_launch(
     void* q, void* out, const void* kv, const void* kv_scale,
     const void* item_req, const void* item_qstart, const void* item_qlen,
     const void* item_pages, const void* item_pos_base,
     const void* token_item, const void* req_idx, const void* block_tables,
+    const void* item_tree_start, const void* item_tree_mask, int tree_qw,
     int layer, int n_items, int t, int hq, int hkv, int d, int max_blk,
     int64_t layer_stride, int kv_fp8, int rows_per_tile, float scale,
     void* stream) {
@@ -423,8 +456,10 @@ extern "C" int ragged_attention_launch(
       static_cast<const int*>(item_qlen), static_cast<const int*>(item_pages),
       static_cast<const int*>(item_pos_base),
       static_cast<const int*>(token_item), static_cast<const int*>(req_idx),
-      static_cast<const int*>(block_tables), layer, n_items, t, hq, hkv,
-      max_blk, layer_stride, scale, static_cast<cudaStream_t>(stream)));
+      static_cast<const int*>(block_tables),
+      static_cast<const int*>(item_tree_start),
+      static_cast<const int*>(item_tree_mask), tree_qw, layer, n_items, t, hq,
+      hkv, max_blk, layer_stride, scale, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int grouped_decode_launch(

@@ -2,21 +2,28 @@
 
 Counterpart of ``arcticinference_tpu/engine/engine.py``:
 
-  schedule -> prepare inputs -> device step -> commit tokens / stops
+  schedule -> prepare inputs -> device step -> host verify
+  -> commit tokens / stops -> update suffix cache -> propose next drafts
 
 This part of the port runs the synchronous step
 (``LLMEngine._step_sync`` in the JAX package).  ``async_scheduling``
 (the JAX package's pipelined step with device-side token passthrough)
 is not ported yet: when it is requested, which is the default, the
 engine says so once at start-up and runs the synchronous step, which
-gives the same tokens.  Speculative decoding, guided decoding,
-penalties and logprobs raise ``NotImplementedError``.
+gives the same tokens.  Speculation is suffix decoding
+(``SpeculativeConfig(method="suffix")``), with linear drafts or token
+trees (``use_tree_spec``); the device-resident fused loop
+(``enable_fused_decode``, the default for linear suffix drafts) is not
+ported either, and is handled like ``async_scheduling``.  The draft
+models (``method="arctic"`` and the MLP / LSTM speculators), guided
+decoding, penalties and logprobs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Union
 
 import torch
@@ -25,9 +32,13 @@ from arcticinference_tpu_torch.config import EngineConfig
 from arcticinference_tpu_torch.engine.request import (Request, RequestStatus,
                                                       SamplingParams)
 from arcticinference_tpu_torch.engine.runner import ModelRunner
-from arcticinference_tpu_torch.engine.scheduler import Scheduler
+from arcticinference_tpu_torch.engine.scheduler import (Scheduler,
+                                                        SchedulerOutput)
 from arcticinference_tpu_torch.models.loader import load_model
-from arcticinference_tpu_torch.stats import EngineStats, StepTimeStats
+from arcticinference_tpu_torch.ops.cuda.ragged_attention import MAX_TREE_NODES
+from arcticinference_tpu_torch.spec.suffix_cache import SuffixCache
+from arcticinference_tpu_torch.stats import (EngineStats, SpecDecodingStats,
+                                             StepTimeStats)
 from arcticinference_tpu_torch.utils import resolve_device
 
 logger = logging.getLogger("arcticinference_tpu_torch")
@@ -37,9 +48,11 @@ class LLMEngine:
 
     def __init__(self, config: EngineConfig,
                  device: Union[str, torch.device, None] = None):
-        if config.speculative is not None:
+        spec = config.speculative
+        if spec is not None and spec.method != "suffix":
             raise NotImplementedError(
-                "speculative decoding is not ported yet")
+                f"speculative method {spec.method!r} is not ported yet "
+                "(suffix decoding is)")
         self.config = config
         self.device = resolve_device(device)
         module, arch, params = load_model(config.model, self.device)
@@ -52,12 +65,33 @@ class LLMEngine:
                                    self.runner.num_blocks)
         self.engine_stats = EngineStats()
         self.step_times = StepTimeStats()
+        self.spec_stats = SpecDecodingStats()
         self._last_log = time.time()
         self._generator = torch.Generator(device=self.device).manual_seed(
             config.model.seed)
-        if config.scheduler.async_scheduling:
+        # The JAX engine pipelines steps only without speculation.
+        if config.scheduler.async_scheduling and spec is None:
             logger.info("async_scheduling=True: the pipelined step is not "
                         "ported yet; running the synchronous step")
+
+        self.spec_config = spec
+        self._suffix_cache: Optional[SuffixCache] = None
+        self._prompt_tree_pool: Optional[ThreadPoolExecutor] = None
+        self._prompt_tree_futs: dict = {}
+        if spec is not None:
+            if spec.enable_fused_decode:
+                logger.info("enable_fused_decode=True: the device-resident "
+                            "decode loop is not ported yet; running the "
+                            "synchronous step")
+            self._suffix_cache = SuffixCache(spec.suffix_cache_max_depth)
+            # Prompt trees are built here while the prompt prefills
+            # (submitted at admission, installed at the first commit).
+            self._prompt_tree_pool = ThreadPoolExecutor(
+                max_workers=4, thread_name_prefix="suffix-prompt")
+            # A deep waiting queue must not hold finished trees in
+            # futures: past the bound a request builds its tree
+            # synchronously at its first commit.
+            self._prompt_tree_bound = 2 * config.scheduler.max_num_seqs
 
     # ------------------------------------------------------------------ #
     # Request management
@@ -83,15 +117,41 @@ class LLMEngine:
         req = Request(req_id=req_id,
                       prompt_token_ids=list(prompt_token_ids),
                       sampling=sampling, arrival_time=time.time())
+        if self._prompt_tree_pool is not None and \
+                req_id not in self._prompt_tree_futs and \
+                len(self._prompt_tree_futs) < self._prompt_tree_bound and \
+                not self._suffix_cache.has_cached_prompt(req_id):
+            self._prompt_tree_futs[req_id] = self._prompt_tree_pool.submit(
+                self._suffix_cache.build_prompt_tree, req.prompt_token_ids)
         self.scheduler.add_request(req)
         return req
 
     def abort_request(self, req_id: str) -> Optional[Request]:
-        return self.scheduler.abort_request(req_id)
+        req = self.scheduler.abort_request(req_id)
+        if req is not None:
+            self._evict_spec_state(req)
+        return req
 
     @property
     def has_unfinished(self) -> bool:
         return self.scheduler.num_unfinished > 0
+
+    def close(self) -> None:
+        """Release the prompt-tree worker pool and its pending futures
+        (idempotent): its threads are not daemons."""
+        pool = self._prompt_tree_pool
+        if pool is not None:
+            for fut in self._prompt_tree_futs.values():
+                fut.cancel()
+            self._prompt_tree_futs.clear()
+            pool.shutdown(wait=False, cancel_futures=True)
+            self._prompt_tree_pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     # ------------------------------------------------------------------ #
     # Step loop
@@ -107,13 +167,23 @@ class LLMEngine:
 
     def _step_sync(self) -> tuple[Optional[str], int, list[Request]]:
         """One synchronous step; returns (kind, tokens emitted, finished
-        requests), kind ``decode`` for a pure-decode step, ``mixed``
-        otherwise, None when nothing was scheduled."""
+        requests), None when nothing was scheduled.  Kind: ``decode`` for
+        a pure-decode step, ``verify`` for a step that verifies drafts and
+        feeds no prompt rows, ``mixed`` otherwise."""
         sched_out = self.scheduler.schedule()
         if not sched_out.scheduled:
             return None, 0, []
         self._maybe_observe(sched_out)
+        for req in sched_out.preempted:
+            self._evict_spec_state(req)
         step_inputs = self.runner.prepare_inputs(sched_out)
+        if step_inputs.attn_qb == 1:
+            kind = "decode"
+        elif any(s.spec_token_ids for s in sched_out.scheduled) and \
+                not any(s.request.is_prefilling for s in sched_out.scheduled):
+            kind = "verify"
+        else:
+            kind = "mixed"
         argmax, sampled = self.runner.execute(step_inputs, self._generator)
         finished: list[Request] = []
         emitted = 0
@@ -123,10 +193,17 @@ class LLMEngine:
                 # Mid-prefill / recompute catch-up: no token produced.
                 self.scheduler.update_after_step(s, [], 0)
                 continue
-            row = step_inputs.sample_row_start[r]
-            tokens = sampled if req.sampling.temperature > 0 else argmax
-            self.scheduler.update_after_step(s, [int(tokens[row])], 0)
-            emitted += 1
+            lo = step_inputs.sample_row_start[r]
+            k = step_inputs.sample_row_count[r]
+            # Greedy requests accept against the argmax chain; requests
+            # with temperature > 0 sample every verify row from the target
+            # distribution, and accepting draft == sample is unbiased.
+            rows = (sampled if req.sampling.temperature > 0
+                    else argmax)[lo:lo + k]
+            new_tokens, n_acc = self._verify(req, s, rows)
+            self.scheduler.update_after_step(s, new_tokens, n_acc)
+            self._update_suffix_cache(req, new_tokens)
+            emitted += len(new_tokens)
             if req.first_token_time is None:
                 req.first_token_time = time.time()
             stop = req.check_stop(self.eos_token_id,
@@ -136,11 +213,53 @@ class LLMEngine:
             if stop is not None:
                 req.finish_time = time.time()
                 self.scheduler.finish_request(req, stop)
+                self._evict_spec_state(req)
                 finished.append(req)
+        self._propose_drafts(sched_out)
         self.engine_stats.num_steps += 1
         self.engine_stats.num_finished += len(finished)
-        kind = "decode" if step_inputs.attn_qb == 1 else "mixed"
         return kind, emitted, finished
+
+    def _verify(self, req: Request, s, rows) -> tuple[list[int], int]:
+        """The tokens a request commits from its verify rows ``rows`` (the
+        target's choice after the frontier and after each draft), and the
+        number of accepted drafts to commit with."""
+        drafts = s.spec_token_ids
+        if s.spec_parents is not None and drafts:
+            # Token tree: from the frontier, follow at each node the child
+            # whose token is the target's choice at that node's row, then
+            # add the target's choice after the last match.  The accepted
+            # tokens' KV sits at scratch slots, so they commit with
+            # num_accepted=0 and the scheduler feeds them again next step.
+            childs: dict[int, list[int]] = {}
+            for i, p in enumerate(s.spec_parents):
+                childs.setdefault(p, []).append(i)
+            cur = -1
+            path: list[int] = []
+            while True:
+                want = int(rows[0 if cur < 0 else 1 + cur])
+                nxt = next((c for c in childs.get(cur, ())
+                            if drafts[c] == want), None)
+                if nxt is None:
+                    break
+                path.append(nxt)
+                cur = nxt
+            self._observe_drafts(req, len(drafts), len(path))
+            return [int(drafts[c]) for c in path] + [want], 0
+        n_acc = 0
+        for i, d in enumerate(drafts):
+            if rows[i] != d:
+                break
+            n_acc += 1
+        if drafts:
+            self._observe_drafts(req, len(drafts), n_acc)
+        return [int(x) for x in drafts[:n_acc]] + [int(rows[n_acc])], n_acc
+
+    def _observe_drafts(self, req: Request, n_drafts: int,
+                        n_accepted: int) -> None:
+        self.spec_stats.observe(n_drafts, n_accepted)
+        req.num_draft_tokens += n_drafts
+        req.num_accepted_draft_tokens += n_accepted
 
     def _check_stop_strings(self, req: Request) -> bool:
         """OpenAI ``stop`` string sequences: finish when one appears in
@@ -162,6 +281,87 @@ class LLMEngine:
         req.final_text = full[:cut] if cut >= 0 else full
         return True
 
+    # ------------------------------------------------------------------ #
+    # Speculation
+    # ------------------------------------------------------------------ #
+
+    def _propose_drafts(self, sched_out: SchedulerOutput) -> None:
+        """Suffix drafts for the next step of every request this step
+        left at its decode frontier (with trees, as soon as its prompt is
+        computed: accepted tokens are fed again); none above
+        ``disable_by_batch_size`` running requests."""
+        sc = self.spec_config
+        if self._suffix_cache is None or (
+                sc.disable_by_batch_size
+                and len(self.scheduler.running) > sc.disable_by_batch_size):
+            return
+        tree = bool(sc.use_tree_spec)
+
+        def proposable(req):
+            if req.status.is_finished:
+                return False
+            if req.num_computed_tokens >= req.num_tokens - 1:
+                return True
+            return tree and \
+                req.num_computed_tokens >= len(req.prompt_token_ids)
+
+        items = []
+        for s in sched_out.scheduled:
+            req = s.request
+            if not proposable(req):
+                continue
+            pattern = req.all_token_ids[-sc.suffix_cache_max_depth:]
+            cap = min(sc.num_speculative_tokens,
+                      self.config.model.max_model_len - req.num_tokens - 1)
+            if tree:
+                cap = min(cap, MAX_TREE_NODES)
+            if cap <= 0:
+                continue
+            items.append((req, dict(
+                req_id=req.req_id, pattern=pattern, max_spec_tokens=cap,
+                max_spec_factor=sc.suffix_max_spec_factor,
+                max_spec_offset=sc.suffix_max_spec_offset,
+                min_token_prob=sc.suffix_min_token_prob,
+                use_tree_spec=tree,
+                use_cached_prompt=self._suffix_cache.has_cached_prompt(
+                    req.req_id))))
+        results = self._suffix_cache.speculate_batch(
+            [(req.req_id, kw) for req, kw in items],
+            pool=self._prompt_tree_pool)
+        for req, _ in items:
+            res = results[req.req_id]
+            if not res.token_ids:
+                continue
+            req.spec_token_ids = [int(t) for t in res.token_ids]
+            parents = list(res.parents)
+            # A chain rides the linear path (its KV lands at the right
+            # slots, nothing is fed again).
+            is_chain = all(p == i - 1 for i, p in enumerate(parents))
+            req.spec_parents = None if is_chain else parents
+
+    def _update_suffix_cache(self, req: Request,
+                             new_tokens: list[int]) -> None:
+        if self._suffix_cache is None:
+            return
+        if not self._suffix_cache.has_cached_prompt(req.req_id):
+            fut = self._prompt_tree_futs.pop(req.req_id, None)
+            if fut is not None:
+                self._suffix_cache.install_prompt_tree(req.req_id,
+                                                       fut.result())
+            else:
+                self._suffix_cache.cache_prompt(req.req_id,
+                                                req.prompt_token_ids)
+        self._suffix_cache.update_response(req.req_id, new_tokens)
+
+    def _evict_spec_state(self, req: Request) -> None:
+        if self._suffix_cache is None:
+            return
+        fut = self._prompt_tree_futs.pop(req.req_id, None)
+        if fut is not None:
+            fut.cancel()
+        if self._suffix_cache.has_cached_prompt(req.req_id):
+            self._suffix_cache.evict_prompt(req.req_id)
+
     def _maybe_observe(self, sched_out) -> None:
         for s in sched_out.scheduled:
             if s.request.is_prefilling:
@@ -172,8 +372,12 @@ class LLMEngine:
         if now - self._last_log >= self.config.observability.log_interval_s:
             self._last_log = now
             st = self.engine_stats
-            logger.info(
-                f"steps={st.num_steps} running={len(self.scheduler.running)}"
-                f" waiting={len(self.scheduler.waiting)} gen_tok/s="
-                f"{st.tokens_per_second():.1f} free_blocks="
-                f"{self.scheduler.block_manager.num_free_blocks}")
+            msg = (f"steps={st.num_steps} running="
+                   f"{len(self.scheduler.running)} waiting="
+                   f"{len(self.scheduler.waiting)} gen_tok/s="
+                   f"{st.tokens_per_second():.1f} free_blocks="
+                   f"{self.scheduler.block_manager.num_free_blocks}")
+            if self.spec_stats.num_drafts:
+                msg += (f" spec_accept="
+                        f"{self.spec_stats.acceptance_rate:.2f}")
+            logger.info(msg)

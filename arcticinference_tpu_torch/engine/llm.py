@@ -32,6 +32,8 @@ class RequestOutput:
     token_ids: list[int]
     text: Optional[str] = None
     finish_reason: str = "stop"
+    num_accepted_draft_tokens: int = 0
+    num_draft_tokens: int = 0
 
 
 def fp8_kv_scales(kv: torch.Tensor, old_scale: torch.Tensor,
@@ -115,8 +117,15 @@ class LLM:
                 token_ids=list(req.output_token_ids),
                 text=text,
                 finish_reason=req.status.name.lower(),
+                num_accepted_draft_tokens=req.num_accepted_draft_tokens,
+                num_draft_tokens=req.num_draft_tokens,
             ))
         return outputs
+
+    def close(self) -> None:
+        """Release the engine's host resources (the suffix prompt-tree
+        worker pool); idempotent."""
+        self.engine.close()
 
     def calibrate_kv_scales(self, prompt_token_ids,
                             margin: float = 1.0) -> np.ndarray:

@@ -8,9 +8,12 @@ attention work-item schedule), so the two compare element for element.
 Every array then goes to the device in one int32 and one float32 copy.
 
 Weights may be plain or weight-only quantized (``QuantizedLinear``
-leaves: fp8, int8, int4).  Not ported yet (they raise
-``NotImplementedError``): meshes (tp / sp / dp / pp), token-tree drafts,
-guided decoding and penalties.
+leaves: fp8, int8, int4).  Speculative drafts ride the step as extra
+token rows: a linear chain as consecutive positions, a token tree with
+depth-based positions and per-row ancestor bitmasks, lowered onto the
+work items for the ragged kernel's tree-mask path.  Not ported yet (they
+raise ``NotImplementedError``): meshes (tp / sp / dp / pp), guided
+decoding and penalties.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 from arcticinference_tpu_torch.config import EngineConfig
 from arcticinference_tpu_torch.engine.scheduler import SchedulerOutput
 from arcticinference_tpu_torch.ops.cuda.ragged_attention import (
-    build_work_items)
+    build_work_items, tree_masks, tree_work_items)
 from arcticinference_tpu_torch.ops.kv_cache import (KVCacheSpec,
                                                     allocate_kv_cache)
 from arcticinference_tpu_torch.ops.sampling import sample
@@ -134,18 +137,32 @@ class ModelRunner:
         sample_rows: list[int] = []
         row_start: list[int] = []
         row_count: list[int] = []
+        row_tree_mask = None          # [t_pad] ancestor bitmasks
+        tree_start = None             # [B] frontier slot per request
 
         t = 0
         for r, s in enumerate(scheduled):
             req = s.request
-            if s.spec_parents is not None:
-                raise NotImplementedError("token-tree drafts are not ported")
             n = s.num_new_tokens
             ctx = req.num_computed_tokens
             toks = (req.all_token_ids + s.spec_token_ids)[ctx:ctx + n]
             assert len(toks) == n, (len(toks), n, ctx)
             input_ids[t:t + n] = toks
             positions[t:t + n] = np.arange(ctx, ctx + n)
+            if s.spec_parents is not None and s.spec_token_ids:
+                # Token-tree drafts: positions are depth-based (siblings
+                # share one), cache slots stay linear (slot_mapping below),
+                # and attention sees a node's ancestors only through its
+                # row's bitmask.
+                depth, mask = tree_masks(s.spec_parents)
+                chunk = n - len(s.spec_token_ids)
+                frontier = ctx + chunk - 1   # slot == position (real)
+                if row_tree_mask is None:
+                    row_tree_mask = np.zeros(t_pad, np.int32)
+                    tree_start = np.full(b, -1, np.int32)
+                tree_start[r] = frontier
+                positions[t + chunk:t + n] = frontier + 1 + depth
+                row_tree_mask[t + chunk:t + n] = mask
             req_idx[t:t + n] = r
             bt = req.block_ids
             block_tables[r, :len(bt)] = bt
@@ -197,15 +214,28 @@ class ModelRunner:
         # attn_qb == 1 marks a pure-decode step (one frontier row per
         # request, token order == request order): the model routes it to
         # the grouped decode kernel.  The work-item schedule is still
-        # built (at qb=8), as in the JAX runner.
+        # built (at qb=8), as in the JAX runner.  A step with tree rows
+        # never is one: the ancestor masks ride the work items.
         max_qlen = int(query_lens.max(initial=1))
-        pure_decode = max_qlen == 1 and bool(scheduled)
+        pure_decode = (max_qlen == 1 and bool(scheduled)
+                       and row_tree_mask is None)
         attn_qb = 1 if pure_decode else (8 if max_qlen <= 8 else 32)
         sched_qb = 8 if attn_qb == 1 else attn_qb
         (item_req, item_qstart, item_qlen, item_pages, item_pos_base,
          token_item, token_off) = build_work_items(
             query_lens, last_pos, sched_qb, self.block_size,
             t_pad // sched_qb + b, t_pad)
+
+        tree_arrays = {}
+        if row_tree_mask is not None:
+            it_ts, it_mask = tree_work_items(row_tree_mask, tree_start,
+                                             item_req, token_item,
+                                             token_off, attn_qb)
+            tree_arrays = dict(
+                attn_tree_start=tree_start,
+                attn_row_tree_mask=row_tree_mask,
+                attn_item_tree_start=it_ts,
+                attn_item_tree_mask=it_mask)
 
         arrays = dict(
             input_ids=input_ids, input_src=input_src,
@@ -221,6 +251,7 @@ class ModelRunner:
             attn_item_qlen=item_qlen, attn_item_pages=item_pages,
             attn_item_pos_base=item_pos_base, attn_token_item=token_item,
             attn_token_off=token_off,
+            **tree_arrays,
         )
         return StepInputs(arrays=arrays, t_pad=t_pad, s_pad=s_pad,
                           attn_qb=attn_qb, sample_row_start=row_start,

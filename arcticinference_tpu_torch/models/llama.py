@@ -311,9 +311,10 @@ def make_attn_impl(attn_qb: int = 32, decode_qlen: int = 1):
     """Build the attention dispatcher.  ``attn_qb == 1`` marks a uniform
     decode step (every request contributes ``decode_qlen`` frontier rows
     in request order) and goes to the grouped decode kernel; otherwise
-    the ragged kernel runs over the step's work-item schedule.  Each
-    wrapper launches its CUDA kernel for tensors on the card and computes
-    the plain version for tensors on the CPU."""
+    the ragged kernel runs over the step's work-item schedule, with the
+    items' tree masks when the step verifies token trees.  Each wrapper
+    launches its CUDA kernel for tensors on the card and computes the
+    plain version for tensors on the CPU."""
 
     def _attn(q, kv, layer, inputs):
         if attn_qb == 1:
@@ -327,11 +328,14 @@ def make_attn_impl(attn_qb: int = 32, decode_qlen: int = 1):
                 q, kv, pos_base,
                 inputs["block_tables"], seq_lens, qlen=decode_qlen,
                 kv_scale=inputs.get("kv_scale"), layer=layer)
+        schedule = tuple(inputs[k] for k in _SCHEDULE_KEYS)
+        if "attn_item_tree_start" in inputs:
+            schedule += (inputs["attn_item_tree_start"],
+                         inputs["attn_item_tree_mask"])
         return ragged_paged_attention_kernel(
             q, kv, inputs["positions"], inputs["req_idx"],
             inputs["block_tables"], inputs["seq_lens"], qb=attn_qb,
-            schedule=tuple(inputs[k] for k in _SCHEDULE_KEYS),
-            kv_scale=inputs.get("kv_scale"), layer=layer)
+            schedule=schedule, kv_scale=inputs.get("kv_scale"), layer=layer)
 
     return _attn
 
@@ -343,7 +347,9 @@ def plain_attn(q, kv, layer, inputs):
     return ragged_paged_attention_reference(
         q, kv[layer], inputs["positions"], inputs["req_idx"],
         inputs["block_tables"], inputs["seq_lens"],
-        kv_scale=None if ks is None else ks[layer])
+        kv_scale=None if ks is None else ks[layer],
+        tree_start=inputs.get("attn_tree_start"),
+        row_tree_mask=inputs.get("attn_row_tree_mask"))
 
 
 _default_attn = make_attn_impl()

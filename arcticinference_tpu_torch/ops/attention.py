@@ -18,8 +18,9 @@ The JAX reference gathers every request's whole page list for every
 token (``[T, MaxBlk*Bs, Hkv, D]``); at the main path's sizes that is tens
 of GiB, so this version walks the requests and their query rows in
 chunks instead.  The arithmetic per row is the same: float32 scores,
-``-inf`` outside ``kv_pos <= position and kv_pos < seq_len``, softmax,
-float32 products with V.
+``-inf`` outside ``kv_pos <= position and kv_pos < seq_len`` (or, on a
+token-tree row, outside its ancestor bitmask), softmax, float32 products
+with V.
 """
 
 from __future__ import annotations
@@ -58,11 +59,20 @@ def ragged_paged_attention_reference(
     ``kv_scale``: this layer's [k_scale, v_scale] dequant pair (or a
     scalar applied to both; None = no dequant scaling).
 
-    The tree-draft arguments (token-tree speculation) are not ported yet.
+    Tree-draft verification (token-tree speculation): ``tree_start`` [B]
+    is the frontier token's cache slot per request (-1 = none) and
+    ``row_tree_mask`` [T] a per-row ancestor bitmask.  A row with a
+    non-zero mask attends slot ``tree_start + r`` (r in 1..31) iff bit r
+    is set, and the real context up to ``tree_start`` as usual, so a
+    draft row sees exactly its ancestor chain, never a sibling branch.
+    Rows with mask 0 stay causal.  The two tree arrays come together.
     """
-    if tree_start is not None or row_tree_mask is not None:
-        raise NotImplementedError(
-            "tree-mask attention (token-tree speculation) is not ported")
+    tree = tree_start is not None
+    if tree != (row_tree_mask is not None):
+        raise ValueError("tree_start and row_tree_mask come together")
+    if tree:
+        ts_host = tree_start.cpu()
+        row_tree_mask = row_tree_mask.to(q.device)
     t_, hq, d = q.shape
     bs = kv_cache.shape[2]
     hkv = kv_cache.shape[3] // d
@@ -89,6 +99,12 @@ def ragged_paged_attention_reference(
             qg = (q[rr].float() * scale).reshape(-1, hkv, group, d)
             scores = torch.einsum("thgd,shd->thgs", qg, k)
             valid = kv_pos[None, :] <= positions[rr].long()[:, None]
+            if tree:
+                m = row_tree_mask[rr].long()[:, None]
+                rel = kv_pos[None, :] - int(ts_host[r])
+                bit = (m >> rel.clamp(0, 31)) & 1
+                override = (m != 0) & (rel >= 1)
+                valid = torch.where(override, (rel < 32) & (bit > 0), valid)
             scores = scores.masked_fill(~valid[:, None, None, :],
                                         float("-inf"))
             p = torch.softmax(scores, dim=-1)

@@ -3,8 +3,10 @@
 
 - :func:`ragged_paged_attention_kernel` replaces
   ``arcticinference_tpu/ops/pallas/ragged_attention.py::ragged_paged_attention_kernel``
-  (prefill and mixed steps, over the host-built work items of
-  :func:`build_work_items`).
+  (prefill, mixed and verify steps, over the host-built work items of
+  :func:`build_work_items`), with its tree-mask path (token-tree
+  verification: a 9-tuple schedule carrying ``item_tree_start`` and
+  ``item_tree_mask``).
 - :func:`grouped_decode_attention_kernel` replaces
   ``...::grouped_decode_attention_kernel`` (pure-decode steps: ``qlen``
   rows per sequence, sequence-major).
@@ -15,9 +17,10 @@ source note in the ``.cu`` file says what the design does about it.
 A wrapper given CPU tensors computes the plain version
 (``ops/attention.py::ragged_paged_attention_reference``); given CUDA
 tensors (bf16 q, a bf16 or fp8-e4m3 cache, head dim 64 or 128) it
-launches its kernel, and raises on anything else.  Each launch adds one to the
-wrapper's counter (``ragged_attention_launches``,
-``grouped_decode_launches``).
+launches its kernel, and raises on anything else.  Each launch adds one to
+its counter: ``ragged_attention_launches`` (a schedule without a tree),
+``tree_attention_launches`` (one with a tree mask) or
+``grouped_decode_launches``.
 """
 
 from __future__ import annotations
@@ -34,22 +37,28 @@ SOURCE = "ragged_attention.cu"
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 ragged_attention_launches = 0
+tree_attention_launches = 0
 grouped_decode_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_RAGGED_ARGTYPES = [_P] * 12 + [_I] * 7 + [ctypes.c_int64] + [_I] * 2 + [
+_RAGGED_ARGTYPES = [_P] * 14 + [_I] * 8 + [ctypes.c_int64] + [_I] * 2 + [
     ctypes.c_float, _P]
 _GROUPED_ARGTYPES = [_P] * 7 + [_I] * 8 + [ctypes.c_int64] + [_I] * 2 + [
     ctypes.c_float, _P]
 
 _KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
 _BLOCK_SIZE = 32
+#: Most nodes of a draft tree: a row's ancestor bitmask has 32 bits, bit 0
+#: for the frontier and bit i + 1 for node i (the kernel reads bits 1..31).
+MAX_TREE_NODES = 30
 
 
 def reset_launch_counts() -> None:
-    global ragged_attention_launches, grouped_decode_launches
+    global ragged_attention_launches, tree_attention_launches, \
+        grouped_decode_launches
     ragged_attention_launches = 0
+    tree_attention_launches = 0
     grouped_decode_launches = 0
 
 
@@ -113,6 +122,43 @@ def build_work_items(query_lens: np.ndarray, positions_last: np.ndarray,
             token_item, token_off)
 
 
+def tree_masks(parents) -> tuple[np.ndarray, np.ndarray]:
+    """Depth and ancestor bitmask of each node of a draft tree
+    (``parents[i]``: node i's parent, -1 for a child of the frontier):
+    ``mask[i] = mask[parent] | 1 << (i + 1)``, a root also carrying bit 0
+    (the frontier)."""
+    n = len(parents)
+    if n > MAX_TREE_NODES:
+        raise ValueError(
+            f"a draft tree has at most {MAX_TREE_NODES} nodes, got {n}")
+    depth = np.zeros(n, np.int32)
+    mask = np.zeros(n, np.int32)
+    for i, p in enumerate(parents):
+        if p < 0:
+            mask[i] = 1 | (1 << (i + 1))
+        else:
+            depth[i] = depth[p] + 1
+            mask[i] = mask[p] | (1 << (i + 1))
+    return depth, mask
+
+
+def tree_work_items(row_tree_mask: np.ndarray, tree_start: np.ndarray,
+                    item_req: np.ndarray, token_item: np.ndarray,
+                    token_off: np.ndarray, qb: int):
+    """Lower per-row tree masks onto the work items: per item its
+    request's frontier slot (-1 = no tree rows) and, per window offset
+    (``token_off``, from the item's 8-aligned window start), the row's
+    bitmask, ``[items, qb + 8]``: the two arrays a 9-tuple schedule
+    adds."""
+    it_ts = np.full(item_req.shape[0], -1, np.int32)
+    it_mask = np.zeros((item_req.shape[0], qb + 8), np.int32)
+    for tt in np.nonzero(row_tree_mask)[0]:
+        it = token_item[tt]
+        it_mask[it, token_off[tt]] = row_tree_mask[tt]
+        it_ts[it] = tree_start[item_req[it]]
+    return it_ts, it_mask
+
+
 def _layer_and_scale(kv_cache, kv_scale, layer):
     """(stacked cache, layer index, [L, 2] float32 scales), as the JAX
     wrappers normalise them: no layer = a single-layer cache view; no
@@ -134,10 +180,28 @@ def _layer_and_scale(kv_cache, kv_scale, layer):
 
 
 def _plain(q, kv_cache, layer, kv_scale, positions, req_idx, block_tables,
-           seq_lens, scale):
+           seq_lens, scale, tree=None):
+    tree_start, row_tree_mask = tree or (None, None)
     return ragged_paged_attention_reference(
         q, kv_cache[layer], positions, req_idx, block_tables, seq_lens,
-        scale=scale, kv_scale=kv_scale[layer])
+        scale=scale, kv_scale=kv_scale[layer], tree_start=tree_start,
+        row_tree_mask=row_tree_mask)
+
+
+def tree_rows(schedule, req_idx, num_reqs: int):
+    """The plain version's tree arrays from a 9-tuple schedule: per request
+    the frontier slot (``tree_start`` [B], -1 = no tree) and per token row
+    its ancestor bitmask (``row_tree_mask`` [T]), read back from the work
+    items' per-window-offset masks."""
+    item_req, token_item, token_off, item_ts, item_mask = (
+        torch.as_tensor(schedule[i]).cpu().long() for i in (0, 5, 6, 7, 8))
+    tree_start = torch.full((num_reqs,), -1, dtype=torch.int32)
+    has = item_ts >= 0
+    tree_start[item_req[has]] = item_ts[has].int()
+    live = torch.as_tensor(req_idx).cpu() >= 0
+    t = live.shape[0]
+    rows = item_mask[token_item[:t], token_off[:t]].int()
+    return tree_start, torch.where(live, rows, 0)
 
 
 def _check(q, kv_cache):
@@ -189,21 +253,28 @@ def ragged_paged_attention_kernel(
     cache; same contract as the JAX kernel.
 
     ``schedule`` is the 7-tuple from :func:`build_work_items` (the
-    engine's fast path); without one it is derived on the host from
+    engine's fast path), or a 9-tuple that adds ``item_tree_start``
+    [items] and ``item_tree_mask`` [items, qb + 8] for token-tree
+    verification; without one it is derived on the host from
     ``req_idx``/``positions``.  ``kv_cache`` is the stacked
     ``[L, N, 2, Bs, Hkv*D]`` cache with ``layer`` its layer index (or one
     layer ``[N, 2, Bs, Hkv*D]`` when ``layer`` is None); ``kv_scale`` the
     per-layer ``[L, 2]`` dequant scales.  Padding tokens (req_idx < 0)
     come out zero.
     """
-    global ragged_attention_launches
+    global ragged_attention_launches, tree_attention_launches
     t, hq, d = q.shape
     if scale is None:
         scale = d ** -0.5
     kv_cache, layer, kv_scale = _layer_and_scale(kv_cache, kv_scale, layer)
+    if schedule is not None and len(schedule) not in (7, 9):
+        raise ValueError(f"schedule has {len(schedule)} arrays (7 or 9)")
+    use_tree = schedule is not None and len(schedule) == 9
     if not q.is_cuda:
+        tree = (tree_rows(schedule, req_idx, block_tables.shape[0])
+                if use_tree else None)
         return _plain(q, kv_cache, layer, kv_scale, positions, req_idx,
-                      block_tables, seq_lens, scale)
+                      block_tables, seq_lens, scale, tree)
     _check(q, kv_cache)
     dev = q.device
     if schedule is None:
@@ -219,12 +290,18 @@ def ragged_paged_attention_kernel(
                 last[r] = max(last[r], pos_np[i])
         schedule = build_work_items(qlens, last, qb, kv_cache.shape[3],
                                     -(-t // qb) + b, t)
-    if len(schedule) != 7:
-        raise NotImplementedError(
-            "tree-mask schedules (token-tree speculation) are not ported")
     # token_off is not needed: the kernel writes rows in token order.
     item_req, item_qstart, item_qlen, item_pages, item_pos_base, \
         token_item = (_i32(a, dev) for a in schedule[:6])
+    tree_ptrs, tree_qw = (None, None), 0
+    if use_tree:
+        item_ts, item_mask = _i32(schedule[7], dev), _i32(schedule[8], dev)
+        n_items = item_req.numel()
+        if item_mask.ndim != 2 or item_mask.shape[0] != n_items or \
+                item_ts.numel() != n_items:
+            raise ValueError("tree arrays do not match the work items")
+        tree_ptrs = (item_ts.data_ptr(), item_mask.data_ptr())
+        tree_qw = item_mask.shape[1]
     req_idx = _i32(req_idx, dev)
     block_tables = _i32(block_tables, dev)
     out = torch.empty_like(q)
@@ -234,13 +311,17 @@ def ragged_paged_attention_kernel(
         kv_scale.data_ptr(), item_req.data_ptr(), item_qstart.data_ptr(),
         item_qlen.data_ptr(), item_pages.data_ptr(),
         item_pos_base.data_ptr(), token_item.data_ptr(), req_idx.data_ptr(),
-        block_tables.data_ptr(), layer, item_req.numel(), t, hq,
+        block_tables.data_ptr(), *tree_ptrs, tree_qw, layer,
+        item_req.numel(), t, hq,
         hkv_d // d, d, block_tables.shape[1], n_blocks * 2 * bs * hkv_d,
         int(kv_cache.dtype == torch.float8_e4m3fn), 8, float(scale),
         _stream(dev))
     if rc != 0:
         raise RuntimeError(f"ragged_attention_launch failed: CUDA error {rc}")
-    ragged_attention_launches += 1
+    if use_tree:
+        tree_attention_launches += 1
+    else:
+        ragged_attention_launches += 1
     return out
 
 

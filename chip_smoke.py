@@ -14,20 +14,32 @@ Phases, each reported on its own lines:
              main path's shapes, with its time, the plain version's, the
              bound and a library yardstick: the two attention kernels
              (Hq=32, Hkv=8, D=128, 32-token pages, a 32-layer cache; bf16
-             and fp8 KV) and the two quantized matmuls (Llama-3.1-8B's
-             wqkv, wo, w_gateup, w_down and lm_head at 16, 64 and 2048
-             rows; fp8 everywhere, int8 on w_gateup, int4 everywhere).
+             and fp8 KV), the ragged kernel's tree-mask path on two
+             token-tree verify steps (16 requests at context ~1024 with a
+             frontier row and a 30-node tree each; a 512-token prefill
+             chunk beside 15 such trees), and the two quantized matmuls
+             (Llama-3.1-8B's wqkv, wo, w_gateup, w_down and lm_head at 16,
+             64 and 2048 rows; fp8 everywhere, int8 on w_gateup, int4
+             everywhere).
 4. forward:  the full-width Llama-3.1-8B shapes at 2 layers, random
-             weights in bf16, fp8 and int4: one prefill and one decode step
-             through ``forward`` with the kernels and with the plain
-             versions (attention and matmuls); logits compared.
+             weights in bf16, fp8 and int4: one prefill, one decode and
+             one token-tree verify step through ``forward`` with the
+             kernels and with the plain versions (attention and matmuls);
+             logits compared.
 5. generate: ``LLM.generate`` at the full Llama-3.1-8B width and depth
              (random weights), 16 requests x 32 greedy tokens, in bf16,
-             then with ``quantization="fp8"``, then ``"int4"``; every
-             request must finish, both attention kernels must launch, and
-             a quantized run's matmul kernel must launch 129 times per
-             step (4 per layer and the LM head).  The bf16 and fp8 runs
-             are followed by a shorter run under ``torch.profiler``.
+             then twice with suffix speculation
+             (``SpeculativeConfig(method="suffix")``, linear drafts, then
+             ``use_tree_spec=True``; the suffix cache seeded from the bf16
+             run's output and corrupted copies of it), then with
+             ``quantization="fp8"``, then ``"int4"``; every request must
+             finish, both attention kernels must launch (a speculative
+             run: the ragged kernel, and in the tree run its tree-mask
+             path), a speculative run must accept drafts on the native
+             suffix tree, and a quantized run's matmul kernel must launch
+             129 times per step (4 per layer and the LM head).  Last, a
+             shorter bf16 and fp8 run under ``torch.profiler``, each on an
+             engine of its own (no timed run follows a profiled one).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero; the
@@ -73,6 +85,22 @@ REL_TOL = 1e-3
 Q_STD = 5.0
 
 PHASES = ("device", "build", "kernels", "forward", "generate")
+# Draft trees of the tree-verify steps: 30 nodes, best first, from one
+# fixed seed (node i hangs off the frontier or an earlier node).
+TREE_NODES = 30
+
+
+def _best_first_parents(seed: int, n: int) -> list[int]:
+    rng = np.random.default_rng(seed)
+    return [-1] + [int(rng.integers(-1, i)) for i in range(1, n)]
+
+
+TREE_PARENTS = _best_first_parents(30, TREE_NODES)
+# Suffix decoding knobs of the speculative generate runs (those of
+# tests/test_tree_spec.py, so the seeded cache yields long drafts and
+# branching trees).
+SUFFIX_KNOBS = dict(suffix_max_spec_factor=4.0, suffix_max_spec_offset=8.0,
+                    suffix_min_token_prob=0.05)
 # Quantized matmul cases: (name, K, N, fused part widths, float32 out),
 # the Llama-3.1-8B weights the decoder step multiplies.
 MATMUL_SHAPES = (
@@ -198,27 +226,39 @@ class Case:
         self.q = torch.randn((t, HQ, D), device=dev,
                              dtype=torch.bfloat16) * Q_STD
 
-    def schedule(self, qb):
-        """The work items, built on the host once, as the runner does."""
-        import torch
-
+    def schedule_np(self, qb):
+        """The work items, built on the host, as the runner does."""
         from arcticinference_tpu_torch.ops.cuda.ragged_attention import (
             build_work_items)
 
         qlens = np.array([q for _, q in self.reqs], np.int64)
         last = np.array([c + q - 1 for c, q in self.reqs], np.int64)
-        sched = build_work_items(qlens, last, qb, BS, self.t // qb + self.b,
-                                 self.t)
-        return tuple(torch.from_numpy(a).cuda() for a in sched)
+        return build_work_items(qlens, last, qb, BS, self.t // qb + self.b,
+                                self.t)
+
+    def schedule(self, qb):
+        """The work items on the card (built once per case)."""
+        import torch
+
+        return tuple(torch.from_numpy(a).cuda() for a in self.schedule_np(qb))
+
+    def attended(self, live):
+        """kv slots each live row attends (causal: its position + 1)."""
+        return (self.pos_np[live] + 1).astype(np.float64)
+
+    def allowed(self, rows, s_max):
+        """[rows, s_max] bool: which kv slots each of ``rows`` attends."""
+        return np.arange(s_max)[None, :] <= self.pos_np[rows][:, None]
 
     def bound(self):
         """(bound_ms, bound_by, bytes, flops): KV each live request needs
-        (read once) + q read + out written, against the causal flops."""
+        (read once) + q read + out written, against the flops of the kv
+        slots each row attends."""
         kv_elem = self.kv.element_size()
         live = self.req_np >= 0
         kv_bytes = int(self.seq_np.sum()) * 2 * HKV * D * kv_elem
         io_bytes = (int(live.sum()) + self.t) * HQ * D * 2
-        flops = 4.0 * D * HQ * float((self.pos_np[live] + 1).sum())
+        flops = 4.0 * D * HQ * float(self.attended(live).sum())
         t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S
         t_flops = flops / BF16_FLOP_PER_S
         by = "bytes" if t_bytes >= t_flops else "operations"
@@ -229,7 +269,7 @@ class Case:
         ``scaled_dot_product_attention`` call per group of live requests
         with the same query length (the batch's decode rows are one call,
         each prefill chunk is its own), keys padded to the group's longest
-        context under a boolean mask.  The q heads of a kv head are folded
+        context under a boolean mask (the rows' causal or tree mask).  The q heads of a kv head are folded
         into its query rows, as the kernels do, so K/V are read once per
         kv head.  K/V are already gathered dense.  A yardstick only."""
         import torch
@@ -261,13 +301,13 @@ class Case:
                                 * ks[0]).transpose(0, 1)
                 vd[i, :, :s] = (kv_l[pg, 1].reshape(-1, HKV, D)[:s]
                                 * ks[1]).transpose(0, 1)
-                rows = torch.from_numpy(np.nonzero(self.req_np == r)[0])
+                rows_np = np.nonzero(self.req_np == r)[0]
+                rows = torch.from_numpy(rows_np)
                 # [ql, Hq, D] -> [Hkv, ql * g, D]: row = token * g + head.
                 qd[i] = self.q[rows.cuda()].view(ql, HKV, g, D).transpose(
                     0, 1).reshape(HKV, ql * g, D)
-                pos = torch.arange(c, s, device="cuda").repeat_interleave(g)
-                mask[i, 0] = (torch.arange(s_max, device="cuda")[None, :]
-                              <= pos[:, None])
+                mask[i, 0] = torch.from_numpy(self.allowed(
+                    rows_np, s_max)).cuda().repeat_interleave(g, dim=0)
             calls.append((qd, kd, vd, mask))
 
         def call():
@@ -275,6 +315,64 @@ class Case:
                 F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
 
         return cuda_time_ms(call, iters=10)
+
+
+class TreeCase(Case):
+    """A token-tree verify step: requests (context, real tokens fed, tree
+    parents or None).  A tree's rows follow its request's last real
+    token (the frontier) at depth-based positions and linear slots, with
+    the ancestor bitmasks the runner builds."""
+
+    def __init__(self, name, tree_reqs, kv_dtype, rng, t_pad):
+        import torch
+
+        from arcticinference_tpu_torch.ops.cuda.ragged_attention import (
+            tree_masks)
+
+        n_new = [c + len(p or ()) for _, c, p in tree_reqs]
+        super().__init__(name, [(ctx, n) for (ctx, _, _), n in
+                                zip(tree_reqs, n_new)], kv_dtype, rng,
+                         t_pad=t_pad)
+        self.row_mask_np = np.zeros(self.t, np.int32)
+        self.tree_start_np = np.full(self.b, -1, np.int32)
+        i = 0
+        for r, ((ctx, chunk, parents), n) in enumerate(zip(tree_reqs, n_new)):
+            if parents:
+                depth, mask = tree_masks(parents)
+                ts = self.tree_start_np[r] = ctx + chunk - 1
+                self.pos_np[i + chunk:i + n] = ts + 1 + depth
+                self.row_mask_np[i + chunk:i + n] = mask
+            i += n
+        self.positions = torch.from_numpy(self.pos_np).cuda()
+        self.row_mask = torch.from_numpy(self.row_mask_np).cuda()
+        self.tree_start = torch.from_numpy(self.tree_start_np).cuda()
+
+    def schedule_np(self, qb):
+        from arcticinference_tpu_torch.ops.cuda.ragged_attention import (
+            tree_work_items)
+
+        sched = super().schedule_np(qb)
+        return sched + tree_work_items(self.row_mask_np, self.tree_start_np,
+                                       sched[0], sched[5], sched[6], qb)
+
+    def attended(self, live):
+        """A tree row attends the context through the frontier and its
+        ancestors (itself included): ts + 1 + popcount(mask) - 1."""
+        out = super().attended(live)
+        m = self.row_mask_np[live]
+        tree = m != 0
+        ts = self.tree_start_np[self.req_np[live]]
+        bits = np.array([bin(int(x) & ~1).count("1") for x in m[tree]])
+        out[tree] = ts[tree] + 1 + bits
+        return out
+
+    def allowed(self, rows, s_max):
+        ok = super().allowed(rows, s_max)
+        m = self.row_mask_np[rows][:, None].astype(np.int64)
+        rel = np.arange(s_max)[None, :] - \
+            self.tree_start_np[self.req_np[rows]][:, None]
+        bit = (m >> np.clip(rel, 0, 31)) & 1
+        return np.where((m != 0) & (rel >= 1), (rel < 32) & (bit > 0), ok)
 
 
 def run_case(case, fn_kernel, fn_plain, iters_kernel=20, iters_plain=3):
@@ -376,6 +474,50 @@ def phase_kernels(rng):
     if failed:
         raise AssertionError(f"kernel disagrees with plain version: {failed}")
     return ragged_cases, grouped_cases
+
+
+def phase_tree_kernels(rng):
+    """The ragged kernel's tree-mask path against the plain version on
+    two verify steps, in bf16 and with fp8 KV."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+    from arcticinference_tpu_torch.ops.attention import (
+        ragged_paged_attention_reference)
+
+    cases = []
+    for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        dt = "bf16" if kv_dtype == torch.bfloat16 else "fp8"
+        trees = [(int(c), 1, TREE_PARENTS)
+                 for c in rng.integers(896, 1153, 16)]
+        for name, reqs, t_pad in (
+                (f"tree verify 16x(1+{TREE_NODES})@ctx~1024 {dt}", trees, 512),
+                (f"prefill 512 + 15 trees {dt}",
+                 [(0, 512, None)] + trees[:15], 1024)):
+            case = TreeCase(name, reqs, kv_dtype, rng, t_pad)
+            sched = case.schedule(32)
+
+            def kern(case=case, sched=sched):
+                return ra.ragged_paged_attention_kernel(
+                    case.q, case.kv, case.positions, case.req_idx,
+                    case.block_tables, case.seq_lens, qb=32, schedule=sched,
+                    kv_scale=case.kv_scale, layer=case.layer)
+
+            def plain(case=case):
+                return ragged_paged_attention_reference(
+                    case.q, case.kv[case.layer], case.positions,
+                    case.req_idx, case.block_tables, case.seq_lens,
+                    kv_scale=case.kv_scale[case.layer],
+                    tree_start=case.tree_start, row_tree_mask=case.row_mask)
+
+            case.name = f"{name} qb=32"
+            cases.append(run_case(case, kern, plain))
+            del case
+            torch.cuda.empty_cache()
+    failed = [c["case"] for c in cases if not c["ok"]]
+    if failed:
+        raise AssertionError(f"kernel disagrees with plain version: {failed}")
+    return cases
 
 
 def quantized_weight(mode, k, n, parts, gen):
@@ -539,6 +681,8 @@ def launch_counts() -> dict:
     from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
 
     return {"ragged_paged_attention_kernel": ra.ragged_attention_launches,
+            "ragged_paged_attention_kernel (tree mask)":
+                ra.tree_attention_launches,
             "grouped_decode_attention_kernel": ra.grouped_decode_launches,
             "fp8_matmul_kernel": fm.fp8_matmul_launches,
             "int4_matmul_kernel": im.int4_matmul_launches}
@@ -573,8 +717,15 @@ def phase_forward(rng, quantization=None):
             SamplingParams(max_tokens=4)))
     matmul_key = {"fp8": "fp8_matmul_kernel",
                   "int4": "int4_matmul_kernel"}.get(quantization)
+    tree_key = "ragged_paged_attention_kernel (tree mask)"
     results = []
-    for step in ("prefill", "decode"):
+    for step in ("prefill", "decode", "tree verify"):
+        if step == "tree verify":
+            # Each request verifies a 12-node draft tree next.
+            for i, req in enumerate(sched.running):
+                req.spec_token_ids = [int(x) for x in rng.integers(
+                    0, arch.vocab_size, 12)]
+                req.spec_parents = _best_first_parents(i, 12)
         out = sched.schedule()
         si = runner.prepare_inputs(out)
         inputs = runner.upload(si.arrays)
@@ -591,7 +742,7 @@ def phase_forward(rng, quantization=None):
                     kv, h = module.forward(runner.params, arch, kv, inputs,
                                            attn_impl=attn)
                     rows = h[inputs["logits_indices"].long()
-                             [:len(out.scheduled)]]
+                             [:sum(si.sample_row_count)]]
                     logits[name] = module.compute_logits(runner.params, rows)
                 torch.cuda.synchronize()
                 launches[name] = launch_counts()
@@ -624,17 +775,19 @@ def phase_forward(rng, quantization=None):
         if matmul_key is not None:
             ok = ok and launches["kernel"][matmul_key] == \
                 4 * arch.num_layers + 1
+        # Only the tree step goes through the tree-mask path, every layer.
+        want_tree = arch.num_layers if step == "tree verify" else 0
+        ok = ok and launches["kernel"][tree_key] == want_tree
         if not ok:
             raise AssertionError(f"forward kernel vs plain: {res}")
         for r, s in enumerate(out.scheduled):
             done = s.request.num_computed_tokens + s.num_new_tokens >= \
                 s.request.num_tokens
-            sched.update_after_step(
-                s, [int(a[r].argmax())] if done else [], 0)
+            tok = int(a[si.sample_row_start[r]].argmax())
+            sched.update_after_step(s, [tok] if done else [], 0)
         results.append(res)
     del runner, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda_memory()
     return results
 
 
@@ -643,37 +796,104 @@ def phase_forward(rng, quantization=None):
 # ---------------------------------------------------------------------------
 
 def phase_generate(rng):
-    """The same 16 requests at 32 layers in bf16, fp8 and int4; returns
-    {quantization: result}."""
+    """The same 16 requests at 32 layers in bf16, with suffix speculation
+    (linear, then token trees) seeded from the bf16 run's output, then
+    with fp8 and int4 weights; returns {run name: result}."""
     prompts = [[int(x) for x in rng.integers(0, LLAMA_8B["vocab_size"],
                                              int(n))]
                for n in rng.integers(128, 1025, 16)]
-    return {q: run_generate(q, prompts, rng, profile=q in (None, "fp8"))
-            for q in (None, "fp8", "int4")}
+    runs = {}
+    runs["bf16"], ref = run_generate(None, prompts)
+    for spec in ("suffix", "suffix tree"):
+        runs[spec], _ = run_generate(None, prompts, spec=spec, reference=ref)
+    for q in ("fp8", "int4"):
+        runs[q], _ = run_generate(q, prompts)
+    # Profiled runs last, on engines of their own: no timed run follows a
+    # profiled run in the same process.
+    for q in (None, "fp8"):
+        log("  profile " + json.dumps(dict(quantization=q,
+                                           **profile_run(q, rng))))
+    return runs
 
 
-def run_generate(quantization, prompts, rng, profile):
-    import torch
+def seed_suffix_cache(cache, prompts, outputs, vocab):
+    """As tests/test_tree_spec.py seeds it: each request's true
+    continuation once and a copy with three tokens changed twice, so a
+    linear draft follows the (more frequent) wrong branch at those points
+    while a tree carries both.  Only the first 24 output tokens are
+    seeded, as many as that test generates: past the first change the
+    wrong branch then has fewer than 30 tokens, so a 30-node tree takes
+    the right one too instead of filling up with the wrong one."""
+    for i, (p, out) in enumerate(zip(prompts, outputs)):
+        seq = p[-6:] + out[:24]
+        bad = list(seq)
+        for flip in (9, 14, 19):
+            bad[flip] = (bad[flip] + 7) % vocab
+        cache.update_response(f"warm-good-{i}", seq)
+        cache.update_response(f"warm-bad-{i}", bad)
+        cache.update_response(f"warm-bad2-{i}", list(bad))
 
+
+def token_agreement(outs, reference) -> dict:
+    """How many requests give the reference's tokens, and where the
+    others first differ (random weights: argmax ties flip, so this is a
+    report, not a check)."""
+    first = {}
+    for i, (o, want) in enumerate(zip(outs, reference)):
+        if o.token_ids != want:
+            first[i] = next((j for j, (a, b) in enumerate(
+                zip(o.token_ids, want)) if a != b), min(len(o.token_ids),
+                                                       len(want)))
+    return dict(matching=len(outs) - len(first), of=len(outs),
+                first_divergence=first)
+
+
+def engine_config(quantization, spec=None):
+    """The generate runs' engine: Llama-3.1-8B shape, 32 layers; ``spec``
+    is None, "suffix" (linear drafts) or "suffix tree"."""
     from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
                                                   ModelConfig,
-                                                  SchedulerConfig)
-    from arcticinference_tpu_torch.engine.llm import LLM
-    from arcticinference_tpu_torch.engine.request import SamplingParams
+                                                  SchedulerConfig,
+                                                  SpeculativeConfig)
 
-    cfg = EngineConfig(
+    return EngineConfig(
         model=ModelConfig(model="llama", dtype="bfloat16", max_model_len=4096,
                           hf_overrides=LLAMA_8B, quantization=quantization),
         # 2048 blocks x 4 MiB (2 x 32 layers x 8 heads x 32 tokens x 128 x
         # 2 B) = 8 GiB of KV beside the weights (~16 GB in bf16).
         cache=CacheConfig(num_blocks=2048),
         scheduler=SchedulerConfig(max_num_seqs=64,
-                                  max_num_batched_tokens=2048))
+                                  max_num_batched_tokens=2048),
+        speculative=None if spec is None else SpeculativeConfig(
+            method="suffix", use_tree_spec=spec == "suffix tree",
+            enable_fused_decode=False, **SUFFIX_KNOBS))
+
+
+def free_cuda_memory() -> None:
+    """Return a dropped engine's memory to the card (its cycles first)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_generate(quantization, prompts, spec=None, reference=None):
+    """One timed ``LLM.generate`` run on a new engine (``reference``: the
+    bf16 run's tokens, which seed a speculative run's suffix cache).
+    Returns (result, output tokens)."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+
     t0 = time.perf_counter()
-    llm = LLM(cfg)            # cuda:0
+    llm = LLM(engine_config(quantization, spec))            # cuda:0
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     vocab = llm.engine.arch.vocab_size
+    if spec is not None:
+        seed_suffix_cache(llm.engine._suffix_cache, prompts, reference,
+                          vocab)
     torch.cuda.reset_peak_memory_stats()
     steps0 = llm.engine.engine_stats.num_steps
     reset_counts()
@@ -689,7 +909,7 @@ def run_generate(quantization, prompts, rng, profile):
     dec = steps.get("decode", {})
     n_tok = sum(len(o.token_ids) for o in outs)
     res = dict(
-        quantization=quantization,
+        quantization=quantization, spec=spec,
         layers=LLAMA_8B["num_hidden_layers"], requests=len(outs),
         finished=sum(o.finish_reason == "finished_length" for o in outs),
         prompt_tokens=sum(len(p) for p in prompts), generated_tokens=n_tok,
@@ -698,25 +918,58 @@ def run_generate(quantization, prompts, rng, profile):
         steps=steps, decode_host_p50_ms=host.summary(), launches=launches,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         card=smi())
+    tree_key = "ragged_paged_attention_kernel (tree mask)"
+    if spec is not None:
+        st = llm.engine.spec_stats
+        res.update(
+            tokens_per_step=n_tok / n_steps,
+            native_suffix_tree=llm.engine._suffix_cache.is_native(),
+            drafts=st.num_drafts, draft_tokens=st.num_draft_tokens,
+            accepted_tokens=st.num_accepted_tokens,
+            accepted_per_position=st.num_accepted_tokens_per_pos,
+            step_p50_ms={k: v["p50_ms"] for k, v in steps.items()},
+            agreement_with_bf16=token_agreement(outs, reference))
     log("  generate " + json.dumps(res))
     matmul = {"fp8": "fp8_matmul_kernel",
               "int4": "int4_matmul_kernel"}.get(quantization)
     ok = (res["finished"] == 16 and n_tok == 16 * 32
+          and all(len(o.token_ids) == 32 for o in outs)
           and all(0 <= t < vocab for o in outs for t in o.token_ids)
-          and launches["ragged_paged_attention_kernel"] > 0
-          and launches["grouped_decode_attention_kernel"] > 0)
+          and launches["ragged_paged_attention_kernel"] > 0)
+    if spec is None:
+        ok = ok and launches["grouped_decode_attention_kernel"] > 0 \
+            and launches[tree_key] == 0
+    else:
+        ok = ok and res["native_suffix_tree"] and res["accepted_tokens"] > 0
+        ok = ok and ((launches[tree_key] > 0) == (spec == "suffix tree"))
     for key in ("fp8_matmul_kernel", "int4_matmul_kernel"):
         want = MATMUL_LAUNCHES_PER_STEP * n_steps if key == matmul else 0
         ok = ok and launches[key] == want
     if not ok:
         raise AssertionError(f"end-to-end check failed: {res}")
-    if profile:
-        log("  profile " + json.dumps(dict(
-            quantization=quantization, **profile_generate(llm, rng, vocab))))
+    tokens = [o.token_ids for o in outs]
+    llm.close()
     del llm, outs
-    gc.collect()
-    torch.cuda.empty_cache()
-    return res
+    free_cuda_memory()
+    return res, tokens
+
+
+def profile_run(quantization, rng) -> dict:
+    """:func:`profile_generate` on a new engine, after a short generate
+    that warms it up."""
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+
+    llm = LLM(engine_config(quantization))
+    vocab = llm.engine.arch.vocab_size
+    llm.generate(prompt_token_ids=[[int(x) for x in rng.integers(0, vocab,
+                                                                  256)]],
+                 sampling_params=SamplingParams(max_tokens=4))
+    out = profile_generate(llm, rng, vocab)
+    llm.close()
+    del llm
+    free_cuda_memory()
+    return out
 
 
 class HostTimes:
@@ -856,6 +1109,11 @@ def main() -> int:
             name="ragged_paged_attention_kernel", route="cuda",
             source=csrc + ra.SOURCE,
             replaces="arcticinference_tpu/ops/pallas/ragged_attention.py:292"),
+        "ragged_paged_attention_kernel (tree mask)": dict(
+            name="ragged_paged_attention_kernel (tree mask)", route="cuda",
+            source=csrc + ra.SOURCE,
+            replaces="arcticinference_tpu/ops/pallas/ragged_attention.py:292 "
+                     "(use_tree)"),
         "grouped_decode_attention_kernel": dict(
             name="grouped_decode_attention_kernel", route="cuda",
             source=csrc + ra.SOURCE,
@@ -870,6 +1128,8 @@ def main() -> int:
     if "kernels" in phases:
         log("[kernels] kernel vs plain, Hq=32 Hkv=8 D=128, 32-layer cache")
         ragged, grouped = phase_kernels(rng)
+        log("[kernels] tree-mask path vs plain, token-tree verify steps")
+        tree_cases = phase_tree_kernels(rng)
         log("[kernels] quantized matmuls vs plain, Llama-3.1-8B weights")
         fp8_cases, int4_cases = phase_matmul_kernels(args.seed)
         # The summary line reports, for each kernel, the case of its
@@ -879,6 +1139,8 @@ def main() -> int:
         for key, cases, rep_name in (
                 ("ragged_paged_attention_kernel", ragged,
                  "prefill 2048@ctx2048 bf16 qb=32"),
+                ("ragged_paged_attention_kernel (tree mask)", tree_cases,
+                 f"tree verify 16x(1+{TREE_NODES})@ctx~1024 bf16 qb=32"),
                 ("grouped_decode_attention_kernel", grouped,
                  "decode B=64 qlen=1 bf16"),
                 ("fp8_matmul_kernel", fp8_cases,
@@ -903,12 +1165,14 @@ def main() -> int:
                 f"{quantization or 'bf16'} weights, kernels vs plain")
             phase_forward(rng, quantization)
     if "generate" in phases:
-        log("[generate] LLM.generate, Llama-3.1-8B shape, 32 layers, bf16 "
-            "then fp8 then int4 weights")
+        log("[generate] LLM.generate, Llama-3.1-8B shape, 32 layers, bf16, "
+            "suffix speculation (linear, tree), then fp8 and int4 weights")
         runs = phase_generate(rng)
         # Each kernel's launches from the run of its own path.
-        for key, run in (("ragged_paged_attention_kernel", None),
-                         ("grouped_decode_attention_kernel", None),
+        for key, run in (("ragged_paged_attention_kernel", "bf16"),
+                         ("ragged_paged_attention_kernel (tree mask)",
+                          "suffix tree"),
+                         ("grouped_decode_attention_kernel", "bf16"),
                          ("fp8_matmul_kernel", "fp8"),
                          ("int4_matmul_kernel", "int4")):
             kernels[key]["launches"] = runs[run]["launches"][key]

@@ -83,11 +83,16 @@ def test_plain_matches_jax_reference(qlens, ctx, kv_scale):
 
 
 def test_plain_refuses_tree_masks():
+    """A tree mask without its frontier slots (or the reverse) is
+    refused; the tree rule itself is held against the JAX reference in
+    tests/test_torch_tree_attention.py."""
     q, kv, pos, req, bt, sl = map(to_torch, make_case([3], [4], D=32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         ragged_paged_attention_reference(
-            q, kv, pos, req, bt, sl, tree_start=torch.zeros(1, dtype=int),
-            row_tree_mask=torch.zeros(3, dtype=int))
+            q, kv, pos, req, bt, sl, row_tree_mask=torch.zeros(3, dtype=int))
+    with pytest.raises(ValueError):
+        ragged_paged_attention_reference(
+            q, kv, pos, req, bt, sl, tree_start=torch.zeros(1, dtype=int))
 
 
 def _stacked_cache(kv_f32, kv_dtype):

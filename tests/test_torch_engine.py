@@ -178,7 +178,7 @@ def test_unported_features_raise(tiny_llm):
     with pytest.raises(NotImplementedError):
         tiny_llm.engine.add_request("y", [1, 2], SamplingParams(logprobs=2))
     d = config_dict(hf=TINY)
-    d["speculative"] = dict(method="suffix")
+    d["speculative"] = dict(method="arctic")     # draft models
     with pytest.raises(NotImplementedError):
         LLM(tcfg.EngineConfig.from_dict(d), device="cpu")
     with pytest.raises(NotImplementedError):     # SwiftKV schedules

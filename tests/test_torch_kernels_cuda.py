@@ -129,6 +129,69 @@ def test_grouped_kernel_matches_plain(cuda_device, d, qlen, t_rows,
     assert_matches(out, ref)
 
 
+def tree_step(reqs, device, qb):
+    """A verify step over ``reqs`` [(ctx, real tokens fed, tree parents
+    or None)]: positions (depth-based on tree rows), request ids, per-row
+    tree masks and frontier slots, and the 9-tuple schedule the runner
+    builds."""
+    n_new = [c + len(p or ()) for _, c, p in reqs]
+    t = sum(n_new)
+    pos = np.zeros(t, np.int32)
+    req = np.zeros(t, np.int32)
+    rmask = np.zeros(t, np.int32)
+    ts = np.full(len(reqs), -1, np.int32)
+    i = 0
+    for r, ((ctx, chunk, parents), n) in enumerate(zip(reqs, n_new)):
+        pos[i:i + chunk] = np.arange(ctx, ctx + chunk)
+        req[i:i + n] = r
+        if parents:
+            depth, mask = tra.tree_masks(parents)
+            ts[r] = ctx + chunk - 1
+            pos[i + chunk:i + n] = ts[r] + 1 + depth
+            rmask[i + chunk:i + n] = mask
+        i += n
+    last = np.array([c + n - 1 for (c, _, _), n in zip(reqs, n_new)])
+    sched = tra.build_work_items(np.array(n_new), last, qb, BS,
+                                 t // qb + len(reqs), t)
+    sched += tra.tree_work_items(rmask, ts, sched[0], sched[5], sched[6], qb)
+    dev = [torch.from_numpy(a).to(device) for a in (pos, req, ts, rmask)]
+    return dev, tuple(torch.from_numpy(a).to(device) for a in sched), n_new
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qb", [8, 32])
+def test_tree_kernel_matches_plain(cuda_device, qb, kv_dtype):
+    """The tree-mask path: a prefill chunk beside trees of 5, 12 and 30
+    nodes (a 30-node tree reads bit 30 of its masks), against the plain
+    version with the per-row masks."""
+    rng = np.random.default_rng(4)
+
+    def tree(n):
+        return [int(rng.integers(-1, i)) if i else -1 for i in range(n)]
+
+    reqs = [(0, 40, None), (37, 1, tree(12)), (300, 1, tree(30)),
+            (64, 9, tree(5))]
+    (pos, req, ts, rmask), sched, n_new = tree_step(reqs, cuda_device, qb)
+    q, kv, scale, bt, sl = paged_case(
+        [(c, n) for (c, _, _), n in zip(reqs, n_new)], kv_dtype,
+        cuda_device, int(sum(n_new)))
+    tra.reset_launch_counts()
+    out = tra.ragged_paged_attention_kernel(
+        q, kv, pos, req, bt, sl, qb=qb, schedule=sched, kv_scale=scale,
+        layer=1)
+    ref = ragged_paged_attention_reference(
+        q, kv[1], pos, req, bt, sl, kv_scale=scale[1], tree_start=ts,
+        row_tree_mask=rmask)
+    causal = ragged_paged_attention_reference(
+        q, kv[1], pos, req, bt, sl, kv_scale=scale[1])
+    torch.cuda.synchronize()
+    assert tra.tree_attention_launches == 1
+    assert tra.ragged_attention_launches == 0
+    assert_matches(out, ref)
+    assert (causal.float() - ref.float()).abs().max() > 0.5
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q, kv, scale, bt, sl = paged_case([(5, 3)], torch.bfloat16,
