@@ -40,6 +40,17 @@
 // (a tree node's ancestors all sit at lower slots than the node), so the
 // page and token cut-offs below need no change.
 //
+// Deferred KV writes (the grouped kernel's knew / vnew path): the step's
+// new K/V rows arrive as operands ([t, Hkv*D] in cache dtype, already
+// divided by the layer's k/v scale like cache rows) and their cache slots
+// are not written yet.  Each row then reads the cache only below its
+// sequence's pos_base, and after the pages the CTA folds the sequence's
+// new rows into the same online softmax as one more chunk of at most 32
+// tokens: lane j owns new row j, which row i attends iff j <= i's token
+// index and j < new_len (the count of the sequence's rows whose slot is
+// >= 0; padding is a tail of slot -1).  The caller scatters the rows into
+// the cache once for the whole model after the layer stack.
+//
 // The layout contract is the JAX package's: cache [L, N, 2, 32, Hkv*D],
 // q / out [T, Hq, D] bf16, block_tables [B, MaxBlk] int32.  block_size is 32.
 
@@ -120,7 +131,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 // pos0 + i / group) under q head h * group + i % group.  Tokens at or past
 // t_limit do not exist (their rows are neither read nor written).  With a
 // tree mask, token tok0 + j has ancestor bitmask tree_mask[j] against the
-// frontier slot tree_start; tree_mask == nullptr means no tree.
+// frontier slot tree_start; tree_mask == nullptr means no tree.  With
+// knew / vnew (deferred writes; cache-dtype rows, token tok0 + j at row
+// tok0 + j) the cache is read only below pos0 and new rows j < new_len are
+// folded in after the pages; knew == nullptr means no injection.
 struct Rows {
   int tok0;
   int pos0;
@@ -128,6 +142,9 @@ struct Rows {
   int t_limit;
   const int* tree_mask = nullptr;
   int tree_start = -1;
+  const void* knew = nullptr;
+  const void* vnew = nullptr;
+  int new_len = 0;
 };
 
 template <int D, int RW>
@@ -138,6 +155,65 @@ struct Smem {
   float l[kWarps][RW];
   float acc[kWarps][RW][D];
 };
+
+// Fold one chunk of at most 32 tokens into a warp's online-softmax state:
+// lane j owns token j, whose K row is krow (read only when k_ok) and whose
+// V row is vbase + j * v_stride (this lane's dims).  ok[r]: row r attends
+// this lane's token; tokens at or past jmax carry no weight for any row.
+template <class KV, int D, int RW>
+__device__ __forceinline__ void fold_chunk(
+    Smem<D, RW>& sm, const typename KV::T* __restrict__ krow, bool k_ok,
+    const typename KV::T* __restrict__ vbase, int64_t v_stride,
+    const bool (&ok)[RW], int jmax, float (&m)[RW], float (&l)[RW],
+    float (&acc)[RW][D / 32]) {
+  constexpr int DPL = D / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float s[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) s[r] = 0.f;
+  if (k_ok) {
+#pragma unroll
+    for (int c = 0; c < D; c += 8) {
+      float kf[8];
+      load_cvt<KV, 8>(krow + c, kf);
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float4 qa = *reinterpret_cast<const float4*>(&sm.q[r][c]);
+        const float4 qb = *reinterpret_cast<const float4*>(&sm.q[r][c + 4]);
+        s[r] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
+                qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const float sv = ok[r] ? s[r] : kNegInf;
+    const float m_new = fmaxf(m[r], warp_max(sv));
+    // m_safe: an all-masked row keeps exp(-inf - 0) = 0 (no NaN).
+    const float m_safe = m_new == kNegInf ? 0.f : m_new;
+    const float alpha = m[r] == kNegInf ? 0.f : __expf(m[r] - m_safe);
+    const float pj = ok[r] ? __expf(sv - m_safe) : 0.f;
+    l[r] = l[r] * alpha + pj;  // per-lane partial; summed at the end
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha;
+    m[r] = m_new;
+    sm.p[warp][r][lane] = pj;
+  }
+  __syncwarp();
+#pragma unroll 4
+  for (int j = 0; j < jmax; ++j) {
+    float vf[DPL];
+    load_cvt<KV, DPL>(vbase + (int64_t)j * v_stride, vf);
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const float pj = sm.p[warp][r][j];
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[r][e] += pj * vf[e];
+    }
+  }
+  __syncwarp();
+}
 
 template <class KV, int D, int RW>
 __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
@@ -152,6 +228,7 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
   const int group = hq / hkv;
   const int hkv_d = hkv * D;
   const int nrows = rows.ntok * group;
+  const bool deferred = rows.knew != nullptr;
 
   for (int tile0 = 0; tile0 < nrows; tile0 += RW) {
     // Stage this tile's q rows (fp32, pre-scaled by scale * k_scale).
@@ -165,19 +242,24 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
       }
       sm.q[r][dd] = val;
     }
-    int pos[RW];
+    // pos[r]: the last cache slot row r may attend (-1: none); with
+    // deferred writes every live row stops below pos0.  tix[r]: the row's
+    // token index in the CTA (-1: not live), which bounds the new rows it
+    // attends.
+    int pos[RW], tix[RW];
     unsigned mask[RW];  // ancestor bitmask of each row (0: causal)
-    int max_pos = -1;
+    int max_pos = -1, max_tok = -1;
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       const int i = tile0 + r;
-      const int tok = rows.tok0 + i / group;
-      const bool live = i < nrows && tok < rows.t_limit;
-      pos[r] = live ? rows.pos0 + i / group : -1;
+      const bool live = i < nrows && rows.tok0 + i / group < rows.t_limit;
+      tix[r] = live ? i / group : -1;
+      pos[r] = !live ? -1 : deferred ? rows.pos0 - 1 : rows.pos0 + i / group;
       mask[r] = (live && rows.tree_mask != nullptr)
                     ? static_cast<unsigned>(rows.tree_mask[i / group])
                     : 0u;
       max_pos = max(max_pos, pos[r]);
+      max_tok = max(max_tok, tix[r]);
     }
     __syncthreads();
 
@@ -199,54 +281,30 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
           kv_layer + ((page * 2 + 1) * kPage) * hkv_d + h * D + lane * DPL;
       const int kv_pos = pg_i * kPage + lane;
       const int rel = kv_pos - rows.tree_start;  // slot past the frontier
-
-      float s[RW];
-#pragma unroll
-      for (int r = 0; r < RW; ++r) s[r] = 0.f;
-#pragma unroll
-      for (int c = 0; c < D; c += 8) {
-        float kf[8];
-        load_cvt<KV, 8>(krow + c, kf);
-#pragma unroll
-        for (int r = 0; r < RW; ++r) {
-          const float4 qa = *reinterpret_cast<const float4*>(&sm.q[r][c]);
-          const float4 qb = *reinterpret_cast<const float4*>(&sm.q[r][c + 4]);
-          s[r] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                  qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
-        }
-      }
+      bool ok[RW];
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
-        bool ok = kv_pos <= pos[r];
+        ok[r] = kv_pos <= pos[r];
         if (mask[r] != 0u && rel >= 1)
-          ok = rel < 32 && ((mask[r] >> rel) & 1u);
-        const float sv = ok ? s[r] : kNegInf;
-        const float m_new = fmaxf(m[r], warp_max(sv));
-        // m_safe: an all-masked row keeps exp(-inf - 0) = 0 (no NaN).
-        const float m_safe = m_new == kNegInf ? 0.f : m_new;
-        const float alpha = m[r] == kNegInf ? 0.f : __expf(m[r] - m_safe);
-        const float pj = ok ? __expf(sv - m_safe) : 0.f;
-        l[r] = l[r] * alpha + pj;  // per-lane partial; summed at the end
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha;
-        m[r] = m_new;
-        sm.p[warp][r][lane] = pj;
+          ok[r] = rel < 32 && ((mask[r] >> rel) & 1u);
       }
-      __syncwarp();
       // Only tokens at or before the tile's last position carry weight.
-      const int jmax = min(kPage, max_pos - pg_i * kPage + 1);
-#pragma unroll 4
-      for (int j = 0; j < jmax; ++j) {
-        float vf[DPL];
-        load_cvt<KV, DPL>(vbase + (int64_t)j * hkv_d, vf);
+      fold_chunk<KV, D, RW>(sm, krow, true, vbase, hkv_d, ok,
+                            min(kPage, max_pos - pg_i * kPage + 1), m, l,
+                            acc);
+    }
+    if (deferred && warp == last_page % kWarps) {
+      // The new rows, as one more chunk, on the warp whose turn is next.
+      const auto* knew = static_cast<const typename KV::T*>(rows.knew);
+      const auto* vnew = static_cast<const typename KV::T*>(rows.vnew);
+      const bool has = lane < rows.new_len;
+      bool ok[RW];
 #pragma unroll
-        for (int r = 0; r < RW; ++r) {
-          const float pj = sm.p[warp][r][j];
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) acc[r][e] += pj * vf[e];
-        }
-      }
-      __syncwarp();
+      for (int r = 0; r < RW; ++r) ok[r] = has && lane <= tix[r];
+      fold_chunk<KV, D, RW>(
+          sm, knew + (int64_t)(rows.tok0 + lane) * hkv_d + h * D, has,
+          vnew + (int64_t)rows.tok0 * hkv_d + h * D + lane * DPL, hkv_d, ok,
+          min(rows.new_len, max_tok + 1), m, l, acc);
     }
 
     // Merge the warps' states: out = sum_w acc_w e^(m_w-M) /
@@ -344,20 +402,35 @@ __global__ void __launch_bounds__(kThreads) grouped_decode_kernel(
     const uint16_t* __restrict__ q, uint16_t* __restrict__ out,
     const typename KV::T* __restrict__ kv, const float* __restrict__ kv_scale,
     const int* __restrict__ pos_base, const int* __restrict__ seq_lens,
-    const int* __restrict__ block_tables, int layer, int b, int t, int qlen,
+    const int* __restrict__ block_tables,
+    const typename KV::T* __restrict__ knew,
+    const typename KV::T* __restrict__ vnew,
+    const int* __restrict__ slot_mapping, int layer, int b, int t, int qlen,
     int hq, int hkv, int max_blk, int64_t layer_stride, float scale) {
   __shared__ __align__(16) Smem<D, RW> sm;
   const int seq = blockIdx.x, h = blockIdx.y;
   // Sequence slots past b (the token bucket is wider than b * qlen) and
-  // dead slots (seq_lens == 0) read no page: their rows come out zero.
+  // dead slots (seq_lens == 0) read no page and inject no row: their rows
+  // come out zero.
   int npages = 0, pos0 = 0;
   const int* page_row = block_tables;
+  const bool live = seq < b && seq_lens[seq] > 0;
   if (seq < b) {
     npages = (seq_lens[seq] + kPage - 1) / kPage;
     pos0 = pos_base[seq];
     page_row = block_tables + (int64_t)seq * max_blk;
   }
   Rows rows{seq * qlen, pos0, qlen, t};
+  if (knew != nullptr) {
+    rows.knew = knew;
+    rows.vnew = vnew;
+    // new_len: the sequence's rows with a real slot (rows past t are
+    // padding, as the JAX dispatch pads slot_mapping with -1).
+    for (int j = 0; live && j < qlen; ++j) {
+      const int row = seq * qlen + j;
+      rows.new_len += row < t && slot_mapping[row] >= 0;
+    }
+  }
   attend<KV, D, RW>(sm, q, out, kv + layer * layer_stride, page_row,
                         npages, rows, h, hq, hkv,
                         scale * kv_scale[2 * layer], kv_scale[2 * layer + 1]);
@@ -390,15 +463,19 @@ template <class KV, int D, int RW>
 cudaError_t launch_grouped(void* q, void* out, const void* kv,
                            const float* kv_scale, const int* pos_base,
                            const int* seq_lens, const int* block_tables,
-                           int layer, int b, int t, int qlen, int hq, int hkv,
-                           int max_blk, int64_t layer_stride, float scale,
+                           const void* knew, const void* vnew,
+                           const int* slot_mapping, int layer, int b, int t,
+                           int qlen, int hq, int hkv, int max_blk,
+                           int64_t layer_stride, float scale,
                            cudaStream_t stream) {
   const int n_seq = std::max(b, (t + qlen - 1) / qlen);
   dim3 grid(n_seq, hkv);
+  using E = typename KV::T;
   grouped_decode_kernel<KV, D, RW><<<grid, kThreads, 0, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<uint16_t*>(out),
-      static_cast<const typename KV::T*>(kv), kv_scale, pos_base, seq_lens,
-      block_tables, layer, b, t, qlen, hq, hkv, max_blk, layer_stride, scale);
+      static_cast<const E*>(kv), kv_scale, pos_base, seq_lens, block_tables,
+      static_cast<const E*>(knew), static_cast<const E*>(vnew), slot_mapping,
+      layer, b, t, qlen, hq, hkv, max_blk, layer_stride, scale);
   return cudaGetLastError();
 }
 
@@ -439,7 +516,9 @@ struct GroupedF {
 // Plain C interface (loaded with ctypes).  Pointers are device pointers;
 // q and out are bf16, the int32 metadata arrays are contiguous.  Returns cudaGetLastError()
 // right after the launch (0 = launched).  item_tree_start [n_items] and
-// item_tree_mask [n_items, tree_qw] are null for a step without a tree.
+// item_tree_mask [n_items, tree_qw] are null for a step without a tree;
+// knew / vnew [t, Hkv*D] (cache dtype) and slot_mapping [t] are null for a
+// grouped step without deferred writes (qlen <= 32 with them).
 extern "C" int ragged_attention_launch(
     void* q, void* out, const void* kv, const void* kv_scale,
     const void* item_req, const void* item_qstart, const void* item_qlen,
@@ -465,13 +544,18 @@ extern "C" int ragged_attention_launch(
 extern "C" int grouped_decode_launch(
     void* q, void* out, const void* kv, const void* kv_scale,
     const void* pos_base, const void* seq_lens, const void* block_tables,
-    int layer, int b, int t, int qlen, int hq, int hkv, int d, int max_blk,
+    const void* knew, const void* vnew, const void* slot_mapping, int layer,
+    int b, int t, int qlen, int hq, int hkv, int d, int max_blk,
     int64_t layer_stride, int kv_fp8, int rows_per_tile, float scale,
     void* stream) {
+  if (knew != nullptr && (qlen > kPage || vnew == nullptr ||
+                          slot_mapping == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch<GroupedF>(
       kv_fp8, d, rows_per_tile, q, out, kv,
       static_cast<const float*>(kv_scale), static_cast<const int*>(pos_base),
       static_cast<const int*>(seq_lens),
-      static_cast<const int*>(block_tables), layer, b, t, qlen, hq, hkv,
+      static_cast<const int*>(block_tables), knew, vnew,
+      static_cast<const int*>(slot_mapping), layer, b, t, qlen, hq, hkv,
       max_blk, layer_stride, scale, static_cast<cudaStream_t>(stream)));
 }

@@ -6,17 +6,20 @@ Counterpart of ``arcticinference_tpu/engine/engine.py``:
   -> commit tokens / stops -> update suffix cache -> propose next drafts
 
 This part of the port runs the synchronous step
-(``LLMEngine._step_sync`` in the JAX package).  ``async_scheduling``
-(the JAX package's pipelined step with device-side token passthrough)
-is not ported yet: when it is requested, which is the default, the
-engine says so once at start-up and runs the synchronous step, which
-gives the same tokens.  Speculation is suffix decoding
+(``LLMEngine._step_sync`` in the JAX package) and, for suffix
+speculation, the device-resident fused decode loop
+(``engine/fused_decode.py``; ``SpeculativeConfig.enable_fused_decode``,
+the default for linear suffix drafts): while it is active, decode steps
+verify and draft on the device, and prefills and non-fusable requests
+ride interleaved synchronous steps.  ``async_scheduling`` (the JAX
+package's pipelined step with device-side token passthrough) is not
+ported yet: when it is requested, which is the default, the engine says
+so once at start-up and runs the synchronous step, which gives the same
+tokens.  Speculation is suffix decoding
 (``SpeculativeConfig(method="suffix")``), with linear drafts or token
-trees (``use_tree_spec``); the device-resident fused loop
-(``enable_fused_decode``, the default for linear suffix drafts) is not
-ported either, and is handled like ``async_scheduling``.  The draft
-models (``method="arctic"`` and the MLP / LSTM speculators), guided
-decoding, penalties and logprobs raise ``NotImplementedError``.
+trees (``use_tree_spec``, on the synchronous step).  The draft models
+(``method="arctic"`` and the MLP / LSTM speculators), guided decoding,
+penalties and logprobs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Optional, Union
 import torch
 
 from arcticinference_tpu_torch.config import EngineConfig
+from arcticinference_tpu_torch.engine.fused_decode import FusedDecodeLoop
 from arcticinference_tpu_torch.engine.request import (Request, RequestStatus,
                                                       SamplingParams)
 from arcticinference_tpu_torch.engine.runner import ModelRunner
@@ -78,11 +82,8 @@ class LLMEngine:
         self._suffix_cache: Optional[SuffixCache] = None
         self._prompt_tree_pool: Optional[ThreadPoolExecutor] = None
         self._prompt_tree_futs: dict = {}
+        self._fused: Optional[FusedDecodeLoop] = None
         if spec is not None:
-            if spec.enable_fused_decode:
-                logger.info("enable_fused_decode=True: the device-resident "
-                            "decode loop is not ported yet; running the "
-                            "synchronous step")
             self._suffix_cache = SuffixCache(spec.suffix_cache_max_depth)
             # Prompt trees are built here while the prompt prefills
             # (submitted at admission, installed at the first commit).
@@ -92,6 +93,16 @@ class LLMEngine:
             # futures: past the bound a request builds its tree
             # synchronously at its first commit.
             self._prompt_tree_bound = 2 * config.scheduler.max_num_seqs
+            if spec.enable_fused_decode:
+                fused = FusedDecodeLoop(self)
+                # Installed only where it can engage; otherwise the sync
+                # path keeps full drafting duties.
+                if fused.eligible():
+                    self._fused = fused
+                else:
+                    logger.info("enable_fused_decode=True without suffix "
+                                "decoding: nothing for the fused loop to "
+                                "draft; running the synchronous step")
 
     # ------------------------------------------------------------------ #
     # Request management
@@ -127,6 +138,10 @@ class LLMEngine:
         return req
 
     def abort_request(self, req_id: str) -> Optional[Request]:
+        # The fused loop's steps in flight write into the request's
+        # blocks: settle them before the scheduler releases anything.
+        if self._fused is not None and self._fused.active:
+            self._fused.exit()
         req = self.scheduler.abort_request(req_id)
         if req is not None:
             self._evict_spec_state(req)
@@ -157,20 +172,47 @@ class LLMEngine:
     # Step loop
     # ------------------------------------------------------------------ #
 
+    @property
+    def width_stats(self) -> Optional[dict]:
+        """The fused loop's dispatched steps by program width and its
+        entries; None without the loop."""
+        return None if self._fused is None else dict(self._fused.width_stats)
+
     def step(self) -> list[Request]:
         """Run one engine iteration; returns requests finished this step."""
         t0 = time.perf_counter()
-        kind, emitted, finished = self._step_sync()
+        kind, emitted, finished = self._step_inner()
         if kind is not None:
             self.step_times.observe(kind, time.perf_counter() - t0, emitted)
         return finished
 
-    def _step_sync(self) -> tuple[Optional[str], int, list[Request]]:
-        """One synchronous step; returns (kind, tokens emitted, finished
+    def _step_inner(self) -> tuple[Optional[str], int, list[Request]]:
+        # Device-resident fused decode while requests sit at their decode
+        # frontier; prefills and admissions ride its interleaved sync
+        # steps, or this iteration's sync step when it is not active.
+        fused = self._fused
+        if fused is not None:
+            if not fused.active and fused.can_enter():
+                fused.enter()
+            if fused.active:
+                before = fused.tokens_drained
+                finished = fused.step()
+                if fused.active or finished:
+                    return "fused", fused.tokens_drained - before, finished
+                # Exited with nothing to report (e.g. block pre-extension
+                # failed before the first dispatch): the sync path makes
+                # progress this iteration.
+        return self._step_sync()
+
+    def _step_sync(self, sched_out: Optional[SchedulerOutput] = None
+                   ) -> tuple[Optional[str], int, list[Request]]:
+        """One synchronous step (of ``sched_out``, by default this
+        iteration's schedule); returns (kind, tokens emitted, finished
         requests), None when nothing was scheduled.  Kind: ``decode`` for
         a pure-decode step, ``verify`` for a step that verifies drafts and
         feeds no prompt rows, ``mixed`` otherwise."""
-        sched_out = self.scheduler.schedule()
+        if sched_out is None:
+            sched_out = self.scheduler.schedule()
         if not sched_out.scheduled:
             return None, 0, []
         self._maybe_observe(sched_out)
@@ -285,15 +327,23 @@ class LLMEngine:
     # Speculation
     # ------------------------------------------------------------------ #
 
+    def _spec_disabled_now(self) -> bool:
+        sc = self.spec_config
+        if sc is None:
+            return True
+        return bool(sc.disable_by_batch_size and len(self.scheduler.running)
+                    > sc.disable_by_batch_size)
+
     def _propose_drafts(self, sched_out: SchedulerOutput) -> None:
         """Suffix drafts for the next step of every request this step
         left at its decode frontier (with trees, as soon as its prompt is
         computed: accepted tokens are fed again); none above
-        ``disable_by_batch_size`` running requests."""
+        ``disable_by_batch_size`` running requests, and none while the
+        fused loop is installed: it drafts every decode step on the
+        device, and the sync steps around it only prefill and admit."""
         sc = self.spec_config
-        if self._suffix_cache is None or (
-                sc.disable_by_batch_size
-                and len(self.scheduler.running) > sc.disable_by_batch_size):
+        if self._suffix_cache is None or self._spec_disabled_now() or \
+                self._fused is not None:
             return
         tree = bool(sc.use_tree_spec)
 

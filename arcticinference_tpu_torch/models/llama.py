@@ -10,6 +10,10 @@ indexes its weights in place, so no weight is copied per step.
 The paged cache ``[L, N_blk, 2, Bs, Hkv*D]`` is written in place
 (``_write_kv_layer``), and attention receives the whole stacked cache
 plus the layer index, so no per-layer cache slice is copied either.
+With ``ARCTIC_TPU_DEFERRED_KV=1`` a grouped decode step defers the
+writes instead: each layer's attention takes its new K/V rows as
+operands, and one in-place scatter lands all layers' rows after the
+stack (``_bulk_write_kv``).
 
 Weight-only quantization (``quantization="fp8" | "int8" | "int4"``)
 turns the matmul weights and the LM head into ``QuantizedLinear`` leaves
@@ -24,6 +28,7 @@ from typing import Any, Optional
 
 import torch
 
+from arcticinference_tpu_torch import envs
 from arcticinference_tpu_torch.ops.attention import (
     ragged_paged_attention_reference)
 from arcticinference_tpu_torch.ops.cuda.ragged_attention import (
@@ -233,16 +238,61 @@ def _qkv(h, lp, arch):
     return q, k, v
 
 
-def _write_kv_layer(kv, layer, k, v, slot_mapping, kv_scale=None):
-    """Scatter new tokens' K/V into the stacked cache at one layer, in
-    place (slot -1 lands in the reserved block 0).  ``kv_scale`` (this
-    layer's [k, v] dequant scales) divides values before the fp8 cast so
-    the attention read's ``*scale`` dequant round-trips."""
-    if kv_scale is not None and kv.dtype == torch.float8_e4m3fn:
+def _quantize_kv_rows(k, v, dtype, kv_scale=None):
+    """New K/V rows in the cache's dtype, ``[t, Hkv*D]`` each: the bytes
+    the cache stores.  ``kv_scale`` (this layer's [k, v] dequant scales)
+    divides values before an fp8 cast so the attention read's ``*scale``
+    dequant round-trips."""
+    t = k.shape[0]
+    if kv_scale is not None and dtype == torch.float8_e4m3fn:
         k = k.float() / kv_scale[0]
         v = v.float() / kv_scale[1]
-    write_kv(kv[layer], k, v, slot_mapping)
+    # Contiguous: v is a column slice of the fused qkv product.
+    return (k.reshape(t, -1).to(dtype).contiguous(),
+            v.reshape(t, -1).to(dtype).contiguous())
+
+
+def _write_kv_layer(kv, layer, k, v, slot_mapping, kv_scale=None):
+    """Scatter new tokens' K/V (:func:`_quantize_kv_rows`) into the
+    stacked cache at one layer, in place (slot -1 lands in the reserved
+    block 0)."""
+    write_kv(kv[layer], *_quantize_kv_rows(k, v, kv.dtype, kv_scale),
+             slot_mapping)
     return kv
+
+
+def _bulk_write_kv(kv, k_rows, v_rows, slot_mapping):
+    """Scatter the step's deferred K/V rows (``[L, t, Hkv*D]`` each, one
+    slot per row shared by every layer) into the stacked cache in place,
+    in one ``index_put_`` over its flat ``[L*N_blk, 2, Bs, Hkv*D]`` view;
+    slot -1 lands in the reserved block 0, as in ``write_kv``."""
+    num_layers, nblk, _, bs, kvd = kv.shape
+    t = k_rows.shape[1]
+    slots = torch.where(slot_mapping < 0, 0, slot_mapping).long()
+    blk, off = slots // bs, slots % bs
+    lidx = torch.arange(num_layers, device=kv.device)[:, None] * nblk
+    blk_l = (lidx + torch.cat([blk, blk])[None, :]).reshape(-1)
+    sel = torch.cat([torch.zeros(t, dtype=torch.long, device=kv.device),
+                     torch.ones(t, dtype=torch.long, device=kv.device)])
+    rows = torch.cat([k_rows, v_rows], dim=1).reshape(-1, kvd)
+    # As bytes: one scatter for every cache dtype (fp8 included).
+    kv.view(num_layers * nblk, 2, bs, kvd).view(torch.uint8).index_put_(
+        (blk_l, sel.repeat(num_layers),
+         torch.cat([off, off]).repeat(num_layers)),
+        rows.to(kv.dtype).view(torch.uint8))
+    return kv
+
+
+def _defer_kv_writes(attn_impl, arch) -> bool:
+    """Deferred writes run on grouped decode steps
+    (``attn_impl.is_grouped_decode``) with ``ARCTIC_TPU_DEFERRED_KV=1``
+    and a head dim the CUDA kernel has instances for (64, 128), on the
+    card or, through the plain version, on the CPU.  (The JAX package
+    also needs a 128-multiple head dim: its CPU path is a jnp reference
+    without the injection.)"""
+    return (getattr(attn_impl, "is_grouped_decode", False)
+            and envs.ARCTIC_TPU_DEFERRED_KV
+            and arch.head_dim in (64, 128))
 
 
 def _mlp(x, lp):
@@ -261,25 +311,33 @@ def _mlp(x, lp):
 
 def forward(params: dict, arch: LlamaArch, kv: torch.Tensor,
             inputs: dict[str, torch.Tensor],
-            attn_impl=None) -> tuple[torch.Tensor, torch.Tensor]:
+            attn_impl=None,
+            allow_deferral: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the decoder stack over a flat ragged token batch.
 
     inputs: input_ids [T], positions [T], req_idx [T], slot_mapping [T],
     block_tables [B, MaxBlk], seq_lens [B], the work-item schedule
     (``attn_*``) and optionally kv_scale [L, 2].
     Returns (kv, hidden[T, D]); ``kv`` is updated in place.
+    ``allow_deferral=False`` keeps the per-layer cache writes even where
+    :func:`_defer_kv_writes` would defer them.
     """
     h = embed_lookup(params, inputs["input_ids"])
     kv, h = scan_layers(params["layers"], arch, kv, h, inputs,
-                        attn_impl=attn_impl)
+                        attn_impl=attn_impl, allow_deferral=allow_deferral)
     h = rms_norm(h, params["final_norm"], arch.rms_norm_eps)
     return kv, h
 
 
 def scan_layers(layers: dict, arch: LlamaArch, kv: torch.Tensor,
-                h: torch.Tensor, inputs: dict,
-                attn_impl=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the stacked decoder layers over hidden states ``h``."""
+                h: torch.Tensor, inputs: dict, attn_impl=None,
+                allow_deferral: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the stacked decoder layers over hidden states ``h``.
+
+    On a deferred-write step (:func:`_defer_kv_writes`) each layer's
+    attention injects the layer's new K/V rows and the cache is written
+    once after the stack (:func:`_bulk_write_kv`)."""
     if attn_impl is None:
         attn_impl = _default_attn
     num_layers = next(iter(layers.values())).shape[0]
@@ -287,18 +345,29 @@ def scan_layers(layers: dict, arch: LlamaArch, kv: torch.Tensor,
     inv_freq = compute_rope_freqs(arch.head_dim, arch.rope_theta,
                                   arch.rope_scaling, device=h.device)
     ks = inputs.get("kv_scale")
+    defer = allow_deferral and _defer_kv_writes(attn_impl, arch)
+    new_k, new_v = [], []
     for layer in range(num_layers):
         lp = {k: v[layer] for k, v in layers.items()}
         x = rms_norm(h, lp["input_norm"], arch.rms_norm_eps)
         q, k, v = _qkv(x, lp, arch)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-        _write_kv_layer(kv, layer, k, v, inputs["slot_mapping"],
-                        None if ks is None else ks[layer])
-        o = attn_impl(q, kv, layer, inputs)
+        scale = None if ks is None else ks[layer]
+        if defer:
+            kq, vq = _quantize_kv_rows(k, v, kv.dtype, scale)
+            o = attn_impl(q, kv, layer, inputs, knew=kq, vnew=vq)
+            new_k.append(kq)
+            new_v.append(vq)
+        else:
+            _write_kv_layer(kv, layer, k, v, inputs["slot_mapping"], scale)
+            o = attn_impl(q, kv, layer, inputs)
         h = h + matmul(o.reshape(o.shape[0], -1), lp["wo"])
         x = rms_norm(h, lp["post_norm"], arch.rms_norm_eps)
         h = h + _mlp(x, lp)
+    if defer:
+        _bulk_write_kv(kv, torch.stack(new_k), torch.stack(new_v),
+                       inputs["slot_mapping"])
     return kv, h
 
 
@@ -316,7 +385,7 @@ def make_attn_impl(attn_qb: int = 32, decode_qlen: int = 1):
     launches its CUDA kernel for tensors on the card and computes the
     plain version for tensors on the CPU."""
 
-    def _attn(q, kv, layer, inputs):
+    def _attn(q, kv, layer, inputs, knew=None, vnew=None):
         if attn_qb == 1:
             seq_lens = inputs["seq_lens"]
             # The same for every layer: computed once per step.
@@ -324,10 +393,18 @@ def make_attn_impl(attn_qb: int = 32, decode_qlen: int = 1):
             if pos_base is None:
                 pos_base = inputs["decode_pos_base"] = torch.clamp(
                     seq_lens - decode_qlen, min=0)
+            inject = {}
+            if knew is not None:
+                # Deferred writes: the new rows ride as operands; their
+                # cache slots are written after the layer stack.
+                inject = dict(knew=knew, vnew=vnew,
+                              slot_mapping=inputs["slot_mapping"])
             return grouped_decode_attention_kernel(
                 q, kv, pos_base,
                 inputs["block_tables"], seq_lens, qlen=decode_qlen,
-                kv_scale=inputs.get("kv_scale"), layer=layer)
+                kv_scale=inputs.get("kv_scale"), layer=layer, **inject)
+        if knew is not None:
+            raise ValueError("deferred KV rows need the grouped decode path")
         schedule = tuple(inputs[k] for k in _SCHEDULE_KEYS)
         if "attn_item_tree_start" in inputs:
             schedule += (inputs["attn_item_tree_start"],
@@ -337,6 +414,7 @@ def make_attn_impl(attn_qb: int = 32, decode_qlen: int = 1):
             inputs["block_tables"], inputs["seq_lens"], qb=attn_qb,
             schedule=schedule, kv_scale=inputs.get("kv_scale"), layer=layer)
 
+    _attn.is_grouped_decode = attn_qb == 1
     return _attn
 
 

@@ -111,3 +111,74 @@ def ragged_paged_attention_reference(
             o = torch.einsum("thgs,shd->thgd", p, v)
             out[rr] = o.reshape(-1, hq, d)
     return out.to(q.dtype)
+
+
+def grouped_decode_deferred_reference(
+    q: torch.Tensor,
+    kv_cache: torch.Tensor,
+    pos_base: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    qlen: int,
+    knew: torch.Tensor,
+    vnew: torch.Tensor,
+    slot_mapping: torch.Tensor,
+    scale: float | None = None,
+    kv_scale=None,
+) -> torch.Tensor:
+    """Uniform-``qlen`` decode attention with the step's new K/V rows
+    injected instead of read back from the cache: the plain version of the
+    grouped decode kernel's deferred-write path (the JAX kernel's
+    ``knew=`` branch, ``ops/pallas/ragged_attention.py``).
+
+    Rows ``[s*qlen, (s+1)*qlen)`` of ``q`` [T, Hq, D] are sequence s's.
+    Row j of sequence s attends the cache slots ``< pos_base[s]`` of its
+    pages (``kv_cache`` is one layer, [N, 2, Bs, Hkv*D]) and the new rows
+    ``knew`` / ``vnew`` [T, Hkv*D] (cache dtype; ``kv_scale`` applies to
+    them as to cache rows) of its sequence at ``j' <= j`` and ``j' <
+    new_len[s]``, where ``new_len[s]`` counts the sequence's rows with
+    ``slot_mapping >= 0`` (rows past T count as -1, as the JAX dispatch
+    pads them).  Rows past ``B*qlen`` and rows of dead sequences
+    (``seq_lens == 0``) come out zero.
+    """
+    t_, hq, d = q.shape
+    b = block_tables.shape[0]
+    bs = kv_cache.shape[2]
+    hkv = kv_cache.shape[3] // d
+    group = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    scales = _kv_scales(kv_scale)
+    out = torch.zeros((t_, hq, d), dtype=torch.float32, device=q.device)
+    slots = torch.full((b * qlen,), -1, dtype=torch.long)
+    n = min(t_, b * qlen)
+    slots[:n] = slot_mapping[:n].cpu().long()
+    new_len = (slots.reshape(b, qlen) >= 0).sum(1).tolist()
+    seq_host = seq_lens.cpu().tolist()
+    base_host = pos_base.cpu().tolist()
+    for s in range(b):
+        r0 = s * qlen
+        if seq_host[s] <= 0 or r0 >= t_:
+            continue
+        nq = min(qlen, t_ - r0)
+        ctx = min(int(base_host[s]), int(seq_host[s]))
+        pages = block_tables[s, :-(-ctx // bs)].long()
+        kc = kv_cache[pages]                          # [P, 2, Bs, Hkv*D]
+        nl = new_len[s]
+        k = torch.cat([kc[:, 0].reshape(-1, hkv * d)[:ctx],
+                       knew[r0:r0 + nl]]).reshape(-1, hkv, d).float()
+        v = torch.cat([kc[:, 1].reshape(-1, hkv * d)[:ctx],
+                       vnew[r0:r0 + nl]]).reshape(-1, hkv, d).float()
+        if scales is not None:
+            k = k * scales[0]
+            v = v * scales[1]
+        qg = (q[r0:r0 + nq].float() * scale).reshape(nq, hkv, group, d)
+        scores = torch.einsum("thgd,shd->thgs", qg, k)
+        col = torch.arange(ctx + nl, device=q.device)
+        row = torch.arange(nq, device=q.device)
+        valid = (col[None, :] < ctx) | (col[None, :] - ctx <= row[:, None])
+        scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+        p = torch.softmax(scores, dim=-1)
+        out[r0:r0 + nq] = torch.einsum("thgs,shd->thgd", p, v).reshape(
+            nq, hq, d)
+    return out.to(q.dtype)

@@ -9,18 +9,20 @@
   ``item_tree_mask``).
 - :func:`grouped_decode_attention_kernel` replaces
   ``...::grouped_decode_attention_kernel`` (pure-decode steps: ``qlen``
-  rows per sequence, sequence-major).
+  rows per sequence, sequence-major), with its deferred-write path
+  (``knew`` / ``vnew`` / ``slot_mapping``: the step's new K/V rows are
+  attended from the operands, their cache write comes later).
 
 Both are bound by the KV bytes they read (3.35 TB/s on an H100); the
 source note in the ``.cu`` file says what the design does about it.
 
 A wrapper given CPU tensors computes the plain version
-(``ops/attention.py::ragged_paged_attention_reference``); given CUDA
-tensors (bf16 q, a bf16 or fp8-e4m3 cache, head dim 64 or 128) it
-launches its kernel, and raises on anything else.  Each launch adds one to
-its counter: ``ragged_attention_launches`` (a schedule without a tree),
-``tree_attention_launches`` (one with a tree mask) or
-``grouped_decode_launches``.
+(``ops/attention.py``); given CUDA tensors (bf16 q, a bf16 or fp8-e4m3
+cache, head dim 64 or 128) it launches its kernel, and raises on anything
+else.  Each launch adds one to its counter: ``ragged_attention_launches``
+(a schedule without a tree), ``tree_attention_launches`` (one with a tree
+mask), ``grouped_decode_launches`` or ``deferred_decode_launches`` (a
+grouped launch with injected rows).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from arcticinference_tpu_torch.ops.attention import (
-    ragged_paged_attention_reference)
+    grouped_decode_deferred_reference, ragged_paged_attention_reference)
 
 SOURCE = "ragged_attention.cu"
 
@@ -39,12 +41,13 @@ SOURCE = "ragged_attention.cu"
 ragged_attention_launches = 0
 tree_attention_launches = 0
 grouped_decode_launches = 0
+deferred_decode_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _RAGGED_ARGTYPES = [_P] * 14 + [_I] * 8 + [ctypes.c_int64] + [_I] * 2 + [
     ctypes.c_float, _P]
-_GROUPED_ARGTYPES = [_P] * 7 + [_I] * 8 + [ctypes.c_int64] + [_I] * 2 + [
+_GROUPED_ARGTYPES = [_P] * 10 + [_I] * 8 + [ctypes.c_int64] + [_I] * 2 + [
     ctypes.c_float, _P]
 
 _KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
@@ -52,14 +55,17 @@ _BLOCK_SIZE = 32
 #: Most nodes of a draft tree: a row's ancestor bitmask has 32 bits, bit 0
 #: for the frontier and bit i + 1 for node i (the kernel reads bits 1..31).
 MAX_TREE_NODES = 30
+#: Most rows per sequence of a deferred-write step (one lane per new row).
+MAX_DEFERRED_QLEN = 32
 
 
 def reset_launch_counts() -> None:
     global ragged_attention_launches, tree_attention_launches, \
-        grouped_decode_launches
+        grouped_decode_launches, deferred_decode_launches
     ragged_attention_launches = 0
     tree_attention_launches = 0
     grouped_decode_launches = 0
+    deferred_decode_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -336,6 +342,9 @@ def grouped_decode_attention_kernel(
     scale: float | None = None,
     kv_scale: torch.Tensor | None = None,
     layer: int | torch.Tensor | None = None,
+    knew: torch.Tensor | None = None,
+    vnew: torch.Tensor | None = None,
+    slot_mapping: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Uniform-``qlen`` decode attention: rows ``[s*qlen, (s+1)*qlen)``
     of ``q`` are sequence ``s``'s frontier tokens at positions
@@ -346,19 +355,50 @@ def grouped_decode_attention_kernel(
     and trims): rows past ``B * qlen`` and rows of dead slots
     (``seq_lens == 0``) come out zero.
 
+    Deferred writes: ``knew`` / ``vnew`` ([t, Hkv*D] in the cache's dtype,
+    divided by the layer's k / v scale like cache rows) and
+    ``slot_mapping`` [t] come together.  The step's new rows are then not
+    in the cache yet: each row reads the cache below ``pos_base`` and
+    attends new row j of its sequence iff j <= its own index and j <
+    ``new_len`` (the sequence's rows with a slot >= 0; rows past ``t``
+    count as slot -1).  At most :data:`MAX_DEFERRED_QLEN` rows per
+    sequence.
+
     ``gsz`` (sequences per TPU grid program, which amortised the TPU's
     per-program cost) is accepted so the signatures match, and ignored:
-    the CUDA kernel runs one CTA per (sequence, kv head).  The deferred
-    ``knew``/``vnew`` write path of the JAX kernel is not ported.
+    the CUDA kernel runs one CTA per (sequence, kv head).
     """
-    global grouped_decode_launches
+    global grouped_decode_launches, deferred_decode_launches
     del gsz
     t, hq, d = q.shape
     b = block_tables.shape[0]
     if scale is None:
         scale = d ** -0.5
     kv_cache, layer, kv_scale = _layer_and_scale(kv_cache, kv_scale, layer)
+    deferred = knew is not None
+    if deferred != (vnew is not None) or deferred != (slot_mapping
+                                                      is not None):
+        raise ValueError("knew, vnew and slot_mapping come together")
+    if deferred:
+        width = kv_cache.shape[-1]
+        if knew.shape != (t, width) or vnew.shape != (t, width) or \
+                slot_mapping.shape != (t,):
+            raise ValueError(
+                f"knew / vnew must be [{t}, {width}] and slot_mapping "
+                f"[{t}]; got {tuple(knew.shape)}, {tuple(vnew.shape)}, "
+                f"{tuple(slot_mapping.shape)}")
+        if knew.dtype != kv_cache.dtype or vnew.dtype != kv_cache.dtype:
+            raise TypeError("knew / vnew must be in the cache's dtype "
+                            f"{kv_cache.dtype}")
+        if qlen > MAX_DEFERRED_QLEN:
+            raise ValueError(f"qlen {qlen} > {MAX_DEFERRED_QLEN} rows per "
+                             "sequence with deferred writes")
     if not q.is_cuda:
+        if deferred:
+            return grouped_decode_deferred_reference(
+                q, kv_cache[layer], pos_base, block_tables, seq_lens, qlen,
+                knew, vnew, slot_mapping, scale=scale,
+                kv_scale=kv_scale[layer])
         rows = torch.arange(t, device=q.device)
         seq = torch.div(rows, qlen, rounding_mode="floor")
         live = seq < b
@@ -373,17 +413,27 @@ def grouped_decode_attention_kernel(
     pos_base = _i32(pos_base, dev)
     seq_lens = _i32(seq_lens, dev)
     block_tables = _i32(block_tables, dev)
+    inject = (None, None, None)
+    if deferred:
+        if knew.device != dev or vnew.device != dev or \
+                not (knew.is_contiguous() and vnew.is_contiguous()):
+            raise ValueError("knew / vnew must be contiguous on q's device")
+        slot_mapping = _i32(slot_mapping, dev)
+        inject = (knew.data_ptr(), vnew.data_ptr(), slot_mapping.data_ptr())
     out = torch.empty_like(q)
     num_layers, n_blocks, _, bs, hkv_d = kv_cache.shape
     rows_per_tile = 4 if qlen * hq // (hkv_d // d) <= 4 else 8
     rc = _lib().grouped_decode_launch(
         q.data_ptr(), out.data_ptr(), kv_cache.data_ptr(),
         kv_scale.data_ptr(), pos_base.data_ptr(), seq_lens.data_ptr(),
-        block_tables.data_ptr(), layer, b, t, int(qlen), hq, hkv_d // d, d,
-        block_tables.shape[1], n_blocks * 2 * bs * hkv_d,
+        block_tables.data_ptr(), *inject, layer, b, t, int(qlen), hq,
+        hkv_d // d, d, block_tables.shape[1], n_blocks * 2 * bs * hkv_d,
         int(kv_cache.dtype == torch.float8_e4m3fn), rows_per_tile,
         float(scale), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"grouped_decode_launch failed: CUDA error {rc}")
-    grouped_decode_launches += 1
+    if deferred:
+        deferred_decode_launches += 1
+    else:
+        grouped_decode_launches += 1
     return out

@@ -13,12 +13,13 @@ from __future__ import annotations
 
 import ctypes
 import heapq
-import os
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
+
+from arcticinference_tpu_torch import envs
 
 PURE_PYTHON_ENV = "ARCTIC_TPU_PURE_PYTHON_SUFFIX"
 
@@ -337,6 +338,6 @@ def SuffixTree(max_depth: int, force_python: bool = False):
     Both expose ``num_seqs()``, ``append(seq_id, token)``,
     ``extend(seq_id, tokens)`` and ``speculate(...) -> Candidate``.
     """
-    if force_python or os.environ.get(PURE_PYTHON_ENV, "0") == "1":
+    if force_python or envs.ARCTIC_TPU_PURE_PYTHON_SUFFIX:
         return PySuffixTree(max_depth)
     return NativeSuffixTree(max_depth, load_native())

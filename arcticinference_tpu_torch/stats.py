@@ -74,8 +74,9 @@ class StepTimeStats:
     """Bounded per-step wall-time histogram, split by step kind (the
     port's synchronous step records ``decode`` for pure-decode steps,
     ``verify`` for steps that verify drafts without prompt rows and
-    ``mixed`` for the others), with each kind's total time and tokens
-    emitted.
+    ``mixed`` for the others; an iteration of the fused decode loop
+    records ``fused``, with the tokens its drains committed), with each
+    kind's total time and tokens emitted.
 
     The reference has no engine-side timing of its own (SURVEY §5.1 —
     it leans on vLLM's profiler); here per-step timing is first-class

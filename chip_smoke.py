@@ -14,32 +14,43 @@ Phases, each reported on its own lines:
              main path's shapes, with its time, the plain version's, the
              bound and a library yardstick: the two attention kernels
              (Hq=32, Hkv=8, D=128, 32-token pages, a 32-layer cache; bf16
-             and fp8 KV), the ragged kernel's tree-mask path on two
-             token-tree verify steps (16 requests at context ~1024 with a
-             frontier row and a 30-node tree each; a 512-token prefill
-             chunk beside 15 such trees), and the two quantized matmuls
-             (Llama-3.1-8B's wqkv, wo, w_gateup, w_down and lm_head at 16,
-             64 and 2048 rows; fp8 everywhere, int8 on w_gateup, int4
-             everywhere).
+             and fp8 KV), the grouped kernel's deferred-KV path (B=64
+             sequences, 1 or 8 rows each, contexts 128-2048, dead slots
+             and slot -1 tails), beside kernel 2 on the same steps with
+             the rows written into the cache, the ragged kernel's
+             tree-mask path on two token-tree verify steps (16 requests
+             at context ~1024 with a frontier row and a 30-node tree
+             each; a 512-token prefill chunk beside 15 such trees), and
+             the two quantized matmuls (Llama-3.1-8B's wqkv, wo,
+             w_gateup, w_down and lm_head at 16, 64 and 2048 rows; fp8
+             everywhere, int8 on w_gateup, int4 everywhere).
 4. forward:  the full-width Llama-3.1-8B shapes at 2 layers, random
              weights in bf16, fp8 and int4: one prefill, one decode and
              one token-tree verify step through ``forward`` with the
              kernels and with the plain versions (attention and matmuls);
-             logits compared.
+             logits compared.  Then the fused loop's wide step (16 slots
+             x 8 rows) in bf16 and fp8 with ARCTIC_TPU_DEFERRED_KV on and
+             off: logits compared, caches byte-identical, the deferred
+             path launched once per layer only with the flag.
 5. generate: ``LLM.generate`` at the full Llama-3.1-8B width and depth
              (random weights), 16 requests x 32 greedy tokens, in bf16,
-             then twice with suffix speculation
-             (``SpeculativeConfig(method="suffix")``, linear drafts, then
-             ``use_tree_spec=True``; the suffix cache seeded from the bf16
-             run's output and corrupted copies of it), then with
-             ``quantization="fp8"``, then ``"int4"``; every request must
-             finish, both attention kernels must launch (a speculative
-             run: the ragged kernel, and in the tree run its tree-mask
-             path), a speculative run must accept drafts on the native
-             suffix tree, and a quantized run's matmul kernel must launch
-             129 times per step (4 per layer and the LM head).  Last, a
-             shorter bf16 and fp8 run under ``torch.profiler``, each on an
-             engine of its own (no timed run follows a profiled one).
+             then four times with suffix speculation
+             (``SpeculativeConfig(method="suffix")``, the suffix cache
+             seeded from the bf16 run's output and corrupted copies of
+             it): linear drafts on the synchronous step, token trees, and
+             linear drafts on the fused decode loop (the default) without
+             and with ARCTIC_TPU_DEFERRED_KV=1, every fused step's
+             dispatch under ``torch.cuda.set_sync_debug_mode("error")``;
+             then with ``quantization="fp8"``, then ``"int4"``; every
+             request must finish, both attention kernels must launch (a
+             speculative run: the ragged kernel, and in the tree run its
+             tree-mask path), the deferred path only in the deferred run,
+             a speculative run must accept drafts on the native suffix
+             tree, a fused run must run fused steps, and a quantized
+             run's matmul kernel must launch 129 times per step (4 per
+             layer and the LM head).  Last, a shorter bf16 and fp8 run
+             under ``torch.profiler``, each on an engine of its own (no
+             timed run follows a profiled one).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero; the
@@ -264,6 +275,10 @@ class Case:
         by = "bytes" if t_bytes >= t_flops else "operations"
         return max(t_bytes, t_flops) * 1e3, by, kv_bytes + io_bytes, flops
 
+    def library_kv(self):
+        """The cache layer the library yardstick reads."""
+        return self.kv[self.layer]
+
     def library_ms(self) -> float:
         """Time of the library's attention over the same rows: one
         ``scaled_dot_product_attention`` call per group of live requests
@@ -280,7 +295,7 @@ class Case:
         for r, (_, ql) in enumerate(self.reqs):
             if ql > 0:
                 groups.setdefault(ql, []).append(r)
-        kv_l = self.kv[self.layer].to(torch.bfloat16)
+        kv_l = self.library_kv().to(torch.bfloat16)
         ks = self.kv_scale[self.layer]
         calls = []
         for ql, rs in groups.items():
@@ -373,6 +388,87 @@ class TreeCase(Case):
             self.tree_start_np[self.req_np[rows]][:, None]
         bit = (m >> np.clip(rel, 0, 31)) & 1
         return np.where((m != 0) & (rel >= 1), (rel < 32) & (bit > 0), ok)
+
+
+class DeferredCase(Case):
+    """A grouped decode step with deferred KV writes (kernel 3): slot r
+    owns rows [r*qlen, (r+1)*qlen) at positions ctx + j, dead slots
+    included; the step's new rows knew / vnew [B*qlen, Hkv*D] (cache
+    dtype, drawn as the cache's values are, so a new row weighs as much
+    as a cached one) are injected, and slots in ``tails`` end in that
+    many slot -1 rows (new_len < qlen).
+
+    ``written`` is the layer with the new rows scattered at their slots:
+    kernel 2 on it (causal) is the same step without deferral, and the
+    library yardstick reads it."""
+
+    def __init__(self, name, reqs, qlen, tails, kv_dtype, rng):
+        import torch
+
+        super().__init__(name, reqs, kv_dtype, rng, t_pad=len(reqs) * qlen,
+                         slot_rows=qlen)
+        self.qlen = qlen
+        self.pos_base = torch.from_numpy(np.array(
+            [c for c, _ in reqs], np.int32)).cuda()
+        self.new_len = np.array([0 if q == 0 else q - tails.get(r, 0)
+                                 for r, (_, q) in enumerate(reqs)])
+        slot = np.full(self.t, -1, np.int32)
+        bt = self.block_tables.cpu().numpy()
+        for r, (c, _) in enumerate(reqs):
+            for j in range(self.new_len[r]):
+                p = c + j
+                slot[r * qlen + j] = bt[r, p // BS] * BS + p % BS
+        self.slot_np = slot
+        self.slot_mapping = torch.from_numpy(slot).cuda()
+        self.knew, self.vnew = (
+            (torch.randn((self.t, HKV * D), device="cuda") * 0.5
+             ).to(kv_dtype) for _ in range(2))
+        real = torch.from_numpy(slot >= 0).cuda()
+        sl = self.slot_mapping[real].long()
+        self.written = self.kv[self.layer].clone()
+        w = self.written.view(torch.uint8)      # bytes: any cache dtype
+        w[sl // BS, 0, sl % BS] = self.knew[real].view(torch.uint8)
+        w[sl // BS, 1, sl % BS] = self.vnew[real].view(torch.uint8)
+        #: False: the same rows as a causal step over ``written``.
+        self.deferred = True
+
+    def library_kv(self):
+        return self.written
+
+    def attended(self, live):
+        """Row j of sequence r: its ctx cache slots and new rows
+        0..min(j, new_len - 1)."""
+        if not self.deferred:
+            return super().attended(live)
+        r = self.req_np[live]
+        j = self.pos_np[live] - self.pos_base.cpu().numpy()[r]
+        return (self.pos_base.cpu().numpy()[r]
+                + np.minimum(j + 1, self.new_len[r])).astype(np.float64)
+
+    def allowed(self, rows, s_max):
+        if not self.deferred:
+            return super().allowed(rows, s_max)
+        r = self.req_np[rows]
+        base = self.pos_base.cpu().numpy()[r]
+        last = base + np.minimum(self.pos_np[rows] - base,
+                                 self.new_len[r] - 1)
+        return np.arange(s_max)[None, :] <= last[:, None]
+
+    def bound(self):
+        """KV pages below pos_base of each live sequence (read once), q
+        and out, knew and vnew."""
+        if not self.deferred:
+            return super().bound()
+        kv_elem = self.kv.element_size()
+        live = self.req_np >= 0
+        ctx = sum(c for c, q in self.reqs if q > 0)
+        kv_bytes = (ctx * 2 * HKV * D + 2 * self.t * HKV * D) * kv_elem
+        io_bytes = (int(live.sum()) + self.t) * HQ * D * 2
+        flops = 4.0 * D * HQ * float(self.attended(live).sum())
+        t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S
+        t_flops = flops / BF16_FLOP_PER_S
+        by = "bytes" if t_bytes >= t_flops else "operations"
+        return max(t_bytes, t_flops) * 1e3, by, kv_bytes + io_bytes, flops
 
 
 def run_case(case, fn_kernel, fn_plain, iters_kernel=20, iters_plain=3):
@@ -474,6 +570,81 @@ def phase_kernels(rng):
     if failed:
         raise AssertionError(f"kernel disagrees with plain version: {failed}")
     return ragged_cases, grouped_cases
+
+
+def phase_deferred_kernels(rng):
+    """Kernel 3 (grouped decode with injected rows) against its plain
+    version, and kernel 2 on the same step with the rows written into the
+    cache, at the fused loop's shapes: B=64, qlen 1 (narrow) and 8 (wide),
+    contexts 128-2048, 6 dead slots and 8 with slot -1 tails; bf16 and
+    fp8 KV.  Returns (kernel 3 cases, kernel 2 cases)."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.attention import (
+        grouped_decode_deferred_reference, ragged_paged_attention_reference)
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+
+    deferred, grouped = [], []
+    for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        dt = "bf16" if kv_dtype == torch.bfloat16 else "fp8"
+        for qlen in (1, 8):
+            ctx = rng.integers(128, 2049, 64)
+            dead = set(rng.choice(64, 6, replace=False).tolist())
+            reqs = [(0, 0) if r in dead else (int(ctx[r]), qlen)
+                    for r in range(64)]
+            live = [r for r in range(64) if r not in dead]
+            tails = {r: int(rng.integers(1, qlen)) for r in live[:8]} \
+                if qlen > 1 else {r: 1 for r in live[:8]}
+            case = DeferredCase(f"deferred B=64 qlen={qlen} {dt}", reqs,
+                                qlen, tails, kv_dtype, rng)
+            ks = case.kv_scale[case.layer:case.layer + 1]
+
+            def kern(case=case, qlen=qlen):
+                return ra.grouped_decode_attention_kernel(
+                    case.q, case.kv, case.pos_base, case.block_tables,
+                    case.seq_lens, qlen=qlen, kv_scale=case.kv_scale,
+                    layer=case.layer, knew=case.knew, vnew=case.vnew,
+                    slot_mapping=case.slot_mapping)
+
+            def plain(case=case, qlen=qlen):
+                return grouped_decode_deferred_reference(
+                    case.q, case.kv[case.layer], case.pos_base,
+                    case.block_tables, case.seq_lens, qlen, case.knew,
+                    case.vnew, case.slot_mapping,
+                    kv_scale=case.kv_scale[case.layer])
+
+            res = run_case(case, kern, plain)
+            # The same step without deferral: kernel 2 over the cache
+            # with the rows written (one layer), causal.
+            written = case.written[None]
+
+            def kern2(case=case, qlen=qlen, written=written, ks=ks):
+                return ra.grouped_decode_attention_kernel(
+                    case.q, written, case.pos_base, case.block_tables,
+                    case.seq_lens, qlen=qlen, kv_scale=ks, layer=0)
+
+            def plain2(case=case, ks=ks):
+                return ragged_paged_attention_reference(
+                    case.q, case.written, case.positions, case.req_idx,
+                    case.block_tables, case.seq_lens, kv_scale=ks[0])
+
+            # Rows of real slots must agree between the two paths.
+            real = torch.from_numpy(case.slot_np >= 0).cuda()
+            a, b = kern()[real].float(), kern2()[real].float()
+            res["vs_kernel2_rel_err"] = float((a - b).norm() / b.norm())
+            res["ok"] = res["ok"] and res["vs_kernel2_rel_err"] <= REL_TOL
+            log(f"  deferred vs kernel 2 on the written cache: relative "
+                f"error {res['vs_kernel2_rel_err']:.3g}")
+            case.name = f"decode B=64 qlen={qlen} rows written {dt}"
+            case.deferred = False
+            grouped.append(run_case(case, kern2, plain2))
+            deferred.append(res)
+            del case, written
+            torch.cuda.empty_cache()
+    failed = [c["case"] for c in deferred + grouped if not c["ok"]]
+    if failed:
+        raise AssertionError(f"kernel disagrees with plain version: {failed}")
+    return deferred, grouped
 
 
 def phase_tree_kernels(rng):
@@ -684,6 +855,8 @@ def launch_counts() -> dict:
             "ragged_paged_attention_kernel (tree mask)":
                 ra.tree_attention_launches,
             "grouped_decode_attention_kernel": ra.grouped_decode_launches,
+            "grouped_decode_attention_kernel (deferred KV)":
+                ra.deferred_decode_launches,
             "fp8_matmul_kernel": fm.fp8_matmul_launches,
             "int4_matmul_kernel": im.int4_matmul_launches}
 
@@ -791,6 +964,166 @@ def phase_forward(rng, quantization=None):
     return results
 
 
+def phase_forward_deferred(rng, quantization=None):
+    """The fused loop's wide step shape at full width and 2 layers: B=16
+    slots (12 requests at contexts 200-1500, 4 dead slots) x 8 verify
+    rows through the grouped kernel, with ARCTIC_TPU_DEFERRED_KV on
+    (kernel 3 in each layer, one bulk write after) and off (kernel 2
+    after each layer's write), on copies of the cache.  Logits of the
+    real rows are compared and the kernels' launches counted.  Caches:
+    the bulk write must have stored exactly the rows kernel 3 attended,
+    at their slots; nothing else may differ between the two runs outside
+    the sink block 0 but the written slots of layers past the first,
+    whose inputs carry the attention's rounding (the two kernels sum the
+    new tokens in another order), and those within bf16 noise."""
+    import os
+
+    import torch
+
+    from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
+                                                  ModelConfig,
+                                                  SchedulerConfig)
+    from arcticinference_tpu_torch.engine.block_manager import BlockManager
+    from arcticinference_tpu_torch.engine.runner import ModelRunner
+    from arcticinference_tpu_torch.models.loader import load_model
+
+    b, qlen = 16, 8
+    cfg = EngineConfig(
+        model=ModelConfig(model="llama", dtype="bfloat16", max_model_len=4096,
+                          hf_overrides={**LLAMA_8B, "num_hidden_layers": 2},
+                          quantization=quantization),
+        cache=CacheConfig(num_blocks=1024),
+        scheduler=SchedulerConfig(max_num_seqs=64,
+                                  max_num_batched_tokens=2048))
+    dev = torch.device("cuda")
+    module, arch, params = load_model(cfg.model, dev)
+    runner = ModelRunner(cfg, module, arch, params, dev)
+    bm = BlockManager(runner.num_blocks, BS)
+    ctx = [int(c) for c in rng.integers(200, 1501, 12)] + [0] * 4
+    bt = np.zeros((b, runner.max_blocks_per_req), np.int32)
+    for r, c in enumerate(ctx):
+        if c:
+            ids = []
+            bm.grow_to(ids, c + qlen)
+            bt[r, :len(ids)] = ids
+    # The cache holds random K/V at every context slot (a prefill's
+    # values are not the point here); one tail of 3 slot -1 rows.
+    with torch.inference_mode():
+        runner.kv.copy_((torch.randn(runner.kv.shape, device=dev) * 0.5
+                         ).to(runner.kv.dtype))
+    tokens = rng.integers(0, arch.vocab_size, b * qlen).astype(np.int32)
+    pos = np.zeros(b * qlen, np.int32)
+    slot = np.full(b * qlen, -1, np.int32)
+    req = np.full(b * qlen, -1, np.int32)
+    for r, c in enumerate(ctx):
+        real = 0 if c == 0 else (qlen - 3 if r == 5 else qlen)
+        for j in range(qlen):
+            pos[r * qlen + j] = c + j
+            if j < real:
+                p = c + j
+                slot[r * qlen + j] = bt[r, p // BS] * BS + p % BS
+                req[r * qlen + j] = r
+    seq_lens = np.array([c + qlen for c in ctx], np.int32)
+    arrays = dict(input_ids=tokens, positions=pos, req_idx=req,
+                  slot_mapping=slot, block_tables=bt, seq_lens=seq_lens)
+    results = []
+    logits, launches, caches = {}, {}, {}
+    injected = []                     # (knew, vnew) per layer, flag on
+    kernel = module.grouped_decode_attention_kernel
+
+    def spy(*a, **k):
+        if k.get("knew") is not None:
+            injected.append((k["knew"].clone(), k["vnew"].clone()))
+        return kernel(*a, **k)
+
+    module.grouped_decode_attention_kernel = spy
+    saved = os.environ.get("ARCTIC_TPU_DEFERRED_KV")
+    try:
+        for flag in ("1", "0"):
+            os.environ["ARCTIC_TPU_DEFERRED_KV"] = flag
+            inputs = {k: torch.from_numpy(v).to(dev)
+                      for k, v in arrays.items()}
+            inputs["kv_scale"] = runner.kv_scale
+            kv = runner.kv.clone()
+            reset_counts()
+            with torch.inference_mode():
+                kv, h = module.forward(
+                    runner.params, arch, kv, inputs,
+                    attn_impl=module.make_attn_impl(1, decode_qlen=qlen))
+                live = torch.from_numpy(req >= 0).to(dev)
+                logits[flag] = module.compute_logits(runner.params, h[live])
+            torch.cuda.synchronize()
+            launches[flag] = launch_counts()
+            caches[flag] = kv
+    finally:
+        module.grouped_decode_attention_kernel = kernel
+        if saved is None:
+            os.environ.pop("ARCTIC_TPU_DEFERRED_KV", None)
+        else:
+            os.environ["ARCTIC_TPU_DEFERRED_KV"] = saved
+    a, b_ = logits["1"], logits["0"]
+    diff = float((a - b_).abs().max())
+    scale = float(b_.abs().max())
+    agree = a.argmax(-1) == b_.argmax(-1)
+    top2 = b_.topk(2, dim=-1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) <= 2 * diff
+    # The written slots, as (block, offset) pairs.
+    real = torch.from_numpy(slot >= 0).to(dev)
+    sl = torch.from_numpy(slot).to(dev)[real].long()
+    blk, off = sl // BS, sl % BS
+    on, off_run = caches["1"], caches["0"]
+    stored_injected = all(
+        torch.equal(on[layer, blk, 0, off].view(torch.uint8),
+                    kn[real].view(torch.uint8))
+        and torch.equal(on[layer, blk, 1, off].view(torch.uint8),
+                        vn[real].view(torch.uint8))
+        for layer, (kn, vn) in enumerate(injected))
+    layer0_identical = torch.equal(on[0, 1:].view(torch.uint8),
+                                   off_run[0, 1:].view(torch.uint8))
+    untouched = torch.ones(on.shape[1:4], dtype=torch.bool, device=dev)
+    untouched[0] = False
+    untouched[blk, :, off] = False
+    rest_identical = torch.equal(on[:, untouched].view(torch.uint8),
+                                 off_run[:, untouched].view(torch.uint8))
+    written_on = on[:, blk, :, off].float()
+    written_off = off_run[:, blk, :, off].float()
+    written_diff = float((written_on - written_off).abs().max())
+    written_max = float(written_off.abs().max())
+    wrote = not torch.equal(on[:, 1:].view(torch.uint8),
+                            runner.kv[:, 1:].view(torch.uint8))
+    k3 = "grouped_decode_attention_kernel (deferred KV)"
+    k2 = "grouped_decode_attention_kernel"
+    res = dict(quantization=quantization, slots=b, qlen=qlen,
+               rows=int(a.shape[0]), max_abs_diff=diff, max_abs_logit=scale,
+               argmax_agree=float(agree.float().mean()),
+               near_tie_rows=int(near_tie.sum()),
+               finite=bool(torch.isfinite(a).all()),
+               bulk_write_stored_the_injected_rows=stored_injected,
+               layer0_cache_identical=layer0_identical,
+               unwritten_slots_identical=rest_identical,
+               written_slots_max_abs_diff=written_diff,
+               written_slots_max_abs=written_max,
+               step_wrote_the_cache=wrote,
+               launches_deferred_on={k: launches["1"][k] for k in (k2, k3)},
+               launches_deferred_off={k: launches["0"][k] for k in (k2, k3)})
+    log("  forward deferred " + json.dumps(res))
+    ok = (res["finite"] and diff <= 0.05 * scale
+          and bool((agree | near_tie).all()) and wrote
+          and len(injected) == arch.num_layers and stored_injected
+          and layer0_identical and rest_identical
+          and written_diff <= 0.02 * written_max
+          and launches["1"][k3] == arch.num_layers
+          and launches["1"][k2] == 0
+          and launches["0"][k3] == 0
+          and launches["0"][k2] == arch.num_layers)
+    if not ok:
+        raise AssertionError(f"deferred forward: {res}")
+    results.append(res)
+    del runner, params, caches, logits, injected, on, off_run
+    free_cuda_memory()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: end to end through LLM.generate
 # ---------------------------------------------------------------------------
@@ -804,7 +1137,8 @@ def phase_generate(rng):
                for n in rng.integers(128, 1025, 16)]
     runs = {}
     runs["bf16"], ref = run_generate(None, prompts)
-    for spec in ("suffix", "suffix tree"):
+    for spec in ("suffix", "suffix tree", "suffix fused",
+                 "suffix fused deferred"):
         runs[spec], _ = run_generate(None, prompts, spec=spec, reference=ref)
     for q in ("fp8", "int4"):
         runs[q], _ = run_generate(q, prompts)
@@ -850,7 +1184,9 @@ def token_agreement(outs, reference) -> dict:
 
 def engine_config(quantization, spec=None):
     """The generate runs' engine: Llama-3.1-8B shape, 32 layers; ``spec``
-    is None, "suffix" (linear drafts) or "suffix tree"."""
+    is None, "suffix" (linear drafts on the synchronous step), "suffix
+    tree", or "suffix fused" / "suffix fused deferred" (linear drafts on
+    the fused decode loop, the default)."""
     from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
                                                   ModelConfig,
                                                   SchedulerConfig,
@@ -866,7 +1202,8 @@ def engine_config(quantization, spec=None):
                                   max_num_batched_tokens=2048),
         speculative=None if spec is None else SpeculativeConfig(
             method="suffix", use_tree_spec=spec == "suffix tree",
-            enable_fused_decode=False, **SUFFIX_KNOBS))
+            enable_fused_decode=spec.startswith("suffix fused"),
+            **SUFFIX_KNOBS))
 
 
 def free_cuda_memory() -> None:
@@ -875,6 +1212,54 @@ def free_cuda_memory() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def sync_checked_fused_dispatch():
+    """Run every fused step's dispatch (its uploads, the step and the
+    copy of its telemetry; not its drain) under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host synchronisation
+    inside raises.  Yields the count of dispatches checked."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.fused_decode import (
+        FusedDecodeLoop)
+
+    orig = FusedDecodeLoop._dispatch
+    checked = {"dispatches": 0}
+
+    def guarded(self, *a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(self, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked["dispatches"] += 1
+        return out
+
+    FusedDecodeLoop._dispatch = guarded
+    try:
+        yield checked
+    finally:
+        FusedDecodeLoop._dispatch = orig
+
+
+@contextlib.contextmanager
+def env_flag(name, value):
+    import os
+
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
 
 
 def run_generate(quantization, prompts, spec=None, reference=None):
@@ -894,11 +1279,15 @@ def run_generate(quantization, prompts, spec=None, reference=None):
     if spec is not None:
         seed_suffix_cache(llm.engine._suffix_cache, prompts, reference,
                           vocab)
+    fused = spec is not None and spec.startswith("suffix fused")
     torch.cuda.reset_peak_memory_stats()
     steps0 = llm.engine.engine_stats.num_steps
     reset_counts()
     t0 = time.perf_counter()
-    with host_breakdown(llm.engine.runner) as host:
+    with host_breakdown(llm.engine.runner) as host, \
+            sync_checked_fused_dispatch() as checked, \
+            env_flag("ARCTIC_TPU_DEFERRED_KV",
+                     "1" if spec == "suffix fused deferred" else None):
         outs = llm.generate(prompt_token_ids=prompts,
                             sampling_params=SamplingParams(max_tokens=32))
     torch.cuda.synchronize()
@@ -919,6 +1308,7 @@ def run_generate(quantization, prompts, spec=None, reference=None):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         card=smi())
     tree_key = "ragged_paged_attention_kernel (tree mask)"
+    deferred_key = "grouped_decode_attention_kernel (deferred KV)"
     if spec is not None:
         st = llm.engine.spec_stats
         res.update(
@@ -929,6 +1319,10 @@ def run_generate(quantization, prompts, spec=None, reference=None):
             accepted_per_position=st.num_accepted_tokens_per_pos,
             step_p50_ms={k: v["p50_ms"] for k, v in steps.items()},
             agreement_with_bf16=token_agreement(outs, reference))
+    if fused:
+        res.update(fused_steps=steps.get("fused", {}).get("count", 0),
+                   width_stats=llm.engine.width_stats,
+                   sync_checked_dispatches=checked["dispatches"])
     log("  generate " + json.dumps(res))
     matmul = {"fp8": "fp8_matmul_kernel",
               "int4": "int4_matmul_kernel"}.get(quantization)
@@ -942,6 +1336,13 @@ def run_generate(quantization, prompts, spec=None, reference=None):
     else:
         ok = ok and res["native_suffix_tree"] and res["accepted_tokens"] > 0
         ok = ok and ((launches[tree_key] > 0) == (spec == "suffix tree"))
+    if fused:
+        # Every fused step was dispatched under the sync check.
+        ok = ok and res["fused_steps"] > 0 and \
+            checked["dispatches"] == sum(
+                v for k, v in res["width_stats"].items() if k != "entries")
+    ok = ok and ((launches[deferred_key] > 0)
+                 == (spec == "suffix fused deferred"))
     for key in ("fp8_matmul_kernel", "int4_matmul_kernel"):
         want = MATMUL_LAUNCHES_PER_STEP * n_steps if key == matmul else 0
         ok = ok and launches[key] == want
@@ -1118,6 +1519,11 @@ def main() -> int:
             name="grouped_decode_attention_kernel", route="cuda",
             source=csrc + ra.SOURCE,
             replaces="arcticinference_tpu/ops/pallas/ragged_attention.py:1080"),
+        "grouped_decode_attention_kernel (deferred KV)": dict(
+            name="grouped_decode_attention_kernel (deferred KV)",
+            route="cuda", source=csrc + ra.SOURCE,
+            replaces="arcticinference_tpu/ops/pallas/ragged_attention.py:1126 "
+                     "(knew / vnew)"),
         "fp8_matmul_kernel": dict(
             name="fp8_matmul_kernel", route="cuda", source=csrc + fm.SOURCE,
             replaces="arcticinference_tpu/ops/pallas/fp8_matmul.py:65"),
@@ -1128,6 +1534,10 @@ def main() -> int:
     if "kernels" in phases:
         log("[kernels] kernel vs plain, Hq=32 Hkv=8 D=128, 32-layer cache")
         ragged, grouped = phase_kernels(rng)
+        log("[kernels] deferred-KV path (kernel 3) vs plain, and kernel 2 "
+            "on the same steps with the rows written")
+        deferred_cases, grouped_written = phase_deferred_kernels(rng)
+        grouped = grouped + grouped_written
         log("[kernels] tree-mask path vs plain, token-tree verify steps")
         tree_cases = phase_tree_kernels(rng)
         log("[kernels] quantized matmuls vs plain, Llama-3.1-8B weights")
@@ -1143,6 +1553,8 @@ def main() -> int:
                  f"tree verify 16x(1+{TREE_NODES})@ctx~1024 bf16 qb=32"),
                 ("grouped_decode_attention_kernel", grouped,
                  "decode B=64 qlen=1 bf16"),
+                ("grouped_decode_attention_kernel (deferred KV)",
+                 deferred_cases, "deferred B=64 qlen=8 bf16"),
                 ("fp8_matmul_kernel", fp8_cases,
                  "fp8 w_gateup [4096,28672] M=16"),
                 ("int4_matmul_kernel", int4_cases,
@@ -1164,15 +1576,22 @@ def main() -> int:
             log(f"[forward] Llama-3.1-8B width, 2 layers, "
                 f"{quantization or 'bf16'} weights, kernels vs plain")
             phase_forward(rng, quantization)
+        for quantization in (None, "fp8"):
+            log(f"[forward] fused wide step (16 slots x 8 rows), 2 layers, "
+                f"{quantization or 'bf16'} weights, deferred KV on vs off")
+            phase_forward_deferred(rng, quantization)
     if "generate" in phases:
         log("[generate] LLM.generate, Llama-3.1-8B shape, 32 layers, bf16, "
-            "suffix speculation (linear, tree), then fp8 and int4 weights")
+            "suffix speculation (linear, tree, fused loop, fused loop with "
+            "deferred KV), then fp8 and int4 weights")
         runs = phase_generate(rng)
         # Each kernel's launches from the run of its own path.
         for key, run in (("ragged_paged_attention_kernel", "bf16"),
                          ("ragged_paged_attention_kernel (tree mask)",
                           "suffix tree"),
                          ("grouped_decode_attention_kernel", "bf16"),
+                         ("grouped_decode_attention_kernel (deferred KV)",
+                          "suffix fused deferred"),
                          ("fp8_matmul_kernel", "fp8"),
                          ("int4_matmul_kernel", "int4")):
             kernels[key]["launches"] = runs[run]["launches"][key]

@@ -129,6 +129,115 @@ def test_grouped_kernel_matches_plain(cuda_device, d, qlen, t_rows,
     assert_matches(out, ref)
 
 
+def deferred_rows(reqs, qlen, tails, kv_dtype, scale, t_rows, device,
+                  seed=1, d=D):
+    """The step's new rows of a deferred-write grouped step: knew / vnew
+    [t_rows, Hkv*D] in the cache dtype, drawn as the cache's values are
+    (so a new row weighs as much as a cached one under layer 1's scales),
+    and slot_mapping [t_rows], -1 on dead slots, on the last
+    ``tails[s]`` rows of sequence s and on bucket padding."""
+    del scale
+    rng = np.random.default_rng(seed)
+    kn, vn = (torch.from_numpy(rng.standard_normal(
+        (t_rows, HKV * d)).astype(np.float32) * 0.5) for _ in range(2))
+    slot = np.full(t_rows, -1, np.int32)
+    for s, (ctx, ql) in enumerate(reqs):
+        for j in range(ql - tails.get(s, 0)):
+            if s * qlen + j < t_rows:
+                slot[s * qlen + j] = 1000 + s * qlen + j
+    return (kn.to(device, kv_dtype), vn.to(device, kv_dtype),
+            torch.from_numpy(slot).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qlen,t_rows", [(1, 16), (1, 2), (4, 16), (8, 24),
+                                         (8, 40)])
+@pytest.mark.parametrize("d", [128, 64])
+def test_deferred_kernel_matches_plain(cuda_device, d, qlen, t_rows,
+                                       kv_dtype):
+    """Kernel 3 (deferred writes): dead slot 1, a slot -1 tail on slot 2
+    (new_len < qlen), the bucket wider and narrower than B * qlen; the
+    kernel against the wrapper's CPU path (the plain version), and
+    against attention without the injected rows, which must differ."""
+    reqs = [(17, qlen), (0, 0), (70, qlen), (500, qlen)]
+    q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device, t_rows,
+                                      d=d)
+    pos_base = torch.tensor([c for c, _ in reqs], dtype=torch.int32,
+                            device=cuda_device)
+    kn, vn, slot = deferred_rows(reqs, qlen, {2: min(2, qlen - 1)},
+                                 kv_dtype, scale, t_rows, cuda_device, d=d)
+    tra.reset_launch_counts()
+    out = tra.grouped_decode_attention_kernel(
+        q, kv, pos_base, bt, sl, qlen=qlen, kv_scale=scale, layer=1,
+        knew=kn, vnew=vn, slot_mapping=slot)
+    ref = tra.grouped_decode_attention_kernel(
+        q.cpu(), kv.cpu(), pos_base.cpu(), bt.cpu(), sl.cpu(), qlen=qlen,
+        kv_scale=scale.cpu(), layer=1, knew=kn.cpu(), vnew=vn.cpu(),
+        slot_mapping=slot.cpu())
+    torch.cuda.synchronize()
+    assert tra.deferred_decode_launches == 1
+    assert tra.grouped_decode_launches == 0
+    assert_matches(out, ref)
+    cache_only = tra.grouped_decode_attention_kernel(
+        q, kv, pos_base, bt, sl, qlen=qlen, kv_scale=scale, layer=1)
+    assert (cache_only.float() - ref.float().to(cuda_device)).abs().max() \
+        > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qlen", [1, 8])
+def test_deferred_kernel_at_smoke_shapes(cuda_device, qlen, kv_dtype):
+    """B = 64 sequences at contexts 128-2048, 6 dead, 8 with a slot -1
+    tail of 1-3 rows (the fused loop's wide and narrow steps)."""
+    rng = np.random.default_rng(7)
+    ctx = rng.integers(128, 2049, 64)
+    dead = set(rng.choice(64, 6, replace=False).tolist())
+    reqs = [(0, 0) if s in dead else (int(ctx[s]), qlen) for s in range(64)]
+    t_rows = 64 * qlen
+    q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device, t_rows)
+    pos_base = torch.tensor([c for c, _ in reqs], dtype=torch.int32,
+                            device=cuda_device)
+    live = [s for s in range(64) if s not in dead]
+    tails = {s: int(rng.integers(1, 4)) % qlen for s in live[:8]}
+    kn, vn, slot = deferred_rows(reqs, qlen, tails, kv_dtype, scale, t_rows,
+                                 cuda_device)
+    out = tra.grouped_decode_attention_kernel(
+        q, kv, pos_base, bt, sl, qlen=qlen, kv_scale=scale, layer=1,
+        knew=kn, vnew=vn, slot_mapping=slot)
+    ref = tra.grouped_decode_attention_kernel(
+        q.cpu(), kv.cpu(), pos_base.cpu(), bt.cpu(), sl.cpu(), qlen=qlen,
+        kv_scale=scale.cpu(), layer=1, knew=kn.cpu(), vnew=vn.cpu(),
+        slot_mapping=slot.cpu())
+    torch.cuda.synchronize()
+    assert_matches(out, ref)
+
+
+@pytest.mark.cuda
+def test_deferred_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    reqs = [(5, 3)]
+    q, kv, scale, bt, sl = paged_case(reqs, torch.bfloat16, cuda_device, 3)
+    pb = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    kn, vn, slot = deferred_rows(reqs, 3, {}, torch.bfloat16, scale, 3,
+                                 cuda_device)
+    tra.reset_launch_counts()
+    with pytest.raises(ValueError):              # knew without vnew
+        tra.grouped_decode_attention_kernel(q, kv, pb, bt, sl, qlen=3,
+                                            layer=1, knew=kn,
+                                            slot_mapping=slot)
+    with pytest.raises(TypeError):               # rows not in cache dtype
+        tra.grouped_decode_attention_kernel(
+            q, kv, pb, bt, sl, qlen=3, layer=1, knew=kn.float(),
+            vnew=vn.float(), slot_mapping=slot)
+    with pytest.raises(ValueError):              # rows of another count
+        tra.grouped_decode_attention_kernel(
+            q, kv, pb, bt, sl, qlen=3, layer=1, knew=kn[:2], vnew=vn[:2],
+            slot_mapping=slot[:2])
+    assert tra.deferred_decode_launches == 0
+
+
 def tree_step(reqs, device, qb):
     """A verify step over ``reqs`` [(ctx, real tokens fed, tree parents
     or None)]: positions (depth-based on tree rows), request ids, per-row

@@ -6,10 +6,14 @@
   ``attn_item_tree_start``, ``attn_item_tree_mask``) included.
 - Token parity on the trained checkpoint of tests/test_torch_engine.py in
   float32: with ``SpeculativeConfig(method="suffix")``, linear and
-  ``use_tree_spec``, the port's tokens equal the JAX engine's
-  (``enable_fused_decode=False``: its fused loop caps drafts at
-  ``fused_suffix_spec_len``) and the port's tokens without speculation,
-  and ``spec_stats`` are equal across the packages.  Both engines' suffix
+  ``use_tree_spec``, on the synchronous step of both engines
+  (``enable_fused_decode=False``), the port's tokens equal the JAX
+  engine's and the port's tokens without speculation, and ``spec_stats``
+  are equal across the packages.  With the fused loops
+  (``enable_fused_decode=True``) the two packages give the same tokens,
+  ``spec_stats`` and ``width_stats``: the loop's host policy is a
+  function of the drained telemetry (the checkpoint's head dim is 32, so
+  neither package defers KV writes).  Both engines' suffix
   caches are seeded as tests/test_tree_spec.py seeds them (the true
   continuation plus a double-weighted corrupted one), so drafts exist and
   trees branch; the tree then beats the linear path on draft survival.
@@ -222,24 +226,29 @@ def test_tree_beats_path_on_acceptance(baseline):
 @pytest.mark.parametrize("tree", [False, True])
 def test_spec_sampling_and_fused_default(baseline, tree):
     """The port's own paths beside the parity runs: ``enable_fused_decode``
-    left at its default (the fused loop is not ported; the synchronous
-    step runs) gives the same greedy tokens, and a seeded request with
-    temperature > 0 (sample-and-compare verify) is reproducible from the
-    same engine state and stays in the vocabulary.  (Tree verify rows
-    take their sampling counters by row, not by depth, as in the JAX
-    runner, so seeded tokens depend on the drafts: a second run on the
-    same engine, whose cache now holds the first run's output, may
-    differ.)"""
+    left at its default gives the same greedy tokens (linear drafts: the
+    fused loop runs, and its steps are counted; trees: the synchronous
+    step), and a seeded request with temperature > 0 (sample-and-compare
+    verify on the synchronous step: a seeded request is not fusable) is
+    reproducible from the same engine state and stays in the vocabulary.
+    (Tree verify rows take their sampling counters by row, not by depth,
+    as in the JAX runner, so seeded tokens depend on the drafts: a second
+    run on the same engine, whose cache now holds the first run's output,
+    may differ.)"""
     path, prompts, _, port_tokens = baseline
     d = config_dict(model=path)
     d["speculative"] = dict(spec_kw(tree), enable_fused_decode=not tree)
-    conf = tcfg.EngineConfig.from_dict(d)
-    llm = LLM(conf, device="cpu")
+    llm = LLM(tcfg.EngineConfig.from_dict(d), device="cpu")
     outs = llm.generate(prompt_token_ids=prompts,
                         sampling_params=SamplingParams(max_tokens=GEN,
                                                        ignore_eos=True))
     assert [o.token_ids for o in outs] == port_tokens
+    fused_steps = llm.engine.step_times.summary().get("fused", {})
+    assert (fused_steps.get("count", 0) > 0) == (not tree)
+    assert (llm.engine.width_stats is None) == tree
     llm.close()
+    d["speculative"] = spec_kw(tree)
+    conf = tcfg.EngineConfig.from_dict(d)
     sp = SamplingParams(max_tokens=GEN, ignore_eos=True, temperature=0.8,
                         seed=3)
     runs = []
@@ -252,3 +261,38 @@ def test_spec_sampling_and_fused_default(baseline, tree):
     a, b = ([o.token_ids for o in r] for r in runs)
     assert a == b
     assert all(len(t) == GEN and 0 <= min(t) and max(t) < 256 for t in a)
+
+
+# ---------------------------------------------------------------------------
+# The fused loop against the JAX engine's loop
+# ---------------------------------------------------------------------------
+
+def test_fused_loop_matches_jax_engine(baseline):
+    """Both packages' fused loops (the knobs of ``spec_kw``), two passes
+    each, the second over a cache holding the first's output: the
+    baseline's tokens (whose top-2 margins the fixture checked), and
+    identical draft statistics and program widths."""
+    path, prompts, ref_tokens, _ = baseline
+    d = config_dict(model=path)
+    d["speculative"] = dict(spec_kw(False), enable_fused_decode=True)
+    jllm = JaxLLM(jcfg.EngineConfig.from_dict(d))
+    tllm = LLM(tcfg.EngineConfig.from_dict(d), device="cpu")
+    for _ in range(2):
+        j = jllm.generate(prompt_token_ids=prompts,
+                          sampling_params=JaxSamplingParams(
+                              max_tokens=GEN, ignore_eos=True))
+        t = tllm.generate(prompt_token_ids=prompts,
+                          sampling_params=SamplingParams(max_tokens=GEN,
+                                                         ignore_eos=True))
+        assert [o.token_ids for o in t] == [o.token_ids for o in j] == \
+            ref_tokens
+    js, ts = jllm.engine.spec_stats, tllm.engine.spec_stats
+    assert ts.num_accepted_tokens > 0
+    assert (ts.num_drafts, ts.num_draft_tokens, ts.num_accepted_tokens,
+            ts.num_accepted_tokens_per_pos) == \
+        (js.num_drafts, js.num_draft_tokens, js.num_accepted_tokens,
+         js.num_accepted_tokens_per_pos)
+    assert tllm.engine.width_stats == jllm.engine._fused.width_stats
+    assert tllm.engine.step_times.summary()["fused"]["count"] > 0
+    tllm.close()
+    jllm.engine.close()
