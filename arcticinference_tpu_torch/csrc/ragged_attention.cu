@@ -1,11 +1,15 @@
 // Paged attention kernels for Hopper (sm_90a): the ragged work-item
-// kernel and the grouped uniform-decode kernel.
+// kernel, the grouped uniform-decode kernel and the per-sequence decode
+// kernel.
 //
 // Replaces (arcticinference_tpu/ops/pallas/ragged_attention.py):
 //   ragged_paged_attention_kernel   (_ragged_attention_call / _attn_kernel,
 //                                    with its use_tree branch)
 //   grouped_decode_attention_kernel (_grouped_decode_call /
 //                                    _grouped_decode_kernel)
+//   decode_paged_attention_kernel   (_decode_attention_call /
+//                                    _decode_kernel; see "kernel 4" below
+//                                    for its own design)
 //
 // What bounds them on an H100: the KV bytes each step reads.  A decode
 // row does 4 flops per KV element it reads (2 for q.k, 2 for p.v) and a
@@ -14,8 +18,8 @@
 // rows share each page among up to qb*group query rows, which moves a
 // long prefill toward the compute side.
 //
-// What this design does about it (a first, simple version: CUDA cores
-// and fp32 FMA, no tensor cores, no TMA):
+// What this design does about it in kernels 1-3 (a first, simple
+// version: CUDA cores and fp32 FMA, no tensor cores, no TMA):
 //   * One CTA per (work item or sequence, kv head).  Its query rows
 //     (qlen * group of them: every q head of the GQA group, every token)
 //     share the head's K/V pages, so each page is read once per CTA row
@@ -158,17 +162,19 @@ struct Smem {
 
 // Fold one chunk of at most 32 tokens into a warp's online-softmax state:
 // lane j owns token j, whose K row is krow (read only when k_ok) and whose
-// V row is vbase + j * v_stride (this lane's dims).  ok[r]: row r attends
-// this lane's token; tokens at or past jmax carry no weight for any row.
+// V row is vbase + j * v_stride (this lane's dims); K and V may lie in
+// device or shared memory.  q: the warp's RW query rows (fp32, scaled);
+// p: the warp's [RW][32] scratch.  ok[r]: row r attends this lane's
+// token; tokens at or past jmax carry no weight for any row.
 template <class KV, int D, int RW>
 __device__ __forceinline__ void fold_chunk(
-    Smem<D, RW>& sm, const typename KV::T* __restrict__ krow, bool k_ok,
+    float (*__restrict__ q)[D], float (*__restrict__ p)[kPage],
+    const typename KV::T* __restrict__ krow, bool k_ok,
     const typename KV::T* __restrict__ vbase, int64_t v_stride,
     const bool (&ok)[RW], int jmax, float (&m)[RW], float (&l)[RW],
     float (&acc)[RW][D / 32]) {
   constexpr int DPL = D / 32;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   float s[RW];
 #pragma unroll
   for (int r = 0; r < RW; ++r) s[r] = 0.f;
@@ -179,8 +185,8 @@ __device__ __forceinline__ void fold_chunk(
       load_cvt<KV, 8>(krow + c, kf);
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
-        const float4 qa = *reinterpret_cast<const float4*>(&sm.q[r][c]);
-        const float4 qb = *reinterpret_cast<const float4*>(&sm.q[r][c + 4]);
+        const float4 qa = *reinterpret_cast<const float4*>(&q[r][c]);
+        const float4 qb = *reinterpret_cast<const float4*>(&q[r][c + 4]);
         s[r] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
                 qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
       }
@@ -198,7 +204,7 @@ __device__ __forceinline__ void fold_chunk(
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha;
     m[r] = m_new;
-    sm.p[warp][r][lane] = pj;
+    p[r][lane] = pj;
   }
   __syncwarp();
 #pragma unroll 4
@@ -207,7 +213,7 @@ __device__ __forceinline__ void fold_chunk(
     load_cvt<KV, DPL>(vbase + (int64_t)j * v_stride, vf);
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
-      const float pj = sm.p[warp][r][j];
+      const float pj = p[r][j];
 #pragma unroll
       for (int e = 0; e < DPL; ++e) acc[r][e] += pj * vf[e];
     }
@@ -289,9 +295,9 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
           ok[r] = rel < 32 && ((mask[r] >> rel) & 1u);
       }
       // Only tokens at or before the tile's last position carry weight.
-      fold_chunk<KV, D, RW>(sm, krow, true, vbase, hkv_d, ok,
-                            min(kPage, max_pos - pg_i * kPage + 1), m, l,
-                            acc);
+      fold_chunk<KV, D, RW>(sm.q, sm.p[warp], krow, true, vbase, hkv_d,
+                            ok, min(kPage, max_pos - pg_i * kPage + 1), m,
+                            l, acc);
     }
     if (deferred && warp == last_page % kWarps) {
       // The new rows, as one more chunk, on the warp whose turn is next.
@@ -302,7 +308,8 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
 #pragma unroll
       for (int r = 0; r < RW; ++r) ok[r] = has && lane <= tix[r];
       fold_chunk<KV, D, RW>(
-          sm, knew + (int64_t)(rows.tok0 + lane) * hkv_d + h * D, has,
+          sm.q, sm.p[warp],
+          knew + (int64_t)(rows.tok0 + lane) * hkv_d + h * D, has,
           vnew + (int64_t)rows.tok0 * hkv_d + h * D + lane * DPL, hkv_d, ok,
           min(rows.new_len, max_tok + 1), m, l, acc);
     }
@@ -416,7 +423,9 @@ __global__ void __launch_bounds__(kThreads) grouped_decode_kernel(
   const int* page_row = block_tables;
   const bool live = seq < b && seq_lens[seq] > 0;
   if (seq < b) {
-    npages = (seq_lens[seq] + kPage - 1) / kPage;
+    // No page past the block table's row (a step near max_model_len
+    // gives its rows past the limit a longer seq_len).
+    npages = min((seq_lens[seq] + kPage - 1) / kPage, max_blk);
     pos0 = pos_base[seq];
     page_row = block_tables + (int64_t)seq * max_blk;
   }
@@ -434,6 +443,181 @@ __global__ void __launch_bounds__(kThreads) grouped_decode_kernel(
   attend<KV, D, RW>(sm, q, out, kv + layer * layer_stride, page_row,
                         npages, rows, h, hq, hkv,
                         scale * kv_scale[2 * layer], kv_scale[2 * layer + 1]);
+}
+
+// ---- kernel 4: one CTA per sequence ------------------------------------------
+
+// The TPU kernel's grid (one program per sequence) on Hopper: the CTA's
+// 8 warps cover every (kv head, row tile) unit of the sequence's rows, a
+// warp holding one unit's fp32 online-softmax state (RW rows) in
+// registers.  Each page is copied once per pass into shared memory as
+// whole token rows (Hkv*D contiguous elements per token, K then V, with
+// cp.async; rows padded by 16 bytes so a warp's 32 token rows fall on
+// distinct banks) and serves every unit's kv head from there.  A pass
+// covers 8 units: one pass reads each page once when qlen * group <= 16
+// rows per kv head and Hkv <= 8 (the 8B shape at qlen <= 4).
+constexpr int kWarps4 = 8;
+constexpr int kThreads4 = kWarps4 * 32;
+constexpr int kRowPad = 16;  // bytes after each token row in shared memory
+
+template <class KV, int D, int RW>
+__host__ __device__ constexpr int smem4_bytes(int hkv_d) {
+  return 2 * kPage * (hkv_d * static_cast<int>(sizeof(typename KV::T)) +
+                      kRowPad) +
+         kWarps4 * RW * (D + kPage) * static_cast<int>(sizeof(float));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+template <class KV, int D, int RW>
+__global__ void __launch_bounds__(kThreads4) decode_paged_kernel(
+    const uint16_t* __restrict__ q, uint16_t* __restrict__ out,
+    const typename KV::T* __restrict__ kv, const float* __restrict__ kv_scale,
+    const int* __restrict__ pos_base, const int* __restrict__ seq_lens,
+    const int* __restrict__ block_tables, int layer, int b, int t, int qlen,
+    int hq, int hkv, int max_blk, int64_t layer_stride, float scale) {
+  using E = typename KV::T;
+  constexpr int DPL = D / 32;
+  extern __shared__ __align__(16) unsigned char smem4[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int seq = blockIdx.x;
+  const int group = hq / hkv;
+  const int hkv_d = hkv * D;
+  const int tok0 = seq * qlen;
+  const int ntok = min(qlen, t - tok0);  // this sequence's rows in q
+  if (ntok <= 0) return;
+  if (seq >= b || seq_lens[seq] <= 0) {
+    // A slot past b or a dead slot: its rows come out zero.
+    for (int idx = threadIdx.x; idx < ntok * hq * D; idx += kThreads4)
+      out[(int64_t)tok0 * hq * D + idx] = Bf16::from_float(0.f);
+    return;
+  }
+  // Shared memory: K rows | V rows of one page, then per warp its RW q
+  // rows and its [RW][32] softmax scratch.
+  const int row_elems = hkv_d + kRowPad / static_cast<int>(sizeof(E));
+  E* sk = reinterpret_cast<E*>(smem4);
+  E* sv = sk + kPage * row_elems;
+  float(*sq)[D] = reinterpret_cast<float(*)[D]>(sv + kPage * row_elems);
+  float(*sp)[kPage] = reinterpret_cast<float(*)[kPage]>(sq + kWarps4 * RW);
+  float(*wq)[D] = sq + warp * RW;
+  float(*wp)[kPage] = sp + warp * RW;
+
+  const E* kv_layer = kv + layer * layer_stride;
+  const int* page_row = block_tables + (int64_t)seq * max_blk;
+  const int pos0 = pos_base[seq];
+  const float q_scale = scale * kv_scale[2 * layer];
+  const float v_scale = kv_scale[2 * layer + 1];
+  // The sequence's last position bounds the pages any row attends.
+  const int npages = min((seq_lens[seq] + kPage - 1) / kPage, max_blk);
+  const int last_page = min(npages, (pos0 + ntok - 1) / kPage + 1);
+  const int rows_head = ntok * group;
+  const int tiles = (rows_head + RW - 1) / RW;
+  const int units = hkv * tiles;
+  const int chunks16 = hkv_d * static_cast<int>(sizeof(E)) / 16;
+
+  for (int unit0 = 0; unit0 < units; unit0 += kWarps4) {
+    const int unit = unit0 + warp;
+    const bool has = unit < units;
+    const int h = has ? unit / tiles : 0;
+    const int r0 = has ? (unit % tiles) * RW : 0;
+    // This warp's rows: row i of head h is token i / group under q head
+    // h * group + i % group; pos[r] is its causal limit (-1: no row).
+    int pos[RW];
+    int max_pos = -1;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const int i = r0 + r;
+      pos[r] = (has && i < rows_head) ? pos0 + i / group : -1;
+      max_pos = max(max_pos, pos[r]);
+    }
+    for (int idx = lane; idx < RW * D; idx += 32) {
+      const int r = idx / D, dd = idx % D, i = r0 + r;
+      float val = 0.f;
+      if (has && i < rows_head) {
+        const int head = h * group + i % group;
+        val = Bf16::cvt(q[(int64_t)(tok0 + i / group) * hq * D + head * D +
+                          dd]) *
+              q_scale;
+      }
+      wq[r][dd] = val;
+    }
+    __syncwarp();
+    float m[RW], l[RW], acc[RW][DPL];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      m[r] = kNegInf;
+      l[r] = 0.f;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
+    }
+    for (int pg = 0; pg < last_page; ++pg) {
+      // Whole token rows of the page, K then V, into shared memory.
+      const E* src = kv_layer + (int64_t)page_row[pg] * 2 * kPage * hkv_d;
+      for (int c = threadIdx.x; c < 2 * kPage * chunks16; c += kThreads4) {
+        const int row = c / chunks16;  // 0..63: K rows, then V rows
+        const int col = c % chunks16;
+        cp_async16(reinterpret_cast<unsigned char*>(sk + row * row_elems) +
+                       col * 16,
+                   reinterpret_cast<const unsigned char*>(
+                       src + (int64_t)row * hkv_d) +
+                       col * 16);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      __syncthreads();
+      if (has) {
+        const int kv_pos = pg * kPage + lane;
+        bool ok[RW];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) ok[r] = kv_pos <= pos[r];
+        fold_chunk<KV, D, RW>(wq, wp, sk + lane * row_elems + h * D, true,
+                              sv + h * D + lane * DPL, row_elems, ok,
+                              min(kPage, max_pos - pg * kPage + 1), m, l,
+                              acc);
+      }
+      __syncthreads();  // the page buffer is free again
+    }
+    if (has) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float lr = warp_sum(l[r]);
+        if (pos[r] < 0) continue;
+        const int i = r0 + r;
+        const int head = h * group + i % group;
+        uint16_t* o =
+            out + (int64_t)(tok0 + i / group) * hq * D + head * D + lane * DPL;
+        const float f = v_scale / fmaxf(lr, 1e-20f);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) o[e] = Bf16::from_float(acc[r][e] * f);
+      }
+    }
+  }
+}
+
+template <class KV, int D, int RW>
+cudaError_t launch_decode_paged(void* q, void* out, const void* kv,
+                                const float* kv_scale, const int* pos_base,
+                                const int* seq_lens, const int* block_tables,
+                                int layer, int b, int t, int qlen, int hq,
+                                int hkv, int max_blk, int64_t layer_stride,
+                                float scale, cudaStream_t stream) {
+  auto* kernel = decode_paged_kernel<KV, D, RW>;
+  const int smem = smem4_bytes<KV, D, RW>(hkv * D);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_seq = std::max(b, (t + qlen - 1) / qlen);
+  kernel<<<n_seq, kThreads4, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<uint16_t*>(out),
+      static_cast<const typename KV::T*>(kv), kv_scale, pos_base, seq_lens,
+      block_tables, layer, b, t, qlen, hq, hkv, max_blk, layer_stride, scale);
+  return cudaGetLastError();
 }
 
 // ---- dispatch ----------------------------------------------------------------
@@ -511,6 +695,24 @@ struct GroupedF {
   }
 };
 
+// Kernel 4's instances: (kv dtype, head dim, rows per warp 4 / 8 / 16).
+template <class... A>
+cudaError_t dispatch_decode_paged(int kv_fp8, int d, int rw, A... args) {
+#define ARCTIC_CASE(KVT, DD, RWW)                                        \
+  if ((kv_fp8 != 0) == std::is_same<KVT, Fp8>::value && d == DD &&      \
+      rw == RWW)                                                         \
+    return launch_decode_paged<KVT, DD, RWW>(args...);
+#define ARCTIC_CASES(KVT)                                                \
+  ARCTIC_CASE(KVT, 64, 4) ARCTIC_CASE(KVT, 64, 8) ARCTIC_CASE(KVT, 64, 16) \
+  ARCTIC_CASE(KVT, 128, 4) ARCTIC_CASE(KVT, 128, 8)                        \
+  ARCTIC_CASE(KVT, 128, 16)
+  ARCTIC_CASES(Bf16)
+  ARCTIC_CASES(Fp8)
+#undef ARCTIC_CASES
+#undef ARCTIC_CASE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Pointers are device pointers;
@@ -557,5 +759,24 @@ extern "C" int grouped_decode_launch(
       static_cast<const int*>(seq_lens),
       static_cast<const int*>(block_tables), knew, vnew,
       static_cast<const int*>(slot_mapping), layer, b, t, qlen, hq, hkv,
+      max_blk, layer_stride, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel 4: q / out [t, hq, D] bf16, rows of sequence s at [s*qlen,
+// (s+1)*qlen); one CTA per sequence.  Hkv*D elements of the cache must
+// fit 2 KiB (the host checks).
+extern "C" int decode_paged_launch(void* q, void* out, const void* kv,
+                                   const void* kv_scale, const void* pos_base,
+                                   const void* seq_lens,
+                                   const void* block_tables, int layer, int b,
+                                   int t, int qlen, int hq, int hkv, int d,
+                                   int max_blk, int64_t layer_stride,
+                                   int kv_fp8, int rows_per_warp, float scale,
+                                   void* stream) {
+  return static_cast<int>(dispatch_decode_paged(
+      kv_fp8, d, rows_per_warp, q, out, kv,
+      static_cast<const float*>(kv_scale), static_cast<const int*>(pos_base),
+      static_cast<const int*>(seq_lens),
+      static_cast<const int*>(block_tables), layer, b, t, qlen, hq, hkv,
       max_blk, layer_stride, scale, static_cast<cudaStream_t>(stream)));
 }

@@ -17,9 +17,13 @@ ported yet: when it is requested, which is the default, the engine says
 so once at start-up and runs the synchronous step, which gives the same
 tokens.  Speculation is suffix decoding
 (``SpeculativeConfig(method="suffix")``), with linear drafts or token
-trees (``use_tree_spec``, on the synchronous step).  The draft models
-(``method="arctic"`` and the MLP / LSTM speculators), guided decoding,
-penalties and logprobs raise ``NotImplementedError``.
+trees (``use_tree_spec``, on the synchronous step), or the Arctic MLP /
+LSTM draft models (``method="arctic"``, ``"mlp_speculator"``,
+``"lstm_speculator"``; ``spec/proposer.py``), alone or with suffix
+decoding (``enable_suffix_decoding``): the drafter chains on the hidden
+row of each request's last accepted token, after a synchronous step or
+inside the fused loop's step.  Distilled (``distilled_tied``) drafters,
+guided decoding, penalties and logprobs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from arcticinference_tpu_torch.engine.scheduler import (Scheduler,
                                                         SchedulerOutput)
 from arcticinference_tpu_torch.models.loader import load_model
 from arcticinference_tpu_torch.ops.cuda.ragged_attention import MAX_TREE_NODES
+from arcticinference_tpu_torch.spec.proposer import ArcticProposer
 from arcticinference_tpu_torch.spec.suffix_cache import SuffixCache
 from arcticinference_tpu_torch.stats import (EngineStats, SpecDecodingStats,
                                              StepTimeStats)
@@ -53,10 +58,6 @@ class LLMEngine:
     def __init__(self, config: EngineConfig,
                  device: Union[str, torch.device, None] = None):
         spec = config.speculative
-        if spec is not None and spec.method != "suffix":
-            raise NotImplementedError(
-                f"speculative method {spec.method!r} is not ported yet "
-                "(suffix decoding is)")
         self.config = config
         self.device = resolve_device(device)
         module, arch, params = load_model(config.model, self.device)
@@ -82,8 +83,9 @@ class LLMEngine:
         self._suffix_cache: Optional[SuffixCache] = None
         self._prompt_tree_pool: Optional[ThreadPoolExecutor] = None
         self._prompt_tree_futs: dict = {}
+        self._drafter: Optional[ArcticProposer] = None
         self._fused: Optional[FusedDecodeLoop] = None
-        if spec is not None:
+        if spec is not None and spec.enable_suffix_decoding:
             self._suffix_cache = SuffixCache(spec.suffix_cache_max_depth)
             # Prompt trees are built here while the prompt prefills
             # (submitted at admission, installed at the first commit).
@@ -93,16 +95,19 @@ class LLMEngine:
             # futures: past the bound a request builds its tree
             # synchronously at its first commit.
             self._prompt_tree_bound = 2 * config.scheduler.max_num_seqs
-            if spec.enable_fused_decode:
-                fused = FusedDecodeLoop(self)
-                # Installed only where it can engage; otherwise the sync
-                # path keeps full drafting duties.
-                if fused.eligible():
-                    self._fused = fused
-                else:
-                    logger.info("enable_fused_decode=True without suffix "
-                                "decoding: nothing for the fused loop to "
-                                "draft; running the synchronous step")
+        if spec is not None and spec.method in ("arctic", "mlp_speculator",
+                                                "lstm_speculator"):
+            self._drafter = ArcticProposer(spec, arch, self.device)
+        if spec is not None and spec.enable_fused_decode:
+            fused = FusedDecodeLoop(self)
+            # Installed only where it can engage; otherwise the sync path
+            # keeps full drafting duties.
+            if fused.eligible():
+                self._fused = fused
+            else:
+                logger.info("enable_fused_decode=True without suffix "
+                            "decoding or a drafter: nothing for the fused "
+                            "loop to draft; running the synchronous step")
 
     # ------------------------------------------------------------------ #
     # Request management
@@ -226,8 +231,12 @@ class LLMEngine:
             kind = "verify"
         else:
             kind = "mixed"
-        argmax, sampled = self.runner.execute(step_inputs, self._generator)
+        argmax, sampled, hidden_rows = self.runner.execute(step_inputs,
+                                                           self._generator)
         finished: list[Request] = []
+        # Sample row of each committed request's last accepted token (the
+        # row a drafter chains from).
+        accepted_row: dict[str, int] = {}
         emitted = 0
         for r, s in enumerate(sched_out.scheduled):
             req = s.request
@@ -242,7 +251,8 @@ class LLMEngine:
             # distribution, and accepting draft == sample is unbiased.
             rows = (sampled if req.sampling.temperature > 0
                     else argmax)[lo:lo + k]
-            new_tokens, n_acc = self._verify(req, s, rows)
+            new_tokens, n_acc, row = self._verify(req, s, rows)
+            accepted_row[req.req_id] = lo + row
             self.scheduler.update_after_step(s, new_tokens, n_acc)
             self._update_suffix_cache(req, new_tokens)
             emitted += len(new_tokens)
@@ -257,15 +267,16 @@ class LLMEngine:
                 self.scheduler.finish_request(req, stop)
                 self._evict_spec_state(req)
                 finished.append(req)
-        self._propose_drafts(sched_out)
+        self._propose_drafts(sched_out, hidden_rows, accepted_row)
         self.engine_stats.num_steps += 1
         self.engine_stats.num_finished += len(finished)
         return kind, emitted, finished
 
-    def _verify(self, req: Request, s, rows) -> tuple[list[int], int]:
+    def _verify(self, req: Request, s, rows) -> tuple[list[int], int, int]:
         """The tokens a request commits from its verify rows ``rows`` (the
-        target's choice after the frontier and after each draft), and the
-        number of accepted drafts to commit with."""
+        target's choice after the frontier and after each draft), the
+        number of accepted drafts to commit with, and the verify row of
+        its last accepted token."""
         drafts = s.spec_token_ids
         if s.spec_parents is not None and drafts:
             # Token tree: from the frontier, follow at each node the child
@@ -287,7 +298,8 @@ class LLMEngine:
                 path.append(nxt)
                 cur = nxt
             self._observe_drafts(req, len(drafts), len(path))
-            return [int(drafts[c]) for c in path] + [want], 0
+            return ([int(drafts[c]) for c in path] + [want], 0,
+                    0 if cur < 0 else 1 + cur)
         n_acc = 0
         for i, d in enumerate(drafts):
             if rows[i] != d:
@@ -295,7 +307,8 @@ class LLMEngine:
             n_acc += 1
         if drafts:
             self._observe_drafts(req, len(drafts), n_acc)
-        return [int(x) for x in drafts[:n_acc]] + [int(rows[n_acc])], n_acc
+        return ([int(x) for x in drafts[:n_acc]] + [int(rows[n_acc])], n_acc,
+                n_acc)
 
     def _observe_drafts(self, req: Request, n_drafts: int,
                         n_accepted: int) -> None:
@@ -334,60 +347,80 @@ class LLMEngine:
         return bool(sc.disable_by_batch_size and len(self.scheduler.running)
                     > sc.disable_by_batch_size)
 
-    def _propose_drafts(self, sched_out: SchedulerOutput) -> None:
-        """Suffix drafts for the next step of every request this step
-        left at its decode frontier (with trees, as soon as its prompt is
-        computed: accepted tokens are fed again); none above
+    def _propose_drafts(self, sched_out: SchedulerOutput,
+                        hidden_rows: torch.Tensor,
+                        accepted_row: dict[str, int]) -> None:
+        """Drafts for the next step of every request this step left at
+        its decode frontier (with trees, as soon as its prompt is
+        computed: accepted tokens are fed again).  A suffix draft wins
+        where its score reaches ``min_score`` (0 for ``method="suffix"``,
+        else ``num_speculative_tokens``: what a drafter offers); the
+        drafter drafts for the other frontier requests, from
+        ``hidden_rows`` [s_pad, hidden] at ``accepted_row``.  None above
         ``disable_by_batch_size`` running requests, and none while the
         fused loop is installed: it drafts every decode step on the
         device, and the sync steps around it only prefill and admit."""
         sc = self.spec_config
-        if self._suffix_cache is None or self._spec_disabled_now() or \
-                self._fused is not None:
+        if self._spec_disabled_now() or self._fused is not None:
             return
         tree = bool(sc.use_tree_spec)
 
         def proposable(req):
-            if req.status.is_finished:
+            sp = req.sampling
+            if req.status.is_finished or sp.guided is not None or \
+                    sp.needs_penalties:
                 return False
             if req.num_computed_tokens >= req.num_tokens - 1:
                 return True
             return tree and \
                 req.num_computed_tokens >= len(req.prompt_token_ids)
 
-        items = []
+        results = {}
+        if self._suffix_cache is not None:
+            items = []
+            for s in sched_out.scheduled:
+                req = s.request
+                if not proposable(req):
+                    continue
+                pattern = req.all_token_ids[-sc.suffix_cache_max_depth:]
+                cap = min(sc.num_speculative_tokens,
+                          self.config.model.max_model_len
+                          - req.num_tokens - 1)
+                if tree:
+                    cap = min(cap, MAX_TREE_NODES)
+                if cap <= 0:
+                    continue
+                items.append((req.req_id, dict(
+                    req_id=req.req_id, pattern=pattern,
+                    max_spec_tokens=cap,
+                    max_spec_factor=sc.suffix_max_spec_factor,
+                    max_spec_offset=sc.suffix_max_spec_offset,
+                    min_token_prob=sc.suffix_min_token_prob,
+                    use_tree_spec=tree,
+                    use_cached_prompt=self._suffix_cache.has_cached_prompt(
+                        req.req_id))))
+            results = self._suffix_cache.speculate_batch(
+                items, pool=self._prompt_tree_pool)
+        min_score = 0 if sc.method == "suffix" else sc.num_speculative_tokens
+        drafter_reqs = []
         for s in sched_out.scheduled:
             req = s.request
             if not proposable(req):
                 continue
-            pattern = req.all_token_ids[-sc.suffix_cache_max_depth:]
-            cap = min(sc.num_speculative_tokens,
-                      self.config.model.max_model_len - req.num_tokens - 1)
-            if tree:
-                cap = min(cap, MAX_TREE_NODES)
-            if cap <= 0:
-                continue
-            items.append((req, dict(
-                req_id=req.req_id, pattern=pattern, max_spec_tokens=cap,
-                max_spec_factor=sc.suffix_max_spec_factor,
-                max_spec_offset=sc.suffix_max_spec_offset,
-                min_token_prob=sc.suffix_min_token_prob,
-                use_tree_spec=tree,
-                use_cached_prompt=self._suffix_cache.has_cached_prompt(
-                    req.req_id))))
-        results = self._suffix_cache.speculate_batch(
-            [(req.req_id, kw) for req, kw in items],
-            pool=self._prompt_tree_pool)
-        for req, _ in items:
-            res = results[req.req_id]
-            if not res.token_ids:
-                continue
-            req.spec_token_ids = [int(t) for t in res.token_ids]
-            parents = list(res.parents)
-            # A chain rides the linear path (its KV lands at the right
-            # slots, nothing is fed again).
-            is_chain = all(p == i - 1 for i, p in enumerate(parents))
-            req.spec_parents = None if is_chain else parents
+            res = results.get(req.req_id)
+            if res is not None and res.score >= min_score and res.token_ids:
+                req.spec_token_ids = [int(t) for t in res.token_ids]
+                parents = list(res.parents)
+                # A chain rides the linear path (its KV lands at the right
+                # slots, nothing is fed again).
+                is_chain = all(p == i - 1 for i, p in enumerate(parents))
+                req.spec_parents = None if is_chain else parents
+            elif self._drafter is not None and \
+                    req.num_computed_tokens >= req.num_tokens - 1:
+                drafter_reqs.append(s)
+        if drafter_reqs:
+            self._drafter.propose(drafter_reqs, hidden_rows, accepted_row,
+                                  self.config.model.max_model_len)
 
     def _update_suffix_cache(self, req: Request,
                              new_tokens: list[int]) -> None:

@@ -1,9 +1,9 @@
-"""Device-resident fused decode loop for suffix speculation.
+"""Device-resident fused decode loop for speculative decoding.
 
-Counterpart of ``arcticinference_tpu/engine/fused_decode.py`` for
-suffix-only speculation on one GPU.  While every fusable running request
-sits at its decode frontier, one step is a pure function of per-slot
-device state:
+Counterpart of ``arcticinference_tpu/engine/fused_decode.py`` on one GPU,
+for suffix drafts, the Arctic MLP / LSTM drafters, or both.  While every
+fusable running request sits at its decode frontier, one step is a pure
+function of per-slot device state:
 
   state:  n_computed, last_token, drafts, draft_len, alive, limit,
           sampling params, stop ids, suffix ring / path, a generator
@@ -13,9 +13,14 @@ device state:
           -> verify on the device (greedy prefix match, or sample and
              compare when temperature > 0)
           -> stop detection (eos, <= 4 stop ids, length)
+          -> the drafter chain on the hidden row of each slot's bonus
+             token (the last accepted row) as the next drafts
           -> advance the suffix path: ring buffer of emitted tokens, the
              host's path upload merged where its gap verifies against
              the ring, the surviving path walked as the next drafts
+             (preferred over the drafter's while it lives; with a
+             drafter the host uploads only paths whose score reaches
+             ``num_speculative_tokens``)
   out:    an int32 telemetry block [B, K+2] the host drains with lag
 
 The step issues no host synchronisation: the host dispatches step N+1
@@ -25,10 +30,11 @@ ahead for every step in flight.  The host picks each step's program from
 what it already knows: wide (K+1 verify rows per slot), narrow (1 row),
 or per slot (``rows_total``: each row its own qlen-1 sequence, 1 or K+1
 rows a slot), and uploads a suffix path per slot walked from its
-lag-synced prefix.
+lag-synced prefix.  The width policy is suffix-only: with a drafter
+every step is wide (K = the drafter's ``n_predict``), as in the JAX loop.
 
-Not ported (they raise or are not offered): model drafters, meshes,
-multihost, dp, pp, SwiftKV and the hidden-state export for distillation.
+Not ported (they raise or are not offered): meshes, multihost, dp, pp,
+SwiftKV and the hidden-state export for distillation.
 """
 
 from __future__ import annotations
@@ -55,25 +61,28 @@ MAX_STOP_IDS = 4
 # The fused device step
 # --------------------------------------------------------------------- #
 
-def build_fused_step(runner, num_spec: int, need_sampling: bool,
-                     eos_token_id: Optional[int], path_len_max: int = 32,
-                     ring_w: int = 64, wide: bool = True,
-                     rows_total: Optional[int] = None):
+def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
+                     eos_token_id: Optional[int], use_suffix: bool = True,
+                     path_len_max: int = 32, ring_w: int = 64,
+                     wide: bool = True, rows_total: Optional[int] = None):
     """One fused decode step for draft length ``num_spec`` and a fixed
     sampling mode; the batch width B is read from the state.
 
-    Returns ``fn(state, block_tables, h_pack[, rplan]) -> (state,
-    telemetry)``: ``state`` is the loop's dict of device tensors (the
-    returned dict replaces it), ``h_pack`` [B, PLEN+2] int32 the host's
-    path upload per slot (tokens | absolute anchor index | usable length,
-    0 = nothing to offer), ``telemetry`` [B, K+2] int32 (emitted tokens,
-    -1 past the accepted ones, then the verified draft count).  The KV
-    cache ``runner.kv`` is written in place (the JAX step donates it).
+    Returns ``fn(spec_params, state, block_tables[, h_pack[, rplan]]) ->
+    (state, telemetry)``: ``spec_params`` the drafter's parameters (None
+    without ``drafter``, an ``ArcticProposer``), ``state`` the loop's dict
+    of device tensors (the returned dict replaces it), ``h_pack`` [B,
+    PLEN+2] int32 the host's path upload per slot (tokens | absolute
+    anchor index | usable length, 0 = nothing to offer; only with
+    ``use_suffix``), ``telemetry`` [B, K+2] int32 (emitted tokens, -1 past
+    the accepted ones, then the verified draft count).  The KV cache
+    ``runner.kv`` is written in place (the JAX step donates it).
 
     ``wide=False`` builds the 1-row program; ``rows_total=R`` the per-slot
     program, whose ``rplan`` (int32 [2R+2B] = row_slot | row_off |
     slot_start | slot_rows) gives each slot its rows.  Everything after
-    the forward is shared by the three.
+    the forward is shared by the three.  A drafter chains from the wide
+    program's hidden rows, so it takes the wide program only.
     """
     module, arch = runner.module, runner.arch
     params = runner.params
@@ -90,6 +99,9 @@ def build_fused_step(runner, num_spec: int, need_sampling: bool,
     run_r = r if wide else 1
     attn_wide = module.make_attn_impl(1, decode_qlen=run_r)
     attn_row = module.make_attn_impl(1, decode_qlen=1)
+    if drafter is not None and (not wide or rows_total is not None):
+        raise ValueError("a drafter chains from the wide program's hidden "
+                         "rows; the narrow and per-slot programs keep none")
 
     def rowvals_of(logits, temperature, top_k, top_p, gen):
         if need_sampling:
@@ -97,11 +109,8 @@ def build_fused_step(runner, num_spec: int, need_sampling: bool,
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     @torch.inference_mode()
-    def step(state, block_tables, h_pack, rplan=None):
+    def step(spec_params, state, block_tables, h_pack=None, rplan=None):
         dev = block_tables.device
-        h_path = h_pack[:, :plen]
-        h_start = h_pack[:, plen]
-        h_len = h_pack[:, plen + 1]
         n_comp = state["n_computed"]                       # [B]
         alive = state["alive"]                             # [B] 0/1
         dlen = state["draft_len"]                          # [B]
@@ -128,7 +137,8 @@ def build_fused_step(runner, num_spec: int, need_sampling: bool,
 
         def fwd_rowvals(rr, dlen_rr):
             """The model on B*rr rows (row i*rr+j = slot i's j-th verify
-            row) through the grouped decode kernel; rowvals [B, rr]."""
+            row) through the grouped decode kernel; (rowvals [B, rr], the
+            rows' hidden states [B*rr, hidden])."""
             jr = torch.arange(rr, dtype=torch.int32, device=dev)[None, :]
             tokens = torch.cat([state["last_token"][:, None],
                                 drafts[:, :rr - 1]], dim=1)    # [B, rr]
@@ -154,7 +164,7 @@ def build_fused_step(runner, num_spec: int, need_sampling: bool,
             rep = lambda x: x[:, None].expand(b, rr).reshape(-1)  # noqa
             rv = rowvals_of(logits, rep(state["temperature"]),
                             rep(state["top_k"]), rep(state["top_p"]), gen)
-            return rv.reshape(b, rr)
+            return rv.reshape(b, rr), h
 
         def fwd_slotted():
             """Per-slot rows: each of the R rows is its own qlen-1
@@ -201,12 +211,13 @@ def build_fused_step(runner, num_spec: int, need_sampling: bool,
             return torch.where(in_slot, flat[idx], NO_TOKEN)
 
         j = torch.arange(r, dtype=torch.int32, device=dev)[None, :]
+        h = None                  # the wide program's rows, for a drafter
         if rows_total is not None:
             rowvals = fwd_slotted()
         elif wide:
-            rowvals = fwd_rowvals(r, dlen)
+            rowvals, h = fwd_rowvals(r, dlen)
         else:
-            rv1 = fwd_rowvals(1, torch.zeros_like(dlen))
+            rv1, _ = fwd_rowvals(1, torch.zeros_like(dlen))
             # Only column 0 is consumed: the rest compare as NO_TOKEN.
             rowvals = torch.nn.functional.pad(rv1, (0, r - 1),
                                               value=NO_TOKEN)
@@ -248,56 +259,75 @@ def build_fused_step(runner, num_spec: int, need_sampling: bool,
             (~length_done).to(torch.int32)
         headroom = (limit - n_comp2 - 2).clamp(0, k)
 
-        # 1. Ring buffer of emitted tokens, keyed by absolute token index
-        #    mod W (emitted[:, j] has index n_comp + 1 + j); column W
-        #    takes the rows that emitted nothing and is cut off.
-        em_idx = n_comp[:, None] + 1 + j                   # [B, R]
-        ring_at = torch.where(em_real, em_idx % w, w).long()
-        ring = torch.cat([state["ring"], state["ring"][:, :1]], dim=1)
-        ring = ring.scatter(1, ring_at, emitted)[:, :w]
+        # Next drafts: the drafter chain on the hidden row of each slot's
+        # bonus token (row b*(K+1) + n_acc: the last accepted token's).
+        if drafter is not None and k > 0:
+            hrow = h[bidx.long() * r + n_acc.long()]
+            drafts2 = drafter.generate(spec_params, bonus, hrow)
+            dlen2 = headroom * alive2
+        else:
+            drafts2 = drafts
+            dlen2 = torch.zeros_like(dlen)
+        state2 = dict(state)
 
-        # 2. Advance the current path past the emitted block, checking
-        #    each emitted token against the path's prediction.
-        path = state["path"]                               # [B, PLEN]
-        p_off = state["path_off"]
-        p_len = state["path_len"]
-        pred = torch.gather(path, 1,
-                            (p_off[:, None] + j).clamp(0, plen - 1).long())
-        in_path = (p_off[:, None] + j) < p_len[:, None]
-        mism = (em_real & in_path & (pred != emitted)).any(dim=1)
-        p_off = p_off + n_emit
-        p_len = torch.where(mism, 0, p_len)
+        if use_suffix:
+            h_path = h_pack[:, :plen]
+            h_start = h_pack[:, plen]
+            h_len = h_pack[:, plen + 1]
+            # 1. Ring buffer of emitted tokens, keyed by absolute token
+            #    index mod W (emitted[:, j] has index n_comp + 1 + j);
+            #    column W takes the rows that emitted nothing and is cut
+            #    off.
+            em_idx = n_comp[:, None] + 1 + j               # [B, R]
+            ring_at = torch.where(em_real, em_idx % w, w).long()
+            ring = torch.cat([state["ring"], state["ring"][:, :1]], dim=1)
+            ring = ring.scatter(1, ring_at, emitted)[:, :w]
 
-        # 3. Merge the host upload: usable if its anchor gap (tokens the
-        #    host had not seen) verifies against the ring.
-        gap = (n_comp2 + 1) - h_start                      # [B]
-        t = torch.arange(plen, dtype=torch.int32, device=dev)[None, :]
-        ring_tok = torch.gather(ring, 1,
-                                ((h_start[:, None] + t) % w).long())
-        gap_ok = torch.where(t < gap[:, None], ring_tok == h_path,
-                             True).all(dim=1)
-        usable = ((h_len > 0) & (gap >= 0) & (gap < h_len) & (gap <= w)
-                  & gap_ok)
-        path = torch.where(usable[:, None], h_path, path)
-        p_off = torch.where(usable, gap, p_off)
-        p_len = torch.where(usable, h_len, p_len)
+            # 2. Advance the current path past the emitted block, checking
+            #    each emitted token against the path's prediction.
+            path = state["path"]                           # [B, PLEN]
+            p_off = state["path_off"]
+            p_len = state["path_len"]
+            pred = torch.gather(
+                path, 1, (p_off[:, None] + j).clamp(0, plen - 1).long())
+            in_path = (p_off[:, None] + j) < p_len[:, None]
+            mism = (em_real & in_path & (pred != emitted)).any(dim=1)
+            p_off = p_off + n_emit
+            p_len = torch.where(mism, 0, p_len)
 
-        # 4. Walk the live path as the next drafts.
-        rem = (p_len - p_off).clamp(min=0)
-        use_path = (rem > 0) & (alive2 > 0)
-        jd = torch.arange(max(k, 1), dtype=torch.int32, device=dev)[None, :]
-        path_drafts = torch.gather(
-            path, 1, (p_off[:, None] + jd).clamp(0, plen - 1).long())
-        drafts2 = torch.where(use_path[:, None], path_drafts[:, :k], drafts)
-        dlen2 = torch.where(use_path, torch.minimum(rem, headroom) * alive2,
-                            0)
+            # 3. Merge the host upload: usable if its anchor gap (tokens
+            #    the host had not seen) verifies against the ring.
+            gap = (n_comp2 + 1) - h_start                  # [B]
+            t = torch.arange(plen, dtype=torch.int32, device=dev)[None, :]
+            ring_tok = torch.gather(ring, 1,
+                                    ((h_start[:, None] + t) % w).long())
+            gap_ok = torch.where(t < gap[:, None], ring_tok == h_path,
+                                 True).all(dim=1)
+            usable = ((h_len > 0) & (gap >= 0) & (gap < h_len)
+                      & (gap <= w) & gap_ok)
+            path = torch.where(usable[:, None], h_path, path)
+            p_off = torch.where(usable, gap, p_off)
+            p_len = torch.where(usable, h_len, p_len)
+
+            # 4. Walk the live path as the next drafts, before the
+            #    drafter's (the host's uploads are score-gated).
+            rem = (p_len - p_off).clamp(min=0)
+            use_path = (rem > 0) & (alive2 > 0)
+            jd = torch.arange(max(k, 1), dtype=torch.int32,
+                              device=dev)[None, :]
+            path_drafts = torch.gather(
+                path, 1, (p_off[:, None] + jd).clamp(0, plen - 1).long())
+            drafts2 = torch.where(use_path[:, None], path_drafts[:, :k],
+                                  drafts2)
+            dlen2 = torch.where(use_path,
+                                torch.minimum(rem, headroom) * alive2, dlen2)
+            state2.update(ring=ring, path=path, path_off=p_off,
+                          path_len=p_len)
         if corrupt > 0 and k > 0:
             u = torch.rand(drafts2.shape, generator=gen, device=dev)
             drafts2 = torch.where(u < corrupt,
                                   (drafts2 + 1) % arch.vocab_size, drafts2)
-        state2 = dict(state)
-        state2.update(ring=ring, path=path, path_off=p_off, path_len=p_len,
-                      n_computed=n_comp2, last_token=last2,
+        state2.update(n_computed=n_comp2, last_token=last2,
                       drafts=drafts2.to(torch.int32),
                       draft_len=dlen2.to(torch.int32), alive=alive2)
         telemetry = torch.cat([emitted, (dlen * alive)[:, None]], dim=1)
@@ -389,10 +419,10 @@ class FusedDecodeLoop:
     # -- entry ----------------------------------------------------------
 
     def eligible(self) -> bool:
-        """Is there anything to speculate with?  Only suffix drafts are
-        ported; without a suffix cache the engine keeps the loop
-        uninstalled."""
-        return self._suffix is not None
+        """Is there anything to speculate with: suffix drafts, a drafter
+        or both?  Without either the engine keeps the loop uninstalled
+        and the sync path keeps full drafting duties."""
+        return self._suffix is not None or self.engine._drafter is not None
 
     @staticmethod
     def _fusable(req) -> bool:
@@ -438,7 +468,10 @@ class FusedDecodeLoop:
         b = _bucket(len(running), eng.config.scheduler.max_num_seqs)
         slot_of = list(running) + [None] * (b - len(running))
         sc = eng.config.speculative
-        k = min(sc.num_speculative_tokens, sc.fused_suffix_spec_len)
+        if eng._drafter is not None:
+            k = eng._drafter.n_predict
+        else:  # suffix only: a per-step cap on path consumption
+            k = min(sc.num_speculative_tokens, sc.fused_suffix_spec_len)
         self._k = k
         r = k + 1
         self._ring_w = max(64, _bucket((self.depth + 2) * r, 1 << 16))
@@ -488,11 +521,13 @@ class FusedDecodeLoop:
         state = dict(
             n_computed=n_comp, last_token=last, drafts=drafts,
             draft_len=dlen, alive=alive, limit=limit, temperature=temp,
-            top_k=top_k, top_p=top_p, eos_mask=eos_mask, stop_ids=stop_ids,
-            ring=np.full((b, self._ring_w), -1, np.int32),
-            path=np.zeros((b, self._plen), np.int32),
-            path_off=np.zeros(b, np.int32),
-            path_len=np.zeros(b, np.int32))
+            top_k=top_k, top_p=top_p, eos_mask=eos_mask, stop_ids=stop_ids)
+        if self._suffix is not None:
+            state.update(
+                ring=np.full((b, self._ring_w), -1, np.int32),
+                path=np.zeros((b, self._plen), np.int32),
+                path_off=np.zeros(b, np.int32),
+                path_len=np.zeros(b, np.int32))
         dev = self.runner.device
         self._state = {key: torch.from_numpy(v).to(dev)
                        for key, v in state.items()}
@@ -570,17 +605,23 @@ class FusedDecodeLoop:
         # probe every RETRY_PERIOD steps.
         k_eff = self._k
         wide = True
+        paths_np = None
         rplan_np = None
         r_bucket = None
         force = envs.ARCTIC_TPU_FUSED_FORCE_WIDTH
-        slotted = not force and not envs.ARCTIC_TPU_DISABLE_SLOTTED
-        if force:
+        # The width policies are suffix-only: with a drafter every step
+        # is wide (the drafter chains from the wide program's rows).
+        suffix_only = (self._suffix is not None and eng._drafter is None
+                       and k_eff > 0)
+        slotted = (suffix_only and not force
+                   and not envs.ARCTIC_TPU_DISABLE_SLOTTED)
+        if force and suffix_only:
             wide = force == "wide"
             paths_np = (self._host_paths() if wide
                         else self._empty_paths())
         elif slotted:
             paths_np, rplan_np, r_bucket, wide = self._slot_policy()
-        else:
+        elif suffix_only:
             self._wide_ttl = max(0, self._wide_ttl - 1)
             self._retry = max(0, self._retry - 1)
             if self._consuming_slots and not any(
@@ -606,9 +647,12 @@ class FusedDecodeLoop:
             else:
                 paths_np = self._empty_paths()   # backoff: no walks
             wide = self._wide_ttl > 0
+        elif self._suffix is not None:
+            paths_np = self._host_paths()
         self.width_stats["wide" if wide else "narrow"] += 1
         if envs.ARCTIC_TPU_FUSED_DEBUG:
-            live_n = int((paths_np[:, self._plen + 1] > 0).sum())
+            live_n = (-1 if paths_np is None
+                      else int((paths_np[:, self._plen + 1] > 0).sum()))
             ever = (int(self._slot_consumed.sum())
                     if self._slot_arrays_ready else -1)
             print(f"[fused] {'W' if wide else 'n'} bucket={r_bucket} "
@@ -621,9 +665,10 @@ class FusedDecodeLoop:
         fn = self._fns.get(key)
         if fn is None:
             fn = self._fns[key] = build_fused_step(
-                self.runner, k_eff, self._need_sampling,
-                self.engine.eos_token_id, path_len_max=self._plen,
-                ring_w=self._ring_w, wide=wide, rows_total=r_bucket)
+                self.runner, eng._drafter, k_eff, self._need_sampling,
+                eng.eos_token_id, use_suffix=self._suffix is not None,
+                path_len_max=self._plen, ring_w=self._ring_w, wide=wide,
+                rows_total=r_bucket)
         self._inflight.append(self._dispatch(fn, paths_np, rplan_np, k_eff))
         eng.engine_stats.num_steps += 1
         while len(self._inflight) > self.depth:
@@ -633,7 +678,9 @@ class FusedDecodeLoop:
     def _dispatch(self, fn, paths_np, rplan_np, k_eff) -> _InflightFused:
         """Upload the step's host arrays, enqueue the step and the copy of
         its telemetry to the host; nothing here waits for the device."""
-        if paths_np is self._empty_paths_np:
+        if paths_np is None:                    # no suffix decoding
+            h_pack = None
+        elif paths_np is self._empty_paths_np:
             # Narrow / backoff steps reuse the cached device copy.
             if self._empty_paths_dev is None:
                 self._empty_paths_dev = self._upload(paths_np)
@@ -641,7 +688,9 @@ class FusedDecodeLoop:
         else:
             h_pack = self._upload(paths_np)
         args = () if rplan_np is None else (self._upload(rplan_np),)
-        self._state, telem = fn(self._state, self._bt_dev, h_pack, *args)
+        drafter = self.engine._drafter
+        self._state, telem = fn(None if drafter is None else drafter.params,
+                                self._state, self._bt_dev, h_pack, *args)
         if not telem.is_cuda:
             return _InflightFused(telem, None, k_eff)
         host = torch.empty(telem.shape, dtype=telem.dtype, pin_memory=True)
@@ -779,6 +828,10 @@ class FusedDecodeLoop:
         h_path = pack[:, :self._plen]
         h_start = pack[:, self._plen]
         h_len = pack[:, self._plen + 1]
+        # A path beats the drafter only where its score reaches the
+        # drafter's draft length.
+        min_score = (0 if eng._drafter is None
+                     else sc.num_speculative_tokens)
         # The first ``lag`` path tokens are verified for free against the
         # ring (already emitted), so they must not count against the
         # confidence cap match_len * factor + offset: extend the offset
@@ -805,7 +858,7 @@ class FusedDecodeLoop:
             results = self._suffix.speculate_batch(
                 items, pool=eng._prompt_tree_pool)
             for i, res in results.items():
-                if res.token_ids and res.score >= 0:
+                if res.token_ids and res.score >= min_score:
                     n = min(len(res.token_ids), self._plen)
                     h_path[i, :n] = res.token_ids[:n]
                     h_start[i] = len(self._slots[i].all_token_ids)

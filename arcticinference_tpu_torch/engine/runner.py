@@ -11,7 +11,9 @@ Weights may be plain or weight-only quantized (``QuantizedLinear``
 leaves: fp8, int8, int4).  Speculative drafts ride the step as extra
 token rows: a linear chain as consecutive positions, a token tree with
 depth-based positions and per-row ancestor bitmasks, lowered onto the
-work items for the ragged kernel's tree-mask path.  Not ported yet (they
+work items for the ragged kernel's tree-mask path.  A step also hands
+back its sample rows' hidden states, on the device, for the MLP / LSTM
+drafters.  Not ported yet (they
 raise ``NotImplementedError``): meshes (tp / sp / dp / pp), guided
 decoding and penalties.
 """
@@ -281,8 +283,11 @@ class ModelRunner:
     @torch.inference_mode()
     def execute(self, step_inputs: StepInputs,
                 generator: torch.Generator):
-        """One synchronous step; returns (argmax, sampled) as host int32
-        arrays [s_pad]."""
+        """One synchronous step; returns (argmax, sampled, rows): the
+        sample rows' argmax and sampled tokens as host int32 arrays
+        [s_pad], and their hidden states (after the final norm, the rows
+        that feed ``compute_logits``) [s_pad, hidden], left on the device
+        for a drafter."""
         inputs = self.upload(step_inputs.arrays)
         inputs["kv_scale"] = self.kv_scale
         attn = self.module.make_attn_impl(step_inputs.attn_qb)
@@ -298,4 +303,4 @@ class ModelRunner:
                              counters=inputs["counters"])
         else:
             sampled = argmax
-        return argmax.cpu().numpy(), sampled.cpu().numpy()
+        return argmax.cpu().numpy(), sampled.cpu().numpy(), rows

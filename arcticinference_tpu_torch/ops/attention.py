@@ -85,7 +85,10 @@ def ragged_paged_attention_reference(
     seq_host = seq_lens.cpu()
     for r in torch.unique(req_host[req_host >= 0]).tolist():
         rows = torch.nonzero(req_host == r).flatten().to(q.device)
-        s_len = int(seq_host[r])
+        # A sequence ends at its block table's end: a uniform decode step
+        # near max_model_len gives its rows past the limit a longer
+        # seq_len, and no valid row attends that far.
+        s_len = min(int(seq_host[r]), block_tables.shape[1] * bs)
         pages = block_tables[r, :-(-s_len // bs)].long()
         kv = kv_cache[pages]                          # [P, 2, Bs, Hkv*D]
         k = kv[:, 0].reshape(-1, hkv, d)[:s_len].float()

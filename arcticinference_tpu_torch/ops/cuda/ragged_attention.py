@@ -1,4 +1,4 @@
-"""Paged attention on the card: wrappers of the two CUDA kernels in
+"""Paged attention on the card: wrappers of the three CUDA kernels in
 ``csrc/ragged_attention.cu``.
 
 - :func:`ragged_paged_attention_kernel` replaces
@@ -12,8 +12,14 @@
   rows per sequence, sequence-major), with its deferred-write path
   (``knew`` / ``vnew`` / ``slot_mapping``: the step's new K/V rows are
   attended from the operands, their cache write comes later).
+- :func:`decode_paged_attention_kernel` replaces
+  ``...::decode_paged_attention_kernel``: the grouped kernel's function
+  without deferral, built on the TPU kernel's grid (one CTA per sequence,
+  whole token rows of each page staged once in shared memory for every
+  kv head).  As in the JAX package, nothing on the engine's path calls
+  it.
 
-Both are bound by the KV bytes they read (3.35 TB/s on an H100); the
+All are bound by the KV bytes they read (3.35 TB/s on an H100); the
 source note in the ``.cu`` file says what the design does about it.
 
 A wrapper given CPU tensors computes the plain version
@@ -22,7 +28,7 @@ cache, head dim 64 or 128) it launches its kernel, and raises on anything
 else.  Each launch adds one to its counter: ``ragged_attention_launches``
 (a schedule without a tree), ``tree_attention_launches`` (one with a tree
 mask), ``grouped_decode_launches`` or ``deferred_decode_launches`` (a
-grouped launch with injected rows).
+grouped launch with injected rows), ``decode_paged_launches``.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ ragged_attention_launches = 0
 tree_attention_launches = 0
 grouped_decode_launches = 0
 deferred_decode_launches = 0
+decode_paged_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +56,8 @@ _RAGGED_ARGTYPES = [_P] * 14 + [_I] * 8 + [ctypes.c_int64] + [_I] * 2 + [
     ctypes.c_float, _P]
 _GROUPED_ARGTYPES = [_P] * 10 + [_I] * 8 + [ctypes.c_int64] + [_I] * 2 + [
     ctypes.c_float, _P]
+_DECODE_PAGED_ARGTYPES = [_P] * 7 + [_I] * 8 + [ctypes.c_int64] + [
+    _I] * 2 + [ctypes.c_float, _P]
 
 _KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
 _BLOCK_SIZE = 32
@@ -57,15 +66,19 @@ _BLOCK_SIZE = 32
 MAX_TREE_NODES = 30
 #: Most rows per sequence of a deferred-write step (one lane per new row).
 MAX_DEFERRED_QLEN = 32
+#: Most bytes of one token's K (or V) row that kernel 4 stages per page.
+MAX_ROW_BYTES = 2048
 
 
 def reset_launch_counts() -> None:
     global ragged_attention_launches, tree_attention_launches, \
-        grouped_decode_launches, deferred_decode_launches
+        grouped_decode_launches, deferred_decode_launches, \
+        decode_paged_launches
     ragged_attention_launches = 0
     tree_attention_launches = 0
     grouped_decode_launches = 0
     deferred_decode_launches = 0
+    decode_paged_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -77,6 +90,8 @@ def _lib() -> ctypes.CDLL:
         lib.ragged_attention_launch.restype = _I
         lib.grouped_decode_launch.argtypes = _GROUPED_ARGTYPES
         lib.grouped_decode_launch.restype = _I
+        lib.decode_paged_launch.argtypes = _DECODE_PAGED_ARGTYPES
+        lib.decode_paged_launch.restype = _I
     return lib
 
 
@@ -192,6 +207,24 @@ def _plain(q, kv_cache, layer, kv_scale, positions, req_idx, block_tables,
         q, kv_cache[layer], positions, req_idx, block_tables, seq_lens,
         scale=scale, kv_scale=kv_scale[layer], tree_start=tree_start,
         row_tree_mask=row_tree_mask)
+
+
+def _plain_uniform(q, kv_cache, layer, kv_scale, pos_base, block_tables,
+                   seq_lens, qlen, scale):
+    """The plain version of a uniform-``qlen`` decode step: rows
+    ``[s*qlen, (s+1)*qlen)`` at positions ``pos_base[s] + j``; rows past
+    ``B * qlen`` and rows of dead slots (``seq_lens == 0``) are padding."""
+    t = q.shape[0]
+    b = block_tables.shape[0]
+    rows = torch.arange(t, device=q.device)
+    seq = torch.div(rows, qlen, rounding_mode="floor")
+    live = seq < b
+    seq_c = seq.clamp(max=b - 1)
+    live &= seq_lens.to(q.device)[seq_c] > 0
+    req = torch.where(live, seq_c, -1)
+    positions = pos_base.to(q.device)[seq_c] + rows % qlen
+    return _plain(q, kv_cache, layer, kv_scale, positions, req,
+                  block_tables, seq_lens, scale)
 
 
 def tree_rows(schedule, req_idx, num_reqs: int):
@@ -399,15 +432,8 @@ def grouped_decode_attention_kernel(
                 q, kv_cache[layer], pos_base, block_tables, seq_lens, qlen,
                 knew, vnew, slot_mapping, scale=scale,
                 kv_scale=kv_scale[layer])
-        rows = torch.arange(t, device=q.device)
-        seq = torch.div(rows, qlen, rounding_mode="floor")
-        live = seq < b
-        seq_c = seq.clamp(max=b - 1)
-        live &= seq_lens.to(q.device)[seq_c] > 0
-        req = torch.where(live, seq_c, -1)
-        positions = pos_base.to(q.device)[seq_c] + rows % qlen
-        return _plain(q, kv_cache, layer, kv_scale, positions, req,
-                      block_tables, seq_lens, scale)
+        return _plain_uniform(q, kv_cache, layer, kv_scale, pos_base,
+                              block_tables, seq_lens, qlen, scale)
     _check(q, kv_cache)
     dev = q.device
     pos_base = _i32(pos_base, dev)
@@ -436,4 +462,59 @@ def grouped_decode_attention_kernel(
         deferred_decode_launches += 1
     else:
         grouped_decode_launches += 1
+    return out
+
+
+def decode_paged_attention_kernel(
+    q: torch.Tensor,
+    kv_cache: torch.Tensor,
+    pos_base: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    qlen: int,
+    scale: float | None = None,
+    kv_scale: torch.Tensor | None = None,
+    layer: int | torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Uniform-``qlen`` decode attention over the paged cache, one CTA per
+    sequence; the JAX kernel's contract.
+
+    q: [B*qlen, Hq, D] sequence-major (token j of sequence i at row
+    i*qlen + j); pos_base [B]: absolute position of each sequence's first
+    new token; seq_lens [B]: its total tokens (context and new; 0 = a
+    dead slot, whose rows come out zero).  Row j attends positions
+    ``<= pos_base + j``.  On the card one token's K row must fit
+    :data:`MAX_ROW_BYTES` (Hkv*D <= 1024 in bf16, 2048 in fp8).
+    """
+    global decode_paged_launches
+    t, hq, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    kv_cache, layer, kv_scale = _layer_and_scale(kv_cache, kv_scale, layer)
+    if not q.is_cuda:
+        return _plain_uniform(q, kv_cache, layer, kv_scale, pos_base,
+                              block_tables, seq_lens, qlen, scale)
+    _check(q, kv_cache)
+    num_layers, n_blocks, _, bs, hkv_d = kv_cache.shape
+    if hkv_d * kv_cache.element_size() > MAX_ROW_BYTES:
+        raise ValueError(f"a token's K row of {hkv_d} x "
+                         f"{kv_cache.element_size()} bytes exceeds the "
+                         f"{MAX_ROW_BYTES} bytes kernel 4 stages")
+    dev = q.device
+    pos_base = _i32(pos_base, dev)
+    seq_lens = _i32(seq_lens, dev)
+    block_tables = _i32(block_tables, dev)
+    out = torch.empty_like(q)
+    rows_head = int(qlen) * hq // (hkv_d // d)
+    rows_per_warp = 4 if rows_head <= 4 else 8 if rows_head <= 8 else 16
+    rc = _lib().decode_paged_launch(
+        q.data_ptr(), out.data_ptr(), kv_cache.data_ptr(),
+        kv_scale.data_ptr(), pos_base.data_ptr(), seq_lens.data_ptr(),
+        block_tables.data_ptr(), layer, block_tables.shape[0], t, int(qlen),
+        hq, hkv_d // d, d, block_tables.shape[1], n_blocks * 2 * bs * hkv_d,
+        int(kv_cache.dtype == torch.float8_e4m3fn), rows_per_warp,
+        float(scale), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"decode_paged_launch failed: CUDA error {rc}")
+    decode_paged_launches += 1
     return out

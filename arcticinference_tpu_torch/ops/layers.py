@@ -25,6 +25,20 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (y * weight.float()).to(x.dtype)
 
 
+def l2_norm_scaled(x: torch.Tensor, weight: torch.Tensor | None,
+                   bias: torch.Tensor | None,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """The speculators' LayerNorm variant: L2-normalise (no mean
+    subtraction), then scale and shift; output in x.dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
 def compute_rope_freqs(head_dim: int, rope_theta: float,
                        scaling: dict | None = None, *,
                        device: torch.device | str) -> torch.Tensor:

@@ -12,6 +12,10 @@ over as a ``QuantizedLinear`` holding two numpy arrays.  Any such object
 (anything with ``weight`` and ``scale`` arrays) becomes the port's
 :class:`~arcticinference_tpu_torch.ops.fp8.QuantizedLinear` with the same
 bytes.
+
+A drafter's parameters (``models/speculators.py``) carry lists of
+arrays (one per head) beside plain arrays and ``QuantizedLinear``
+leaves; each list comes over as a list of the same leaves.
 """
 
 from __future__ import annotations
@@ -35,22 +39,24 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _leaf(key, val, device):
+    if isinstance(val, dict):
+        return params_from_jax(val, device)
+    if isinstance(val, (list, tuple)):
+        return [_leaf(key, v, device) for v in val]
+    if isinstance(val, np.ndarray):
+        return _tensor(val, device)
+    if isinstance(getattr(val, "weight", None), np.ndarray) and \
+            isinstance(getattr(val, "scale", None), np.ndarray):
+        return QuantizedLinear(_tensor(val.weight, device),
+                               _tensor(val.scale, device))
+    raise TypeError(f"parameter {key!r} of type {type(val).__name__} is "
+                    "neither an array, a list of them nor a quantized "
+                    "weight")
+
+
 def params_from_jax(np_tree: dict, device: torch.device | str) -> dict:
     """The JAX parameter dict (numpy leaves, quantized leaves as objects
-    with numpy ``weight`` and ``scale``) as torch tensors and
-    ``QuantizedLinear`` on ``device``."""
-    out: dict = {}
-    for key, val in np_tree.items():
-        if isinstance(val, dict):
-            out[key] = params_from_jax(val, device)
-        elif isinstance(val, np.ndarray):
-            out[key] = _tensor(val, device)
-        elif isinstance(getattr(val, "weight", None), np.ndarray) and \
-                isinstance(getattr(val, "scale", None), np.ndarray):
-            out[key] = QuantizedLinear(_tensor(val.weight, device),
-                                       _tensor(val.scale, device))
-        else:
-            raise TypeError(f"parameter {key!r} of type "
-                            f"{type(val).__name__} is neither an array nor "
-                            "a quantized weight")
-    return out
+    with numpy ``weight`` and ``scale``, lists of either) as torch
+    tensors and ``QuantizedLinear`` on ``device``."""
+    return {key: _leaf(key, val, device) for key, val in np_tree.items()}

@@ -14,7 +14,9 @@ Phases, each reported on its own lines:
              main path's shapes, with its time, the plain version's, the
              bound and a library yardstick: the two attention kernels
              (Hq=32, Hkv=8, D=128, 32-token pages, a 32-layer cache; bf16
-             and fp8 KV), the grouped kernel's deferred-KV path (B=64
+             and fp8 KV), the per-sequence decode kernel (kernel 4) on
+             the grouped kernel's decode steps (B=64, qlen 1 and 4), the
+             grouped kernel's deferred-KV path (B=64
              sequences, 1 or 8 rows each, contexts 128-2048, dead slots
              and slot -1 tails), beside kernel 2 on the same steps with
              the rows written into the cache, the ragged kernel's
@@ -23,7 +25,9 @@ Phases, each reported on its own lines:
              each; a 512-token prefill chunk beside 15 such trees), and
              the two quantized matmuls (Llama-3.1-8B's wqkv, wo,
              w_gateup, w_down and lm_head at 16, 64 and 2048 rows; fp8
-             everywhere, int8 on w_gateup, int4 everywhere).
+             everywhere, int8 on w_gateup, int4 everywhere; fp8 and int8
+             at the Arctic drafter's head [4096, 128256] and projection
+             [4096, 4096], 16 and 64 rows).
 4. forward:  the full-width Llama-3.1-8B shapes at 2 layers, random
              weights in bf16, fp8 and int4: one prefill, one decode and
              one token-tree verify step through ``forward`` with the
@@ -41,12 +45,19 @@ Phases, each reported on its own lines:
              linear drafts on the fused decode loop (the default) without
              and with ARCTIC_TPU_DEFERRED_KV=1, every fused step's
              dispatch under ``torch.cuda.set_sync_debug_mode("error")``;
-             then with ``quantization="fp8"``, then ``"int4"``; every
+             then with Arctic drafters (``method="arctic"``, random init
+             at the JAX defaults: an MLP on the fused loop and on the
+             synchronous step, an fp8 LSTM on the fused loop, MLP +
+             suffix decoding on the fused loop; every fused step with
+             room verifies drafts, the fp8 drafter's head launches
+             kernel 5, the drafter chain is timed at 16 and 64 rows
+             against its bound); then with ``quantization="fp8"``, then
+             ``"int4"``; every
              request must finish, both attention kernels must launch (a
              speculative run: the ragged kernel, and in the tree run its
              tree-mask path), the deferred path only in the deferred run,
-             a speculative run must accept drafts on the native suffix
-             tree, a fused run must run fused steps, and a quantized
+             a run with suffix decoding must accept drafts on the native
+             suffix tree, a fused run must run fused steps, and a quantized
              run's matmul kernel must launch 129 times per step (4 per
              layer and the LM head).  Last, a shorter bf16 and fp8 run
              under ``torch.profiler``, each on an engine of its own (no
@@ -66,6 +77,7 @@ import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -112,6 +124,12 @@ TREE_PARENTS = _best_first_parents(30, TREE_NODES)
 # branching trees).
 SUFFIX_KNOBS = dict(suffix_max_spec_factor=4.0, suffix_max_spec_offset=8.0,
                     suffix_min_token_prob=0.05)
+# Generate runs with an Arctic drafter (``SpeculativeConfig(method=
+# "arctic")``, the JAX defaults: n_predict 3, tied, inner 4096): drafter
+# kind, then its options ("fp8" weights, "suffix" decoding beside it) and
+# the step ("fused" loop or "sync").
+DRAFTER_RUNS = ("mlp fused", "mlp sync", "lstm fp8 fused",
+                "mlp suffix fused")
 # Quantized matmul cases: (name, K, N, fused part widths, float32 out),
 # the Llama-3.1-8B weights the decoder step multiplies.
 MATMUL_SHAPES = (
@@ -124,6 +142,11 @@ MATMUL_SHAPES = (
 # Decode batches of 16 and 64 rows and a 2048-token prefill bucket; the LM
 # head sees only the sampled rows.
 MATMUL_ROWS = (16, 64, 2048)
+# The Arctic drafter's quantized products at the 8B width (fp8 and int8
+# drafters, float32 out): its tied LM head and its MLP projection, at the
+# drafter batch buckets of 16 and 64 requests.
+DRAFTER_MATMULS = (("head", 4096, 128256), ("proj", 4096, 4096))
+DRAFTER_ROWS = (16, 64)
 L2_BYTES = 50 * 2 ** 20
 # Matmul kernel launches per step: wqkv, wo, w_gateup, w_down per layer,
 # and the LM head.
@@ -145,11 +168,12 @@ def smi() -> str:
 QUEUE_SLEEP_CYCLES = 20_000_000
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_time_ms(fn, iters: int, warmup: int = 2,
+                 sleep_cycles: int = QUEUE_SLEEP_CYCLES) -> float:
     """Device time of one call, over ``iters`` back-to-back calls.  A
-    spinning kernel holds the device while the host enqueues them, so a
-    kernel shorter than its wrapper's host time (tens of microseconds per
-    call) is not timed at the host's launch rate."""
+    spinning kernel (``sleep_cycles``) holds the device while the host
+    enqueues them, so a kernel shorter than its wrapper's host time (tens
+    of microseconds per call) is not timed at the host's launch rate."""
     import torch
 
     for _ in range(warmup):
@@ -157,7 +181,7 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -510,7 +534,7 @@ def phase_kernels(rng):
     from arcticinference_tpu_torch.ops.attention import (
         ragged_paged_attention_reference)
 
-    ragged_cases, grouped_cases = [], []
+    ragged_cases, grouped_cases, paged_cases = [], [], []
     for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
         dt = "bf16" if kv_dtype == torch.bfloat16 else "fp8"
         # Mixed step: two prefill chunks and 32 decode rows at contexts
@@ -564,12 +588,33 @@ def phase_kernels(rng):
                     kv_scale=case.kv_scale[case.layer])
 
             grouped_cases.append(run_case(case, kern, plain))
+
+            # Kernel 4 (one CTA per sequence) on the same step.
+            def kern4(case=case, qlen=qlen, pos_base=pos_base):
+                return ra.decode_paged_attention_kernel(
+                    case.q, case.kv, pos_base, case.block_tables,
+                    case.seq_lens, qlen, kv_scale=case.kv_scale,
+                    layer=case.layer)
+
+            name = case.name
+            case.name = f"decode_paged {name}"
+            res = run_case(case, kern4, plain)
+            live = torch.from_numpy(case.req_np >= 0).cuda()
+            a, b = kern4()[live].float(), kern()[live].float()
+            res["vs_kernel2_rel_err"] = float((a - b).norm() / b.norm())
+            res["kernel2_ms"] = grouped_cases[-1]["ms"]
+            res["ok"] = res["ok"] and res["vs_kernel2_rel_err"] <= REL_TOL
+            log(f"  kernel 4 vs kernel 2 on {name}: {res['ms']:.4f} ms "
+                f"against {res['kernel2_ms']:.4f} ms, relative difference "
+                f"{res['vs_kernel2_rel_err']:.3g}")
+            paged_cases.append(res)
             del case
             torch.cuda.empty_cache()
-    failed = [c["case"] for c in ragged_cases + grouped_cases if not c["ok"]]
+    failed = [c["case"] for c in ragged_cases + grouped_cases + paged_cases
+              if not c["ok"]]
     if failed:
         raise AssertionError(f"kernel disagrees with plain version: {failed}")
-    return ragged_cases, grouped_cases
+    return ragged_cases, grouped_cases, paged_cases
 
 
 def phase_deferred_kernels(rng):
@@ -813,6 +858,18 @@ def phase_matmul_kernels(seed):
                     kernel, plain))
             del q
             torch.cuda.empty_cache()
+    for mode in ("fp8", "int8"):
+        for name, k, n in DRAFTER_MATMULS:
+            q = quantized_weight(mode, k, n, None, gen)
+            for m in DRAFTER_ROWS:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                fp8_cases.append(run_matmul_case(
+                    f"{mode} drafter {name} [{k},{n}] M={m}", q, x,
+                    torch.float32, fm.fp8_matmul_kernel,
+                    fm.fp8_matmul_reference))
+            del q
+            torch.cuda.empty_cache()
     failed = [c["case"] for c in fp8_cases + int4_cases if not c["ok"]]
     if failed:
         raise AssertionError(f"kernel disagrees with plain version: {failed}")
@@ -857,6 +914,7 @@ def launch_counts() -> dict:
             "grouped_decode_attention_kernel": ra.grouped_decode_launches,
             "grouped_decode_attention_kernel (deferred KV)":
                 ra.deferred_decode_launches,
+            "decode_paged_attention_kernel": ra.decode_paged_launches,
             "fp8_matmul_kernel": fm.fp8_matmul_launches,
             "int4_matmul_kernel": im.int4_matmul_launches}
 
@@ -1140,6 +1198,15 @@ def phase_generate(rng):
     for spec in ("suffix", "suffix tree", "suffix fused",
                  "suffix fused deferred"):
         runs[spec], _ = run_generate(None, prompts, spec=spec, reference=ref)
+    # The Arctic drafters (random init, so few drafts are accepted): an
+    # MLP drafter on the fused loop and on the synchronous step, an fp8
+    # LSTM drafter on the fused loop, and MLP + suffix decoding there.
+    with tempfile.TemporaryDirectory() as lstm_dir:
+        Path(lstm_dir, "config.json").write_text(
+            json.dumps({"method": "sum_lstm"}))
+        for spec in DRAFTER_RUNS:
+            runs[spec], _ = run_generate(None, prompts, spec=spec,
+                                         reference=ref, lstm_dir=lstm_dir)
     for q in ("fp8", "int4"):
         runs[q], _ = run_generate(q, prompts)
     # Profiled runs last, on engines of their own: no timed run follows a
@@ -1147,6 +1214,12 @@ def phase_generate(rng):
     for q in (None, "fp8"):
         log("  profile " + json.dumps(dict(quantization=q,
                                            **profile_run(q, rng))))
+    with tempfile.TemporaryDirectory() as lstm_dir:
+        Path(lstm_dir, "config.json").write_text(
+            json.dumps({"method": "sum_lstm"}))
+        for spec in ("mlp fused", "lstm fp8 fused"):
+            log("  profile chain " + json.dumps(
+                profile_drafter_chain(spec, lstm_dir)))
     return runs
 
 
@@ -1182,15 +1255,33 @@ def token_agreement(outs, reference) -> dict:
                 first_divergence=first)
 
 
-def engine_config(quantization, spec=None):
-    """The generate runs' engine: Llama-3.1-8B shape, 32 layers; ``spec``
-    is None, "suffix" (linear drafts on the synchronous step), "suffix
-    tree", or "suffix fused" / "suffix fused deferred" (linear drafts on
-    the fused decode loop, the default)."""
+def speculative_config(spec, lstm_dir=None):
+    """``spec``: "suffix" (linear drafts on the synchronous step), "suffix
+    tree", "suffix fused" / "suffix fused deferred" (linear drafts on the
+    fused decode loop, the default), or one of :data:`DRAFTER_RUNS`
+    (``lstm_dir``: a directory whose config.json names sum_lstm)."""
+    from arcticinference_tpu_torch.config import SpeculativeConfig
+
+    words = spec.split()
+    if words[0] == "suffix":
+        return SpeculativeConfig(
+            method="suffix", use_tree_spec=spec == "suffix tree",
+            enable_fused_decode="fused" in words, **SUFFIX_KNOBS)
+    suffix = "suffix" in words
+    return SpeculativeConfig(
+        method="arctic", num_speculative_tokens=3,
+        model=lstm_dir if words[0] == "lstm" else None,
+        quantization="fp8" if "fp8" in words else None,
+        enable_fused_decode="fused" in words,
+        enable_suffix_decoding=suffix, **(SUFFIX_KNOBS if suffix else {}))
+
+
+def engine_config(quantization, spec=None, lstm_dir=None):
+    """The generate runs' engine: Llama-3.1-8B shape, 32 layers, with
+    :func:`speculative_config` of ``spec`` (None: no speculation)."""
     from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
                                                   ModelConfig,
-                                                  SchedulerConfig,
-                                                  SpeculativeConfig)
+                                                  SchedulerConfig)
 
     return EngineConfig(
         model=ModelConfig(model="llama", dtype="bfloat16", max_model_len=4096,
@@ -1200,10 +1291,8 @@ def engine_config(quantization, spec=None):
         cache=CacheConfig(num_blocks=2048),
         scheduler=SchedulerConfig(max_num_seqs=64,
                                   max_num_batched_tokens=2048),
-        speculative=None if spec is None else SpeculativeConfig(
-            method="suffix", use_tree_spec=spec == "suffix tree",
-            enable_fused_decode=spec.startswith("suffix fused"),
-            **SUFFIX_KNOBS))
+        speculative=None if spec is None else speculative_config(spec,
+                                                                 lstm_dir))
 
 
 def free_cuda_memory() -> None:
@@ -1262,7 +1351,113 @@ def env_flag(name, value):
             os.environ[name] = saved
 
 
-def run_generate(quantization, prompts, spec=None, reference=None):
+@contextlib.contextmanager
+def drafted_steps():
+    """Count the fused steps drained, those with room for drafts (an
+    alive slot at least two tokens short of its limit when the step
+    began) and those in which an alive slot verified drafts (from each
+    step's telemetry, at its drain)."""
+    from arcticinference_tpu_torch.engine.fused_decode import (
+        FusedDecodeLoop)
+
+    orig = FusedDecodeLoop._drain_one
+    count = {"drained": 0, "with_room": 0, "with_drafts": 0}
+
+    def drain(self):
+        step, alive = self._inflight[0], list(self._host_alive)
+        mml = self.engine.config.model.max_model_len
+        room = any(
+            a and min(len(r.prompt_token_ids) + r.sampling.max_tokens, mml)
+            - self._known_comp[i] - 2 > 0
+            for i, (a, r) in enumerate(zip(alive, self._slots)))
+        out = orig(self)
+        telem = step.telemetry.numpy()
+        count["drained"] += 1
+        count["with_room"] += room
+        count["with_drafts"] += any(
+            a and telem[i, step.k + 1] > 0 for i, a in enumerate(alive))
+        return out
+
+    FusedDecodeLoop._drain_one = drain
+    try:
+        yield count
+    finally:
+        FusedDecodeLoop._drain_one = orig
+
+
+@contextlib.contextmanager
+def fp8_matmul_shapes():
+    """Count ``fp8_matmul_kernel`` calls by weight shape (K, N)."""
+    from arcticinference_tpu_torch.ops import fp8
+
+    orig = fp8.fp8_matmul_kernel
+    shapes: dict = {}
+
+    def spy(x, w, scale, out_dtype=None):
+        key = f"{w.shape[0]}x{w.shape[1]}"
+        shapes[key] = shapes.get(key, 0) + 1
+        return orig(x, w, scale, out_dtype)
+
+    fp8.fp8_matmul_kernel = spy
+    try:
+        yield shapes
+    finally:
+        fp8.fp8_matmul_kernel = orig
+
+
+def drafter_chain_report(drafter, vocab, hidden) -> dict:
+    """Device time of the drafter's greedy chain (``n_predict`` heads) at
+    16 and 64 rows, on CUDA events, against its bound: the bytes it must
+    stream at HBM rate, each head's projection and LM head read once per
+    draft position (the chain is sequential and a 4096 x 128256 head
+    cannot stay in the 50 MB L2), gathered embedding rows, the hidden
+    rows in and the drafts out; ``bound_once_ms`` counts every parameter
+    once instead."""
+    import torch
+
+    from arcticinference_tpu_torch.models import speculators as sm
+
+    params, arch, n = drafter.params, drafter.arch, drafter.n_predict
+
+    def row_bytes(e):
+        return e.nbytes // e.shape[0]
+
+    if drafter.kind == "mlp":
+        heads = [sm._mlp_head_params(params, arch, i) for i in range(n)]
+        per_pos = [(p.nbytes + h.nbytes + lw.nbytes + lb.nbytes, e)
+                   for e, p, h, lw, lb in heads]
+        once = sum({id(x): x.nbytes for hd in heads for x in hd}.values())
+    else:
+        norms = sum(params[k].nbytes for k in (
+            "cell_ln_w", "cell_ln_b", "state_ln_w", "state_ln_b"))
+        per_pos = [((params["proj_first"] if i == 0 else
+                     params["proj_rest"]).nbytes + params["head"].nbytes
+                    + norms, params["forget_emb"]) for i in range(n)]
+        once = sum(v.nbytes for v in params.values())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for b in (16, 64):
+        tok = torch.randint(0, vocab, (b,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        hid = torch.randn((b, hidden), device="cuda", generator=gen).to(
+            torch.bfloat16)
+        # Tens of ops a chain: a 40 ms spin covers the host's enqueue of
+        # the 10 timed chains (host_us says what one costs).
+        ms = cuda_time_ms(lambda: drafter.generate(params, tok, hid),
+                          iters=10, sleep_cycles=4 * QUEUE_SLEEP_CYCLES)
+        host_us = host_time_us(lambda: drafter.generate(params, tok, hid),
+                               calls=5)
+        io = hid.nbytes + tok.nbytes + b * n * 4
+        nbytes = io + sum(w + b * row_bytes(e) for w, e in per_pos)
+        out[f"B={b}"] = dict(
+            ms=ms, host_us=host_us,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bytes=nbytes, bound_once_ms=(once + io) / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def run_generate(quantization, prompts, spec=None, reference=None,
+                 lstm_dir=None):
     """One timed ``LLM.generate`` run on a new engine (``reference``: the
     bf16 run's tokens, which seed a speculative run's suffix cache).
     Returns (result, output tokens)."""
@@ -1272,20 +1467,22 @@ def run_generate(quantization, prompts, spec=None, reference=None):
     from arcticinference_tpu_torch.engine.request import SamplingParams
 
     t0 = time.perf_counter()
-    llm = LLM(engine_config(quantization, spec))            # cuda:0
+    llm = LLM(engine_config(quantization, spec, lstm_dir))  # cuda:0
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     vocab = llm.engine.arch.vocab_size
-    if spec is not None:
-        seed_suffix_cache(llm.engine._suffix_cache, prompts, reference,
-                          vocab)
-    fused = spec is not None and spec.startswith("suffix fused")
+    suffix = llm.engine._suffix_cache
+    drafter = llm.engine._drafter
+    if suffix is not None:
+        seed_suffix_cache(suffix, prompts, reference, vocab)
+    fused = spec is not None and "fused" in spec.split()
     torch.cuda.reset_peak_memory_stats()
     steps0 = llm.engine.engine_stats.num_steps
     reset_counts()
     t0 = time.perf_counter()
     with host_breakdown(llm.engine.runner) as host, \
             sync_checked_fused_dispatch() as checked, \
+            drafted_steps() as drafted, fp8_matmul_shapes() as fp8_shapes, \
             env_flag("ARCTIC_TPU_DEFERRED_KV",
                      "1" if spec == "suffix fused deferred" else None):
         outs = llm.generate(prompt_token_ids=prompts,
@@ -1313,7 +1510,7 @@ def run_generate(quantization, prompts, spec=None, reference=None):
         st = llm.engine.spec_stats
         res.update(
             tokens_per_step=n_tok / n_steps,
-            native_suffix_tree=llm.engine._suffix_cache.is_native(),
+            native_suffix_tree=suffix is not None and suffix.is_native(),
             drafts=st.num_drafts, draft_tokens=st.num_draft_tokens,
             accepted_tokens=st.num_accepted_tokens,
             accepted_per_position=st.num_accepted_tokens_per_pos,
@@ -1322,7 +1519,15 @@ def run_generate(quantization, prompts, spec=None, reference=None):
     if fused:
         res.update(fused_steps=steps.get("fused", {}).get("count", 0),
                    width_stats=llm.engine.width_stats,
-                   sync_checked_dispatches=checked["dispatches"])
+                   sync_checked_dispatches=checked["dispatches"],
+                   drained_steps=drafted)
+    head_key = f"{LLAMA_8B['hidden_size']}x{LLAMA_8B['vocab_size']}"
+    if drafter is not None:
+        res.update(drafter=drafter.kind, drafter_quantization=(
+            llm.engine.spec_config.quantization),
+            fp8_matmul_launches_by_shape=fp8_shapes,
+            drafter_chain=drafter_chain_report(
+                drafter, vocab, LLAMA_8B["hidden_size"]))
     log("  generate " + json.dumps(res))
     matmul = {"fp8": "fp8_matmul_kernel",
               "int4": "int4_matmul_kernel"}.get(quantization)
@@ -1334,17 +1539,36 @@ def run_generate(quantization, prompts, spec=None, reference=None):
         ok = ok and launches["grouped_decode_attention_kernel"] > 0 \
             and launches[tree_key] == 0
     else:
-        ok = ok and res["native_suffix_tree"] and res["accepted_tokens"] > 0
+        ok = ok and res["drafts"] > 0
         ok = ok and ((launches[tree_key] > 0) == (spec == "suffix tree"))
+    if suffix is not None:
+        # Seeded suffix paths are accepted (beside a drafter too: they
+        # clear its score bar of num_speculative_tokens).
+        ok = ok and res["native_suffix_tree"] and res["accepted_tokens"] > 0
     if fused:
         # Every fused step was dispatched under the sync check.
         ok = ok and res["fused_steps"] > 0 and \
             checked["dispatches"] == sum(
                 v for k, v in res["width_stats"].items() if k != "entries")
+    if fused and drafter is not None:
+        # Every fused step with room for drafts verifies some but an
+        # entry's first (the sync steps before it leave the drafting to
+        # the loop); every step is wide.
+        ws = res["width_stats"]
+        ok = ok and ws["narrow"] == 0 and \
+            drafted["with_drafts"] >= drafted["with_room"] - ws["entries"]
     ok = ok and ((launches[deferred_key] > 0)
                  == (spec == "suffix fused deferred"))
+    drafter_fp8 = drafter is not None and \
+        llm.engine.spec_config.quantization == "fp8"
     for key in ("fp8_matmul_kernel", "int4_matmul_kernel"):
         want = MATMUL_LAUNCHES_PER_STEP * n_steps if key == matmul else 0
+        if key == "fp8_matmul_kernel" and drafter_fp8:
+            # The fp8 drafter's products (a bf16 target): its head at
+            # every draft position of every fused step at least.
+            want = launches[key]
+            ok = ok and fp8_shapes.get(head_key, 0) >= \
+                drafter.n_predict * checked["dispatches"] > 0
         ok = ok and launches[key] == want
     if not ok:
         raise AssertionError(f"end-to-end check failed: {res}")
@@ -1371,6 +1595,54 @@ def profile_run(quantization, rng) -> dict:
     del llm
     free_cuda_memory()
     return out
+
+
+def profile_drafter_chain(spec, lstm_dir, rows: int = 64,
+                          chains: int = 5) -> dict:
+    """Device time by kernel of the drafter chain alone (a drafter of
+    :func:`speculative_config` ``spec`` at the 8B width, ``rows`` rows)
+    over ``chains`` chains under ``torch.profiler``: where the chain's
+    time goes.  A measurement, not a check: an empty trace reads "not
+    measured"."""
+    import types
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from arcticinference_tpu_torch.spec.proposer import ArcticProposer
+
+    hidden, vocab = LLAMA_8B["hidden_size"], LLAMA_8B["vocab_size"]
+    drafter = ArcticProposer(
+        speculative_config(spec, lstm_dir),
+        types.SimpleNamespace(hidden_size=hidden, vocab_size=vocab),
+        torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tok = torch.randint(0, vocab, (rows,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    hid = torch.randn((rows, hidden), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    for _ in range(2):
+        drafter.generate(drafter.params, tok, hid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(chains):
+            drafter.generate(drafter.params, tok, hid)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / chains
+    del drafter
+    free_cuda_memory()
+    if busy_ms == 0:
+        return dict(spec=spec, device_busy="not measured")
+    return dict(spec=spec, rows=rows, chains=chains,
+                device_ms_per_chain=busy_ms,
+                top=[dict(kernel=e.key[:90],
+                          ms_per_chain=e.self_device_time_total / 1e3
+                          / chains, calls_per_chain=e.count / chains)
+                     for e in events[:8]])
 
 
 class HostTimes:
@@ -1524,6 +1796,10 @@ def main() -> int:
             route="cuda", source=csrc + ra.SOURCE,
             replaces="arcticinference_tpu/ops/pallas/ragged_attention.py:1126 "
                      "(knew / vnew)"),
+        "decode_paged_attention_kernel": dict(
+            name="decode_paged_attention_kernel", route="cuda",
+            source=csrc + ra.SOURCE,
+            replaces="arcticinference_tpu/ops/pallas/ragged_attention.py:620"),
         "fp8_matmul_kernel": dict(
             name="fp8_matmul_kernel", route="cuda", source=csrc + fm.SOURCE,
             replaces="arcticinference_tpu/ops/pallas/fp8_matmul.py:65"),
@@ -1533,7 +1809,7 @@ def main() -> int:
     }
     if "kernels" in phases:
         log("[kernels] kernel vs plain, Hq=32 Hkv=8 D=128, 32-layer cache")
-        ragged, grouped = phase_kernels(rng)
+        ragged, grouped, paged = phase_kernels(rng)
         log("[kernels] deferred-KV path (kernel 3) vs plain, and kernel 2 "
             "on the same steps with the rows written")
         deferred_cases, grouped_written = phase_deferred_kernels(rng)
@@ -1555,6 +1831,8 @@ def main() -> int:
                  "decode B=64 qlen=1 bf16"),
                 ("grouped_decode_attention_kernel (deferred KV)",
                  deferred_cases, "deferred B=64 qlen=8 bf16"),
+                ("decode_paged_attention_kernel", paged,
+                 "decode_paged decode B=64 qlen=1 bf16"),
                 ("fp8_matmul_kernel", fp8_cases,
                  "fp8 w_gateup [4096,28672] M=16"),
                 ("int4_matmul_kernel", int4_cases,
@@ -1583,7 +1861,8 @@ def main() -> int:
     if "generate" in phases:
         log("[generate] LLM.generate, Llama-3.1-8B shape, 32 layers, bf16, "
             "suffix speculation (linear, tree, fused loop, fused loop with "
-            "deferred KV), then fp8 and int4 weights")
+            "deferred KV), Arctic drafters (MLP fused and sync, fp8 LSTM "
+            "fused, MLP + suffix fused), then fp8 and int4 weights")
         runs = phase_generate(rng)
         # Each kernel's launches from the run of its own path.
         for key, run in (("ragged_paged_attention_kernel", "bf16"),
@@ -1592,6 +1871,9 @@ def main() -> int:
                          ("grouped_decode_attention_kernel", "bf16"),
                          ("grouped_decode_attention_kernel (deferred KV)",
                           "suffix fused deferred"),
+                         # No caller on the engine's path (as in the JAX
+                         # package): 0.
+                         ("decode_paged_attention_kernel", "bf16"),
                          ("fp8_matmul_kernel", "fp8"),
                          ("int4_matmul_kernel", "int4")):
             kernels[key]["launches"] = runs[run]["launches"][key]

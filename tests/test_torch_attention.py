@@ -191,6 +191,81 @@ def test_grouped_cpu_path_fits_bucket_to_slots(t_rows):
     assert tra.grouped_decode_launches == 0
 
 
+def uniform_case(qlen, D, Bs, n_comp, rng, L=2, Hkv=2, Hq=4,
+                 scattered=True):
+    """A uniform decode step: slot r at ``n_comp[r]`` cached tokens (0 =
+    dead), ``qlen`` rows each; pages drawn in a scattered order (or
+    consecutive)."""
+    b = len(n_comp)
+    seq_lens = np.where(n_comp > 0, n_comp + qlen, 0).astype(np.int32)
+    need = [-(-int(s) // Bs) for s in seq_lens]
+    nb = sum(need) + 2
+    bt = np.zeros((b, max(need) + 1), np.int32)
+    pages = (rng.permutation(np.arange(1, nb)) if scattered
+             else np.arange(1, nb))
+    k = 0
+    for r, n in enumerate(need):
+        bt[r, :n] = pages[k:k + n]
+        k += n
+    kv = rng.standard_normal((L, nb, 2, Bs, Hkv * D)).astype(np.float32)
+    q = rng.standard_normal((b * qlen, Hq, D)).astype(np.float32)
+    pos_base = np.maximum(seq_lens - qlen, 0).astype(np.int32)
+    return q, kv, pos_base, bt, seq_lens
+
+
+@pytest.mark.parametrize("case", ["d32_f32_q4", "d128_bf16_q1",
+                                  "d128_bf16_q4", "d128_fp8_q4",
+                                  "d128_bf16_q4_contiguous"])
+def test_plain_matches_decode_paged_pallas_kernel(case):
+    """Kernel 4 (``decode_paged_attention_kernel``): the port's wrapper on
+    CPU tensors (its plain version) against the JAX kernel in interpret
+    mode: D=32 in float32 with 8-token pages (tests/test_kernels.py's
+    shape), D=128 in bf16 at qlen 1 and 4, an e4m3 cache with per-layer
+    [L, 2] scales; a dead slot and scattered block tables throughout, and
+    once consecutive ones (the TPU kernel's one-DMA run)."""
+    rng = np.random.default_rng(21)
+    d = 32 if case.startswith("d32") else 128
+    qlen = 1 if case.endswith("q1") else 4
+    bs = 8 if d == 32 else 32
+    q, kv, pos_base, bt, sl = uniform_case(
+        qlen, d, bs, np.array([40, 0, 300, 7], np.int32), rng,
+        scattered=not case.endswith("contiguous"))
+    if "f32" in case:
+        kj, kt = jnp.asarray(kv), to_torch(kv)
+        scale = np.ones((2, 2), np.float32)
+    else:
+        kj, kt, scale = _stacked_cache(kv, "fp8" if "fp8" in case
+                                       else "bf16")
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jra.decode_paged_attention_kernel(
+            jnp.asarray(q), kj, jnp.asarray(pos_base), jnp.asarray(bt),
+            jnp.asarray(sl), qlen, kv_scale=jnp.asarray(scale),
+            layer=jnp.asarray(1, jnp.int32)))
+    tra.reset_launch_counts()
+    out = tra.decode_paged_attention_kernel(
+        to_torch(q), kt, to_torch(pos_base), to_torch(bt), to_torch(sl),
+        qlen, kv_scale=to_torch(scale), layer=1).numpy()
+    live = np.repeat(sl > 0, qlen)
+    np.testing.assert_allclose(out[live], ref[live], atol=TOL, rtol=TOL)
+    assert not out[~live].any() and not ref[~live].any()
+    assert tra.decode_paged_launches == 0          # the CPU path ran
+
+
+def test_plain_stops_at_the_block_table_end():
+    """A uniform step near max_model_len gives rows past the limit a
+    seq_len beyond the block table; the plain version reads the table's
+    pages only, and the rows inside it are unchanged."""
+    rng = np.random.default_rng(5)
+    q, kv, pos_base, bt, sl = uniform_case(2, 32, 8, np.array([14, 30]),
+                                           rng, L=1)
+    args = [to_torch(x) for x in (q, kv[0], pos_base, bt)]
+    full = tra.grouped_decode_attention_kernel(*args, to_torch(sl), qlen=2)
+    over = sl.copy()
+    over[1] += 3 * 8                     # 3 pages past the table's end
+    out = tra.grouped_decode_attention_kernel(*args, to_torch(over), qlen=2)
+    assert torch.equal(out, full)
+
+
 def test_ragged_cpu_path_is_the_plain_version():
     q, kv, pos, req, bt, sl = map(to_torch, make_case([10, 3], [0, 50], D=32))
     tra.reset_launch_counts()

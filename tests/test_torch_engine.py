@@ -171,15 +171,17 @@ def test_step_kinds_are_recorded(tiny_llm):
     assert summary["mixed"]["count"] > 0
 
 
-def test_unported_features_raise(tiny_llm):
+def test_unported_features_raise(tiny_llm, tmp_path):
     with pytest.raises(NotImplementedError):
         tiny_llm.engine.add_request(
             "x", [1, 2], SamplingParams(repetition_penalty=1.2))
     with pytest.raises(NotImplementedError):
         tiny_llm.engine.add_request("y", [1, 2], SamplingParams(logprobs=2))
+    # Distilled drafters (spec/distill.py) use the target's own tables.
+    (tmp_path / "config.json").write_text('{"distilled_tied": true}')
     d = config_dict(hf=TINY)
-    d["speculative"] = dict(method="arctic")     # draft models
-    with pytest.raises(NotImplementedError):
+    d["speculative"] = dict(method="arctic", model=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="distilled"):
         LLM(tcfg.EngineConfig.from_dict(d), device="cpu")
     with pytest.raises(NotImplementedError):     # SwiftKV schedules
         LLM(tcfg.EngineConfig.from_dict(config_dict("llama_swiftkv", TINY)),

@@ -447,3 +447,106 @@ def test_deferred_kv_in_the_loop_keeps_tokens(monkeypatch):
     assert runs["0"][3] == 0 and runs["1"][3] > 0
     assert runs["1"][1]["num_accepted_tokens"] > 0
     assert len(seen["margins"]) > 10 and min(seen["margins"]) > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The drafter branch: Arctic MLP / LSTM drafters in the loop
+# ---------------------------------------------------------------------------
+
+def arctic(fused=True, **kw) -> SpeculativeConfig:
+    return SpeculativeConfig(method="arctic", num_speculative_tokens=3,
+                             enable_fused_decode=fused, **kw)
+
+
+@pytest.fixture(scope="module")
+def lstm_dir(tmp_path_factory):
+    import json
+
+    d = tmp_path_factory.mktemp("lstm_drafter")
+    (d / "config.json").write_text(json.dumps({"method": "sum_lstm"}))
+    return str(d)
+
+
+@pytest.mark.parametrize("kind", ["mlp", "lstm", "int8", "mlp+suffix"])
+def test_drafter_loop_matches_greedy(base, lstm_dir, kind):
+    """Every fused step drafts on the device from the drafter chain (the
+    seeded suffix paths first where they clear the score bar), and the
+    loop's tokens equal the no-speculation run's; every step is wide."""
+    kw = dict(lstm=dict(model=lstm_dir), int8=dict(quantization="int8"),
+              **{"mlp+suffix": dict(enable_suffix_decoding=True)}).get(
+                  kind, {})
+    prompts, sp = repetitive(3, seed=15), SamplingParams(max_tokens=20)
+    want = greedy(base, prompts, sp)
+    llm = LLM(tiny_config(arctic(**kw)), device="cpu")
+    eng = llm.engine
+    assert eng._fused is not None and eng._fused.eligible()
+    assert (eng._suffix_cache is not None) == (kind == "mlp+suffix")
+    if kind == "mlp+suffix":
+        for i, (p, w) in enumerate(zip(prompts, want)):
+            eng._suffix_cache.update_response(f"warm{i}", p + w)
+    assert greedy(llm, prompts, sp) == want
+    fused = eng.step_times.summary()["fused"]["count"]
+    ws = eng.width_stats
+    assert fused > 0 and ws["narrow"] == 0 and ws["wide"] == fused
+    # Every fused step past an entry's first verifies drafts.
+    assert eng.spec_stats.num_drafts >= fused - 3 * ws["entries"]
+    assert eng._fused._k == eng._drafter.n_predict == 3
+    if kind == "mlp+suffix":
+        assert eng.spec_stats.num_accepted_tokens > 0
+    llm.close()
+
+
+def test_drafter_abort_mid_loop_and_stop_token(base):
+    """With a drafter: an abort exits the loop and the survivor finishes
+    its length; a stop token ends a request at its first emission."""
+    eng = LLM(tiny_config(arctic()), device="cpu").engine
+    ps = prompts_of(2, seed=5)
+    eng.add_request("a", ps[0], SamplingParams(max_tokens=40))
+    eng.add_request("b", ps[1], SamplingParams(max_tokens=40,
+                                               ignore_eos=True))
+    for _ in range(8):
+        eng.step()
+    assert eng._fused.active
+    eng.abort_request("a")
+    assert not eng._fused.active
+    done, _ = drive(eng, {})
+    assert len(done["b"].output_token_ids) == 40
+    sp = SamplingParams(max_tokens=12, ignore_eos=True)
+    first = greedy(base, [ps[1]], sp)[0][3]
+    done, active = drive(eng, {1: [("c", ps[1], SamplingParams(
+        max_tokens=12, ignore_eos=True, stop_token_ids=(first,)))]})
+    want = greedy(base, [ps[1]], sp)[0]
+    assert active
+    assert done["c"].output_token_ids == want[:want.index(first) + 1]
+    assert done["c"].status.name == "FINISHED_STOPPED"
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_arctic_spec_near_max_len(offset, fused):
+    """tests/test_speculators.py:172-183 on the port: drafts near
+    max_model_len never run a request past it."""
+    cfg = tiny_config(arctic(fused))
+    cfg.model.max_model_len = 48
+    llm = LLM(cfg, device="cpu")
+    prompt = [5, 6, 7, 8, 9, 10, 11][:7 - offset]
+    out = llm.generate(prompt_token_ids=[prompt],
+                       sampling_params=SamplingParams(max_tokens=100,
+                                                      ignore_eos=True))
+    assert len(prompt) + len(out[0].token_ids) == 48
+    assert out[0].finish_reason == "finished_length"
+    assert llm.engine.spec_stats.num_drafts > 0
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_drafter_disabled_by_batch_size(base, fused):
+    """tests/test_speculators.py's disable_by_batch_size case with a
+    drafter: three requests admitted together and finishing together run
+    above the bound throughout, so no drafts, and the tokens of no
+    speculation."""
+    llm = LLM(tiny_config(arctic(fused, disable_by_batch_size=1)),
+              device="cpu")
+    prompts = [[3, 14, 15, 92], [5, 6, 7, 8], [9, 10, 11, 12]]
+    sp = SamplingParams(max_tokens=10, ignore_eos=True)
+    assert greedy(llm, prompts, sp) == greedy(base, prompts, sp)
+    assert llm.engine.spec_stats.num_drafts == 0

@@ -129,6 +129,47 @@ def test_grouped_kernel_matches_plain(cuda_device, d, qlen, t_rows,
     assert_matches(out, ref)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qlen,t_rows", [(1, 4), (1, 16), (4, 16), (8, 32),
+                                         (32, 128)])
+@pytest.mark.parametrize("d", [128, 64])
+def test_decode_paged_kernel_matches_plain(cuda_device, d, qlen, t_rows,
+                                           kv_dtype):
+    """Kernel 4 (one CTA per sequence): dead slot 1, a context of 500 (16
+    pages), the token bucket wider than B * qlen once, 4 to 32 rows per kv
+    head (qlen 32: two passes of the CTA's warps over the pages)."""
+    reqs = [(17, qlen), (0, 0), (70, qlen), (500, qlen)]
+    q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device, t_rows,
+                                      d=d)
+    pos_base = torch.clamp(sl - qlen, min=0)
+    tra.reset_launch_counts()
+    out = tra.decode_paged_attention_kernel(q, kv, pos_base, bt, sl, qlen,
+                                            kv_scale=scale, layer=1)
+    ref = tra.decode_paged_attention_kernel(
+        q.cpu(), kv.cpu(), pos_base.cpu(), bt.cpu(), sl.cpu(), qlen,
+        kv_scale=scale.cpu(), layer=1)
+    torch.cuda.synchronize()
+    assert tra.decode_paged_launches == 1
+    assert tra.grouped_decode_launches == 0
+    assert_matches(out, ref)
+    live = torch.repeat_interleave(sl.cpu() > 0, qlen)
+    live = torch.nn.functional.pad(live, (0, t_rows - live.numel()))
+    assert not out.cpu()[~live].any()
+
+
+@pytest.mark.cuda
+def test_decode_paged_refuses_wide_rows(cuda_device):
+    """Kernel 4 stages whole token rows: more than 2 KiB a row raises."""
+    kv = torch.zeros((1, 2, 2, BS, 16 * 128), device=cuda_device,
+                     dtype=torch.bfloat16)
+    q = torch.zeros((1, 16, 128), device=cuda_device, dtype=torch.bfloat16)
+    one = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="exceeds"):
+        tra.decode_paged_attention_kernel(q, kv, one - 1, one[:, None], one,
+                                          1, layer=0)
+
+
 def deferred_rows(reqs, qlen, tails, kv_dtype, scale, t_rows, device,
                   seed=1, d=D):
     """The step's new rows of a deferred-write grouped step: knew / vnew

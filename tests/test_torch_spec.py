@@ -168,9 +168,17 @@ def spec_config(**spec):
 
 @pytest.mark.parametrize("method", ["arctic", "mlp_speculator",
                                     "lstm_speculator"])
-def test_draft_model_methods_raise(method):
-    with pytest.raises(NotImplementedError):
-        LLM(spec_config(method=method), device="cpu")
+def test_draft_model_methods_raise(method, tmp_path):
+    """Each draft-model method builds an Arctic drafter (MLP without a
+    config.json that says LSTM, as in the JAX package) and no suffix
+    cache; a distilled drafter (``distilled_tied``, spec/distill.py) is
+    not ported and raises."""
+    llm = LLM(spec_config(method=method), device="cpu")
+    assert llm.engine._drafter.kind == "mlp"
+    assert llm.engine._suffix_cache is None
+    (tmp_path / "config.json").write_text('{"distilled_tied": true}')
+    with pytest.raises(NotImplementedError, match="distilled"):
+        LLM(spec_config(method=method, model=str(tmp_path)), device="cpu")
 
 
 def test_abort_and_close_release_prompt_trees():

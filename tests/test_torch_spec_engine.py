@@ -39,6 +39,17 @@ from arcticinference_tpu_torch.models.loader import load_model
 
 from tests.test_torch_engine import TINY, config_dict, trained  # noqa: F401
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's side: its steps are hundreds of
+    small ops, for which a thread pool only adds synchronisation (and,
+    beside other test processes, contention)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 def random_drafts(rng, tree: bool, n: int):
     toks = [int(x) for x in rng.integers(1, 97, n)]
     if not tree:
@@ -296,3 +307,106 @@ def test_fused_loop_matches_jax_engine(baseline):
     assert tllm.engine.step_times.summary()["fused"]["count"] > 0
     tllm.close()
     jllm.engine.close()
+
+
+# ---------------------------------------------------------------------------
+# Arctic MLP / LSTM drafters against the JAX engine's
+# ---------------------------------------------------------------------------
+
+DRAFTERS = ("mlp", "lstm", "fp8", "mlp+suffix")
+
+
+def drafter_kw(kind: str, fused: bool, lstm_dir: str) -> dict:
+    kw = dict(method="arctic", num_speculative_tokens=3,
+              enable_fused_decode=fused)
+    if kind == "lstm":
+        kw["model"] = lstm_dir
+    elif kind == "fp8":
+        kw["quantization"] = "fp8"
+    elif kind == "mlp+suffix":
+        kw.update(enable_suffix_decoding=True, suffix_max_spec_factor=4.0,
+                  suffix_max_spec_offset=8.0, suffix_min_token_prob=0.05)
+    return kw
+
+
+@pytest.fixture(scope="module")
+def lstm_dir(tmp_path_factory):
+    """A drafter directory holding only a config.json that names the
+    sum_lstm method: both packages build a random-init LSTM drafter."""
+    import json
+
+    d = tmp_path_factory.mktemp("lstm_drafter")
+    (d / "config.json").write_text(json.dumps({"method": "sum_lstm"}))
+    return str(d)
+
+
+@pytest.fixture(scope="module",
+                params=[(k, f) for k in DRAFTERS for f in (False, True)],
+                ids=[f"{k}-{'fused' if f else 'sync'}" for k in DRAFTERS
+                     for f in (False, True)])
+def drafter_runs(request, baseline, lstm_dir):
+    """(kind, fused, baseline, JAX engine, its outputs, port engine, its
+    outputs): the port's drafter holds the JAX engine's drafter
+    parameters (bf16, fp8 bytes for the quantized one), carried across."""
+    import jax
+
+    from arcticinference_tpu_torch.weights import params_from_jax
+
+    kind, fused = request.param
+    path, prompts, ref_tokens, _ = baseline
+    d = config_dict(model=path)
+    d["speculative"] = drafter_kw(kind, fused, lstm_dir)
+    jllm = JaxLLM(jcfg.EngineConfig.from_dict(d))
+    tllm = LLM(tcfg.EngineConfig.from_dict(d), device="cpu")
+    assert tllm.engine._drafter.kind == jllm.engine._drafter.kind == (
+        "lstm" if kind == "lstm" else "mlp")
+    tllm.engine._drafter.params = params_from_jax(
+        jax.tree.map(np.asarray, jllm.engine._drafter.params), "cpu")
+    if kind == "mlp+suffix":
+        for llm in (jllm, tllm):
+            seed_cache(llm.engine._suffix_cache, prompts, ref_tokens)
+    else:
+        assert tllm.engine._suffix_cache is None
+    j = jllm.generate(prompt_token_ids=prompts,
+                      sampling_params=JaxSamplingParams(max_tokens=GEN,
+                                                        ignore_eos=True))
+    t = tllm.generate(prompt_token_ids=prompts,
+                      sampling_params=SamplingParams(max_tokens=GEN,
+                                                     ignore_eos=True))
+    yield kind, fused, baseline, jllm, j, tllm, t
+    tllm.close()
+    jllm.engine.close()
+
+
+def test_drafter_tokens_match_jax_and_no_spec(drafter_runs):
+    """Greedy tokens with a drafter equal the no-speculation run's and the
+    JAX engine's; per-request draft counters too."""
+    kind, fused, (_, _, ref_tokens, port_tokens), _, j, _, t = drafter_runs
+    assert port_tokens == ref_tokens
+    for to, jo, want in zip(t, j, ref_tokens):
+        assert to.token_ids == jo.token_ids == want
+        assert (to.num_draft_tokens, to.num_accepted_draft_tokens) == \
+            (jo.num_draft_tokens, jo.num_accepted_draft_tokens)
+
+
+def test_drafter_spec_stats_match_jax(drafter_runs):
+    """``spec_stats`` equal to the JAX engine's; on the fused loop also
+    ``width_stats`` (every step wide: the width policy is suffix-only)."""
+    kind, fused, _, jllm, _, tllm, t = drafter_runs
+    js, ts = jllm.engine.spec_stats, tllm.engine.spec_stats
+    assert ts.num_drafts > 0
+    assert (ts.num_drafts, ts.num_draft_tokens, ts.num_accepted_tokens,
+            ts.num_accepted_tokens_per_pos) == \
+        (js.num_drafts, js.num_draft_tokens, js.num_accepted_tokens,
+         js.num_accepted_tokens_per_pos)
+    assert sum(o.num_draft_tokens for o in t) == ts.num_draft_tokens
+    steps = tllm.engine.step_times.summary()
+    if fused:
+        assert steps["fused"]["count"] > 0
+        assert tllm.engine.width_stats == jllm.engine._fused.width_stats
+        assert tllm.engine.width_stats["narrow"] == 0
+    else:
+        assert "fused" not in steps and tllm.engine.width_stats is None
+    if kind == "mlp+suffix":
+        # Seeded paths clear the drafter's score bar and are accepted.
+        assert ts.num_accepted_tokens > 0
