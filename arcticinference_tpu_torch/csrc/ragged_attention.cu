@@ -4,26 +4,63 @@
 //
 // Replaces (arcticinference_tpu/ops/pallas/ragged_attention.py):
 //   ragged_paged_attention_kernel   (_ragged_attention_call / _attn_kernel,
-//                                    with its use_tree branch)
+//                                    with its use_tree branch; "kernel 1")
 //   grouped_decode_attention_kernel (_grouped_decode_call /
-//                                    _grouped_decode_kernel)
+//                                    _grouped_decode_kernel; kernels 2, 3)
 //   decode_paged_attention_kernel   (_decode_attention_call /
 //                                    _decode_kernel; see "kernel 4" below
 //                                    for its own design)
 //
-// What bounds them on an H100: the KV bytes each step reads.  A decode
-// row does 4 flops per KV element it reads (2 for q.k, 2 for p.v) and a
-// bf16 element is 2 bytes, so decode attention sits far below the card's
-// ~295 flops/byte ridge: its floor is KV bytes / 3.35 TB/s.  Prefill
-// rows share each page among up to qb*group query rows, which moves a
-// long prefill toward the compute side.
+// What bounds them on an H100.  A decode row does 4 flops per KV element
+// it reads (2 for q.k, 2 for p.v) and a bf16 element is 2 bytes, so decode
+// attention sits far below the card's ~295 flops/byte ridge: its floor is
+// KV bytes / 3.35 TB/s.  Prefill rows share each page among up to
+// qb * group query rows (128 at qb 32 and the 8B's group of 4), which puts
+// a long prefill on the compute side: its floor is its flops over the
+// tensor cores' 989 TFLOP/s.
 //
-// What this design does about it in kernels 1-3 (a first, simple
-// version: CUDA cores and fp32 FMA, no tensor cores, no TMA):
-//   * One CTA per (work item or sequence, kv head).  Its query rows
-//     (qlen * group of them: every q head of the GQA group, every token)
-//     share the head's K/V pages, so each page is read once per CTA row
-//     tile instead of once per q head.
+// Kernel 1 (prefill, mixed and verify steps) runs on the tensor cores:
+//   * One CTA per (work item, kv head), 8 warps.  Warp w owns a 16-row
+//     m-tile of the item's rows (every q head of the GQA group, every
+//     token), so a 128-row item reads each page once.  Its q rows live in
+//     registers as mma.sync m16n8k16 A fragments for the whole pass.
+//   * K and V are staged by blocks of four pages (128 slots) with
+//     16-byte cp.async into padded shared memory, three stages deep, so
+//     the copy of the next blocks overlaps the MMAs of this one.
+//     Fragments come from ldmatrix (V with .trans).  fp8 pages are
+//     converted to fp16 in shared memory once per block (exact: e4m3
+//     fits fp16).
+//   * S = q K^T stays in float32 accumulators; the causal and tree masks
+//     and a base-2 online softmax are applied there (each row's max and
+//     sum over the 4 lanes of a quad), and P goes from the accumulators
+//     straight into the A fragments of P V.
+//   * Precision: q and P each run as a 16-bit value plus the 16-bit
+//     remainder (two MMAs each), in bf16 for bf16 pages and fp16 for fp8
+//     pages.  Rounding q and P to bf16 once, as the TPU kernel does,
+//     misses the 1e-3 relative-norm bound against the float32 plain
+//     version on bf16 outputs; this scheme stays near 1e-4
+//     (tests/test_torch_attention_numerics.py).
+//   * Slots past the item's last position, and pages past its last page,
+//     are never read: cp.async zero-fills their rows, so a masked P of 0
+//     never meets a stale or NaN V.
+//   * An item of at most four m-tiles (a decode row, a short chunk) puts
+//     two or four warps on each tile, each taking its share of the pages
+//     of every block, and merges their states at the end.  Items wider
+//     than 128 rows take further passes over the pages.
+//
+// Token-tree verification (kernel 1's tree-mask path): a work item may
+// carry the frontier slot ts of its request and, per window offset, an
+// ancestor bitmask.  A row whose mask is non-zero attends kv slot ts + r
+// (r in 1..31) iff bit r is set, and every slot up to ts as usual; rows
+// with mask 0 stay causal.  The causal limit stays on slots (a tree node's
+// ancestors all sit at lower slots than the node), so the page cut-offs
+// need no change; the mask is applied in the accumulators with the causal
+// one.
+//
+// Kernels 2 and 3 (a first, simple design: CUDA cores and fp32 FMA):
+//   * One CTA per (sequence, kv head).  Its query rows share the head's
+//     K/V pages, so each page is read once per CTA row tile instead of
+//     once per q head.
 //   * The CTA's 4 warps split the request's pages (warp w takes pages
 //     w, w+4, ...) and each keeps its own fp32 online-softmax state; the
 //     states are merged once at the end.  Four independent page streams
@@ -35,14 +72,6 @@
 //     output, so fp8 pages are only converted, never multiplied.
 //   * Rows beyond the CTA's row tile of RW rows are done in further
 //     passes over the pages (the repeat reads mostly hit L2).
-//
-// Token-tree verification (the ragged kernel's tree-mask path): a work
-// item may carry the frontier slot ts of its request and, per window
-// offset, an ancestor bitmask.  A row whose mask is non-zero attends kv
-// slot ts + r (r in 1..31) iff bit r is set, and every slot up to ts as
-// usual; rows with mask 0 stay causal.  The causal limit stays on slots
-// (a tree node's ancestors all sit at lower slots than the node), so the
-// page and token cut-offs below need no change.
 //
 // Deferred KV writes (the grouped kernel's knew / vnew path): the step's
 // new K/V rows arrive as operands ([t, Hkv*D] in cache dtype, already
@@ -58,11 +87,14 @@
 // The layout contract is the JAX package's: cache [L, N, 2, 32, Hkv*D],
 // q / out [T, Hq, D] bf16, block_tables [B, MaxBlk] int32.  block_size is 32.
 
-#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 #include <type_traits>
 
 namespace {
@@ -129,13 +161,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 16-byte asynchronous copy to shared memory; with src_bytes < 16 the
+// rest of the 16 bytes is filled with zeros (0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes = 16) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
 // ---- the shared online-softmax loop ---------------------------------------
 
 // The rows of one CTA: row i is token tok0 + i / group (cache slot
 // pos0 + i / group) under q head h * group + i % group.  Tokens at or past
-// t_limit do not exist (their rows are neither read nor written).  With a
-// tree mask, token tok0 + j has ancestor bitmask tree_mask[j] against the
-// frontier slot tree_start; tree_mask == nullptr means no tree.  With
+// t_limit do not exist (their rows are neither read nor written).  With
 // knew / vnew (deferred writes; cache-dtype rows, token tok0 + j at row
 // tok0 + j) the cache is read only below pos0 and new rows j < new_len are
 // folded in after the pages; knew == nullptr means no injection.
@@ -144,8 +185,6 @@ struct Rows {
   int pos0;
   int ntok;
   int t_limit;
-  const int* tree_mask = nullptr;
-  int tree_start = -1;
   const void* knew = nullptr;
   const void* vnew = nullptr;
   int new_len = 0;
@@ -253,7 +292,6 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
     // token index in the CTA (-1: not live), which bounds the new rows it
     // attends.
     int pos[RW], tix[RW];
-    unsigned mask[RW];  // ancestor bitmask of each row (0: causal)
     int max_pos = -1, max_tok = -1;
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
@@ -261,9 +299,6 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
       const bool live = i < nrows && rows.tok0 + i / group < rows.t_limit;
       tix[r] = live ? i / group : -1;
       pos[r] = !live ? -1 : deferred ? rows.pos0 - 1 : rows.pos0 + i / group;
-      mask[r] = (live && rows.tree_mask != nullptr)
-                    ? static_cast<unsigned>(rows.tree_mask[i / group])
-                    : 0u;
       max_pos = max(max_pos, pos[r]);
       max_tok = max(max_tok, tix[r]);
     }
@@ -286,14 +321,9 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
       const typename KV::T* vbase =
           kv_layer + ((page * 2 + 1) * kPage) * hkv_d + h * D + lane * DPL;
       const int kv_pos = pg_i * kPage + lane;
-      const int rel = kv_pos - rows.tree_start;  // slot past the frontier
       bool ok[RW];
 #pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        ok[r] = kv_pos <= pos[r];
-        if (mask[r] != 0u && rel >= 1)
-          ok[r] = rel < 32 && ((mask[r] >> rel) & 1u);
-      }
+      for (int r = 0; r < RW; ++r) ok[r] = kv_pos <= pos[r];
       // Only tokens at or before the tile's last position carry weight.
       fold_chunk<KV, D, RW>(sm.q, sm.p[warp], krow, true, vbase, hkv_d,
                             ok, min(kPage, max_pos - pg_i * kPage + 1), m,
@@ -351,10 +381,282 @@ __device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
   }
 }
 
-// ---- kernel 1: ragged work items -------------------------------------------
+// ---- kernel 1: ragged work items, on tensor cores --------------------------
 
-template <class KV, int D, int RW>
-__global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
+// One CTA per (work item, kv head) with 8 warps; warp w owns the 16-row
+// m-tile w % mt of the pass's mt tiles (row i of the item: token i / group
+// under q head h * group + i % group), so a 32-token item at group 4 (128
+// rows) reads its pages once.  An item of at most 4 tiles (a decode row,
+// a short chunk) puts 2 or 4 warps ("splits") on each tile: split j takes
+// the pages j, j + splits, ... of every staged block, and the states are
+// merged at the end.
+constexpr int kRWarps = 8;
+constexpr int kRThreads = kRWarps * 32;
+constexpr int kMTile = 16;                   // rows per warp (mma's m)
+constexpr int kPassRows = kRWarps * kMTile;  // rows per pass over the pages
+constexpr int kBlkPages = 4;                 // pages per pipeline stage
+constexpr int kBlk = kBlkPages * kPage;      // kv slots per pipeline stage
+constexpr int kStages = 3;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of kernel 1: kStages stages of one block (K rows, then V
+// rows, each padded by 16 bytes so ldmatrix's 8 rows fall on distinct
+// banks) and, for fp8 pages, the block converted to fp16 (same padded
+// layout).  After the last block the same bytes hold the split warps'
+// states for the merge.
+template <class KV, int D>
+struct RaggedSmem {
+  static constexpr int kRawRow =
+      D * static_cast<int>(sizeof(typename KV::T)) + 16;
+  static constexpr int kRow16 = D + 8;  // 16-bit elements per compute row
+  static constexpr int kStageBytes = 2 * kBlk * kRawRow;
+  static constexpr bool kConvert = sizeof(typename KV::T) == 1;
+  static constexpr int kConvBytes = kConvert ? 2 * kBlk * kRow16 * 2 : 0;
+  static constexpr int kMergeFloats = D / 2 + 4;  // per lane: o, m[2], l[2]
+  static constexpr int kMergeBytes = (kRWarps - 1) * kMergeFloats * 32 * 4;
+  static constexpr int kBytes =
+      std::max(kStages * kStageBytes + kConvBytes, kMergeBytes);
+  // bf16 pages are read where they land: their staged rows are the
+  // compute rows.
+  static_assert(kConvert || kRawRow == 2 * kRow16, "row layout");
+};
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The tensor-core type of each cache type: bf16 pages go to the MMAs as
+// they are, fp8 pages are converted to fp16 (exact).  q and P are each
+// split into the 16-bit value and the 16-bit remainder (two MMAs each);
+// one 16-bit q or P misses the 1e-3 bound against the float32 plain
+// version on bf16 outputs (tests/test_torch_attention_numerics.py models
+// the scheme).
+template <class KV> struct Mma;
+
+template <> struct Mma<Bf16> {
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    return pack_bf16(a, b);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <> struct Mma<Fp8> {
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    const __half2 v = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+__device__ __forceinline__ uint32_t fp8x2_to_half2(uint32_t two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two), __NV_E4M3);
+  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
+}
+
+// One staged fp8 block (2 * kBlk rows of kRawRow bytes) to fp16 rows of
+// kRow16 elements; 8 elements per thread and step.
+template <int D>
+__device__ __forceinline__ void convert_fp8_block(const unsigned char* raw,
+                                                  uint16_t* dst) {
+  using S = RaggedSmem<Fp8, D>;
+  constexpr int kPerRow = D / 8;
+  for (int i = threadIdx.x; i < 2 * kBlk * kPerRow; i += kRThreads) {
+    const int row = i / kPerRow, c8 = i % kPerRow;
+    const uint2 v =
+        *reinterpret_cast<const uint2*>(raw + row * S::kRawRow + c8 * 8);
+    uint4 h;
+    h.x = fp8x2_to_half2(v.x & 0xffffu);
+    h.y = fp8x2_to_half2(v.x >> 16);
+    h.z = fp8x2_to_half2(v.y & 0xffffu);
+    h.w = fp8x2_to_half2(v.y >> 16);
+    *reinterpret_cast<uint4*>(dst + row * S::kRow16 + c8 * 8) = h;
+  }
+}
+
+// Fold one 32-slot page of the staged block into a warp's state.  sk / sv:
+// the page's K and V rows (16-bit, kRow16 apart); base: its first slot.
+// The thread holds rows g and g + 8 of the warp's m-tile (hr = 0, 1) with
+// causal limits pos[hr] (-1: no row) and ancestor bitmasks msk[hr] against
+// the frontier slot ts.  full: every slot of the page is attended by
+// every row (no mask to apply).  q.k and p.v run as m16n8k16 MMAs with
+// float32 sums; S stays in the accumulators, the masks and the base-2
+// online softmax are applied there (each row's max and sum over the 4
+// lanes of a quad), and P goes from the accumulators straight into the
+// A fragments of p.v.
+template <class KV, int D>
+__device__ __forceinline__ void fold_page_mma(
+    const uint16_t* __restrict__ sk, const uint16_t* __restrict__ sv,
+    int base, const int (&pos)[2], const unsigned (&msk)[2], int ts,
+    bool full, const uint32_t (&qh)[D / 16][4],
+    const uint32_t (&ql)[D / 16][4], float (&o)[D / 8][4], float (&m)[2],
+    float (&l)[2]) {
+  using M = Mma<KV>;
+  constexpr int R = RaggedSmem<KV, D>::kRow16;
+  const int lane = threadIdx.x & 31;
+  const int mi = lane >> 3, ri = lane & 7;  // ldmatrix: matrix, its row
+  const int c2 = (lane & 3) * 2;
+  float s[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+  // S = q K^T: 4 n-tiles of 8 slots; one ldmatrix.x4 gives the B
+  // fragments of two n-tiles for one 16-wide k-step.  Consecutive MMAs
+  // go to different accumulators.
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t b[2][4];
+#pragma unroll
+    for (int np = 0; np < 2; ++np)
+      ldsm_x4(b[np], sk + ((np * 2 + (mi >> 1)) * 8 + ri) * R + kk * 16 +
+                         (mi & 1) * 8);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      M::mma(s[nt], qh[kk], b[nt >> 1][(nt & 1) * 2],
+             b[nt >> 1][(nt & 1) * 2 + 1]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      M::mma(s[nt], ql[kk], b[nt >> 1][(nt & 1) * 2],
+             b[nt >> 1][(nt & 1) * 2 + 1]);
+  }
+  if (!full) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int slot = base + nt * 8 + c2 + (e & 1);
+        const int hr = e >> 1;
+        bool ok = slot <= pos[hr];
+        const int rel = slot - ts;  // slot past the frontier
+        if (msk[hr] != 0u && rel >= 1)
+          ok = rel < 32 && ((msk[hr] >> rel) & 1u);
+        if (!ok) s[nt][e] = kNegInf;
+      }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      mx = fmaxf(mx, fmaxf(s[nt][2 * hr], s[nt][2 * hr + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[hr], mx);
+    // m_use: a row with nothing attended yet keeps exp2(-inf) = 0.
+    const float m_use = m_new == kNegInf ? 0.f : m_new;
+    alpha[hr] = fast_exp2(m[hr] - m_use);
+    m[hr] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+        s[nt][e] = fast_exp2(s[nt][e] - m_use);
+        sum += s[nt][e];
+      }
+    l[hr] = l[hr] * alpha[hr] + sum;  // this lane's part; quad-summed later
+  }
+  // O is rescaled only when some row's max moved (once a row has met its
+  // largest scores, most pages leave it alone).
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+  }
+  // O += P V: two 16-slot k-steps; one ldmatrix.x4.trans gives the B
+  // fragments of two 8-wide d tiles.
+#pragma unroll
+  for (int kv = 0; kv < 2; ++kv) {
+    const float* x0 = s[2 * kv];
+    const float* x1 = s[2 * kv + 1];
+    const float pv[4][2] = {{x0[0], x0[1]}, {x0[2], x0[3]},
+                            {x1[0], x1[1]}, {x1[2], x1[3]}};
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ph[j] = M::pack(pv[j][0], pv[j][1]);
+      const float2 hf = M::unpack(ph[j]);
+      pl[j] = M::pack(pv[j][0] - hf.x, pv[j][1] - hf.y);
+    }
+#pragma unroll
+    for (int dp = 0; dp < D / 16; dp += 2) {
+      uint32_t b[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4_trans(b[i], sv + (kv * 16 + (mi & 1) * 8 + ri) * R +
+                                (dp + i) * 16 + (mi >> 1) * 8);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        M::mma(o[2 * dp + n], ph, b[n >> 1][(n & 1) * 2],
+               b[n >> 1][(n & 1) * 2 + 1]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        M::mma(o[2 * dp + n], pl, b[n >> 1][(n & 1) * 2],
+               b[n >> 1][(n & 1) * 2 + 1]);
+    }
+  }
+}
+
+template <class KV, int D>
+__global__ void __launch_bounds__(kRThreads, 1) ragged_attention_kernel(
     const uint16_t* __restrict__ q, uint16_t* __restrict__ out,
     const typename KV::T* __restrict__ kv, const float* __restrict__ kv_scale,
     const int* __restrict__ item_req, const int* __restrict__ item_qstart,
@@ -366,14 +668,19 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
     const int* __restrict__ item_tree_mask, int tree_qw, int layer,
     int n_items, int t, int hq, int hkv, int max_blk, int64_t layer_stride,
     float scale) {
-  __shared__ __align__(16) Smem<D, RW> sm;
-  const int item = blockIdx.x, h = blockIdx.y;
+  using E = typename KV::T;
+  using M = Mma<KV>;
+  using S = RaggedSmem<KV, D>;
+  constexpr int KS = D / 16;  // k-steps of q.k
+  constexpr int NT = D / 8;   // d tiles of p.v
+  extern __shared__ __align__(16) unsigned char smem1[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = blockIdx.y;
   const int group = hq / hkv;
-  if (item >= n_items) {
+  if (blockIdx.x >= n_items) {
     // Padding tokens (req_idx < 0) belong to no item: zero them here.
-    const int t0 = (item - n_items) * kZeroTokens;
-    for (int idx = threadIdx.x; idx < kZeroTokens * group * D;
-         idx += kThreads) {
+    const int t0 = (blockIdx.x - n_items) * kZeroTokens;
+    for (int idx = tid; idx < kZeroTokens * group * D; idx += kRThreads) {
       const int tok = t0 + idx / (group * D);
       if (tok < t && req_idx[tok] < 0)
         out[(int64_t)tok * hq * D + h * group * D + idx % (group * D)] =
@@ -381,6 +688,9 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
     }
     return;
   }
+  // Items in reverse: a request's later chunks attend more slots, so the
+  // longest CTAs start first and the short ones fill the tail.
+  const int item = n_items - 1 - blockIdx.x;
   const int qlen = item_qlen[item];
   if (qlen <= 0) return;
   // The host schedule aligns each item's window start down to a multiple
@@ -389,20 +699,223 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
   const int qstart = item_qstart[item];
   int o0 = 0;
   while (o0 < 7 && qstart + o0 < t && token_item[qstart + o0] != item) ++o0;
-  Rows rows{qstart + o0, item_pos_base[item] + o0, qlen, t};
+  const int tok0 = qstart + o0;
+  const int pos0 = item_pos_base[item] + o0;  // cache slot of token 0
+  const int ntok = min(qlen, t - tok0);
+  if (ntok <= 0) return;
+  // Token-tree verification: the mask is indexed by window offset (row 0
+  // of the window is the 8-aligned qstart, token 0 sits at offset o0).  A
+  // row with a non-zero mask attends slot ts + r (r in 1..31) iff bit r is
+  // set, and every slot up to ts as usual; the causal limit stays on
+  // slots (a node's ancestors sit at lower slots than the node).
+  const int* tmask = nullptr;
+  int ts = -1;
   if (item_tree_mask != nullptr && item_tree_start[item] >= 0) {
-    // The mask is indexed by window offset: row 0 of the window is the
-    // 8-aligned qstart, and this CTA's first token sits at offset o0.
-    rows.tree_mask = item_tree_mask + (int64_t)item * tree_qw + o0;
-    rows.tree_start = item_tree_start[item];
+    tmask = item_tree_mask + (int64_t)item * tree_qw + o0;
+    ts = item_tree_start[item];
   }
-  attend<KV, D, RW>(sm, q, out, kv + layer * layer_stride,
-                        block_tables + (int64_t)item_req[item] * max_blk,
-                        item_pages[item], rows, h, hq, hkv,
-                        scale * kv_scale[2 * layer], kv_scale[2 * layer + 1]);
+  const int npages = min(item_pages[item], max_blk);
+  const int* page_row = block_tables + (int64_t)item_req[item] * max_blk;
+  const E* kv_layer = kv + layer * layer_stride;
+  // k_scale (and log2 e, for exp2) folded into q, v_scale into the output.
+  const float qs = scale * kv_scale[2 * layer] * kLog2e;
+  const float v_scale = kv_scale[2 * layer + 1];
+  const int hkv_d = hkv * D;
+  const int nrows = ntok * group;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+
+  for (int row0 = 0; row0 < nrows; row0 += kPassRows) {
+    const int rows = min(kPassRows, nrows - row0);
+    const int mt = (rows + kMTile - 1) / kMTile;
+    int splits = 1;
+    while (splits < kBlkPages && 2 * splits * mt <= kRWarps) splits *= 2;
+    const int split = warp / mt;
+    const bool active = split < splits;
+    const int rbase = row0 + (warp % mt) * kMTile + g;  // rows rbase, +8
+    int pos[2];
+    unsigned msk[2];
+    int wfirst = INT_MAX, wlast = -1;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = rbase + 8 * hr;
+      const bool live = active && r < row0 + rows;
+      pos[hr] = live ? pos0 + r / group : -1;
+      msk[hr] = (live && tmask != nullptr)
+                    ? static_cast<unsigned>(tmask[r / group])
+                    : 0u;
+      if (live) wfirst = min(wfirst, pos[hr]);
+      wlast = max(wlast, pos[hr]);
+    }
+    unsigned wtree = msk[0] | msk[1];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      wfirst = min(wfirst, __shfl_xor_sync(0xffffffffu, wfirst, off));
+      wlast = max(wlast, __shfl_xor_sync(0xffffffffu, wlast, off));
+      wtree |= __shfl_xor_sync(0xffffffffu, wtree, off);
+    }
+
+    // q rows as A fragments, scaled and split into hi + lo: register j of
+    // k-step kk holds d = 16 kk + c2 + 8 (j / 2) of row rbase + 8 (j % 2).
+    uint32_t qh[KS][4], ql[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int hr = j & 1, r = rbase + 8 * hr;
+        float2 x = make_float2(0.f, 0.f);
+        if (pos[hr] >= 0) {
+          const uint32_t raw = *reinterpret_cast<const uint32_t*>(
+              q + (int64_t)(tok0 + r / group) * hq * D +
+              (h * group + r % group) * D + kk * 16 + c2 + (j >> 1) * 8);
+          x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&raw));
+          x.x *= qs;
+          x.y *= qs;
+        }
+        qh[kk][j] = M::pack(x.x, x.y);
+        const float2 hf = M::unpack(qh[kk][j]);
+        ql[kk][j] = M::pack(x.x - hf.x, x.y - hf.y);
+      }
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    // Slots past the pass's last position (and past the item's pages) are
+    // never read: cp.async fills their rows with zeros, so a masked P of 0
+    // never meets a stale or NaN V.
+    const int last_slot =
+        min(pos0 + (row0 + rows - 1) / group, npages * kPage - 1);
+    const int nblk = last_slot / kBlk + 1;
+    auto load = [&](int blk) {
+      unsigned char* dst = smem1 + (blk % kStages) * S::kStageBytes;
+      constexpr int kChunks = D * static_cast<int>(sizeof(E)) / 16;
+      for (int i = tid; i < 2 * kBlk * kChunks; i += kRThreads) {
+        const int row = i / kChunks, ch = i % kChunks;  // K rows, V rows
+        const int half = row / kBlk, slot = blk * kBlk + row % kBlk;
+        const bool ok = slot <= last_slot;
+        const E* src = kv_layer;
+        if (ok)
+          src += ((int64_t)(page_row[slot / kPage] * 2 + half) * kPage +
+                  slot % kPage) * hkv_d + h * D + ch * (16 / sizeof(E));
+        cp_async16(dst + row * S::kRawRow + ch * 16, src, ok ? 16 : 0);
+      }
+    };
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < nblk) load(st);
+      cp_async_commit();
+    }
+    for (int blk = 0; blk < nblk; ++blk) {
+      if (blk + kStages - 1 < nblk) load(blk + kStages - 1);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();
+      __syncthreads();
+      const unsigned char* staged = smem1 + (blk % kStages) * S::kStageBytes;
+      const uint16_t* tile = reinterpret_cast<const uint16_t*>(staged);
+      if constexpr (S::kConvert) {
+        uint16_t* conv = reinterpret_cast<uint16_t*>(
+            smem1 + kStages * S::kStageBytes);
+        convert_fp8_block<D>(staged, conv);
+        __syncthreads();
+        tile = conv;
+      }
+      if (active) {
+#pragma unroll 1
+        for (int pp = 0; pp < kBlkPages; ++pp) {
+          const int base = blk * kBlk + pp * kPage;
+          if (pp % splits != split || base > wlast) continue;
+          // No mask where every row attends the whole page and no tree
+          // row's override window (ts, ts + 31] meets it.
+          const bool full =
+              base + kPage - 1 <= wfirst &&
+              !(wtree != 0u && base + kPage - 1 > ts && base <= ts + 31);
+          fold_page_mma<KV, D>(tile + pp * kPage * S::kRow16,
+                               tile + (kBlk + pp * kPage) * S::kRow16, base,
+                               pos, msk, ts, full, qh, ql, o, m, l);
+        }
+      }
+      __syncthreads();  // the stage (and the fp8 buffer) is free again
+    }
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    }
+    if (splits > 1) {
+      // Splits 1.. hand their states to split 0 of the same m-tile through
+      // shared memory (one float per lane and value: no bank conflict).
+      float* mg0 = reinterpret_cast<float*>(smem1) +
+                   (warp % mt) * S::kMergeFloats * 32 + lane;
+      const int stride = mt * S::kMergeFloats * 32;  // from split to split
+      if (active && split > 0) {
+        float* mg = mg0 + (split - 1) * stride;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mg[(n * 4 + e) * 32] = o[n][e];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          mg[(D / 2 + hr) * 32] = m[hr];
+          mg[(D / 2 + 2 + hr) * 32] = l[hr];
+        }
+      }
+      __syncthreads();
+      for (int j = 1; active && split == 0 && j < splits; ++j) {
+        const float* mg = mg0 + (j - 1) * stride;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const float m1 = mg[(D / 2 + hr) * 32];
+          const float l1 = mg[(D / 2 + 2 + hr) * 32];
+          const float mx = fmaxf(m[hr], m1);
+          const float mu = mx == kNegInf ? 0.f : mx;
+          const float f0 = fast_exp2(m[hr] - mu), f1 = fast_exp2(m1 - mu);
+          m[hr] = mx;
+          l[hr] = l[hr] * f0 + l1 * f1;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 2 * hr; e < 2 * hr + 2; ++e)
+              o[n][e] = o[n][e] * f0 + mg[(n * 4 + e) * 32] * f1;
+        }
+      }
+    }
+    if (active && split == 0) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = rbase + 8 * hr;
+        if (pos[hr] < 0) continue;
+        const float f = v_scale / fmaxf(l[hr], 1e-20f);
+        uint16_t* orow = out + (int64_t)(tok0 + r / group) * hq * D +
+                         (h * group + r % group) * D + c2;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<uint32_t*>(orow + n * 8) =
+              pack_bf16(o[n][2 * hr] * f, o[n][2 * hr + 1] * f);
+      }
+    }
+    __syncthreads();  // the next pass reuses the shared memory
+  }
 }
 
 // ---- kernel 2: grouped uniform decode --------------------------------------
+
+// attend out of line.  On the H100, ptxas schedules kernels 2 and 3 at
+// 4-row tiles ~19% slower with attend inlined, and at 8-row tiles ~17%
+// slower without (scripts/time_attention_kernels.py; PERF.md).
+template <class KV, int D, int RW>
+__device__ __noinline__ void attend_out_of_line(
+    Smem<D, RW>& sm, const uint16_t* __restrict__ q,
+    uint16_t* __restrict__ out, const typename KV::T* __restrict__ kv_layer,
+    const int* __restrict__ page_row, int npages, Rows rows, int h, int hq,
+    int hkv, float q_scale, float v_scale) {
+  attend<KV, D, RW>(sm, q, out, kv_layer, page_row, npages, rows, h, hq,
+                    hkv, q_scale, v_scale);
+}
 
 template <class KV, int D, int RW>
 __global__ void __launch_bounds__(kThreads) grouped_decode_kernel(
@@ -440,9 +953,15 @@ __global__ void __launch_bounds__(kThreads) grouped_decode_kernel(
       rows.new_len += row < t && slot_mapping[row] >= 0;
     }
   }
-  attend<KV, D, RW>(sm, q, out, kv + layer * layer_stride, page_row,
-                        npages, rows, h, hq, hkv,
-                        scale * kv_scale[2 * layer], kv_scale[2 * layer + 1]);
+  const float q_scale = scale * kv_scale[2 * layer];
+  if constexpr (RW == 4)
+    attend_out_of_line<KV, D, RW>(sm, q, out, kv + layer * layer_stride,
+                                  page_row, npages, rows, h, hq, hkv,
+                                  q_scale, kv_scale[2 * layer + 1]);
+  else
+    attend<KV, D, RW>(sm, q, out, kv + layer * layer_stride, page_row,
+                      npages, rows, h, hq, hkv, q_scale,
+                      kv_scale[2 * layer + 1]);
 }
 
 // ---- kernel 4: one CTA per sequence ------------------------------------------
@@ -465,13 +984,6 @@ __host__ __device__ constexpr int smem4_bytes(int hkv_d) {
   return 2 * kPage * (hkv_d * static_cast<int>(sizeof(typename KV::T)) +
                       kRowPad) +
          kWarps4 * RW * (D + kPage) * static_cast<int>(sizeof(float));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
 }
 
 template <class KV, int D, int RW>
@@ -622,7 +1134,7 @@ cudaError_t launch_decode_paged(void* q, void* out, const void* kv,
 
 // ---- dispatch ----------------------------------------------------------------
 
-template <class KV, int D, int RW>
+template <class KV, int D>
 cudaError_t launch_ragged(void* q, void* out, const void* kv,
                           const float* kv_scale, const int* item_req,
                           const int* item_qstart, const int* item_qlen,
@@ -633,8 +1145,13 @@ cudaError_t launch_ragged(void* q, void* out, const void* kv,
                           int n_items, int t, int hq, int hkv, int max_blk,
                           int64_t layer_stride, float scale,
                           cudaStream_t stream) {
+  auto* kernel = ragged_attention_kernel<KV, D>;
+  constexpr int smem = RaggedSmem<KV, D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   dim3 grid(n_items + (t + kZeroTokens - 1) / kZeroTokens, hkv);
-  ragged_attention_kernel<KV, D, RW><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kRThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<uint16_t*>(out),
       static_cast<const typename KV::T*>(kv), kv_scale, item_req, item_qstart,
       item_qlen, item_pages, item_pos_base, token_item, req_idx, block_tables,
@@ -663,14 +1180,25 @@ cudaError_t launch_grouped(void* q, void* out, const void* kv,
   return cudaGetLastError();
 }
 
-// Picks the template instance for (kv dtype, head dim, rows per tile) and
-// calls F::run<...>.  q and out are bf16.
-template <class F, class... A>
-cudaError_t dispatch(int kv_fp8, int d, int rw, A... args) {
+// Kernel 1's instances: (kv dtype, head dim).
+template <class... A>
+cudaError_t dispatch_ragged(int kv_fp8, int d, A... args) {
+  if (d == 64)
+    return kv_fp8 ? launch_ragged<Fp8, 64>(args...)
+                  : launch_ragged<Bf16, 64>(args...);
+  if (d == 128)
+    return kv_fp8 ? launch_ragged<Fp8, 128>(args...)
+                  : launch_ragged<Bf16, 128>(args...);
+  return cudaErrorInvalidValue;
+}
+
+// Kernel 2's (and 3's) instances: (kv dtype, head dim, rows per tile).
+template <class... A>
+cudaError_t dispatch_grouped(int kv_fp8, int d, int rw, A... args) {
 #define ARCTIC_CASE(KVT, DD, RWW)                                        \
   if ((kv_fp8 != 0) == std::is_same<KVT, Fp8>::value && d == DD &&      \
       rw == RWW)                                                         \
-    return F::template run<KVT, DD, RWW>(args...);
+    return launch_grouped<KVT, DD, RWW>(args...);
 #define ARCTIC_CASES(KVT) \
   ARCTIC_CASE(KVT, 64, 4) ARCTIC_CASE(KVT, 64, 8) \
   ARCTIC_CASE(KVT, 128, 4) ARCTIC_CASE(KVT, 128, 8)
@@ -680,20 +1208,6 @@ cudaError_t dispatch(int kv_fp8, int d, int rw, A... args) {
 #undef ARCTIC_CASE
   return cudaErrorInvalidValue;
 }
-
-struct RaggedF {
-  template <class KV, int D, int RW, class... A>
-  static cudaError_t run(A... args) {
-    return launch_ragged<KV, D, RW>(args...);
-  }
-};
-
-struct GroupedF {
-  template <class KV, int D, int RW, class... A>
-  static cudaError_t run(A... args) {
-    return launch_grouped<KV, D, RW>(args...);
-  }
-};
 
 // Kernel 4's instances: (kv dtype, head dim, rows per warp 4 / 8 / 16).
 template <class... A>
@@ -719,6 +1233,7 @@ cudaError_t dispatch_decode_paged(int kv_fp8, int d, int rw, A... args) {
 // q and out are bf16, the int32 metadata arrays are contiguous.  Returns cudaGetLastError()
 // right after the launch (0 = launched).  item_tree_start [n_items] and
 // item_tree_mask [n_items, tree_qw] are null for a step without a tree;
+// the ragged kernel takes rows_per_tile = 16 (its rows per warp) only.
 // knew / vnew [t, Hkv*D] (cache dtype) and slot_mapping [t] are null for a
 // grouped step without deferred writes (qlen <= 32 with them).
 extern "C" int ragged_attention_launch(
@@ -730,8 +1245,9 @@ extern "C" int ragged_attention_launch(
     int layer, int n_items, int t, int hq, int hkv, int d, int max_blk,
     int64_t layer_stride, int kv_fp8, int rows_per_tile, float scale,
     void* stream) {
-  return static_cast<int>(dispatch<RaggedF>(
-      kv_fp8, d, rows_per_tile, q, out, kv,
+  if (rows_per_tile != kMTile) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_ragged(
+      kv_fp8, d, q, out, kv,
       static_cast<const float*>(kv_scale),
       static_cast<const int*>(item_req), static_cast<const int*>(item_qstart),
       static_cast<const int*>(item_qlen), static_cast<const int*>(item_pages),
@@ -753,7 +1269,7 @@ extern "C" int grouped_decode_launch(
   if (knew != nullptr && (qlen > kPage || vnew == nullptr ||
                           slot_mapping == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch<GroupedF>(
+  return static_cast<int>(dispatch_grouped(
       kv_fp8, d, rows_per_tile, q, out, kv,
       static_cast<const float*>(kv_scale), static_cast<const int*>(pos_base),
       static_cast<const int*>(seq_lens),

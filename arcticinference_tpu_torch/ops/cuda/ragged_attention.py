@@ -19,8 +19,10 @@
   kv head).  As in the JAX package, nothing on the engine's path calls
   it.
 
-All are bound by the KV bytes they read (3.35 TB/s on an H100); the
-source note in the ``.cu`` file says what the design does about it.
+Decode attention is bound by the KV bytes it reads (3.35 TB/s on an
+H100), a long prefill by the tensor cores' rate (the ragged kernel runs
+its products on them); the source note in the ``.cu`` file says what each
+design does about it.
 
 A wrapper given CPU tensors computes the plain version
 (``ops/attention.py``); given CUDA tensors (bf16 q, a bf16 or fp8-e4m3
@@ -68,6 +70,9 @@ MAX_TREE_NODES = 30
 MAX_DEFERRED_QLEN = 32
 #: Most bytes of one token's K (or V) row that kernel 4 stages per page.
 MAX_ROW_BYTES = 2048
+#: Query rows per warp of the ragged kernel (the m16 tile of its tensor-core
+#: products): the only rows-per-tile value its entry point takes.
+RAGGED_ROWS_PER_WARP = 16
 
 
 def reset_launch_counts() -> None:
@@ -353,8 +358,8 @@ def ragged_paged_attention_kernel(
         block_tables.data_ptr(), *tree_ptrs, tree_qw, layer,
         item_req.numel(), t, hq,
         hkv_d // d, d, block_tables.shape[1], n_blocks * 2 * bs * hkv_d,
-        int(kv_cache.dtype == torch.float8_e4m3fn), 8, float(scale),
-        _stream(dev))
+        int(kv_cache.dtype == torch.float8_e4m3fn), RAGGED_ROWS_PER_WARP,
+        float(scale), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"ragged_attention_launch failed: CUDA error {rc}")
     if use_tree:

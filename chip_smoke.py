@@ -9,7 +9,9 @@ Phases, each reported on its own lines:
 1. device:   card name and power limit (nvidia-smi), torch's device name.
 2. build:    nvcc builds every kernel source of ``arcticinference_tpu_torch/
              csrc`` at once, one process each (printing ``-Xptxas -v``:
-             registers, shared memory, spills).
+             registers, shared memory, spills); ``cuobjdump -sass`` must
+             find HMMA (tensor-core) instructions in every instance of
+             the ragged kernel.
 3. kernels:  each CUDA kernel against its plain PyTorch version at the
              main path's shapes, with its time, the plain version's, the
              bound and a library yardstick: the two attention kernels
@@ -22,12 +24,15 @@ Phases, each reported on its own lines:
              the rows written into the cache, the ragged kernel's
              tree-mask path on two token-tree verify steps (16 requests
              at context ~1024 with a frontier row and a 30-node tree
-             each; a 512-token prefill chunk beside 15 such trees), and
-             the two quantized matmuls (Llama-3.1-8B's wqkv, wo,
-             w_gateup, w_down and lm_head at 16, 64 and 2048 rows; fp8
-             everywhere, int8 on w_gateup, int4 everywhere; fp8 and int8
-             at the Arctic drafter's head [4096, 128256] and projection
-             [4096, 4096], 16 and 64 rows).
+             each; a 512-token prefill chunk beside 15 such trees), the
+             ragged kernel on a poisoned cache (NaN, or fp8 0x7f, in
+             every unreferenced block and every slot past seq_len) on
+             the mixed step and the tree-verify step against the plain
+             version on the clean one, and the two quantized matmuls
+             (Llama-3.1-8B's wqkv, wo, w_gateup, w_down and lm_head at
+             16, 64 and 2048 rows; fp8 everywhere, int8 on w_gateup,
+             int4 everywhere; fp8 and int8 at the Arctic drafter's head
+             [4096, 128256] and projection [4096, 4096], 16 and 64 rows).
 4. forward:  the full-width Llama-3.1-8B shapes at 2 layers, random
              weights in bf16, fp8 and int4: one prefill, one decode and
              one token-tree verify step through ``forward`` with the
@@ -43,8 +48,10 @@ Phases, each reported on its own lines:
              seeded from the bf16 run's output and corrupted copies of
              it): linear drafts on the synchronous step, token trees, and
              linear drafts on the fused decode loop (the default) without
-             and with ARCTIC_TPU_DEFERRED_KV=1, every fused step's
-             dispatch under ``torch.cuda.set_sync_debug_mode("error")``;
+             and with ARCTIC_TPU_DEFERRED_KV=1 (that run with the loop's
+             width pinned to wide, the program that defers), every fused
+             step's dispatch under
+             ``torch.cuda.set_sync_debug_mode("error")``;
              then with Arctic drafters (``method="arctic"``, random init
              at the JAX defaults: an MLP on the fused loop and on the
              synchronous step, an fp8 LSTM on the fused loop, MLP +
@@ -495,6 +502,75 @@ class DeferredCase(Case):
         return max(t_bytes, t_flops) * 1e3, by, kv_bytes + io_bytes, flops
 
 
+def poisoned_layer(case):
+    """The case's cache layer with NaN (bf16) or 0x7f (fp8 e4m3's NaN) in
+    every block that no block table references and in every slot at or
+    past its request's seq_len, as a one-layer stack [1, N, 2, BS,
+    Hkv*D]: the kernel on it must equal the plain version on the clean
+    cache."""
+    import torch
+
+    bad = case.kv[case.layer].clone()
+    fp8 = bad.dtype == torch.float8_e4m3fn
+    raw = bad.view(torch.uint8) if fp8 else bad
+    nan = 0x7f if fp8 else float("nan")
+    bt = case.block_tables.cpu().numpy()
+    used = np.zeros(bad.shape[0], bool)
+    for r, s in enumerate(case.seq_np):
+        n = -(-int(s) // BS)
+        used[bt[r, :n]] = True
+        if n and s % BS:
+            raw[int(bt[r, n - 1]), :, int(s % BS):] = nan
+    raw[torch.from_numpy(~used).cuda()] = nan
+    return bad[None]
+
+
+def run_poisoned(case, schedule, fn_plain, qb):
+    """The ragged kernel on :func:`poisoned_layer` against the plain
+    version on the clean cache."""
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+
+    bad = poisoned_layer(case)
+    scale = case.kv_scale[case.layer:case.layer + 1]
+
+    def kern():
+        return ra.ragged_paged_attention_kernel(
+            case.q, bad, case.positions, case.req_idx, case.block_tables,
+            case.seq_lens, qb=qb, schedule=schedule, kv_scale=scale, layer=0)
+
+    name = case.name
+    case.name = f"poisoned {name}"
+    res = run_case(case, kern, fn_plain)
+    case.name = name
+    return res
+
+
+def hmma_counts(lib) -> dict:
+    """HMMA (tensor-core) instructions in each instance of the ragged
+    kernel, read from the library's SASS with ``cuobjdump -sass``;
+    raises if the tool is missing."""
+    import re
+
+    from arcticinference_tpu_torch.ops.cuda import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        raise AssertionError(f"cuobjdump not found beside nvcc ({tool})")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"ragged_attention_kernelINS_\d+(\w+?)ELi(\d+)E",
+                          line)
+            fn = f"{m.group(1)}, D={m.group(2)}" if m else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def run_case(case, fn_kernel, fn_plain, iters_kernel=20, iters_plain=3):
     """Kernel against plain version on one case; returns the case's line
     with ``ok`` False where a check failed."""
@@ -563,6 +639,8 @@ def phase_kernels(rng):
 
                 case.name = f"{name} qb={qb}"
                 ragged_cases.append(run_case(case, kern, plain))
+            if name.startswith("mixed"):
+                ragged_cases.append(run_poisoned(case, sched, plain, qb))
             del case
             torch.cuda.empty_cache()
         # Pure decode: B=64 slots, 6 dead, contexts 128-4096.
@@ -728,6 +806,8 @@ def phase_tree_kernels(rng):
 
             case.name = f"{name} qb=32"
             cases.append(run_case(case, kern, plain))
+            if name.startswith("tree verify"):
+                cases.append(run_poisoned(case, sched, plain, 32))
             del case
             torch.cuda.empty_cache()
     failed = [c["case"] for c in cases if not c["ok"]]
@@ -1476,6 +1556,11 @@ def run_generate(quantization, prompts, spec=None, reference=None,
     if suffix is not None:
         seed_suffix_cache(suffix, prompts, reference, vocab)
     fused = spec is not None and "fused" in spec.split()
+    # Deferred KV serves only the fused loop's global-wide program, and
+    # the loop's width policy picks it from which drafts were consumed,
+    # which random weights leave to near-ties: the deferred run pins the
+    # width so that every fused step takes the path.
+    deferred = spec == "suffix fused deferred"
     torch.cuda.reset_peak_memory_stats()
     steps0 = llm.engine.engine_stats.num_steps
     reset_counts()
@@ -1483,8 +1568,9 @@ def run_generate(quantization, prompts, spec=None, reference=None,
     with host_breakdown(llm.engine.runner) as host, \
             sync_checked_fused_dispatch() as checked, \
             drafted_steps() as drafted, fp8_matmul_shapes() as fp8_shapes, \
-            env_flag("ARCTIC_TPU_DEFERRED_KV",
-                     "1" if spec == "suffix fused deferred" else None):
+            env_flag("ARCTIC_TPU_DEFERRED_KV", "1" if deferred else None), \
+            env_flag("ARCTIC_TPU_FUSED_FORCE_WIDTH",
+                     "wide" if deferred else None):
         outs = llm.generate(prompt_token_ids=prompts,
                             sampling_params=SamplingParams(max_tokens=32))
     torch.cuda.synchronize()
@@ -1767,7 +1853,7 @@ def main() -> int:
 
     sources = (ra.SOURCE, fm.SOURCE, im.SOURCE)
     t0 = time.perf_counter()
-    build.build_all(sources)
+    libs = build.build_all(sources)
     log(f"[build] {', '.join(sources)} in {time.perf_counter() - t0:.1f} s "
         "(one nvcc each, at once)")
     for src in sources:
@@ -1775,6 +1861,13 @@ def main() -> int:
         for line in build.build_logs.get(src, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("    " + line.strip())
+    # The ragged kernel runs its products on the tensor cores: every
+    # instance must hold HMMA instructions.
+    hmma = hmma_counts(libs[0])
+    log(f"[build] HMMA instructions per ragged kernel instance: "
+        f"{json.dumps(hmma)}")
+    if len(hmma) != 4 or min(hmma.values()) == 0:
+        raise AssertionError(f"ragged kernel instances without HMMA: {hmma}")
 
     csrc = "arcticinference_tpu_torch/csrc/"
     kernels = {

@@ -279,6 +279,12 @@ def test_deferred_wrapper_refuses_what_the_kernel_does_not_take(
     assert tra.deferred_decode_launches == 0
 
 
+def random_tree(rng, n):
+    """Parents of a best-first tree of ``n`` nodes: node i hangs off the
+    frontier (-1) or an earlier node."""
+    return [int(rng.integers(-1, i)) if i else -1 for i in range(n)]
+
+
 def tree_step(reqs, device, qb):
     """A verify step over ``reqs`` [(ctx, real tokens fed, tree parents
     or None)]: positions (depth-based on tree rows), request ids, per-row
@@ -316,12 +322,8 @@ def test_tree_kernel_matches_plain(cuda_device, qb, kv_dtype):
     nodes (a 30-node tree reads bit 30 of its masks), against the plain
     version with the per-row masks."""
     rng = np.random.default_rng(4)
-
-    def tree(n):
-        return [int(rng.integers(-1, i)) if i else -1 for i in range(n)]
-
-    reqs = [(0, 40, None), (37, 1, tree(12)), (300, 1, tree(30)),
-            (64, 9, tree(5))]
+    reqs = [(0, 40, None), (37, 1, random_tree(rng, 12)),
+            (300, 1, random_tree(rng, 30)), (64, 9, random_tree(rng, 5))]
     (pos, req, ts, rmask), sched, n_new = tree_step(reqs, cuda_device, qb)
     q, kv, scale, bt, sl = paged_case(
         [(c, n) for (c, _, _), n in zip(reqs, n_new)], kv_dtype,
@@ -340,6 +342,159 @@ def test_tree_kernel_matches_plain(cuda_device, qb, kv_dtype):
     assert tra.ragged_attention_launches == 0
     assert_matches(out, ref)
     assert (causal.float() - ref.float()).abs().max() > 0.5
+
+
+def ragged_rows(reqs, t_pad, device):
+    """Positions and request ids of a ragged step: each request's new
+    tokens in turn, then padding rows (request -1)."""
+    pos = np.zeros(t_pad, np.int32)
+    req = np.full(t_pad, -1, np.int32)
+    t = 0
+    for r, (c, n) in enumerate(reqs):
+        pos[t:t + n], req[t:t + n] = np.arange(c, c + n), r
+        t += n
+    return torch.from_numpy(pos).to(device), torch.from_numpy(req).to(device)
+
+
+def poisoned(kv, bt, sl):
+    """A copy of the cache with NaN (bf16) or 0x7f (fp8 e4m3's NaN) in
+    every block that no block table references and in every slot at or
+    past its request's seq_len, in every layer."""
+    bad = kv.clone()
+    raw = bad.view(torch.uint8) if bad.dtype == torch.float8_e4m3fn else bad
+    nan = 0x7f if raw.dtype == torch.uint8 else float("nan")
+    bt_np, sl_np = bt.cpu().numpy(), sl.cpu().numpy()
+    used = np.zeros(kv.shape[1], bool)
+    for r, s in enumerate(sl_np):
+        n = -(-int(s) // BS)
+        used[bt_np[r, :n]] = True
+        if n and s % BS:
+            raw[:, int(bt_np[r, n - 1]), :, int(s % BS):] = nan
+    raw[:, torch.from_numpy(~used).to(kv.device)] = nan
+    return bad
+
+
+# Steps of the ragged kernel at its item shapes (Hq 8, Hkv 2: group 4).
+RAGGED_STEPS = {
+    # 32-token items of 128 rows at qb 32, ending on 5, 33 and 3 pages.
+    "128-row items, odd pages": ([(65, 64), (1000, 32), (3, 93)], 192),
+    # A mixed step: prefill chunks beside decode rows at contexts ~4096
+    # (4-row items: two warps per m-tile, merged at the end).
+    "decode rows at ctx ~4096": ([(0, 100), (4000, 1), (4094, 1), (3077, 1),
+                                  (4063, 1), (200, 37)], 144),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qb", [8, 32])
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("step", sorted(RAGGED_STEPS))
+def test_ragged_kernel_at_item_shapes(cuda_device, step, d, qb, kv_dtype):
+    reqs, t_pad = RAGGED_STEPS[step]
+    q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device, t_pad,
+                                      d=d)
+    pos, req = ragged_rows(reqs, t_pad, cuda_device)
+    out = tra.ragged_paged_attention_kernel(q, kv, pos, req, bt, sl, qb=qb,
+                                            kv_scale=scale, layer=1)
+    ref = ragged_paged_attention_reference(q, kv[1], pos, req, bt, sl,
+                                           kv_scale=scale[1])
+    torch.cuda.synchronize()
+    live = req >= 0
+    assert_matches(out[live], ref[live])
+    assert not out[~live].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+def test_ragged_kernel_with_two_row_passes(cuda_device, kv_dtype):
+    """Group 8 (16 q heads over 2 kv heads): a 32-token item has 256 rows,
+    two passes of the CTA's 128."""
+    reqs = [(40, 64), (500, 7)]
+    q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device, 72)
+    q = torch.cat([q, q.flip(0)], dim=1).contiguous()
+    pos, req = ragged_rows(reqs, 72, cuda_device)
+    out = tra.ragged_paged_attention_kernel(q, kv, pos, req, bt, sl, qb=32,
+                                            kv_scale=scale, layer=1)
+    ref = ragged_paged_attention_reference(q, kv[1], pos, req, bt, sl,
+                                           kv_scale=scale[1])
+    torch.cuda.synchronize()
+    live = req >= 0
+    assert_matches(out[live], ref[live])
+    assert not out[~live].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qb", [8, 32])
+@pytest.mark.parametrize("d", [128, 64])
+def test_tree_kernel_with_unaligned_items(cuda_device, d, qb, kv_dtype):
+    """Tree items whose first token is not at their 8-aligned window start
+    (o0 > 0: the masks are indexed from the window), head dim 64 and 128."""
+    rng = np.random.default_rng(5)
+    reqs = [(0, 13, None), (37, 1, random_tree(rng, 12)),
+            (300, 3, random_tree(rng, 30)), (64, 2, random_tree(rng, 5))]
+    (pos, req, ts, rmask), sched, n_new = tree_step(reqs, cuda_device, qb)
+    item_qstart, token_item, item_ts = (sched[i].cpu().numpy()
+                                        for i in (1, 5, 7))
+    o0 = [int(np.argmax(token_item == it)) - int(item_qstart[it])
+          for it in np.nonzero(item_ts >= 0)[0]]
+    assert max(o0) > 0
+    q, kv, scale, bt, sl = paged_case(
+        [(c, n) for (c, _, _), n in zip(reqs, n_new)], kv_dtype,
+        cuda_device, int(sum(n_new)), d=d)
+    tra.reset_launch_counts()
+    out = tra.ragged_paged_attention_kernel(
+        q, kv, pos, req, bt, sl, qb=qb, schedule=sched, kv_scale=scale,
+        layer=1)
+    ref = ragged_paged_attention_reference(
+        q, kv[1], pos, req, bt, sl, kv_scale=scale[1], tree_start=ts,
+        row_tree_mask=rmask)
+    torch.cuda.synchronize()
+    assert tra.tree_attention_launches == 1
+    assert_matches(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("tree", [False, True])
+def test_ragged_kernel_ignores_poisoned_slots(cuda_device, tree, d,
+                                              kv_dtype):
+    """NaN in every unreferenced block and in every slot at or past
+    seq_len (the pages' tails, block-table entries past each request's
+    pages): the kernel on that cache equals the plain version on the clean
+    one, so no such slot is read or weighted."""
+    if tree:
+        rng = np.random.default_rng(6)
+        reqs = [(0, 45, None), (37, 1, random_tree(rng, 12)),
+                (300, 1, random_tree(rng, 30)), (4000, 1, None)]
+        (pos, req, ts, rmask), sched, n_new = tree_step(reqs, cuda_device,
+                                                        32)
+        paged = [(c, n) for (c, _, _), n in zip(reqs, n_new)]
+        t_pad, qb = int(sum(n_new)), 32
+        extra = dict(tree_start=ts, row_tree_mask=rmask)
+    else:
+        paged = [(0, 45), (37, 1), (300, 70), (4000, 1), (70, 9)]
+        t_pad, qb, sched, extra = 136, 8, None, {}
+        pos, req = ragged_rows(paged, t_pad, cuda_device)
+    q, kv, scale, bt, sl = paged_case(paged, kv_dtype, cuda_device, t_pad,
+                                      d=d)
+    assert (sl % BS).bool().all()          # every last page has a tail
+    bad = poisoned(kv, bt, sl)
+    # Each request's last page holds NaN past seq_len.
+    for r, s in enumerate(sl.tolist()):
+        assert torch.isnan(bad[1, int(bt[r, (s - 1) // BS])].float()).any()
+    out = tra.ragged_paged_attention_kernel(
+        q, bad, pos, req, bt, sl, qb=qb, schedule=sched, kv_scale=scale,
+        layer=1)
+    ref = ragged_paged_attention_reference(q, kv[1], pos, req, bt, sl,
+                                           kv_scale=scale[1], **extra)
+    torch.cuda.synchronize()
+    live = req >= 0
+    assert torch.isfinite(out.float()).all()
+    assert_matches(out[live], ref[live])
+    assert not out[~live].any()
 
 
 @pytest.mark.cuda
