@@ -22,8 +22,11 @@ LSTM draft models (``method="arctic"``, ``"mlp_speculator"``,
 ``"lstm_speculator"``; ``spec/proposer.py``), alone or with suffix
 decoding (``enable_suffix_decoding``): the drafter chains on the hidden
 row of each request's last accepted token, after a synchronous step or
-inside the fused loop's step.  Distilled (``distilled_tied``) drafters,
-guided decoding, penalties and logprobs raise ``NotImplementedError``.
+inside the fused loop's step; a ``distilled_tied`` drafter
+(``spec/distill.py``) uses the target's own embedding and LM head.  The
+``hidden_capture`` hook hands committed tokens and their hidden rows to
+distillation.  Guided decoding, penalties and logprobs raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,6 +77,10 @@ class LLMEngine:
         self._last_log = time.time()
         self._generator = torch.Generator(device=self.device).manual_seed(
             config.model.seed)
+        # Distillation hook (spec/distill.py HiddenCapture): called with
+        # (hidden rows, [(req_id, row, emitted token)]) by the synchronous
+        # step and at the fused loop's drain.
+        self.hidden_capture = None
         # The JAX engine pipelines steps only without speculation.
         if config.scheduler.async_scheduling and spec is None:
             logger.info("async_scheduling=True: the pipelined step is not "
@@ -97,7 +104,8 @@ class LLMEngine:
             self._prompt_tree_bound = 2 * config.scheduler.max_num_seqs
         if spec is not None and spec.method in ("arctic", "mlp_speculator",
                                                 "lstm_speculator"):
-            self._drafter = ArcticProposer(spec, arch, self.device)
+            self._drafter = ArcticProposer(spec, arch, self.device,
+                                           target_params=self.runner.params)
         if spec is not None and spec.enable_fused_decode:
             fused = FusedDecodeLoop(self)
             # Installed only where it can engage; otherwise the sync path
@@ -237,6 +245,7 @@ class LLMEngine:
         # Sample row of each committed request's last accepted token (the
         # row a drafter chains from).
         accepted_row: dict[str, int] = {}
+        capture_items: list = []
         emitted = 0
         for r, s in enumerate(sched_out.scheduled):
             req = s.request
@@ -255,6 +264,11 @@ class LLMEngine:
             accepted_row[req.req_id] = lo + row
             self.scheduler.update_after_step(s, new_tokens, n_acc)
             self._update_suffix_cache(req, new_tokens)
+            if self.hidden_capture is not None and s.spec_parents is None:
+                # Row lo+i's hidden state produced new_tokens[i]; tree
+                # drafts sit on rows that map otherwise: not captured.
+                capture_items.extend((req.req_id, lo + i, t)
+                                     for i, t in enumerate(new_tokens))
             emitted += len(new_tokens)
             if req.first_token_time is None:
                 req.first_token_time = time.time()
@@ -267,6 +281,8 @@ class LLMEngine:
                 self.scheduler.finish_request(req, stop)
                 self._evict_spec_state(req)
                 finished.append(req)
+        if capture_items:
+            self.hidden_capture(hidden_rows, capture_items)
         self._propose_drafts(sched_out, hidden_rows, accepted_row)
         self.engine_stats.num_steps += 1
         self.engine_stats.num_finished += len(finished)

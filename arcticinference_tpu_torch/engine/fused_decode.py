@@ -21,7 +21,8 @@ function of per-slot device state:
              (preferred over the drafter's while it lives; with a
              drafter the host uploads only paths whose score reaches
              ``num_speculative_tokens``)
-  out:    an int32 telemetry block [B, K+2] the host drains with lag
+  out:    an int32 telemetry block [B, K+2] the host drains with lag,
+          and the verify rows' hidden states [B, K+1, hidden]
 
 The step issues no host synchronisation: the host dispatches step N+1
 before step N's telemetry lands (``pipeline_depth`` steps in flight) and
@@ -33,8 +34,13 @@ rows a slot), and uploads a suffix path per slot walked from its
 lag-synced prefix.  The width policy is suffix-only: with a drafter
 every step is wide (K = the drafter's ``n_predict``), as in the JAX loop.
 
-Not ported (they raise or are not offered): meshes, multihost, dp, pp,
-SwiftKV and the hidden-state export for distillation.
+The step always returns the verify rows' hidden states, so that a
+distillation capture (``spec/distill.py``) and the bench run the same
+program; the host copies them, at the drain, only while the engine's
+``hidden_capture`` hook is installed.
+
+Not ported (they raise or are not offered): meshes, multihost, dp, pp and
+SwiftKV.
 """
 
 from __future__ import annotations
@@ -69,13 +75,15 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
     sampling mode; the batch width B is read from the state.
 
     Returns ``fn(spec_params, state, block_tables[, h_pack[, rplan]]) ->
-    (state, telemetry)``: ``spec_params`` the drafter's parameters (None
+    (state, telemetry, hidden)``: ``spec_params`` the drafter's parameters (None
     without ``drafter``, an ``ArcticProposer``), ``state`` the loop's dict
     of device tensors (the returned dict replaces it), ``h_pack`` [B,
     PLEN+2] int32 the host's path upload per slot (tokens | absolute
     anchor index | usable length, 0 = nothing to offer; only with
     ``use_suffix``), ``telemetry`` [B, K+2] int32 (emitted tokens, -1 past
-    the accepted ones, then the verified draft count).  The KV cache
+    the accepted ones, then the verified draft count), ``hidden`` [B, K+1,
+    hidden] the verify rows' hidden states (row j's produced emitted token
+    j; zeros where a program ran no such row).  The KV cache
     ``runner.kv`` is written in place (the JAX step donates it).
 
     ``wide=False`` builds the 1-row program; ``rows_total=R`` the per-slot
@@ -208,19 +216,24 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
             jj = torch.arange(r, dtype=torch.int32, device=dev)[None, :]
             idx = (slot_start[:, None] + jj).clamp(0, R - 1).long()
             in_slot = jj < slot_rows[:, None]
-            return torch.where(in_slot, flat[idx], NO_TOKEN)
+            h_rows = torch.where(in_slot[:, :, None], h[idx],
+                                 torch.zeros((), dtype=h.dtype, device=dev))
+            return torch.where(in_slot, flat[idx], NO_TOKEN), h_rows
 
         j = torch.arange(r, dtype=torch.int32, device=dev)[None, :]
         h = None                  # the wide program's rows, for a drafter
         if rows_total is not None:
-            rowvals = fwd_slotted()
+            rowvals, h_out = fwd_slotted()
         elif wide:
             rowvals, h = fwd_rowvals(r, dlen)
+            h_out = h.reshape(b, r, -1)
         else:
-            rv1, _ = fwd_rowvals(1, torch.zeros_like(dlen))
+            rv1, h1 = fwd_rowvals(1, torch.zeros_like(dlen))
             # Only column 0 is consumed: the rest compare as NO_TOKEN.
             rowvals = torch.nn.functional.pad(rv1, (0, r - 1),
                                               value=NO_TOKEN)
+            h_out = torch.nn.functional.pad(h1[:, None, :],
+                                            (0, 0, 0, r - 1))
 
         # Greedy prefix-match verification (sample-and-compare when
         # temperature > 0: draft and target row come from one sampled
@@ -331,7 +344,7 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
                       drafts=drafts2.to(torch.int32),
                       draft_len=dlen2.to(torch.int32), alive=alive2)
         telemetry = torch.cat([emitted, (dlen * alive)[:, None]], dim=1)
-        return state2, telemetry.to(torch.int32)
+        return state2, telemetry.to(torch.int32), h_out
 
     return step
 
@@ -341,15 +354,18 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
 # --------------------------------------------------------------------- #
 
 class _InflightFused:
-    """A dispatched step's telemetry: a host copy (pinned on the card)
-    and the event recorded after the copy (None on the CPU)."""
+    """A dispatched step's telemetry: a host copy (pinned on the card),
+    the event recorded after the copy (None on the CPU), and the verify
+    rows' hidden states on the device while a capture hook is installed
+    (else None)."""
 
-    __slots__ = ("telemetry", "event", "k")
+    __slots__ = ("telemetry", "event", "k", "hidden")
 
-    def __init__(self, telemetry, event, k):
+    def __init__(self, telemetry, event, k, hidden=None):
         self.telemetry = telemetry
         self.event = event
         self.k = k
+        self.hidden = hidden
 
 
 class FusedDecodeLoop:
@@ -689,15 +705,18 @@ class FusedDecodeLoop:
             h_pack = self._upload(paths_np)
         args = () if rplan_np is None else (self._upload(rplan_np),)
         drafter = self.engine._drafter
-        self._state, telem = fn(None if drafter is None else drafter.params,
-                                self._state, self._bt_dev, h_pack, *args)
+        self._state, telem, hidden = fn(
+            None if drafter is None else drafter.params, self._state,
+            self._bt_dev, h_pack, *args)
+        if self.engine.hidden_capture is None:
+            hidden = None
         if not telem.is_cuda:
-            return _InflightFused(telem, None, k_eff)
+            return _InflightFused(telem, None, k_eff, hidden)
         host = torch.empty(telem.shape, dtype=telem.dtype, pin_memory=True)
         host.copy_(telem, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return _InflightFused(host, event, k_eff)
+        return _InflightFused(host, event, k_eff, hidden)
 
     # -- per-slot width policy -------------------------------------------
 
@@ -898,11 +917,18 @@ class FusedDecodeLoop:
         telem = step.telemetry.numpy()
         r = step.k + 1
         finished: list = []
+        capture = (eng.hidden_capture if step.hidden is not None else None)
+        capture_items: list = []
         for i, req in enumerate(self._slots):
             if req is None or not self._host_alive[i]:
                 continue
             row = telem[i]
             toks = [int(t) for t in row[:r] if t >= 0]
+            if capture is not None:
+                # Verify row j of slot i (flat row i*(K+1)+j) produced
+                # emitted token j.
+                capture_items.extend((req.req_id, i * r + j, t)
+                                     for j, t in enumerate(toks))
             dlen_used = int(row[r])
             if not toks:
                 continue
@@ -944,6 +970,9 @@ class FusedDecodeLoop:
                 self._host_alive[i] = False
                 finished.append(req)
                 eng.engine_stats.num_finished += 1
+        if capture is not None and capture_items:
+            capture(step.hidden.reshape(telem.shape[0] * r, -1),
+                    capture_items)
         return finished
 
     # -- exit -----------------------------------------------------------

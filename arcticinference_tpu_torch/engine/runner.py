@@ -6,6 +6,10 @@ Counterpart of ``arcticinference_tpu/engine/runner.py`` for one device.
 runner (same keys, same bucketed shapes ``t_pad`` / ``s_pad``, same
 attention work-item schedule), so the two compare element for element.
 Every array then goes to the device in one int32 and one float32 copy.
+:meth:`ModelRunner.dispatch` enqueues a step and reads nothing back (a
+timing loop or a CUDA graph can replay its device work,
+:meth:`ModelRunner.launch`); :meth:`ModelRunner.execute` is dispatch
+plus the tokens' copy to the host.
 
 Weights may be plain or weight-only quantized (``QuantizedLinear``
 leaves: fp8, int8, int4).  Speculative drafts ride the step as extra
@@ -265,14 +269,19 @@ class ModelRunner:
 
     def upload(self, arrays: dict[str, np.ndarray]) -> dict:
         """All step arrays on the device, in one int32 and one float32
-        host-to-device copy (views into the two buffers)."""
+        host-to-device copy (views into the two buffers).  On the card
+        the copies go through pinned memory and do not wait for the
+        device."""
         out = {}
         for dtype, keys in (
                 (np.float32, [k for k in arrays if k in _F32_KEYS]),
                 (np.int32, [k for k in arrays if k not in _F32_KEYS])):
             flat = np.concatenate([arrays[k].ravel() for k in keys])
-            buf = torch.from_numpy(flat.astype(dtype, copy=False)).to(
-                self.device)
+            buf = torch.from_numpy(flat.astype(dtype, copy=False))
+            if self.device.type == "cuda":
+                buf = buf.pin_memory().to(self.device, non_blocking=True)
+            else:
+                buf = buf.to(self.device)
             off = 0
             for k in keys:
                 n = arrays[k].size
@@ -281,6 +290,39 @@ class ModelRunner:
         return out
 
     @torch.inference_mode()
+    def launch(self, inputs: dict, attn_qb: int, need_sampling: bool,
+               generator: torch.Generator):
+        """The step's device work on uploaded ``inputs`` (see
+        :meth:`upload`): forward, logits of the sample rows, argmax and,
+        with ``need_sampling``, sampling.  Returns device tensors
+        (argmax [s_pad] int32, sampled [s_pad] int32, rows [s_pad,
+        hidden]); nothing here reads the device back, so a timing loop or
+        a CUDA graph can replay it."""
+        inputs = dict(inputs, kv_scale=self.kv_scale)
+        attn = self.module.make_attn_impl(attn_qb)
+        self.kv, h = self.module.forward(self.params, self.arch, self.kv,
+                                         inputs, attn_impl=attn)
+        rows = h[inputs["logits_indices"].long()]
+        logits = self.module.compute_logits(self.params, rows)
+        argmax = torch.argmax(logits, dim=-1).to(torch.int32)
+        if need_sampling:
+            sampled = sample(logits, inputs["temperature"], inputs["top_k"],
+                             inputs["top_p"], generator,
+                             min_p=inputs["min_p"], seeds=inputs["seeds"],
+                             counters=inputs["counters"])
+        else:
+            sampled = argmax
+        return argmax, sampled, rows
+
+    def dispatch(self, step_inputs: StepInputs,
+                 generator: torch.Generator):
+        """Enqueue one step (upload and :meth:`launch`) without reading
+        anything back; returns the device tensors of :meth:`launch`.
+        Counterpart of the JAX runner's ``dispatch``."""
+        return self.launch(
+            self.upload(step_inputs.arrays), step_inputs.attn_qb,
+            bool(step_inputs.arrays["temperature"].max() > 0), generator)
+
     def execute(self, step_inputs: StepInputs,
                 generator: torch.Generator):
         """One synchronous step; returns (argmax, sampled, rows): the
@@ -288,19 +330,5 @@ class ModelRunner:
         [s_pad], and their hidden states (after the final norm, the rows
         that feed ``compute_logits``) [s_pad, hidden], left on the device
         for a drafter."""
-        inputs = self.upload(step_inputs.arrays)
-        inputs["kv_scale"] = self.kv_scale
-        attn = self.module.make_attn_impl(step_inputs.attn_qb)
-        self.kv, h = self.module.forward(self.params, self.arch, self.kv,
-                                         inputs, attn_impl=attn)
-        rows = h[inputs["logits_indices"].long()]
-        logits = self.module.compute_logits(self.params, rows)
-        argmax = torch.argmax(logits, dim=-1).to(torch.int32)
-        if step_inputs.arrays["temperature"].max() > 0:
-            sampled = sample(logits, inputs["temperature"], inputs["top_k"],
-                             inputs["top_p"], generator,
-                             min_p=inputs["min_p"], seeds=inputs["seeds"],
-                             counters=inputs["counters"])
-        else:
-            sampled = argmax
+        argmax, sampled, rows = self.dispatch(step_inputs, generator)
         return argmax.cpu().numpy(), sampled.cpu().numpy(), rows

@@ -1,6 +1,7 @@
 """Checkpoint loading: HF directory -> (module, arch, params).
 
-- HF model directories: ``config.json`` + ``*.safetensors`` shards.
+- HF model directories: ``config.json`` + ``*.safetensors`` shards
+  (read by the port's own reader, ``st_io``).
 - Architecture name + ``hf_overrides`` with random init from the seed
   (benchmarks, tests: no checkpoint required).
 """
@@ -13,6 +14,7 @@ from typing import Any, Optional
 
 import torch
 
+from arcticinference_tpu_torch import st_io
 from arcticinference_tpu_torch.config import ModelConfig
 from arcticinference_tpu_torch.models import get_model_module
 from arcticinference_tpu_torch.utils import resolve_device
@@ -38,12 +40,8 @@ def read_hf_config(model: str) -> Optional[dict[str, Any]]:
 
 
 def _iter_safetensors(model_dir: Path):
-    from safetensors import safe_open
-
     for f in sorted(model_dir.glob("*.safetensors")):
-        with safe_open(str(f), framework="pt") as st:
-            for name in st.keys():
-                yield name, st.get_tensor(name)
+        yield from st_io.load_file(f).items()
 
 
 def load_model(cfg: ModelConfig, device: torch.device | str | None = None):

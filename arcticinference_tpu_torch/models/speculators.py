@@ -311,12 +311,15 @@ def lstm_generate_proposals(params: dict, arch: LSTMSpecArch,
 # Checkpoint loading (HF safetensors names)
 # ---------------------------------------------------------------------------
 
-def _as(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                        dtype=dtype)
+def _as(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A checkpoint tensor (numpy array or torch tensor, any layout) as a
+    contiguous ``dtype`` tensor on ``device``."""
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device=device, dtype=dtype).contiguous()
 
 
-def load_mlp_state(arch: MLPSpecArch, tensors: dict[str, np.ndarray],
+def load_mlp_state(arch: MLPSpecArch, tensors: dict,
                    dtype: torch.dtype = torch.bfloat16,
                    device: torch.device | str = "cpu") -> dict:
     """MLP speculator checkpoints (``emb.N`` / ``proj.N`` / ``head.N`` /
@@ -346,7 +349,7 @@ def load_mlp_state(arch: MLPSpecArch, tensors: dict[str, np.ndarray],
     }
 
 
-def load_lstm_state(arch: LSTMSpecArch, tensors: dict[str, np.ndarray],
+def load_lstm_state(arch: LSTMSpecArch, tensors: dict,
                     dtype: torch.dtype = torch.bfloat16,
                     device: torch.device | str = "cpu") -> dict:
     """sum_lstm speculator checkpoints as the parameter dict."""

@@ -10,9 +10,11 @@ fused decode loop runs the same chain inside its step
 (``engine/fused_decode.py``) on :attr:`params`.
 
 ``SpeculativeConfig.model`` names a directory with the speculator's
-``config.json`` and safetensors shards; without one the parameters are a
-random init from a seeded generator.  ``safetensors`` is imported only
-when there are shards to read.
+``config.json`` and safetensors shards (read by the port's own reader,
+``st_io``); without one the parameters are a random init from a seeded
+generator.  A ``distilled_tied`` checkpoint (``spec/distill.py``) holds
+only the projections and norms: its embedding and LM head are the
+target's own tables, taken live from ``target_params``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from arcticinference_tpu_torch import st_io
 from arcticinference_tpu_torch.config import SpeculativeConfig
 from arcticinference_tpu_torch.models import speculators as spec_mod
 from arcticinference_tpu_torch.utils import pad_to_bucket
@@ -36,14 +39,26 @@ class ArcticProposer:
 
     def __init__(self, spec_config: SpeculativeConfig, base_arch,
                  device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 target_params: Optional[dict] = None):
         self.config = spec_config
         self.device = device
         cfg_dict = self._load_config(spec_config.model) or {}
         if cfg_dict.get("distilled_tied"):
-            raise NotImplementedError(
-                "distilled_tied drafters (spec/distill.py: the target's own "
-                "embedding and LM head) are not ported yet")
+            # Projections from the checkpoint; embedding and LM head are
+            # the target's (an fp8 head runs fp8_matmul_kernel).
+            if target_params is None:
+                raise ValueError(
+                    "distilled_tied drafter needs the target params")
+            from arcticinference_tpu_torch.spec.distill import load_distilled
+
+            self.kind = "mlp"
+            self._gen = spec_mod.mlp_generate_proposals
+            self.params, self.arch = load_distilled(
+                spec_config.model, cfg_dict, target_params, device)
+            self.n_predict = min(self.arch.n_predict,
+                                 spec_config.num_speculative_tokens)
+            return
         method = cfg_dict.get("method", "sum_rnn")
         archs = cfg_dict.get("architectures") or []
         base = dict(cfg_dict)
@@ -83,13 +98,9 @@ class ArcticProposer:
         if model is not None and Path(model).is_dir():
             files = sorted(Path(model).glob("*.safetensors"))
         if files:
-            from safetensors import safe_open
-
-            tensors: dict[str, np.ndarray] = {}
+            tensors: dict[str, torch.Tensor] = {}
             for f in files:
-                with safe_open(str(f), framework="numpy") as st:
-                    for name in st.keys():
-                        tensors[name] = st.get_tensor(name)
+                tensors.update(st_io.load_file(f))
             load = (spec_mod.load_lstm_state if self.kind == "lstm"
                     else spec_mod.load_mlp_state)
             return load(self.arch, tensors, device=self.device)

@@ -59,3 +59,49 @@ def device_memory_bytes(device: torch.device) -> int:
         _, total = torch.cuda.mem_get_info(device)
         return int(total)
     return 2 * 1024 ** 3
+
+
+# Known cards: (name fragments, device memory bytes, nominal memory B/s,
+# dense bf16 tensor FLOP/s), from NVIDIA's data sheet (H100 SXM).
+_CARD_TABLE = (
+    (("h100",), 80 * 1024 ** 3, 3.35e12, 989e12),
+)
+
+
+def chip_specs(device_name: str | None = None
+               ) -> tuple[int, float | None, float | None]:
+    """(device memory bytes, nominal peak memory B/s, dense bf16 FLOP/s)
+    of a card, by its name (``torch.cuda.get_device_name(0)`` by
+    default).  An unknown card gives the memory it reports and no peaks;
+    the CPU a small synthetic budget and no peaks."""
+    if device_name is None:
+        if not torch.cuda.is_available():
+            return 2 * 1024 ** 3, None, None
+        device_name = torch.cuda.get_device_name(0)
+    name = device_name.lower()
+    for frags, mem, bw, flops in _CARD_TABLE:
+        if any(f in name for f in frags):
+            return mem, bw, flops
+    mem = (torch.cuda.get_device_properties(0).total_memory
+           if torch.cuda.is_available() else 16 * 1024 ** 3)
+    return int(mem), None, None
+
+
+def events_ms(fn, iters: int, sleep_cycles: int = 0) -> float:
+    """Device milliseconds per call of ``fn`` over ``iters`` calls between
+    CUDA events, after one warm call.  ``sleep_cycles`` > 0 first queues
+    a spinning kernel that holds the device while the host enqueues the
+    calls, so calls shorter than their host cost are not timed at the
+    host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if sleep_cycles:
+        torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

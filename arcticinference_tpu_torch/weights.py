@@ -15,7 +15,10 @@ bytes.
 
 A drafter's parameters (``models/speculators.py``) carry lists of
 arrays (one per head) beside plain arrays and ``QuantizedLinear``
-leaves; each list comes over as a list of the same leaves.
+leaves; each list comes over as a list of the same leaves.  A distilled
+(``distilled_tied``) drafter's lists of embedding and LM-head tables are
+the JAX target's own: :func:`distilled_params_from_jax` carries its
+trained lists across and ties it to the port target's tables instead.
 """
 
 from __future__ import annotations
@@ -60,3 +63,17 @@ def params_from_jax(np_tree: dict, device: torch.device | str) -> dict:
     with numpy ``weight`` and ``scale``, lists of either) as torch
     tensors and ``QuantizedLinear`` on ``device``."""
     return {key: _leaf(key, val, device) for key, val in np_tree.items()}
+
+
+def distilled_params_from_jax(np_tree: dict, target_params: dict,
+                              device: torch.device | str) -> dict:
+    """A JAX ``distilled_tied`` drafter (``spec/distill.py``: ``proj``,
+    ``ln_w``, ``ln_b`` lists, numpy leaves) as the port's, its embedding
+    and LM head the port target's own ``embed`` and ``lm_head`` (the
+    same weights the JAX lists hold), not copies."""
+    n = len(np_tree["proj"])
+    out = {key: _leaf(key, np_tree[key], device)
+           for key in ("proj", "ln_w", "ln_b")}
+    out["emb"] = [target_params["embed"]] * n
+    out["head"] = [target_params["lm_head"]] * n
+    return out

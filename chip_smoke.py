@@ -8,7 +8,9 @@ Phases, each reported on its own lines:
 
 1. device:   card name and power limit (nvidia-smi), torch's device name.
 2. build:    nvcc builds every kernel source of ``arcticinference_tpu_torch/
-             csrc`` at once, one process each (printing ``-Xptxas -v``:
+             csrc`` (the attention kernels, the two quantized matmuls,
+             the HBM read probe and the weight-stream matmul variants)
+             at once, one process each (printing ``-Xptxas -v``:
              registers, shared memory, spills); ``cuobjdump -sass`` must
              find HMMA (tensor-core) instructions in every instance of
              the ragged kernel.
@@ -32,7 +34,11 @@ Phases, each reported on its own lines:
              (Llama-3.1-8B's wqkv, wo, w_gateup, w_down and lm_head at
              16, 64 and 2048 rows; fp8 everywhere, int8 on w_gateup,
              int4 everywhere; fp8 and int8 at the Arctic drafter's head
-             [4096, 128256] and projection [4096, 4096], 16 and 64 rows).
+             [4096, 128256] and projection [4096, 4096], 16 and 64 rows),
+             the HBM read probe (kernel 7) on the full 4 GiB buffer of
+             seeded random bf16 values, and the four weight-stream matmul
+             variants (kernel 8: f16 trick, bit trick, astype e4m3, astype
+             int8) at the five Llama-3.1-8B decode shapes, 64 rows.
 4. forward:  the full-width Llama-3.1-8B shapes at 2 layers, random
              weights in bf16, fp8 and int4: one prefill, one decode and
              one token-tree verify step through ``forward`` with the
@@ -66,12 +72,28 @@ Phases, each reported on its own lines:
              a run with suffix decoding must accept drafts on the native
              suffix tree, a fused run must run fused steps, and a quantized
              run's matmul kernel must launch 129 times per step (4 per
-             layer and the LM head).  Last, a shorter bf16 and fp8 run
-             under ``torch.profiler``, each on an engine of its own (no
-             timed run follows a profiled one).
+             layer and the LM head).
+6. bench:    the port's headline bench (``arcticinference_tpu_torch.bench``)
+             in this process at the full Llama-3.1-8B width and depth with
+             fp8 weights: decode tok/s at batch 64 and 1, the device step
+             (a CUDA graph of ``runner.dispatch``'s launches), GB/s against
+             the HBM probes, the int8 device step, a drafter distilled
+             here against the target (capture, 600 Adam steps, save), its
+             spec decode tok/s, speed-up and acceptance on its capture
+             prompts, the corruption curve at 0.3 and 1.0 and the held-out
+             point; then the weight-stream microbench
+             (``benchmarks/stream_microbench.py``).  The probe must read at
+             most 1.05x the nominal 3.35 TB/s, every batch must finish,
+             the distilled drafter's acceptance must exceed 0.5, and the
+             bench must launch the probe, the attention kernels and the fp8
+             matmul, the microbench the weight-stream kernel.
+Last, a shorter bf16 and fp8 run of phase 5, the drafter chains and the
+bench's device step (its CUDA graph) under ``torch.profiler``, each on an
+engine of its own (no timed run follows a profiled one).
 
-The last lines are the kernels JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero; the
+The bench's JSON line comes before the kernels JSON; the last lines are
+the kernels JSON, the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.  Any failed check exits non-zero; the
 script needs a CUDA device and the repository around it.
 """
 
@@ -101,9 +123,11 @@ LLAMA_8B = dict(
                       original_max_position_embeddings=8192),
 )
 HQ, HKV, D, BS, LAYERS = 32, 8, 128, 32, 32
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16 tensor.
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from arcticinference_tpu_torch.utils import chip_specs  # noqa: E402
+
+# H100 SXM peaks (the port's card table): HBM3 bandwidth, dense bf16 tensor.
+_, HBM_BYTES_PER_S, BF16_FLOP_PER_S = chip_specs("NVIDIA H100 80GB HBM3")
 ATOL = RTOL = 2e-2     # bf16 kernel vs plain (tests/test_kernels.py bound)
 # ... and over all live rows, ||out - plain|| <= REL_TOL * ||plain||
 # (about 10x the largest error the kernels show on the cases below).
@@ -114,7 +138,11 @@ REL_TOL = 1e-3
 # tolerance (a planted off-by-one mask fails both checks; PERF.md).
 Q_STD = 5.0
 
-PHASES = ("device", "build", "kernels", "forward", "generate")
+PHASES = ("device", "build", "kernels", "forward", "generate", "bench")
+# Corruption rates of phase 6's curve (the bench's own sweep is 0.12, 0.3,
+# 0.6, 1.0; two points keep the script within its time).
+BENCH_CURVE_RATES = (0.3, 1.0)
+
 # Draft trees of the tree-verify steps: 30 nodes, best first, from one
 # fixed seed (node i hangs off the frontier or an earlier node).
 TREE_NODES = 30
@@ -956,6 +984,123 @@ def phase_matmul_kernels(seed):
     return fp8_cases, int4_cases
 
 
+def phase_probe_kernel(seed):
+    """Kernel 7, the HBM read probe, on the full 4 GiB buffer of seeded
+    N(0, 1) bf16 values (zeros would not see a row summed twice or
+    skipped) against its plain version; returns its case."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.cuda import hbm_probe as hp
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    buf = hp.probe_buffer("cuda", generator=gen)
+    out = hp.hbm_read_probe(buf)
+    ref = hp.hbm_read_probe_reference(buf)
+    # Float32 sums of the same values in another order: within 1e-6 of
+    # the sum of their magnitudes (one row more or fewer moves the sum by
+    # ~11, the rows' own size).
+    l1 = float(buf.reshape(buf.shape[0], -1)[:, :hp.ROW_ELEMS].float()
+               .abs().sum())
+    err = float((out - ref).abs().max())
+    tol = 1e-6 * l1
+    ms = cuda_time_ms(lambda: hp.hbm_read_probe(buf), iters=5)
+    plain_ms = cuda_time_ms(lambda: hp.hbm_read_probe_reference(buf),
+                            iters=3, warmup=1)
+    library_ms = cuda_time_ms(lambda: torch.sum(buf, dtype=torch.float32),
+                              iters=5)
+    nbytes = buf.numel() * 2 + 4
+    res = dict(case=f"read {buf.numel() * 2 / 2 ** 30:.0f} GiB "
+                    f"{tuple(buf.shape)} bf16",
+               max_abs_err=err, tol=tol, value=float(out.item()),
+               plain_value=float(ref.item()), rel_err=err / max(l1, 1e-30),
+               ms=ms, plain_ms=plain_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=library_ms,
+               library_note="torch.sum(x, dtype=float32): a full read of "
+                            "the same bytes, another sum",
+               gbps=nbytes / ms / 1e6, bytes=nbytes, flops=0.0)
+    res["ok"] = bool(np.isfinite(err)) and err <= tol
+    log("  case " + json.dumps(res))
+    del buf
+    free_cuda_memory()
+    if not res["ok"]:
+        raise AssertionError(f"probe disagrees with plain version: {res}")
+    return [res]
+
+
+def phase_stream_kernels(seed):
+    """Kernel 8's four variants at the five 8B decode shapes (64 rows)
+    against their plain versions; each timed on copies that cycle past
+    the L2, beside ``fp8_matmul_kernel`` with a unit scale on the same
+    bytes and one ``torch.mm`` on the bf16-dequantized weight."""
+    import torch
+
+    from arcticinference_tpu_torch.benchmarks import stream_microbench as smb
+    from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import stream_matmul as sm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    unit = torch.ones(1, dtype=torch.float32, device="cuda")
+    cases = []
+    for label, k, n in smb.SHAPES:
+        x = torch.randn((smb.M, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        ws = {key: w[0] for key, w in smb.weights(k, n, gen, 1).items()}
+        for variant in sm.VARIANTS:
+            w = ws[smb.WEIGHT_OF[variant]]
+            out = sm.stream_matmul_kernel(x, w, variant)
+            ref = sm.stream_matmul_reference(x, w, variant)
+            torch.cuda.synchronize()
+            o, r = out.float(), ref.float()
+            diff = (o - r).abs()
+            bad = int((diff > ATOL + RTOL * r.abs()).sum())
+            err = float(diff.max())
+            rel = float((o - r).norm() / r.norm())
+            copies = rotating(w, w.nbytes)
+            ms = cuda_time_ms(
+                lambda: sm.stream_matmul_kernel(x, next(copies), variant),
+                iters=20)
+            plain_ms = cuda_time_ms(
+                lambda: sm.stream_matmul_reference(x, w, variant), iters=3,
+                warmup=1)
+            q = w.view(torch.float8_e4m3fn) if variant in (
+                "f16trick", "bittrick") else w
+            k5 = rotating(q, q.nbytes)
+            k5_ms = cuda_time_ms(
+                lambda: fm.fp8_matmul_kernel(x, next(k5), unit,
+                                             torch.bfloat16), iters=20)
+            dense = rotating(sm.dequant(w, variant).to(torch.bfloat16),
+                             2 * w.nbytes)
+            library_ms = cuda_time_ms(lambda: torch.mm(x, next(dense)),
+                                      iters=20)
+            del copies, k5, dense
+            nbytes = w.nbytes + x.nbytes + out.nbytes
+            flops = 2.0 * smb.M * n * k
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_flops = flops / BF16_FLOP_PER_S
+            res = dict(case=f"{variant} {label} [{k},{n}] M={smb.M}",
+                       max_abs_err=err, atol=ATOL, rtol=RTOL,
+                       n_out_of_tol=bad, rel_err=rel, rel_tol=REL_TOL,
+                       ref_max_abs=float(r.abs().max()), ms=ms,
+                       plain_ms=plain_ms,
+                       bound_ms=max(t_bytes, t_flops) * 1e3,
+                       bound_by=("bytes" if t_bytes >= t_flops
+                                 else "operations"),
+                       library_ms=library_ms,
+                       kernel5_unit_scale_ms=k5_ms, bytes=nbytes,
+                       flops=flops)
+            res["ok"] = (bad == 0 and rel <= REL_TOL
+                         and bool(torch.isfinite(o).all()))
+            log("  case " + json.dumps(res))
+            cases.append(res)
+        del ws, x
+        free_cuda_memory()
+    failed = [c["case"] for c in cases if not c["ok"]]
+    if failed:
+        raise AssertionError(f"kernel disagrees with plain version: {failed}")
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: 2-layer full-width forward, kernels against plain versions
 # ---------------------------------------------------------------------------
@@ -975,18 +1120,24 @@ def plain_matmuls(module):
 
 def reset_counts() -> None:
     from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import hbm_probe as hp
     from arcticinference_tpu_torch.ops.cuda import int4_matmul as im
     from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+    from arcticinference_tpu_torch.ops.cuda import stream_matmul as sm
 
     ra.reset_launch_counts()
     fm.reset_launch_counts()
     im.reset_launch_counts()
+    hp.reset_launch_counts()
+    sm.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import hbm_probe as hp
     from arcticinference_tpu_torch.ops.cuda import int4_matmul as im
     from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+    from arcticinference_tpu_torch.ops.cuda import stream_matmul as sm
 
     return {"ragged_paged_attention_kernel": ra.ragged_attention_launches,
             "ragged_paged_attention_kernel (tree mask)":
@@ -996,7 +1147,9 @@ def launch_counts() -> dict:
                 ra.deferred_decode_launches,
             "decode_paged_attention_kernel": ra.decode_paged_launches,
             "fp8_matmul_kernel": fm.fp8_matmul_launches,
-            "int4_matmul_kernel": im.int4_matmul_launches}
+            "int4_matmul_kernel": im.int4_matmul_launches,
+            "hbm_read_probe": hp.hbm_probe_launches,
+            "stream_matmul_kernel": sm.stream_matmul_launches}
 
 
 def phase_forward(rng, quantization=None):
@@ -1289,8 +1442,12 @@ def phase_generate(rng):
                                          reference=ref, lstm_dir=lstm_dir)
     for q in ("fp8", "int4"):
         runs[q], _ = run_generate(q, prompts)
-    # Profiled runs last, on engines of their own: no timed run follows a
-    # profiled run in the same process.
+    return runs
+
+
+def phase_profile(rng) -> None:
+    """Profiled runs, last of the script, on engines of their own: no
+    timed run follows a profiled run in the same process."""
     for q in (None, "fp8"):
         log("  profile " + json.dumps(dict(quantization=q,
                                            **profile_run(q, rng))))
@@ -1300,7 +1457,122 @@ def phase_generate(rng):
         for spec in ("mlp fused", "lstm fp8 fused"):
             log("  profile chain " + json.dumps(
                 profile_drafter_chain(spec, lstm_dir)))
-    return runs
+    log("  profile device step " + json.dumps(profile_device_step()))
+
+
+def profile_device_step(batch: int = 64, ctx: int = 192,
+                        replays: int = 10) -> dict:
+    """Device time by kernel of the bench's decode step (fp8 Llama-3.1-8B
+    at (``batch``, ``ctx``), the CUDA graph the bench times) over
+    ``replays`` replays under ``torch.profiler``: where the device step's
+    time goes.  A measurement, not a check: an empty trace reads "not
+    measured"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from arcticinference_tpu_torch import bench
+    from arcticinference_tpu_torch.benchmarks.distill_drafter import (
+        LLAMA_8B as BENCH_8B, engine_config, free_llm)
+    from arcticinference_tpu_torch.engine.llm import LLM
+
+    llm = LLM(engine_config(BENCH_8B, True, batch))
+    si, reqs = bench.decode_step_inputs(llm, batch, ctx)
+    graph = bench.capture_step_graph(llm.engine.runner, si,
+                                     llm.engine._generator)
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    del graph
+    for req in reqs:
+        llm.engine.scheduler.block_manager.free(req.block_ids)
+    free_llm(llm)
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / replays
+    if busy_ms == 0:
+        return dict(device_step="not measured")
+    qmm = sum(e.self_device_time_total for e in events
+              if "qmm::" in e.key) / 1e3 / replays
+    attn = sum(e.self_device_time_total for e in events
+               if "grouped_decode_kernel" in e.key) / 1e3 / replays
+    return dict(batch=batch, ctx=ctx, replays=replays,
+                device_ms_per_step=busy_ms, fp8_matmul_ms=qmm,
+                attention_ms=attn,
+                top=[dict(kernel=e.key[:90],
+                          ms_per_step=e.self_device_time_total / 1e3
+                          / replays, calls_per_step=e.count / replays)
+                     for e in events[:12]])
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the port's headline bench and the weight-stream microbench
+# ---------------------------------------------------------------------------
+
+def phase_bench() -> dict:
+    """The bench in this process at the full 8B width and depth in fp8,
+    then the stream microbench, each with the launch counts set to 0 just
+    before it and read just after; returns {"bench": JSON object,
+    "bench_launches", "stream": rows, "stream_launches"}."""
+    from arcticinference_tpu_torch import bench
+    from arcticinference_tpu_torch.benchmarks import stream_microbench
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = bench.run_bench("cuda", curve_rates=BENCH_CURVE_RATES)
+    wall = time.perf_counter() - t0
+    bench_launches = launch_counts()
+    # The bench's JSON object, on a line of its own.
+    log(json.dumps(out))
+    log(f"[bench] {wall:.1f} s; launches {json.dumps(bench_launches)}")
+    free_cuda_memory()
+    reset_counts()
+    rows = stream_microbench.run(log=lambda line: log("  stream " + line))
+    stream_launches = launch_counts()
+    log(f"[bench] stream microbench launches {json.dumps(stream_launches)}")
+    free_cuda_memory()
+
+    problems = []
+    probe = out["hbm_gbps_probe"] * 1e9
+    if not probe <= 1.05 * HBM_BYTES_PER_S:
+        problems.append(f"probe {probe / 1e9:.1f} GB/s above 1.05x the "
+                        f"nominal {HBM_BYTES_PER_S / 1e9:.0f} GB/s: bytes "
+                        "were skipped")
+    if out["finished"] != out["batch"] or out["single_seq_finished"] != 1:
+        problems.append("a greedy batch did not finish")
+    spec_points = [out] + out["spec_curve"] + [out["spec_heldout"]]
+    if out["spec_finished"] != out["spec_batch"] or any(
+            p.get("finished", p.get("spec_finished")) != out["spec_batch"]
+            for p in spec_points[1:]):
+        problems.append("a speculative batch did not finish")
+    if not out["spec_acceptance_rate"] > 0.5:
+        problems.append(f"distilled drafter accepted "
+                        f"{out['spec_acceptance_rate']:.3f} <= 0.5 on its "
+                        "own prompts")
+    numbers = [out[k] for k in ("value", "single_seq_decode_tokens_per_s",
+                                "device_ms_per_step", "hbm_gbps_achieved",
+                                "spec_decode_tokens_per_s")]
+    if not all(np.isfinite(v) and v > 0 for v in numbers):
+        problems.append(f"non-finite or non-positive numbers: {numbers}")
+    for key in ("hbm_read_probe", "fp8_matmul_kernel",
+                "ragged_paged_attention_kernel",
+                "grouped_decode_attention_kernel"):
+        if bench_launches[key] == 0:
+            problems.append(f"the bench never launched {key}")
+    if stream_launches["stream_matmul_kernel"] == 0:
+        problems.append("the microbench never launched the stream kernel")
+    bad_rows = [r for r in rows if not (r["finite"]
+                                        and r["rel_err"] <= REL_TOL)]
+    if bad_rows:
+        problems.append(f"stream microbench disagrees: {bad_rows}")
+    if problems:
+        raise AssertionError(f"bench check failed: {problems}")
+    return dict(bench=out, bench_launches=bench_launches, stream=rows,
+                stream_launches=stream_launches)
 
 
 def seed_suffix_cache(cache, prompts, outputs, vocab):
@@ -1840,8 +2112,10 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from arcticinference_tpu_torch.ops.cuda import build
     from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import hbm_probe as hp
     from arcticinference_tpu_torch.ops.cuda import int4_matmul as im
     from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+    from arcticinference_tpu_torch.ops.cuda import stream_matmul as sm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1851,7 +2125,7 @@ def main() -> int:
     log(f"[device] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
 
-    sources = (ra.SOURCE, fm.SOURCE, im.SOURCE)
+    sources = (ra.SOURCE, fm.SOURCE, im.SOURCE, hp.SOURCE, sm.SOURCE)
     t0 = time.perf_counter()
     libs = build.build_all(sources)
     log(f"[build] {', '.join(sources)} in {time.perf_counter() - t0:.1f} s "
@@ -1899,6 +2173,14 @@ def main() -> int:
         "int4_matmul_kernel": dict(
             name="int4_matmul_kernel", route="cuda", source=csrc + im.SOURCE,
             replaces="arcticinference_tpu/ops/pallas/int4_matmul.py:105"),
+        "hbm_read_probe": dict(
+            name="hbm_read_probe", route="cuda", source=csrc + hp.SOURCE,
+            replaces="bench.py:120 (_measure_dma_read)"),
+        "stream_matmul_kernel": dict(
+            name="stream_matmul_kernel", route="cuda",
+            source=csrc + sm.SOURCE,
+            replaces="benchmarks/stream_microbench.py:167 "
+                     "(make_pallas_body)"),
     }
     if "kernels" in phases:
         log("[kernels] kernel vs plain, Hq=32 Hkv=8 D=128, 32-layer cache")
@@ -1911,6 +2193,11 @@ def main() -> int:
         tree_cases = phase_tree_kernels(rng)
         log("[kernels] quantized matmuls vs plain, Llama-3.1-8B weights")
         fp8_cases, int4_cases = phase_matmul_kernels(args.seed)
+        log("[kernels] HBM read probe vs plain, 4 GiB of random bf16")
+        probe_cases = phase_probe_kernel(args.seed)
+        log("[kernels] weight-stream matmul variants vs plain, "
+            "Llama-3.1-8B decode shapes, 64 rows")
+        stream_cases = phase_stream_kernels(args.seed)
         # The summary line reports, for each kernel, the case of its
         # heaviest main-path step (a 2048-token prefill chunk; a batch-64
         # decode step) or, for the matmuls, the decode weight stream they
@@ -1929,7 +2216,10 @@ def main() -> int:
                 ("fp8_matmul_kernel", fp8_cases,
                  "fp8 w_gateup [4096,28672] M=16"),
                 ("int4_matmul_kernel", int4_cases,
-                 "int4 w_gateup [4096,28672] M=16")):
+                 "int4 w_gateup [4096,28672] M=16"),
+                ("hbm_read_probe", probe_cases, probe_cases[0]["case"]),
+                ("stream_matmul_kernel", stream_cases,
+                 "astype_e4m3 gateup-fused [4096,28672] M=64")):
             rep = next(c for c in cases if c["case"] == rep_name)
             kernels[key].update(
                 max_abs_err=max(c["max_abs_err"] for c in cases),
@@ -1942,6 +2232,12 @@ def main() -> int:
                     "case", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "max_abs_err", "rel_err")}
                        for c in cases])
+        kernels["hbm_read_probe"].update(
+            tolerance="|out-plain| <= 1e-6 * sum(|summed values|)",
+            library_note=probe_cases[0]["library_note"])
+        kernels["stream_matmul_kernel"]["kernel5_unit_scale_ms"] = next(
+            c["kernel5_unit_scale_ms"] for c in stream_cases
+            if c["case"] == kernels["stream_matmul_kernel"]["case"])
     if "forward" in phases:
         for quantization in (None, "fp8", "int4"):
             log(f"[forward] Llama-3.1-8B width, 2 layers, "
@@ -1970,6 +2266,20 @@ def main() -> int:
                          ("fp8_matmul_kernel", "fp8"),
                          ("int4_matmul_kernel", "int4")):
             kernels[key]["launches"] = runs[run]["launches"][key]
+    if "bench" in phases:
+        log("[bench] the port's bench: Llama-3.1-8B, 32 layers, fp8 "
+            "weights, drafter distilled here; then the stream microbench")
+        res = phase_bench()
+        # Kernels 7 and 8 run on the bench's path: their launches are
+        # those of the bench's run and the microbench's.
+        kernels["hbm_read_probe"]["launches"] = \
+            res["bench_launches"]["hbm_read_probe"]
+        kernels["stream_matmul_kernel"]["launches"] = \
+            res["stream_launches"]["stream_matmul_kernel"]
+    if "generate" in phases:
+        log("[profile] shorter bf16 and fp8 runs and the drafter chains "
+            "under torch.profiler")
+        phase_profile(rng)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(smi())
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,10 @@ The quantized matmuls draw x and the weights (before quantization) from
 N(0, 1), so outputs are O(sqrt(K)); kernel and plain version multiply
 the same bf16 values and differ only in the order of the float32 sums,
 and so by rare one-ulp flips of the bf16 output: the same bounds hold.
+The weight-stream variants (kernel 8) draw weights as the JAX
+microbench's ``gen_ws`` does and are held to the same bounds; the HBM
+read probe (kernel 7) sums float32 values in another order than its
+plain version, within 1e-6 of the sum of their magnitudes.
 """
 
 import numpy as np
@@ -26,8 +30,10 @@ from arcticinference_tpu_torch.ops.attention import (
     ragged_paged_attention_reference)
 from arcticinference_tpu_torch.ops import fp8 as tfp8
 from arcticinference_tpu_torch.ops.cuda import fp8_matmul as tfm
+from arcticinference_tpu_torch.ops.cuda import hbm_probe as thp
 from arcticinference_tpu_torch.ops.cuda import int4_matmul as tim
 from arcticinference_tpu_torch.ops.cuda import ragged_attention as tra
+from arcticinference_tpu_torch.ops.cuda import stream_matmul as tsm
 
 TOL = 2e-2
 REL_TOL = 1e-3
@@ -607,3 +613,102 @@ def test_matmul_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                                q4.weight[:96].contiguous(),
                                q4.scale[:1].contiguous())
     assert tfm.fp8_matmul_launches == 0 and tim.int4_matmul_launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks,shape", [(1024, thp.CHUNK_SHAPE),
+                                          (5, thp.CHUNK_SHAPE),
+                                          (300, (2, 64, 128))])
+def test_hbm_read_probe_matches_plain(cuda_device, chunks, shape):
+    """The full 4 GiB buffer of the bench, fewer chunks than SMs, and
+    one-tile chunks, all of seeded random values."""
+    gen = torch.Generator(device="cuda").manual_seed(chunks)
+    x = torch.randn((chunks,) + shape, generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    thp.reset_launch_counts()
+    out = thp.hbm_read_probe(x)
+    ref = thp.hbm_read_probe_reference(x)
+    assert thp.hbm_probe_launches == 1
+    l1 = x.reshape(chunks, -1)[:, :thp.ROW_ELEMS].float().abs().sum()
+    assert out.shape == (1, 1) and out.dtype == torch.float32
+    assert float((out - ref).abs()) <= 1e-6 * float(l1)
+    # Partials are added in a fixed order: the same value every run.
+    assert torch.equal(out, thp.hbm_read_probe(x))
+
+
+@pytest.mark.cuda
+def test_hbm_read_probe_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros((4,) + thp.CHUNK_SHAPE, dtype=torch.bfloat16,
+                    device=cuda_device)
+    thp.reset_launch_counts()
+    with pytest.raises(TypeError):
+        thp.hbm_read_probe(x.float())
+    with pytest.raises(ValueError):                  # chunk of 16 KiB
+        thp.hbm_read_probe(torch.zeros((4, 64, 128), dtype=torch.bfloat16,
+                                       device=cuda_device))
+    with pytest.raises(ValueError):
+        thp.hbm_read_probe(x.transpose(0, 1))
+    assert thp.hbm_probe_launches == 0
+
+
+def stream_case(k, n, device, seed=0):
+    """x [64, k] N(0, 1) and a [k, n] weight drawn as gen_ws draws it,
+    per variant."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((64, k), generator=gen, device=device).to(
+        torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=device)
+         .to(torch.bfloat16) * 0.02)
+    fp8 = w.to(torch.float8_e4m3fn)
+    i8 = torch.clamp(torch.round(w.float() / 0.001), -127, 127).to(
+        torch.int8)
+    return x, {"f16trick": fp8.view(torch.int8),
+               "bittrick": fp8.view(torch.int8), "astype_e4m3": fp8,
+               "astype_int8": i8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", tsm.VARIANTS)
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096),
+                                 (4096, 4096), (4096, 28672), (4096, 6144),
+                                 (128, 256)])
+def test_stream_matmul_kernel_matches_plain(cuda_device, variant, k, n):
+    """The five Llama-3.1-8B decode shapes at 64 rows, and a small one."""
+    x, ws = stream_case(k, n, cuda_device)
+    w = ws[variant]
+    tsm.reset_launch_counts()
+    out = tsm.stream_matmul_kernel(x, w, variant)
+    assert tsm.stream_matmul_launches == 1
+    assert out.dtype == torch.bfloat16 and out.shape == (64, n)
+    assert_matches(out, tsm.stream_matmul_reference(x, w, variant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["f16trick", "bittrick"])
+def test_stream_tricks_read_nan_codes_as_480(cuda_device, variant):
+    """Every byte as a weight row: the tricks give +-480 for e4m3's NaN
+    codes (0x7f, 0xff), as their JAX bodies do."""
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    w = codes.view(torch.int8).repeat_interleave(128).reshape(256, 128)
+    x = torch.zeros((16, 256), dtype=torch.bfloat16)
+    x[:, 0x7F], x[:, 0xFF] = 1.0, 2.0
+    out = tsm.stream_matmul_kernel(x.to(cuda_device), w.to(cuda_device),
+                                   variant).float().cpu()
+    assert torch.equal(out, torch.full((16, 128), 480.0 - 960.0))
+
+
+@pytest.mark.cuda
+def test_stream_matmul_refuses_what_it_does_not_take(cuda_device):
+    x, ws = stream_case(256, 256, cuda_device)
+    tsm.reset_launch_counts()
+    with pytest.raises(TypeError):            # e4m3 tensor for a trick
+        tsm.stream_matmul_kernel(x, ws["astype_e4m3"], "f16trick")
+    with pytest.raises(ValueError):           # N not a multiple of 128
+        tsm.stream_matmul_kernel(x, ws["astype_int8"][:, :96].contiguous(),
+                                 "astype_int8")
+    with pytest.raises(ValueError):           # weight on the CPU
+        tsm.stream_matmul_kernel(x, ws["astype_int8"].cpu(), "astype_int8")
+    with pytest.raises(TypeError):            # float32 x
+        tsm.stream_matmul_kernel(x.float(), ws["astype_int8"],
+                                 "astype_int8")
+    assert tsm.stream_matmul_launches == 0

@@ -171,14 +171,26 @@ def spec_config(**spec):
 def test_draft_model_methods_raise(method, tmp_path):
     """Each draft-model method builds an Arctic drafter (MLP without a
     config.json that says LSTM, as in the JAX package) and no suffix
-    cache; a distilled drafter (``distilled_tied``, spec/distill.py) is
-    not ported and raises."""
+    cache; a distilled drafter (``distilled_tied``, spec/distill.py)
+    takes its embedding and LM head from the target, and raises without
+    its weights file."""
+    from arcticinference_tpu_torch.spec.distill import (init_tied_drafter,
+                                                        save_distilled)
+
     llm = LLM(spec_config(method=method), device="cpu")
     assert llm.engine._drafter.kind == "mlp"
     assert llm.engine._suffix_cache is None
     (tmp_path / "config.json").write_text('{"distilled_tied": true}')
-    with pytest.raises(NotImplementedError, match="distilled"):
+    with pytest.raises(FileNotFoundError, match="model.safetensors"):
         LLM(spec_config(method=method, model=str(tmp_path)), device="cpu")
+    params = llm.engine.runner.params
+    save_distilled(tmp_path, *init_tied_drafter(params, n_predict=2))
+    tied = LLM(spec_config(method=method, model=str(tmp_path)),
+               device="cpu").engine
+    drafter = tied._drafter
+    assert drafter.kind == "mlp" and drafter.arch.n_predict == 2
+    assert drafter.params["head"][0] is tied.runner.params["lm_head"]
+    assert drafter.params["emb"][0] is tied.runner.params["embed"]
 
 
 def test_abort_and_close_release_prompt_trees():

@@ -335,11 +335,13 @@ def test_proposer_without_checkpoint_never_imports_safetensors():
 
 
 def test_distilled_tied_drafter_raises(tmp_path):
+    """A distilled drafter's tables are the target's own: without the
+    target's parameters it raises, as in the JAX package."""
     from arcticinference_tpu_torch.spec.proposer import ArcticProposer
 
     (tmp_path / "config.json").write_text(json.dumps(
         {"distilled_tied": True}))
-    with pytest.raises(NotImplementedError, match="distilled"):
+    with pytest.raises(ValueError, match="target params"):
         ArcticProposer(tcfg.SpeculativeConfig(method="arctic",
                                               model=str(tmp_path)),
                        _Base(), torch.device("cpu"))
