@@ -57,29 +57,46 @@
 // need no change; the mask is applied in the accumulators with the causal
 // one.
 //
-// Kernels 2 and 3 (a first, simple design: CUDA cores and fp32 FMA):
-//   * One CTA per (sequence, kv head).  Its query rows share the head's
-//     K/V pages, so each page is read once per CTA row tile instead of
-//     once per q head.
-//   * The CTA's 4 warps split the request's pages (warp w takes pages
-//     w, w+4, ...) and each keeps its own fp32 online-softmax state; the
-//     states are merged once at the end.  Four independent page streams
-//     per CTA keep loads in flight at decode, where a CTA has few rows.
-//   * Lane j of a warp owns token j of a 32-token page for q.k (it reads
-//     its K row with 16-byte loads), and dims [lane*D/32, ...) for p.v
-//     (V rows are read coalesced, 32 lanes on one contiguous row).
-//   * The per-layer k_scale is folded into q and v_scale into the
-//     output, so fp8 pages are only converted, never multiplied.
-//   * Rows beyond the CTA's row tile of RW rows are done in further
-//     passes over the pages (the repeat reads mostly hit L2).
+// Kernels 2 and 3 (pure-decode and verify steps of qlen rows per
+// sequence; kernel 3 with the step's new K/V rows injected) read each KV
+// byte of a sequence once per kv head and do 4 flops per element and q
+// row: their floor is KV bytes / 3.35 TB/s.  Their first design (fp32 FMA
+// on the CUDA cores, 4- or 8-row tiles, one page in flight per warp) took
+// 2.2x that floor at qlen 1, 5.8x at qlen 4 and 11x for kernel 3 at qlen
+// 8, where its tiles took further passes over the pages (H100 80GB HBM3 at
+// 700 W; PERF.md).  This design:
+//   * One CTA per (sequence, kv head), 4 warps per 16-row m-tile: one tile
+//     for qlen * group <= 16 rows, two for <= 32, further passes beyond
+//     (kernel 3 takes up to 32 rows per sequence).  Every q head of the
+//     GQA group is a row, so at group 4 a CTA reads each page once at qlen
+//     1, 4 and 8; q rows are staged once by cp.async and held in
+//     registers as mma.sync A fragments.
+//   * A sequence's slots are cut into 16-slot chunks; chunk c goes to page
+//     stream c % 4 (warp c % 4 of each tile), and the four streams' states
+//     merge in stream order at the end.  The stream count is a constant,
+//     never derived from qlen or the row count, and a chunk a row does
+//     not attend leaves its state bit for bit as it was (alpha = 1, P = 0,
+//     explicitly rounded updates), so a row's output does not depend on
+//     its row index or on qlen: the bench's distilled drafter is accepted
+//     only because the target replays its captured trajectory bit for bit.
+//   * Each stream runs its own cp.async pipeline (16-byte copies into
+//     padded shared memory, three stages deep) with a named barrier of its
+//     own; fp8 chunks are converted to fp16 once per stage.
+//     At ~102 KiB two one-tile CTAs fit an SM, which short sequences (the
+//     decode step at a few pages each) need to overlap their latencies.
+//   * q.k and p.v by mma.sync m16n8k16 with float32 sums; the causal limit
+//     and the mask of padding rows in the accumulators; a base-2 online
+//     softmax; q and P split into hi + lo as in kernel 1.
+//   * Slots past the CTA's last position, pages past the sequence's last
+//     page and new rows past new_len are never read: cp.async zero-fills
+//     them, so a masked P of 0 never meets a stale or NaN V.
 //
-// Deferred KV writes (the grouped kernel's knew / vnew path): the step's
-// new K/V rows arrive as operands ([t, Hkv*D] in cache dtype, already
-// divided by the layer's k/v scale like cache rows) and their cache slots
-// are not written yet.  Each row then reads the cache only below its
-// sequence's pos_base, and after the pages the CTA folds the sequence's
-// new rows into the same online softmax as one more chunk of at most 32
-// tokens: lane j owns new row j, which row i attends iff j <= i's token
+// Deferred KV writes (kernel 3): the step's new K/V rows arrive as
+// operands ([t, Hkv*D] in cache dtype, already divided by the layer's k/v
+// scale like cache rows) and their cache slots are not written yet.  Each
+// row then reads the cache only below its sequence's pos_base, and the
+// sequence's new rows (at most 32) are staged as one or two more chunks
+// after its last cache chunk: row i attends new row j iff j <= i's token
 // index and j < new_len (the count of the sequence's rows whose slot is
 // >= 0; padding is a tail of slot -1).  The caller scatters the rows into
 // the cache once for the whole model after the layer stack.
@@ -99,8 +116,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kPage = 32;        // tokens per page == lanes per warp
 constexpr int kZeroTokens = 32;  // padding rows zeroed per extra CTA
 constexpr float kNegInf = -__builtin_huge_valf();
@@ -172,32 +187,7 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                : "memory");
 }
 
-// ---- the shared online-softmax loop ---------------------------------------
-
-// The rows of one CTA: row i is token tok0 + i / group (cache slot
-// pos0 + i / group) under q head h * group + i % group.  Tokens at or past
-// t_limit do not exist (their rows are neither read nor written).  With
-// knew / vnew (deferred writes; cache-dtype rows, token tok0 + j at row
-// tok0 + j) the cache is read only below pos0 and new rows j < new_len are
-// folded in after the pages; knew == nullptr means no injection.
-struct Rows {
-  int tok0;
-  int pos0;
-  int ntok;
-  int t_limit;
-  const void* knew = nullptr;
-  const void* vnew = nullptr;
-  int new_len = 0;
-};
-
-template <int D, int RW>
-struct Smem {
-  float q[RW][D];
-  float p[kWarps][RW][kPage];
-  float m[kWarps][RW];
-  float l[kWarps][RW];
-  float acc[kWarps][RW][D];
-};
+// ---- kernel 4's online-softmax step (CUDA cores) ---------------------------
 
 // Fold one chunk of at most 32 tokens into a warp's online-softmax state:
 // lane j owns token j, whose K row is krow (read only when k_ok) and whose
@@ -258,127 +248,6 @@ __device__ __forceinline__ void fold_chunk(
     }
   }
   __syncwarp();
-}
-
-template <class KV, int D, int RW>
-__device__ void attend(Smem<D, RW>& sm, const uint16_t* __restrict__ q,
-                       uint16_t* __restrict__ out,
-                       const typename KV::T* __restrict__ kv_layer,
-                       const int* __restrict__ page_row, int npages,
-                       Rows rows, int h, int hq, int hkv, float q_scale,
-                       float v_scale) {
-  constexpr int DPL = D / 32;  // p.v dims per lane
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int group = hq / hkv;
-  const int hkv_d = hkv * D;
-  const int nrows = rows.ntok * group;
-  const bool deferred = rows.knew != nullptr;
-
-  for (int tile0 = 0; tile0 < nrows; tile0 += RW) {
-    // Stage this tile's q rows (fp32, pre-scaled by scale * k_scale).
-    for (int idx = threadIdx.x; idx < RW * D; idx += kThreads) {
-      const int r = idx / D, dd = idx % D, i = tile0 + r;
-      const int tok = rows.tok0 + i / group;
-      float val = 0.f;
-      if (i < nrows && tok < rows.t_limit) {
-        const int head = h * group + i % group;
-        val = Bf16::cvt(q[(int64_t)tok * hq * D + head * D + dd]) * q_scale;
-      }
-      sm.q[r][dd] = val;
-    }
-    // pos[r]: the last cache slot row r may attend (-1: none); with
-    // deferred writes every live row stops below pos0.  tix[r]: the row's
-    // token index in the CTA (-1: not live), which bounds the new rows it
-    // attends.
-    int pos[RW], tix[RW];
-    int max_pos = -1, max_tok = -1;
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const int i = tile0 + r;
-      const bool live = i < nrows && rows.tok0 + i / group < rows.t_limit;
-      tix[r] = live ? i / group : -1;
-      pos[r] = !live ? -1 : deferred ? rows.pos0 - 1 : rows.pos0 + i / group;
-      max_pos = max(max_pos, pos[r]);
-      max_tok = max(max_tok, tix[r]);
-    }
-    __syncthreads();
-
-    float m[RW], l[RW], acc[RW][DPL];
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      m[r] = kNegInf;
-      l[r] = 0.f;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
-    }
-    // Pages past the tile's last position hold nothing it may attend.
-    const int last_page = min(npages, max_pos < 0 ? 0 : max_pos / kPage + 1);
-    for (int pg_i = warp; pg_i < last_page; pg_i += kWarps) {
-      const int64_t page = page_row[pg_i];
-      const typename KV::T* krow =
-          kv_layer + (page * 2 * kPage + lane) * hkv_d + h * D;
-      const typename KV::T* vbase =
-          kv_layer + ((page * 2 + 1) * kPage) * hkv_d + h * D + lane * DPL;
-      const int kv_pos = pg_i * kPage + lane;
-      bool ok[RW];
-#pragma unroll
-      for (int r = 0; r < RW; ++r) ok[r] = kv_pos <= pos[r];
-      // Only tokens at or before the tile's last position carry weight.
-      fold_chunk<KV, D, RW>(sm.q, sm.p[warp], krow, true, vbase, hkv_d,
-                            ok, min(kPage, max_pos - pg_i * kPage + 1), m,
-                            l, acc);
-    }
-    if (deferred && warp == last_page % kWarps) {
-      // The new rows, as one more chunk, on the warp whose turn is next.
-      const auto* knew = static_cast<const typename KV::T*>(rows.knew);
-      const auto* vnew = static_cast<const typename KV::T*>(rows.vnew);
-      const bool has = lane < rows.new_len;
-      bool ok[RW];
-#pragma unroll
-      for (int r = 0; r < RW; ++r) ok[r] = has && lane <= tix[r];
-      fold_chunk<KV, D, RW>(
-          sm.q, sm.p[warp],
-          knew + (int64_t)(rows.tok0 + lane) * hkv_d + h * D, has,
-          vnew + (int64_t)rows.tok0 * hkv_d + h * D + lane * DPL, hkv_d, ok,
-          min(rows.new_len, max_tok + 1), m, l, acc);
-    }
-
-    // Merge the warps' states: out = sum_w acc_w e^(m_w-M) /
-    // sum_w l_w e^(m_w-M), times v_scale.
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const float lr = warp_sum(l[r]);
-      if (lane == 0) {
-        sm.m[warp][r] = m[r];
-        sm.l[warp][r] = lr;
-      }
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) sm.acc[warp][r][lane * DPL + e] = acc[r][e];
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < RW * D; idx += kThreads) {
-      const int r = idx / D, dd = idx % D, i = tile0 + r;
-      const int tok = rows.tok0 + i / group;
-      if (i >= nrows || tok >= rows.t_limit) continue;
-      float mx = kNegInf;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm.m[w][r]);
-      float lsum = 0.f, a = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float mw = sm.m[w][r];
-        if (mw == kNegInf) continue;
-        const float f = __expf(mw - mx);
-        lsum += sm.l[w][r] * f;
-        a += sm.acc[w][r][dd] * f;
-      }
-      const int head = h * group + i % group;
-      out[(int64_t)tok * hq * D + head * D + dd] =
-          Bf16::from_float(a * (v_scale / fmaxf(lsum, 1e-20f)));
-    }
-    __syncthreads();
-  }
 }
 
 // ---- kernel 1: ragged work items, on tensor cores --------------------------
@@ -902,66 +771,444 @@ __global__ void __launch_bounds__(kRThreads, 1) ragged_attention_kernel(
   }
 }
 
-// ---- kernel 2: grouped uniform decode --------------------------------------
+// ---- kernels 2 and 3: grouped uniform decode, on tensor cores ---------------
 
-// attend out of line.  On the H100, ptxas schedules kernels 2 and 3 at
-// 4-row tiles ~19% slower with attend inlined, and at 8-row tiles ~17%
-// slower without (scripts/time_attention_kernels.py; PERF.md).
-template <class KV, int D, int RW>
-__device__ __noinline__ void attend_out_of_line(
-    Smem<D, RW>& sm, const uint16_t* __restrict__ q,
-    uint16_t* __restrict__ out, const typename KV::T* __restrict__ kv_layer,
-    const int* __restrict__ page_row, int npages, Rows rows, int h, int hq,
-    int hkv, float q_scale, float v_scale) {
-  attend<KV, D, RW>(sm, q, out, kv_layer, page_row, npages, rows, h, hq,
-                    hkv, q_scale, v_scale);
+// Page streams: a sequence's slots are cut into chunks of 16 (half a
+// page), and chunk c goes to stream c % 4, a constant of the kernel
+// (never derived from qlen or the row count).  A stage holds one chunk
+// of each stream: K rows, then V rows, in kernel 1's padded row layout.
+constexpr int kGStreams = 4;
+constexpr int kGChunk = 16;
+constexpr int kGStageRows = 2 * kGStreams * kGChunk;
+
+// Shared memory of kernels 2 and 3: kStages stages, the fp16 buffer of a
+// stage for fp8 pages and, after the last chunk, the states of streams
+// 1..3 of each tile.  ~102 KiB at D=128 in bf16: two one-tile CTAs fit an
+// SM, so short sequences (a few pages each) overlap their latencies.
+template <class KV, int D, int TILES>
+struct GroupedSmem {
+  using R = RaggedSmem<KV, D>;
+  static constexpr int kStageBytes = kGStageRows * R::kRawRow;
+  static constexpr int kConvBytes =
+      R::kConvert ? kGStageRows * R::kRow16 * 2 : 0;
+  static constexpr int kMergeFloats = D / 2 + 4;  // per lane: o, m[2], l[2]
+  static constexpr int kBytes =
+      std::max(kStages * kStageBytes + kConvBytes,
+               (kGStreams - 1) * TILES * kMergeFloats * 32 * 4);
+  // A pass's q rows are staged in the last stage before the main loop.
+  static_assert(TILES * kMTile * R::kRow16 * 2 <= kStageBytes, "q rows");
+};
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <class KV, int D, int RW>
-__global__ void __launch_bounds__(kThreads) grouped_decode_kernel(
-    const uint16_t* __restrict__ q, uint16_t* __restrict__ out,
-    const typename KV::T* __restrict__ kv, const float* __restrict__ kv_scale,
-    const int* __restrict__ pos_base, const int* __restrict__ seq_lens,
-    const int* __restrict__ block_tables,
-    const typename KV::T* __restrict__ knew,
-    const typename KV::T* __restrict__ vnew,
-    const int* __restrict__ slot_mapping, int layer, int b, int t, int qlen,
-    int hq, int hkv, int max_blk, int64_t layer_stride, float scale) {
-  __shared__ __align__(16) Smem<D, RW> sm;
+// One stream's staged fp8 chunk (its 16 K and 16 V rows) to fp16 rows in
+// the same places of the fp16 buffer, by the stream's TILES warps.
+template <int D, int TILES>
+__device__ __forceinline__ void convert_fp8_chunk(const unsigned char* raw,
+                                                  uint16_t* dst, int stream) {
+  using S = RaggedSmem<Fp8, D>;
+  constexpr int kPerRow = D / 8;
+  const int t = (threadIdx.x >> 5) / kGStreams * 32 + (threadIdx.x & 31);
+#pragma unroll 4
+  for (int i = t; i < 2 * kGChunk * kPerRow; i += TILES * 32) {
+    const int r = i / kPerRow, c8 = i % kPerRow;
+    const int row =
+        (r / kGChunk) * kGStreams * kGChunk + stream * kGChunk + r % kGChunk;
+    const uint2 v =
+        *reinterpret_cast<const uint2*>(raw + row * S::kRawRow + c8 * 8);
+    uint4 h;
+    h.x = fp8x2_to_half2(v.x & 0xffffu);
+    h.y = fp8x2_to_half2(v.x >> 16);
+    h.z = fp8x2_to_half2(v.y & 0xffffu);
+    h.w = fp8x2_to_half2(v.y >> 16);
+    *reinterpret_cast<uint4*>(dst + row * S::kRow16 + c8 * 8) = h;
+  }
+}
+
+// Fold one 16-slot chunk into a warp's state (kernels 2 and 3): q.k and
+// p.v as m16n8k16 MMAs with float32 sums, q and P as their 16-bit value
+// and remainder; the mask and a base-2 online softmax in the
+// accumulators, each row's max and sum over the 4 lanes of a quad.  Every
+// update of the state is rounded explicitly (no contraction left to the
+// compiler, so each instance of the kernel computes a row alike), and a
+// row whose max does not move keeps alpha = 1: a chunk the row does not
+// attend (P = 0 against finite V) leaves its state bit for bit as it was.
+// The thread holds rows g and g + 8 of the warp's m-tile; row hr attends
+// slots base.. up to lim[hr] (-1: none).  full: every row attends every
+// slot of the chunk.
+template <class KV, int D>
+__device__ __forceinline__ void fold_chunk_grouped(
+    const uint16_t* __restrict__ sk, const uint16_t* __restrict__ sv,
+    int base, const int (&lim)[2], bool full,
+    const uint32_t (&qh)[D / 16][4], const uint32_t (&ql)[D / 16][4],
+    float (&o)[D / 8][4], float (&m)[2], float (&l)[2]) {
+  using M = Mma<KV>;
+  constexpr int R = RaggedSmem<KV, D>::kRow16;
+  const int lane = threadIdx.x & 31;
+  const int mi = lane >> 3, ri = lane & 7;  // ldmatrix: matrix, its row
+  const int c2 = (lane & 3) * 2;
+  // S = q K^T: two n-tiles of 8 slots; one ldmatrix.x4 gives both B
+  // fragments of a 16-wide k-step.
+  float s[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t b[4];
+    ldsm_x4(b, sk + ((mi >> 1) * 8 + ri) * R + kk * 16 + (mi & 1) * 8);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      M::mma(s[nt], qh[kk], b[nt * 2], b[nt * 2 + 1]);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      M::mma(s[nt], ql[kk], b[nt * 2], b[nt * 2 + 1]);
+  }
+  if (!full) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (base + nt * 8 + c2 + (e & 1) > lim[e >> 1]) s[nt][e] = kNegInf;
+  }
+  float alpha[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mx = fmaxf(fmaxf(s[0][2 * hr], s[0][2 * hr + 1]),
+                     fmaxf(s[1][2 * hr], s[1][2 * hr + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[hr], mx);
+    // m_use: a row with nothing attended yet keeps exp2(-inf) = 0.
+    const float m_use = m_new == kNegInf ? 0.f : m_new;
+    alpha[hr] = m_new == m[hr] ? 1.f : fast_exp2(__fsub_rn(m[hr], m_use));
+    m[hr] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+        s[nt][e] = fast_exp2(__fsub_rn(s[nt][e], m_use));
+        sum = __fadd_rn(sum, s[nt][e]);
+      }
+    l[hr] = __fmaf_rn(l[hr], alpha[hr], sum);  // quad-summed at the end
+  }
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = __fmul_rn(o[n][e], alpha[e >> 1]);
+  }
+  // O += P V: one 16-slot k-step; one ldmatrix.x4.trans gives the B
+  // fragments of two 8-wide d tiles.
+  const float pv[4][2] = {{s[0][0], s[0][1]}, {s[0][2], s[0][3]},
+                          {s[1][0], s[1][1]}, {s[1][2], s[1][3]}};
+  uint32_t ph[4], pl[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    ph[j] = M::pack(pv[j][0], pv[j][1]);
+    const float2 hf = M::unpack(ph[j]);
+    pl[j] = M::pack(__fsub_rn(pv[j][0], hf.x), __fsub_rn(pv[j][1], hf.y));
+  }
+#pragma unroll
+  for (int dp = 0; dp < D / 16; dp += 2) {
+    uint32_t b[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      ldsm_x4_trans(b[i], sv + ((mi & 1) * 8 + ri) * R + (dp + i) * 16 +
+                              (mi >> 1) * 8);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      M::mma(o[2 * dp + n], ph, b[n >> 1][(n & 1) * 2],
+             b[n >> 1][(n & 1) * 2 + 1]);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      M::mma(o[2 * dp + n], pl, b[n >> 1][(n & 1) * 2],
+             b[n >> 1][(n & 1) * 2 + 1]);
+  }
+}
+
+// One CTA per (sequence, kv head), 4 * TILES warps: warp w is page stream
+// w % 4 of m-tile w / 4.  Row i of the (sequence, kv head) is token i /
+// group under q head h * group + i % group; a pass covers 16 * TILES rows.
+template <class KV, int D, int TILES>
+__global__ void __launch_bounds__(kGStreams * TILES * 32, 2 / TILES)
+    grouped_decode_kernel(
+        const uint16_t* __restrict__ q, uint16_t* __restrict__ out,
+        const typename KV::T* __restrict__ kv,
+        const float* __restrict__ kv_scale, const int* __restrict__ pos_base,
+        const int* __restrict__ seq_lens,
+        const int* __restrict__ block_tables,
+        const typename KV::T* __restrict__ knew,
+        const typename KV::T* __restrict__ vnew,
+        const int* __restrict__ slot_mapping, int layer, int b, int t,
+        int qlen, int hq, int hkv, int max_blk, int64_t layer_stride,
+        float scale) {
+  using E = typename KV::T;
+  using M = Mma<KV>;
+  using S = RaggedSmem<KV, D>;
+  using G = GroupedSmem<KV, D, TILES>;
+  constexpr int kThreadsG = kGStreams * TILES * 32;
+  constexpr int KS = D / 16;  // k-steps of q.k
+  constexpr int NT = D / 8;   // d tiles of p.v
+  extern __shared__ __align__(16) unsigned char smem2[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int stream = warp % kGStreams, tile = warp / kGStreams;
   const int seq = blockIdx.x, h = blockIdx.y;
+  const int group = hq / hkv;
+  const int tok0 = seq * qlen;
   // Sequence slots past b (the token bucket is wider than b * qlen) and
-  // dead slots (seq_lens == 0) read no page and inject no row: their rows
-  // come out zero.
-  int npages = 0, pos0 = 0;
-  const int* page_row = block_tables;
-  const bool live = seq < b && seq_lens[seq] > 0;
-  if (seq < b) {
-    // No page past the block table's row (a step near max_model_len
-    // gives its rows past the limit a longer seq_len).
-    npages = min((seq_lens[seq] + kPage - 1) / kPage, max_blk);
-    pos0 = pos_base[seq];
-    page_row = block_tables + (int64_t)seq * max_blk;
-  }
-  Rows rows{seq * qlen, pos0, qlen, t};
-  if (knew != nullptr) {
-    rows.knew = knew;
-    rows.vnew = vnew;
-    // new_len: the sequence's rows with a real slot (rows past t are
-    // padding, as the JAX dispatch pads slot_mapping with -1).
-    for (int j = 0; live && j < qlen; ++j) {
-      const int row = seq * qlen + j;
-      rows.new_len += row < t && slot_mapping[row] >= 0;
+  // dead slots (seq_lens == 0) read no page: their rows come out zero.
+  const int ntok = min(qlen, t - tok0);
+  if (ntok <= 0) return;
+  const int nrows = ntok * group;
+  if (seq >= b || seq_lens[seq] <= 0) {
+    for (int idx = tid; idx < nrows * D; idx += kThreadsG) {
+      const int i = idx / D;
+      out[(int64_t)(tok0 + i / group) * hq * D + (h * group + i % group) * D +
+          idx % D] = 0;
     }
+    return;
   }
-  const float q_scale = scale * kv_scale[2 * layer];
-  if constexpr (RW == 4)
-    attend_out_of_line<KV, D, RW>(sm, q, out, kv + layer * layer_stride,
-                                  page_row, npages, rows, h, hq, hkv,
-                                  q_scale, kv_scale[2 * layer + 1]);
-  else
-    attend<KV, D, RW>(sm, q, out, kv + layer * layer_stride, page_row,
-                      npages, rows, h, hq, hkv, q_scale,
-                      kv_scale[2 * layer + 1]);
+  // No page past the block table's row (a step near max_model_len gives
+  // its rows past the limit a longer seq_len).
+  const int npages = min((seq_lens[seq] + kPage - 1) / kPage, max_blk);
+  const int pos0 = pos_base[seq];
+  const int* page_row = block_tables + (int64_t)seq * max_blk;
+  const E* kv_layer = kv + layer * layer_stride;
+  const bool deferred = knew != nullptr;
+  // new_len: the sequence's rows with a real slot (rows past t are
+  // padding, as the JAX dispatch pads slot_mapping with -1).
+  int new_len = 0;
+  for (int j = 0; deferred && j < qlen; ++j)
+    new_len += tok0 + j < t && slot_mapping[tok0 + j] >= 0;
+  // The last cache slot any row reads (with deferred writes: the one
+  // before pos_base) and the chunks holding it; with deferred writes the
+  // new rows follow as one or two more chunks.
+  const int last_slot =
+      min(deferred ? pos0 - 1 : pos0 + ntok - 1, npages * kPage - 1);
+  const int ncc = last_slot < 0 ? 0 : last_slot / kGChunk + 1;
+  const int nch = ncc + (new_len + kGChunk - 1) / kGChunk;
+  // Each stream runs its own pipeline over its chunks 4 k + stream, k = 0,
+  // 1, ..., kStages deep; its warps (one per tile) meet at a named barrier
+  // of their own, so no stream waits for another.
+  const int nk = nch > stream ? (nch - stream - 1) / kGStreams + 1 : 0;
+  const int bar = 1 + stream;
+  // k_scale (and log2 e, for exp2) folded into q, v_scale into the output.
+  const float qs = __fmul_rn(__fmul_rn(scale, kv_scale[2 * layer]), kLog2e);
+  const float v_scale = kv_scale[2 * layer + 1];
+  const int hkv_d = hkv * D;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+
+  // Chunk k of this stream into stage k % kStages.  Slots past last_slot,
+  // new rows past new_len and chunks past the last are never read:
+  // cp.async fills their rows with zeros, so a masked P of 0 never meets
+  // a stale or NaN V.
+  auto load = [&](int k) {
+    const int c = k * kGStreams + stream;
+    unsigned char* dst = smem2 + (k % kStages) * G::kStageBytes;
+    constexpr int kChunks = D * static_cast<int>(sizeof(E)) / 16;
+    constexpr int kElems = 16 / static_cast<int>(sizeof(E));
+    // The chunk's first K and V row of head h and its rows to read.
+    const E* kb = kv_layer;
+    const E* vb = kv_layer;
+    int n_ok = 0;
+    if (c < ncc) {
+      kb += ((int64_t)page_row[c / 2] * 2 * kPage + (c % 2) * kGChunk) *
+                hkv_d + h * D;
+      vb = kb + kPage * hkv_d;
+      n_ok = min(kGChunk, last_slot - c * kGChunk + 1);
+    } else if (c < nch) {
+      const int j0 = (c - ncc) * kGChunk;
+      kb = knew + (int64_t)(tok0 + j0) * hkv_d + h * D;
+      vb = vnew + (int64_t)(tok0 + j0) * hkv_d + h * D;
+      n_ok = min(kGChunk, new_len - j0);
+    }
+#pragma unroll 4
+    for (int i = tile * 32 + lane; i < 2 * kGChunk * kChunks;
+         i += TILES * 32) {
+      const int row = i / kChunks, ch = i % kChunks;  // K rows, V rows
+      const int j = row % kGChunk;
+      const bool ok = j < n_ok;
+      const E* src = row < kGChunk ? kb : vb;
+      if (ok) src += (int64_t)j * hkv_d + ch * kElems;
+      cp_async16(dst + ((row / kGChunk) * kGStreams * kGChunk +
+                        stream * kGChunk + j) * S::kRawRow + ch * 16,
+                 src, ok ? 16 : 0);
+    }
+  };
+
+  for (int row0 = 0; row0 < nrows; row0 += TILES * kMTile) {
+    // The pass's q rows (zeros past the last row) go to the last stage,
+    // free until the main loop's first load, with the first chunk.
+    uint16_t* sq = reinterpret_cast<uint16_t*>(
+        smem2 + (kStages - 1) * G::kStageBytes);
+    for (int i = tid; i < TILES * kMTile * (D / 8); i += kThreadsG) {
+      const int r = i / (D / 8), ch = i % (D / 8), row = row0 + r;
+      const uint16_t* src = q;
+      if (row < nrows)
+        src += ((int64_t)(tok0 + row / group) * hq + h * group +
+                row % group) * D + ch * 8;
+      cp_async16(sq + r * S::kRow16 + ch * 8, src, row < nrows ? 16 : 0);
+    }
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < nk) load(st);
+      cp_async_commit();
+    }
+    // This thread's rows rbase and rbase + 8: lim[hr], the last cache
+    // slot the row attends, and nlim[hr], the last new row (-1: none).
+    const int rbase = row0 + tile * kMTile + g;
+    bool live[2];
+    int lim[2], nlim[2];
+    int wfirst = INT_MAX, wlast = -1, nlast = -1;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = rbase + 8 * hr;
+      live[hr] = r < nrows;
+      lim[hr] = !live[hr] ? -1 : deferred ? pos0 - 1 : pos0 + r / group;
+      nlim[hr] = live[hr] ? min(r / group, new_len - 1) : -1;
+      if (live[hr]) wfirst = min(wfirst, lim[hr]);
+      wlast = max(wlast, lim[hr]);
+      nlast = max(nlast, nlim[hr]);
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      wfirst = min(wfirst, __shfl_xor_sync(0xffffffffu, wfirst, off));
+      wlast = max(wlast, __shfl_xor_sync(0xffffffffu, wlast, off));
+      nlast = max(nlast, __shfl_xor_sync(0xffffffffu, nlast, off));
+    }
+
+    // q rows as A fragments (ldmatrix), scaled and split into hi + lo:
+    // register j of k-step kk holds d = 16 kk + c2 + 8 (j / 2) of row
+    // rbase + 8 (j % 2).
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    uint32_t qh[KS][4], ql[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t raw[4];
+      const int mi = lane >> 3, ri = lane & 7;
+      ldsm_x4(raw, sq + (tile * kMTile + (mi & 1) * 8 + ri) * S::kRow16 +
+                       kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw[j]));
+        x.x = __fmul_rn(x.x, qs);
+        x.y = __fmul_rn(x.y, qs);
+        qh[kk][j] = M::pack(x.x, x.y);
+        const float2 hf = M::unpack(qh[kk][j]);
+        ql[kk][j] = M::pack(__fsub_rn(x.x, hf.x), __fsub_rn(x.y, hf.y));
+      }
+    }
+    __syncthreads();  // the last stage is the main loop's again
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    for (int k = 0; k < nk; ++k) {
+      if (k + kStages - 1 < nk) load(k + kStages - 1);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();
+      named_barrier(bar, TILES * 32);
+      const unsigned char* staged = smem2 + (k % kStages) * G::kStageBytes;
+      const uint16_t* tile16 = reinterpret_cast<const uint16_t*>(staged);
+      if constexpr (S::kConvert) {
+        uint16_t* conv = reinterpret_cast<uint16_t*>(
+            smem2 + kStages * G::kStageBytes);
+        convert_fp8_chunk<D, TILES>(staged, conv, stream);
+        named_barrier(bar, TILES * 32);
+        tile16 = conv;
+      }
+      const int c = k * kGStreams + stream;
+      const uint16_t* sk = tile16 + stream * kGChunk * S::kRow16;
+      const uint16_t* sv =
+          tile16 + (kGStreams + stream) * kGChunk * S::kRow16;
+      if (c < ncc) {
+        const int base = c * kGChunk;
+        if (base <= wlast)
+          fold_chunk_grouped<KV, D>(sk, sv, base, lim,
+                                    base + kGChunk - 1 <= wfirst, qh, ql, o,
+                                    m, l);
+      } else if (nlast >= (c - ncc) * kGChunk) {
+        // New rows (c - ncc) * 16 ..: row r attends new row j iff j <= its
+        // token index and j < new_len.
+        fold_chunk_grouped<KV, D>(sk, sv, (c - ncc) * kGChunk, nlim, false,
+                                  qh, ql, o, m, l);
+      }
+      named_barrier(bar, TILES * 32);  // the stage is free again
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every stream is done with the stages
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      l[hr] = __fadd_rn(l[hr], __shfl_xor_sync(0xffffffffu, l[hr], 1));
+      l[hr] = __fadd_rn(l[hr], __shfl_xor_sync(0xffffffffu, l[hr], 2));
+    }
+    // Streams 1..3 hand their states to stream 0 of the same tile, which
+    // merges them in stream order (one float per lane and value).
+    float* mg0 = reinterpret_cast<float*>(smem2) +
+                 tile * G::kMergeFloats * 32 + lane;
+    constexpr int kStride = TILES * G::kMergeFloats * 32;  // stream to stream
+    if (stream > 0) {
+      float* mg = mg0 + (stream - 1) * kStride;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mg[(n * 4 + e) * 32] = o[n][e];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mg[(D / 2 + hr) * 32] = m[hr];
+        mg[(D / 2 + 2 + hr) * 32] = l[hr];
+      }
+    }
+    __syncthreads();
+    if (stream == 0) {
+      for (int j = 1; j < kGStreams; ++j) {
+        const float* mg = mg0 + (j - 1) * kStride;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const float m1 = mg[(D / 2 + hr) * 32];
+          const float l1 = mg[(D / 2 + 2 + hr) * 32];
+          const float mx = fmaxf(m[hr], m1);
+          const float mu = mx == kNegInf ? 0.f : mx;
+          const float f0 =
+              m[hr] == mx ? 1.f : fast_exp2(__fsub_rn(m[hr], mu));
+          const float f1 = m1 == mx ? 1.f : fast_exp2(__fsub_rn(m1, mu));
+          m[hr] = mx;
+          l[hr] = __fmaf_rn(l[hr], f0, __fmul_rn(l1, f1));
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 2 * hr; e < 2 * hr + 2; ++e)
+              o[n][e] =
+                  __fmaf_rn(o[n][e], f0, __fmul_rn(mg[(n * 4 + e) * 32], f1));
+        }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        if (!live[hr]) continue;
+        const int r = rbase + 8 * hr;
+        const float f = __fdiv_rn(v_scale, fmaxf(l[hr], 1e-20f));
+        uint16_t* orow = out + (int64_t)(tok0 + r / group) * hq * D +
+                         (h * group + r % group) * D + c2;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<uint32_t*>(orow + n * 8) =
+              pack_bf16(__fmul_rn(o[n][2 * hr], f),
+                        __fmul_rn(o[n][2 * hr + 1], f));
+      }
+    }
+    __syncthreads();  // the next pass reuses the shared memory
+  }
 }
 
 // ---- kernel 4: one CTA per sequence ------------------------------------------
@@ -1160,7 +1407,7 @@ cudaError_t launch_ragged(void* q, void* out, const void* kv,
   return cudaGetLastError();
 }
 
-template <class KV, int D, int RW>
+template <class KV, int D, int TILES>
 cudaError_t launch_grouped(void* q, void* out, const void* kv,
                            const float* kv_scale, const int* pos_base,
                            const int* seq_lens, const int* block_tables,
@@ -1169,10 +1416,15 @@ cudaError_t launch_grouped(void* q, void* out, const void* kv,
                            int qlen, int hq, int hkv, int max_blk,
                            int64_t layer_stride, float scale,
                            cudaStream_t stream) {
+  auto* kernel = grouped_decode_kernel<KV, D, TILES>;
+  constexpr int smem = GroupedSmem<KV, D, TILES>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const int n_seq = std::max(b, (t + qlen - 1) / qlen);
   dim3 grid(n_seq, hkv);
   using E = typename KV::T;
-  grouped_decode_kernel<KV, D, RW><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kGStreams * TILES * 32, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<uint16_t*>(out),
       static_cast<const E*>(kv), kv_scale, pos_base, seq_lens, block_tables,
       static_cast<const E*>(knew), static_cast<const E*>(vnew), slot_mapping,
@@ -1192,16 +1444,17 @@ cudaError_t dispatch_ragged(int kv_fp8, int d, A... args) {
   return cudaErrorInvalidValue;
 }
 
-// Kernel 2's (and 3's) instances: (kv dtype, head dim, rows per tile).
+// Kernel 2's (and 3's) instances: (kv dtype, head dim, rows per pass:
+// one or two 16-row m-tiles).
 template <class... A>
-cudaError_t dispatch_grouped(int kv_fp8, int d, int rw, A... args) {
-#define ARCTIC_CASE(KVT, DD, RWW)                                        \
+cudaError_t dispatch_grouped(int kv_fp8, int d, int rows, A... args) {
+#define ARCTIC_CASE(KVT, DD, TT)                                         \
   if ((kv_fp8 != 0) == std::is_same<KVT, Fp8>::value && d == DD &&      \
-      rw == RWW)                                                         \
-    return launch_grouped<KVT, DD, RWW>(args...);
+      rows == TT * kMTile)                                               \
+    return launch_grouped<KVT, DD, TT>(args...);
 #define ARCTIC_CASES(KVT) \
-  ARCTIC_CASE(KVT, 64, 4) ARCTIC_CASE(KVT, 64, 8) \
-  ARCTIC_CASE(KVT, 128, 4) ARCTIC_CASE(KVT, 128, 8)
+  ARCTIC_CASE(KVT, 64, 1) ARCTIC_CASE(KVT, 64, 2) \
+  ARCTIC_CASE(KVT, 128, 1) ARCTIC_CASE(KVT, 128, 2)
   ARCTIC_CASES(Bf16)
   ARCTIC_CASES(Fp8)
 #undef ARCTIC_CASES
@@ -1234,8 +1487,10 @@ cudaError_t dispatch_decode_paged(int kv_fp8, int d, int rw, A... args) {
 // right after the launch (0 = launched).  item_tree_start [n_items] and
 // item_tree_mask [n_items, tree_qw] are null for a step without a tree;
 // the ragged kernel takes rows_per_tile = 16 (its rows per warp) only.
-// knew / vnew [t, Hkv*D] (cache dtype) and slot_mapping [t] are null for a
-// grouped step without deferred writes (qlen <= 32 with them).
+// The grouped kernel takes rows_per_tile = 16 or 32: the rows of a
+// (sequence, kv head) it covers per pass over the pages (one or two m16
+// tiles).  knew / vnew [t, Hkv*D] (cache dtype) and slot_mapping [t] are
+// null for a grouped step without deferred writes (qlen <= 32 with them).
 extern "C" int ragged_attention_launch(
     void* q, void* out, const void* kv, const void* kv_scale,
     const void* item_req, const void* item_qstart, const void* item_qlen,

@@ -20,9 +20,9 @@
   it.
 
 Decode attention is bound by the KV bytes it reads (3.35 TB/s on an
-H100), a long prefill by the tensor cores' rate (the ragged kernel runs
-its products on them); the source note in the ``.cu`` file says what each
-design does about it.
+H100), a long prefill by the tensor cores' rate (the ragged and grouped
+kernels run their products on them); the source note in the ``.cu``
+file says what each design does about it.
 
 A wrapper given CPU tensors computes the plain version
 (``ops/attention.py``); given CUDA tensors (bf16 q, a bf16 or fp8-e4m3
@@ -404,7 +404,10 @@ def grouped_decode_attention_kernel(
 
     ``gsz`` (sequences per TPU grid program, which amortised the TPU's
     per-program cost) is accepted so the signatures match, and ignored:
-    the CUDA kernel runs one CTA per (sequence, kv head).
+    the CUDA kernel runs one CTA per (sequence, kv head), its rows in m16
+    tiles on the tensor cores.  A row's output does not depend on its row
+    index or on ``qlen``: 16-slot chunks go to the kernel's four page
+    streams by slot index.
     """
     global grouped_decode_launches, deferred_decode_launches
     del gsz
@@ -449,11 +452,16 @@ def grouped_decode_attention_kernel(
         if knew.device != dev or vnew.device != dev or \
                 not (knew.is_contiguous() and vnew.is_contiguous()):
             raise ValueError("knew / vnew must be contiguous on q's device")
+        if knew.data_ptr() % 16 or vnew.data_ptr() % 16:
+            raise ValueError("knew / vnew must be 16-byte aligned")
         slot_mapping = _i32(slot_mapping, dev)
         inject = (knew.data_ptr(), vnew.data_ptr(), slot_mapping.data_ptr())
     out = torch.empty_like(q)
     num_layers, n_blocks, _, bs, hkv_d = kv_cache.shape
-    rows_per_tile = 4 if qlen * hq // (hkv_d // d) <= 4 else 8
+    # Rows of a (sequence, kv head) per pass over the pages: one m16 tile
+    # up to 16 rows (qlen 1 and 4 at group 4), two beyond (qlen 8 in one
+    # pass; deferred steps of up to 32 rows take further passes).
+    rows_per_tile = 16 if int(qlen) * hq // (hkv_d // d) <= 16 else 32
     rc = _lib().grouped_decode_launch(
         q.data_ptr(), out.data_ptr(), kv_cache.data_ptr(),
         kv_scale.data_ptr(), pos_base.data_ptr(), seq_lens.data_ptr(),

@@ -13,21 +13,24 @@ Phases, each reported on its own lines:
              at once, one process each (printing ``-Xptxas -v``:
              registers, shared memory, spills); ``cuobjdump -sass`` must
              find HMMA (tensor-core) instructions in every instance of
-             the ragged kernel.
+             the ragged kernel and of the grouped decode kernel.
 3. kernels:  each CUDA kernel against its plain PyTorch version at the
              main path's shapes, with its time, the plain version's, the
              bound and a library yardstick: the two attention kernels
              (Hq=32, Hkv=8, D=128, 32-token pages, a 32-layer cache; bf16
-             and fp8 KV), the per-sequence decode kernel (kernel 4) on
-             the grouped kernel's decode steps (B=64, qlen 1 and 4), the
-             grouped kernel's deferred-KV path (B=64
-             sequences, 1 or 8 rows each, contexts 128-2048, dead slots
-             and slot -1 tails), beside kernel 2 on the same steps with
-             the rows written into the cache, the ragged kernel's
-             tree-mask path on two token-tree verify steps (16 requests
-             at context ~1024 with a frontier row and a 30-node tree
-             each; a 512-token prefill chunk beside 15 such trees), the
-             ragged kernel on a poisoned cache (NaN, or fp8 0x7f, in
+             and fp8 KV), the grouped kernel (kernel 2) on decode steps
+             of B=64 sequences at qlen 1, 4 and 8, also on a poisoned
+             cache, its rows held bit for bit against qlen-1 launches at
+             qlen 4 and 8, the per-sequence decode kernel (kernel 4) on
+             the same steps, the grouped kernel's deferred-KV path
+             (kernel 3; B=64 sequences, 1 or 8 rows each, contexts
+             128-2048, dead slots and slot -1 tails; also on a cache
+             poisoned from pos_base on), beside kernel 2 on the same
+             steps with the rows written into the cache, the ragged
+             kernel's tree-mask path on two token-tree verify steps (16
+             requests at context ~1024 with a frontier row and a 30-node
+             tree each; a 512-token prefill chunk beside 15 such trees),
+             the ragged kernel on a poisoned cache (NaN, or fp8 0x7f, in
              every unreferenced block and every slot past seq_len) on
              the mixed step and the tree-verify step against the plain
              version on the clean one, and the two quantized matmuls
@@ -530,12 +533,12 @@ class DeferredCase(Case):
         return max(t_bytes, t_flops) * 1e3, by, kv_bytes + io_bytes, flops
 
 
-def poisoned_layer(case):
+def poisoned_layer(case, lengths=None):
     """The case's cache layer with NaN (bf16) or 0x7f (fp8 e4m3's NaN) in
     every block that no block table references and in every slot at or
-    past its request's seq_len, as a one-layer stack [1, N, 2, BS,
-    Hkv*D]: the kernel on it must equal the plain version on the clean
-    cache."""
+    past its request's seq_len (or ``lengths``: kernel 3 reads no slot
+    at or past pos_base), as a one-layer stack [1, N, 2, BS, Hkv*D]: the
+    kernel on it must equal the plain version on the clean cache."""
     import torch
 
     bad = case.kv[case.layer].clone()
@@ -544,7 +547,7 @@ def poisoned_layer(case):
     nan = 0x7f if fp8 else float("nan")
     bt = case.block_tables.cpu().numpy()
     used = np.zeros(bad.shape[0], bool)
-    for r, s in enumerate(case.seq_np):
+    for r, s in enumerate(case.seq_np if lengths is None else lengths):
         n = -(-int(s) // BS)
         used[bt[r, :n]] = True
         if n and s % BS:
@@ -573,10 +576,62 @@ def run_poisoned(case, schedule, fn_plain, qb):
     return res
 
 
+def run_poisoned_grouped(case, fn_plain, qlen, pos_base, inject=None):
+    """Kernel 2 (kernel 3 with ``inject``: knew, vnew and slot_mapping)
+    on :func:`poisoned_layer` against the plain version on the clean
+    cache; kernel 3's layer is poisoned from pos_base on (the new rows'
+    slots are not written yet)."""
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+
+    bad = poisoned_layer(case, None if inject is None
+                         else pos_base.cpu().numpy())
+    scale = case.kv_scale[case.layer:case.layer + 1]
+
+    def kern():
+        return ra.grouped_decode_attention_kernel(
+            case.q, bad, pos_base, case.block_tables, case.seq_lens,
+            qlen=qlen, kv_scale=scale, layer=0, **(inject or {}))
+
+    name = case.name
+    case.name = f"poisoned {name}"
+    res = run_case(case, kern, fn_plain)
+    case.name = name
+    return res
+
+
+def row_invariance(case, qlen, pos_base) -> dict:
+    """Kernel 2's rows against qlen-1 launches, bit for bit: row j of
+    each sequence of the qlen-``qlen`` step against the single row of a
+    qlen-1 step at pos_base + j (the same query, the same slots)."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+
+    def grouped(q, pb, sl, ql):
+        return ra.grouped_decode_attention_kernel(
+            q, case.kv, pb, case.block_tables, sl, qlen=ql,
+            kv_scale=case.kv_scale, layer=case.layer)
+
+    out = grouped(case.q, pos_base, case.seq_lens, qlen)
+    live = case.seq_lens > 0
+    bad = 0
+    for j in range(qlen):
+        one = grouped(case.q[j::qlen].contiguous(), pos_base + j,
+                      torch.where(live, pos_base + j + 1, 0), 1)
+        same = (out[j::qlen].view(torch.int16) == one.view(torch.int16))
+        bad += int((~same.flatten(1).all(1)).sum())
+    torch.cuda.synchronize()
+    res = dict(case=case.name, rows=int(case.q.shape[0]),
+               rows_not_bitwise_equal=bad, ok=bad == 0)
+    log("  row invariance " + json.dumps(res))
+    return res
+
+
 def hmma_counts(lib) -> dict:
     """HMMA (tensor-core) instructions in each instance of the ragged
-    kernel, read from the library's SASS with ``cuobjdump -sass``;
-    raises if the tool is missing."""
+    kernel (kernel 1) and of the grouped kernel (kernels 2 and 3), read
+    from the library's SASS with ``cuobjdump -sass``; raises if the tool
+    is missing."""
     import re
 
     from arcticinference_tpu_torch.ops.cuda import build
@@ -589,9 +644,11 @@ def hmma_counts(lib) -> dict:
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"ragged_attention_kernelINS_\d+(\w+?)ELi(\d+)E",
-                          line)
-            fn = f"{m.group(1)}, D={m.group(2)}" if m else None
+            m = re.search(r"(ragged_attention|grouped_decode)_kernelINS_\d+"
+                          r"(\w+?)ELi(\d+)E(?:Li(\d+)E)?", line)
+            fn = (f"{m.group(1)} {m.group(2)}, D={m.group(3)}"
+                  + (f", tiles={m.group(4)}" if m.group(4) else "")
+                  if m else None)
             if fn:
                 counts[fn] = 0
         elif fn and "HMMA" in line:
@@ -638,7 +695,7 @@ def phase_kernels(rng):
     from arcticinference_tpu_torch.ops.attention import (
         ragged_paged_attention_reference)
 
-    ragged_cases, grouped_cases, paged_cases = [], [], []
+    ragged_cases, grouped_cases, paged_cases, invariance = [], [], [], []
     for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
         dt = "bf16" if kv_dtype == torch.bfloat16 else "fp8"
         # Mixed step: two prefill chunks and 32 decode rows at contexts
@@ -671,8 +728,9 @@ def phase_kernels(rng):
                 ragged_cases.append(run_poisoned(case, sched, plain, qb))
             del case
             torch.cuda.empty_cache()
-        # Pure decode: B=64 slots, 6 dead, contexts 128-4096.
-        for qlen in (1, 4):
+        # Pure decode: B=64 slots, 6 dead, contexts 128-4096; qlen 4 is
+        # the drafter's fused step, qlen 8 the suffix loop's wide step.
+        for qlen in (1, 4, 8):
             ctx = rng.integers(128, 4096, 64)
             dead = rng.choice(64, 6, replace=False)
             reqs = [(0, 0) if r in dead else (int(ctx[r]), qlen)
@@ -694,6 +752,10 @@ def phase_kernels(rng):
                     kv_scale=case.kv_scale[case.layer])
 
             grouped_cases.append(run_case(case, kern, plain))
+            grouped_cases.append(run_poisoned_grouped(case, plain, qlen,
+                                                      pos_base))
+            if qlen > 1:
+                invariance.append(row_invariance(case, qlen, pos_base))
 
             # Kernel 4 (one CTA per sequence) on the same step.
             def kern4(case=case, qlen=qlen, pos_base=pos_base):
@@ -717,10 +779,10 @@ def phase_kernels(rng):
             del case
             torch.cuda.empty_cache()
     failed = [c["case"] for c in ragged_cases + grouped_cases + paged_cases
-              if not c["ok"]]
+              + invariance if not c["ok"]]
     if failed:
         raise AssertionError(f"kernel disagrees with plain version: {failed}")
-    return ragged_cases, grouped_cases, paged_cases
+    return ragged_cases, grouped_cases, paged_cases, invariance
 
 
 def phase_deferred_kernels(rng):
@@ -765,6 +827,10 @@ def phase_deferred_kernels(rng):
                     kv_scale=case.kv_scale[case.layer])
 
             res = run_case(case, kern, plain)
+            poisoned = run_poisoned_grouped(
+                case, plain, qlen, case.pos_base, inject=dict(
+                    knew=case.knew, vnew=case.vnew,
+                    slot_mapping=case.slot_mapping))
             # The same step without deferral: kernel 2 over the cache
             # with the rows written (one layer), causal.
             written = case.written[None]
@@ -789,7 +855,7 @@ def phase_deferred_kernels(rng):
             case.name = f"decode B=64 qlen={qlen} rows written {dt}"
             case.deferred = False
             grouped.append(run_case(case, kern2, plain2))
-            deferred.append(res)
+            deferred += [res, poisoned]
             del case, written
             torch.cuda.empty_cache()
     failed = [c["case"] for c in deferred + grouped if not c["ok"]]
@@ -2135,13 +2201,16 @@ def main() -> int:
         for line in build.build_logs.get(src, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("    " + line.strip())
-    # The ragged kernel runs its products on the tensor cores: every
-    # instance must hold HMMA instructions.
+    # The ragged and grouped kernels run their products on the tensor
+    # cores: every instance (4 of kernel 1, 8 of kernels 2-3) must hold
+    # HMMA instructions.
     hmma = hmma_counts(libs[0])
-    log(f"[build] HMMA instructions per ragged kernel instance: "
+    log(f"[build] HMMA instructions per ragged / grouped kernel instance: "
         f"{json.dumps(hmma)}")
-    if len(hmma) != 4 or min(hmma.values()) == 0:
-        raise AssertionError(f"ragged kernel instances without HMMA: {hmma}")
+    n_grouped = sum(k.startswith("grouped") for k in hmma)
+    if len(hmma) != 12 or n_grouped != 8 or min(hmma.values()) == 0:
+        raise AssertionError(
+            f"ragged / grouped kernel instances without HMMA: {hmma}")
 
     csrc = "arcticinference_tpu_torch/csrc/"
     kernels = {
@@ -2184,7 +2253,7 @@ def main() -> int:
     }
     if "kernels" in phases:
         log("[kernels] kernel vs plain, Hq=32 Hkv=8 D=128, 32-layer cache")
-        ragged, grouped, paged = phase_kernels(rng)
+        ragged, grouped, paged, invariance = phase_kernels(rng)
         log("[kernels] deferred-KV path (kernel 3) vs plain, and kernel 2 "
             "on the same steps with the rows written")
         deferred_cases, grouped_written = phase_deferred_kernels(rng)
@@ -2232,6 +2301,8 @@ def main() -> int:
                     "case", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "max_abs_err", "rel_err")}
                        for c in cases])
+        kernels["grouped_decode_attention_kernel"]["row_invariance"] = \
+            invariance
         kernels["hbm_read_probe"].update(
             tolerance="|out-plain| <= 1e-6 * sum(|summed values|)",
             library_note=probe_cases[0]["library_note"])

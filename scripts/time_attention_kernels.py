@@ -8,12 +8,15 @@ Steps (seed 0; phase 3's shapes): the ragged kernel (kernel 1) on a mixed
 step (512- and 1024-token chunks beside 32 decode rows at contexts
 128-4096, bucket 2048) and on a 2048-token prefill chunk at context 2048,
 each at qb 8 and 32; the grouped decode kernel (kernel 2) on B=64
-sequences at contexts 128-4096, qlen 1 and 4; its deferred-KV path
-(kernel 3) on B=64 sequences at contexts 128-2048, qlen 1 and 8.  Prints
+sequences at contexts 128-4096, qlen 1, 4 and 8, and the per-sequence
+decode kernel (kernel 4) on the same steps; the deferred-KV path (kernel
+3) on B=64 sequences at contexts 128-2048, qlen 1 and 8; kernel 2 on the
+bench's decode shape (B=64 at contexts 192-320, qlen 1 and 4).  Prints
 one JSON line of milliseconds per call (CUDA events over 20 launches
-behind a spinning kernel, ``chip_smoke.cuda_time_ms``).  To compare two
-trees, run it in each, in turns (A, B, B, A), in one call on the card.
-Needs a CUDA device.
+behind a spinning kernel, ``chip_smoke.cuda_time_ms``), with masked SDPA
+on each grouped and deferred step (``Case.library_ms``) as a yardstick.
+To compare two trees, run it in each, in turns (A, B, B, A), in one call
+on the card.  Needs a CUDA device.
 """
 
 import argparse
@@ -53,7 +56,7 @@ def main() -> int:
 
             out[f"ragged {name} qb={qb}"] = cs.cuda_time_ms(ragged, 20)
         del case
-    for qlen in (1, 4):
+    for qlen in (1, 4, 8):
         reqs = [(int(c), qlen) for c in rng.integers(128, 4096, 64)]
         case = cs.Case("decode", reqs, kv_dtype, rng, t_pad=64 * qlen,
                        slot_rows=qlen)
@@ -64,7 +67,14 @@ def main() -> int:
                 case.q, case.kv, pos_base, case.block_tables, case.seq_lens,
                 qlen=qlen, kv_scale=case.kv_scale, layer=case.layer)
 
+        def paged(case=case, qlen=qlen, pos_base=pos_base):
+            return ra.decode_paged_attention_kernel(
+                case.q, case.kv, pos_base, case.block_tables, case.seq_lens,
+                qlen, kv_scale=case.kv_scale, layer=case.layer)
+
         out[f"grouped B=64 qlen={qlen}"] = cs.cuda_time_ms(grouped, 20)
+        out[f"decode_paged B=64 qlen={qlen}"] = cs.cuda_time_ms(paged, 20)
+        out[f"sdpa decode B=64 qlen={qlen}"] = case.library_ms()
         del case
     for qlen in (1, 8):
         reqs = [(int(c), qlen) for c in rng.integers(128, 2049, 64)]
@@ -78,6 +88,22 @@ def main() -> int:
                 slot_mapping=case.slot_mapping)
 
         out[f"deferred B=64 qlen={qlen}"] = cs.cuda_time_ms(deferred, 20)
+        out[f"sdpa deferred B=64 qlen={qlen}"] = case.library_ms()
+        del case
+    for qlen in (1, 4):
+        reqs = [(int(c), qlen) for c in rng.integers(192, 321, 64)]
+        case = cs.Case("short", reqs, kv_dtype, rng, t_pad=64 * qlen,
+                       slot_rows=qlen)
+        pos_base = torch.clamp(case.seq_lens - qlen, min=0)
+
+        def short(case=case, qlen=qlen, pos_base=pos_base):
+            return ra.grouped_decode_attention_kernel(
+                case.q, case.kv, pos_base, case.block_tables, case.seq_lens,
+                qlen=qlen, kv_scale=case.kv_scale, layer=case.layer)
+
+        out[f"grouped B=64 ctx 192-320 qlen={qlen}"] = cs.cuda_time_ms(
+            short, 20)
+        out[f"sdpa B=64 ctx 192-320 qlen={qlen}"] = case.library_ms()
         del case
     print(json.dumps(out))
     return 0

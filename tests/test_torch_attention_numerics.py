@@ -1,5 +1,6 @@
-"""The rounding scheme of the ragged kernel's tensor-core products, pinned
-on the CPU.
+"""The rounding scheme of the attention kernels' tensor-core products,
+pinned on the CPU: the ragged kernel (kernel 1) and the grouped decode
+kernel (kernels 2 and 3; :func:`grouped_mma_model`, below).
 
 The CUDA kernel (``csrc/ragged_attention.cu``, kernel 1) multiplies
 16-bit operands with float32 sums.  :func:`mma_model` repeats its
@@ -20,8 +21,13 @@ The model is held against
   tests/test_kernels.py uses.
 
 Rounding q and P to bf16 once, as the TPU kernel does, misses the 1e-3
-bound on the card check's inputs: the last test shows it, so the split
-is needed.
+bound on the card check's inputs: a test shows it, so the split is
+needed.
+
+The grouped kernel's model adds its page streams (16-slot chunk c folded
+into stream c % 4, the streams merged in order) and its m16 row tiles, and
+shows a row's output bit for bit independent of its row index and of
+qlen, as the card check does for the kernel.
 """
 
 import math
@@ -34,7 +40,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from arcticinference_tpu.ops.pallas import ragged_attention as jra
 from arcticinference_tpu_torch.ops.attention import (
-    ragged_paged_attention_reference)
+    grouped_decode_deferred_reference, ragged_paged_attention_reference)
 from arcticinference_tpu_torch.ops.cuda import ragged_attention as tra
 
 from tests.test_torch_attention import to_torch
@@ -215,3 +221,260 @@ def test_single_bf16_rounding_misses_the_card_bound():
     kernel = mma_model(q, kt, pos, req, bt, sl, scale)
     assert _rel(single, plain) > REL_TOL
     assert _rel(kernel, plain) < REL_TOL / 10
+
+
+# ---- kernels 2 and 3: the grouped decode kernel -----------------------------
+
+STREAMS = 4      # page streams of the grouped kernel: chunk c -> stream c % 4
+CHUNK = 16       # slots per chunk (half a page)
+MTILE = 16       # rows per m-tile
+NEG = float("-inf")
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """A float64 product of 16-bit operands, rounded once to float32 (the
+    tensor cores' float32 sums, to within their order)."""
+    return x.to(torch.float32)
+
+
+def _fold(state, s, v, dt):
+    """One 16-slot chunk into a stream's state (m, l, o) of a 16-row tile:
+    s [16, 16] float32 scores (masked to -inf), v [16, D] float32.  A row
+    whose max does not move keeps alpha = 1, as the kernel does."""
+    m, l, o = state
+    m_new = torch.maximum(m, s.amax(-1))
+    m_use = torch.where(m_new == NEG, 0.0, m_new)
+    alpha = torch.where(m_new == m, 1.0, torch.exp2(m - m_use))
+    p = torch.exp2(s - m_use[:, None])
+    l = l * alpha + _f32(p.double().sum(-1))
+    p_hi, p_lo = _split(p, dt)
+    pv = _f32(p_hi.double() @ v.double() + p_lo.double() @ v.double())
+    return m_new, l, o * alpha[:, None] + pv
+
+
+def _merge(a, b):
+    """Stream b's state into stream a's, as the kernel's stream 0 does."""
+    m0, l0, o0 = a
+    m1, l1, o1 = b
+    mx = torch.maximum(m0, m1)
+    mu = torch.where(mx == NEG, 0.0, mx)
+    f0 = torch.where(m0 == mx, 1.0, torch.exp2(m0 - mu))
+    f1 = torch.where(m1 == mx, 1.0, torch.exp2(m1 - mu))
+    return mx, l0 * f0 + l1 * f1, o0 * f0[:, None] + o1 * f1[:, None]
+
+
+def grouped_mma_model(q, kv, pos_base, block_tables, seq_lens, qlen,
+                      kv_scale, knew=None, vnew=None, slot_mapping=None):
+    """The grouped kernel's arithmetic (kernels 2 and 3) on one cache layer
+    ``kv`` [N, 2, 32, Hkv*D]; float32 out [T, Hq, D], padding rows zero.
+
+    Per (sequence, kv head), rows i = token i // group under q head
+    h * group + i % group, in 16-row m-tiles (padding rows zero).  Each
+    tile folds every 16-slot chunk (half a page) up to its last row's
+    position: chunk c into page stream c % 4, a base-2 online softmax in
+    float32 per stream, q and P split into a 16-bit value and the
+    remainder (bf16 for bf16 pages, fp16 for fp8 pages); the streams
+    merge in stream order.  With ``knew`` / ``vnew`` the cache is read
+    below pos_base and the new rows follow as one or two more chunks (row
+    i attends new row j iff j <= its token index and j < new_len)."""
+    t, hq, d = q.shape
+    hkv = kv.shape[-1] // d
+    group = hq // hkv
+    b = block_tables.shape[0]
+    dt = torch.float16 if kv.dtype == torch.float8_e4m3fn else torch.bfloat16
+    k_scale, v_scale = (torch.tensor(float(x)) for x in kv_scale)
+    qs = (torch.tensor(d ** -0.5) * k_scale) * torch.tensor(LOG2E)
+    deferred = knew is not None
+    out = torch.zeros((t, hq, d))
+    for s in range(b):
+        tok0 = s * qlen
+        ntok = min(qlen, t - tok0)
+        if ntok <= 0 or int(seq_lens[s]) <= 0:
+            continue
+        npages = min(-(-int(seq_lens[s]) // PAGE), block_tables.shape[1])
+        pos0 = int(pos_base[s])
+        new_len = sum(int(slot_mapping[tok0 + j]) >= 0
+                      for j in range(qlen) if tok0 + j < t) if deferred else 0
+        last = min(pos0 - 1 if deferred else pos0 + ntok - 1,
+                   npages * PAGE - 1)
+        ncc = last // CHUNK + 1 if last >= 0 else 0
+        slots = torch.arange(CHUNK)
+        for h in range(hkv):
+            # K and V as the MMAs see them: bf16 as stored, fp8 as fp16;
+            # slots past ``last`` and new rows past new_len as zeros.
+            chunks = []
+            for c in range(ncc):
+                page = int(block_tables[s, c // 2])
+                rows = slice((c % 2) * CHUNK, (c % 2 + 1) * CHUNK)
+                ok = (c * CHUNK + slots <= last)[:, None]
+                chunks.append(tuple(
+                    torch.where(ok, kv[page, x, rows, h * d:(h + 1) * d]
+                                .float(), 0.0) for x in (0, 1)))
+            for j0 in range(0, new_len, CHUNK):
+                rows = slice(tok0 + j0, tok0 + min(new_len, j0 + CHUNK))
+                chunks.append(tuple(torch.nn.functional.pad(
+                    x[rows, h * d:(h + 1) * d].float(),
+                    (0, 0, 0, CHUNK - rows.stop + rows.start))
+                    for x in (knew, vnew)))
+            for r0 in range(0, ntok * group, MTILE):
+                i = torch.arange(r0, r0 + MTILE)
+                live = i < ntok * group
+                tok = torch.where(live, i // group, 0)
+                x = torch.where(live[:, None],
+                                q[tok0 + tok, h * group + i % group].float(),
+                                0.0) * qs
+                q_hi, q_lo = _split(x, dt)
+                lim = torch.where(live, pos0 - 1 if deferred else pos0 + tok,
+                                  -1)
+                nlim = torch.where(live, torch.clamp(tok, max=new_len - 1),
+                                   -1)
+                states = [(torch.full((MTILE,), NEG), torch.zeros(MTILE),
+                           torch.zeros((MTILE, d)))] * STREAMS
+                for c, (k, v) in enumerate(chunks):
+                    base = c * CHUNK if c < ncc else (c - ncc) * CHUNK
+                    row_lim = lim if c < ncc else nlim
+                    if base > int(row_lim.max()):
+                        continue
+                    ok = base + slots[None, :] <= row_lim[:, None]
+                    sc = _f32(q_hi.double() @ k.double().T
+                              + q_lo.double() @ k.double().T)
+                    sc = sc.masked_fill(~ok, NEG)
+                    states[c % STREAMS] = _fold(states[c % STREAMS], sc, v,
+                                                dt)
+                m, l, o = states[0]
+                for st in states[1:]:
+                    m, l, o = _merge((m, l, o), st)
+                o = o * (v_scale / l.clamp(min=1e-20))[:, None]
+                out[tok0 + tok[live], h * group + i[live] % group] = o[live]
+    return out
+
+
+# Contexts of the grouped steps: a dead slot, rows on both sides of page
+# boundaries, and enough pages for every page stream.
+GROUPED_CTX = [45, 0, 300, 95, 130]
+GROUPED_CASES = [(False, 1), (False, 4), (False, 8),
+                 (True, 1), (True, 8), (True, 32)]
+
+
+def grouped_case(ctx, qlen, q_std, kv_dtype, d, seed=0):
+    """A grouped step on a 2-layer cache (layer 1 read; fp8 with scales 2
+    and 0.5), Hq 8 over Hkv 2 (group 4): sequence s at ``ctx[s]`` cached
+    tokens (0 = dead) with ``qlen`` rows at positions ctx + j; K, V and
+    the new rows std 0.5, q std ``q_std`` (bf16 values).  The new rows'
+    slot_mapping ends sequence 2 in a tail of min(2, qlen - 1) slot -1
+    rows.  Returns numpy arrays, the JAX and torch caches and the
+    scales."""
+    rng = np.random.default_rng(seed)
+    b = len(ctx)
+    seq = np.array([c + qlen if c else 0 for c in ctx], np.int32)
+    pages = [-(-int(x) // PAGE) for x in seq]
+    n_blocks = sum(pages) + 2
+    perm = rng.permutation(np.arange(1, n_blocks))
+    bt = np.zeros((b, max(pages)), np.int32)
+    k = 0
+    for s, n in enumerate(pages):
+        bt[s, :n] = perm[k:k + n]
+        k += n
+    hq, hkv = 8, 2
+    kv = rng.standard_normal((2, n_blocks, 2, PAGE, hkv * d)) * 0.5
+    q = rng.standard_normal((b * qlen, hq, d)) * q_std
+    q = np.asarray(jnp.asarray(q, jnp.bfloat16).astype(jnp.float32))
+    new = [rng.standard_normal((b * qlen, hkv * d)) * 0.5 for _ in range(2)]
+    scale = np.ones((2, 2), np.float32)
+    jdt = jnp.bfloat16
+    if kv_dtype == "fp8":
+        scale[1] = [2.0, 0.5]
+        jdt = jnp.float8_e4m3fn
+    kj = jnp.asarray(kv, jnp.float32).astype(jdt)
+    nj = [jnp.asarray(x, jnp.float32).astype(jdt) for x in new]
+    slot = np.full(b * qlen, -1, np.int32)
+    for s in range(b):
+        n_real = qlen - (min(2, qlen - 1) if s == 2 else 0)
+        for j in range(n_real if seq[s] else 0):
+            p = ctx[s] + j
+            slot[s * qlen + j] = bt[s, p // PAGE] * PAGE + p % PAGE
+    return dict(q=q, bt=bt, seq=seq, pos_base=np.array(ctx, np.int32),
+                slot=slot, scale=scale), kj, nj
+
+
+@pytest.mark.parametrize("deferred,qlen", GROUPED_CASES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "fp8"])
+@pytest.mark.parametrize("q_std", [1.0, 5.0])
+def test_grouped_rounding_meets_the_card_bound(q_std, kv_dtype, d, deferred,
+                                               qlen):
+    """The grouped kernel's rounding (kernels 2 and 3) against the port's
+    float32 plain versions (``_plain_uniform``,
+    ``grouped_decode_deferred_reference``) within the card's 1e-3
+    relative norm, and against the JAX kernel in Pallas interpret mode
+    within atol = rtol = 2e-2."""
+    c, kj, nj = grouped_case(GROUPED_CTX, qlen, q_std, kv_dtype, d)
+    kt = to_torch(kj)
+    q = torch.from_numpy(c["q"])
+    pb, bt, sl = (torch.from_numpy(c[k]) for k in ("pos_base", "bt", "seq"))
+    scale = torch.from_numpy(c["scale"])
+    extra = {}
+    if deferred:
+        extra = dict(knew=to_torch(nj[0]), vnew=to_torch(nj[1]),
+                     slot_mapping=torch.from_numpy(c["slot"]))
+    else:
+        pb = torch.clamp(sl - qlen, min=0)
+    model = grouped_mma_model(q, kt[1], pb, bt, sl, qlen, scale[1], **extra)
+    live = torch.repeat_interleave(sl > 0, qlen)
+    assert not model[~live].any()
+
+    def plain(qq):
+        if deferred:
+            return grouped_decode_deferred_reference(
+                qq, kt[1], pb, bt, sl, qlen, kv_scale=scale[1], **extra)
+        return tra._plain_uniform(qq, kt, 1, scale, pb, bt, sl, qlen,
+                                  d ** -0.5)
+
+    assert _rel(model[live], plain(q)[live]) <= REL_TOL / 100
+    # The kernel's output and the plain version's, as the card compares
+    # them: both bf16.
+    assert _rel(model.to(torch.bfloat16)[live].float(),
+                plain(q.to(torch.bfloat16))[live].float()) <= REL_TOL
+    # The TPU kernel in interpret mode (gsz 1: its body compiled once).
+    jextra = {}
+    if deferred:
+        jextra = dict(knew=nj[0], vnew=nj[1],
+                      slot_mapping=jnp.asarray(c["slot"]))
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jra.grouped_decode_attention_kernel(
+            jnp.asarray(c["q"], jnp.bfloat16), kj, jnp.asarray(pb.numpy()),
+            jnp.asarray(c["bt"]), jnp.asarray(c["seq"]), qlen=qlen, gsz=1,
+            kv_scale=jnp.asarray(c["scale"]),
+            layer=jnp.asarray(1, jnp.int32), **jextra), np.float32)
+    np.testing.assert_allclose(model[live].numpy(), ref[live.numpy()],
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "fp8"])
+def test_grouped_model_rows_do_not_depend_on_qlen(kv_dtype):
+    """In the model of the grouped kernel a row's output is bit for bit
+    the same at qlen 8, at qlen 4 and as the single row of a qlen-1 step
+    that attends the same slots: chunks go to streams by slot index and
+    a chunk a row does not attend leaves its state as it was.  The rows sit
+    at other row indices of their m-tiles (and other tiles) in each."""
+    ctx = [30, 62, 95, 200]
+    outs = {}
+    for qlen in (8, 4, 1):
+        c, kj, _ = grouped_case(ctx, 8, 5.0, kv_dtype, 128, seed=3)
+        q = torch.from_numpy(c["q"]).reshape(len(ctx), 8, 8, 128)
+        kt = to_torch(kj)
+        scale = torch.from_numpy(c["scale"])
+        bt = torch.from_numpy(c["bt"])
+        pb0 = torch.tensor(ctx, dtype=torch.int32)
+        for j0 in range(0, 8, qlen):
+            qq = q[:, j0:j0 + qlen].reshape(-1, 8, 128)
+            pb = pb0 + j0
+            o = grouped_mma_model(qq, kt[1], pb, bt, pb + qlen, qlen,
+                                  scale[1])
+            for j in range(qlen):
+                outs.setdefault(j0 + j, []).append(
+                    o.reshape(len(ctx), qlen, 8, 128)[:, j])
+    for j, rows in outs.items():
+        assert len(rows) == 3
+        for other in rows[1:]:
+            assert torch.equal(rows[0], other), f"position {j}"

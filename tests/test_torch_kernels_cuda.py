@@ -112,12 +112,14 @@ def test_ragged_kernel_matches_plain(cuda_device, d, qb, kv_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
-@pytest.mark.parametrize("qlen,t_rows", [(1, 16), (1, 2), (3, 12)])
+@pytest.mark.parametrize("qlen,t_rows", [(1, 16), (1, 2), (3, 12), (4, 16),
+                                         (8, 32), (8, 40)])
 @pytest.mark.parametrize("d", [128, 64])
 def test_grouped_kernel_matches_plain(cuda_device, d, qlen, t_rows,
                                       kv_dtype):
     """Dead slot 1; the token bucket wider (16 rows for 4 slots) and
-    narrower (2 rows) than B * qlen."""
+    narrower (2 rows) than B * qlen; qlen 8 (32 rows per kv head: two m16
+    tiles in one pass)."""
     reqs = [(17, qlen), (0, 0), (70, qlen), (500, qlen)]
     q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device, t_rows,
                                       d=d)
@@ -199,7 +201,7 @@ def deferred_rows(reqs, qlen, tails, kv_dtype, scale, t_rows, device,
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
 @pytest.mark.parametrize("qlen,t_rows", [(1, 16), (1, 2), (4, 16), (8, 24),
-                                         (8, 40)])
+                                         (8, 40), (32, 128)])
 @pytest.mark.parametrize("d", [128, 64])
 def test_deferred_kernel_matches_plain(cuda_device, d, qlen, t_rows,
                                        kv_dtype):
@@ -283,6 +285,108 @@ def test_deferred_wrapper_refuses_what_the_kernel_does_not_take(
             q, kv, pb, bt, sl, qlen=3, layer=1, knew=kn[:2], vnew=vn[:2],
             slot_mapping=slot[:2])
     assert tra.deferred_decode_launches == 0
+
+
+def uniform_step(ctx, qlen, kv_dtype, device, d=D, hq=HQ, seed=0):
+    """A grouped decode step: sequence s at ``ctx[s]`` cached tokens (0 =
+    dead) with ``qlen`` rows at positions ctx + j; returns q, the cache,
+    scales, block tables, seq_lens and pos_base."""
+    reqs = [(c, qlen if c else 0) for c in ctx]
+    q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, device,
+                                      len(ctx) * qlen, d=d, seed=seed)
+    if hq != HQ:
+        q = torch.cat([q, q.flip(0)], dim=1)[:, :hq].contiguous()
+    return q, kv, scale, bt, sl, torch.tensor(ctx, dtype=torch.int32,
+                                              device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qlen", [1, 4, 8])
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("deferred", [False, True])
+def test_grouped_kernel_ignores_poisoned_slots(cuda_device, deferred, d,
+                                               qlen, kv_dtype):
+    """Kernels 2 and 3 on a cache with NaN (fp8: 0x7f) in every block no
+    block table references and in every slot at or past seq_len (kernel
+    3: at or past pos_base, the new rows' slots not written yet): the
+    kernel equals the plain version on the clean cache."""
+    ctx = [30, 0, 1000, 4000, 67, 500]
+    q, kv, scale, bt, sl, pb = uniform_step(ctx, qlen, kv_dtype,
+                                            cuda_device, d=d)
+    extra = {}
+    if deferred:
+        reqs = [(c, qlen if c else 0) for c in ctx]
+        kn, vn, slot = deferred_rows(reqs, qlen, {2: min(2, qlen - 1)},
+                                     kv_dtype, scale, q.shape[0],
+                                     cuda_device, d=d)
+        extra = dict(knew=kn, vnew=vn, slot_mapping=slot)
+        bad = poisoned(kv, bt, torch.where(sl > 0, pb, 0))
+    else:
+        pb = torch.clamp(sl - qlen, min=0)
+        bad = poisoned(kv, bt, sl)
+    out = tra.grouped_decode_attention_kernel(
+        q, bad, pb, bt, sl, qlen=qlen, kv_scale=scale, layer=1, **extra)
+    ref = tra.grouped_decode_attention_kernel(
+        q.cpu(), kv.cpu(), pb.cpu(), bt.cpu(), sl.cpu(), qlen=qlen,
+        kv_scale=scale.cpu(), layer=1,
+        **{k: v.cpu() for k, v in extra.items()})
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert_matches(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qlen", [4, 8])
+@pytest.mark.parametrize("d", [128, 64])
+def test_grouped_rows_do_not_depend_on_qlen(cuda_device, d, qlen, kv_dtype):
+    """Row j of a qlen-``qlen`` launch is bit for bit the single row of a
+    qlen-1 launch that attends the same slots (position ctx + j): the
+    target's replay of a captured trajectory rests on it.  Contexts put
+    the rows on both sides of page boundaries and over all four page
+    streams."""
+    ctx = [30, 62, 95, 1000, 4093, 31, 0, 700]
+    q, kv, scale, bt, sl, pb = uniform_step(ctx, qlen, kv_dtype,
+                                            cuda_device, d=d)
+    out = tra.grouped_decode_attention_kernel(
+        q, kv, pb, bt, sl, qlen=qlen, kv_scale=scale, layer=1)
+    live = sl > 0
+    for j in range(qlen):
+        one = tra.grouped_decode_attention_kernel(
+            q[j::qlen].contiguous(), kv, pb + j,
+            bt, torch.where(live, pb + j + 1, 0), qlen=1, kv_scale=scale,
+            layer=1)
+        assert torch.equal(out[j::qlen].view(torch.int16),
+                           one.view(torch.int16)), f"row {j}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qlen", [1, 4, 8])
+@pytest.mark.parametrize("deferred", [False, True])
+def test_grouped_kernel_at_group_8(cuda_device, deferred, qlen, kv_dtype):
+    """Group 8 (16 q heads over 2 kv heads): qlen 4 fills two m16 tiles,
+    qlen 8 (64 rows) takes two passes over the pages."""
+    ctx = [30, 0, 1000, 300]
+    q, kv, scale, bt, sl, pb = uniform_step(ctx, qlen, kv_dtype,
+                                            cuda_device, hq=16)
+    extra = {}
+    if deferred:
+        reqs = [(c, qlen if c else 0) for c in ctx]
+        extra = dict(zip(("knew", "vnew", "slot_mapping"), deferred_rows(
+            reqs, qlen, {3: min(2, qlen - 1)}, kv_dtype, scale, q.shape[0],
+            cuda_device)))
+    else:
+        pb = torch.clamp(sl - qlen, min=0)
+    out = tra.grouped_decode_attention_kernel(
+        q, kv, pb, bt, sl, qlen=qlen, kv_scale=scale, layer=1, **extra)
+    ref = tra.grouped_decode_attention_kernel(
+        q.cpu(), kv.cpu(), pb.cpu(), bt.cpu(), sl.cpu(), qlen=qlen,
+        kv_scale=scale.cpu(), layer=1,
+        **{k: v.cpu() for k, v in extra.items()})
+    torch.cuda.synchronize()
+    assert_matches(out, ref)
 
 
 def random_tree(rng, n):
