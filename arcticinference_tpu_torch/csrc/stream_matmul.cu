@@ -20,8 +20,9 @@
 // What bounds it on an H100: at M = 64 the weight bytes, one per value
 // (w_gateup fused [4096, 28672]: 117 MB, 35 us at 3.35 TB/s).
 //
-// Design: the tile pipeline of quant_matmul.cuh (the fp8 / int4 matmuls'
-// header, unchanged): 4 warps own 128 output columns, 4 cp.async stages
+// Design: the mma.sync tile pipeline of quant_matmul.cuh (the one the fp8
+// / int4 matmuls ran on before their wgmma redesign, kept for this
+// kernel alone): 4 warps own 128 output columns, 4 cp.async stages
 // of 64 x 128 weight bytes, mma.sync m16n8k16 bf16 with fp32 sums, each
 // byte converted once per CTA in the registers of the warp that
 // multiplies it, deterministic split K when the grid is small.  The

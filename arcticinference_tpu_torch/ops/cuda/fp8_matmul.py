@@ -7,8 +7,10 @@ in ``csrc/fp8_matmul.cu``.
 weights ``[K, N]`` and a scalar or per-output-column float32 scale (the
 JAX package's ``matmul`` computes both; the TPU kernel took only the
 scalar).  It is bound by the weight bytes at decode and by the bf16
-products at prefill; the source note in the ``.cu`` file says what the
-design does about each.
+products at prefill; the source notes in ``fp8_matmul.cu`` and
+``quant_wgmma.cuh`` say what the design does about each.  Its launch
+plan, :func:`launch_plan`, is a pure function of the shapes and the SM
+count.
 
 Given CPU tensors the wrapper computes the plain version
 (:func:`fp8_matmul_reference`, the JAX package's CPU function); given
@@ -30,11 +32,19 @@ fp8_matmul_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P]
+_ARGTYPES = [_P] * 4 + [_I] * 10 + [_P]
 
-# Tile sizes of csrc/quant_matmul.cuh: output columns per CTA, weight
-# rows per pipeline stage, rows per m16 tile.
-BN, BKW, BM_UNIT = 128, 64, 16
+# Tiles of csrc/quant_wgmma.cuh: weight columns per consumer warpgroup
+# (N must be a multiple), weight rows per pipeline stage (K must be a
+# multiple) and x rows per CTA by bucket of M.
+BN, BKW = 128, 64
+ROW_TILES = (16, 32, 64, 128)
+# The largest K split, a cluster of 3 CTAs: on an H100 SXM (132 SMs)
+# 4-CTA clusters of one-CTA-per-SM blocks fit only ~120 SMs at once, so
+# the rest ran in a second wave (PERF.md, the plan sweep).
+MAX_SPLITS = 3
+# Stages a warpgroup streams at least: the pipeline's ramp is a few.
+MIN_SPLIT_STAGES = 4
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 _SCALE_SCALAR, _SCALE_COLUMN = 1, 2
 _SM_COUNT: dict[int, int] = {}
@@ -70,24 +80,44 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def launch_plan(m: int, n: int, k_tiles: int,
-                device: int) -> tuple[int, int]:
-    """(m16 tiles per CTA, K splits) for an ``[m, n]`` output over
-    ``k_tiles`` weight stages on CUDA device ``device``.  Rows: 16, 32,
-    64, else 128 per CTA.  K is split until about four CTAs per SM stream
-    weights, keeping at least four stages per split (the pipeline depth)
-    and every split non-empty."""
-    mt = 1 if m <= 16 else 2 if m <= 32 else 4 if m <= 64 else 8
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device`` (cached)."""
     sms = _SM_COUNT.get(device)
     if sms is None:
         sms = _SM_COUNT[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    ctas = -(-m // (BM_UNIT * mt)) * (n // BN)
-    splits = 1
-    if ctas < 4 * sms:
-        splits = max(1, min(-(-4 * sms // ctas), k_tiles // 4, 16))
+    return sms
+
+
+def launch_plan(m: int, n: int, k_tiles: int,
+                sms: int) -> tuple[int, int, int, int]:
+    """(x rows per CTA, warpgroups along N, warpgroups along K, K splits)
+    for an ``[m, n]`` output over ``k_tiles`` weight stages on a card of
+    ``sms`` SMs.
+
+    Rows: 16, 32, 64, else 128 per CTA (wgmma's N).  At 128 rows, when
+    the 256-column tiles give half the SMs a CTA or more, two warpgroups
+    side by side share each x tile.  Else a grid of 128-column tiles that
+    fills the SMs runs one warpgroup per CTA (two CTAs per SM up to 64
+    rows).  A smaller grid gives each CTA two warpgroups that take
+    alternate K stages and splits K over up to :data:`MAX_SPLITS` CTAs of
+    one cluster while the grid fits the SMs once, with
+    :data:`MIN_SPLIT_STAGES` stages per warpgroup and every split
+    non-empty.  The plan depends on nothing but (the bucket of m, n,
+    k_tiles, sms).
+    """
+    bm = next((b for b in ROW_TILES if m <= b), ROW_TILES[-1])
+    tiles = -(-m // bm)
+    if bm == ROW_TILES[-1] and n % (2 * BN) == 0 and \
+            2 * tiles * (n // (2 * BN)) >= sms:
+        return bm, 2, 1, 1
+    ctas = tiles * (n // BN)
+    if ctas >= sms:
+        return bm, 1, 1, 1
+    splits = max(1, min(sms // ctas, k_tiles // (2 * MIN_SPLIT_STAGES),
+                        MAX_SPLITS))
     per = -(-k_tiles // splits)
-    return mt, -(-k_tiles // per)
+    return bm, 1, 2, -(-k_tiles // per)
 
 
 def check_operands(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -163,14 +193,10 @@ def fp8_matmul_kernel(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if m == 0:
         return out
     dev = x.get_device()
-    mt, splits = launch_plan(m, n, k // BKW, dev)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
     rc = _lib().fp8_matmul_launch(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), m, n, k,
-        int(w.dtype == torch.int8), mode, int(out_dtype == torch.float32),
-        mt, splits, _stream(dev))
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n,
+        k, int(w.dtype == torch.int8), mode, int(out_dtype == torch.float32),
+        *launch_plan(m, n, k // BKW, sm_count(dev)), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"fp8_matmul_launch failed: CUDA error {rc}")
     fp8_matmul_launches += 1

@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from arcticinference_tpu_torch.ops.cuda.fp8_matmul import (
-    BKW, BN, _stream, check_operands, launch_plan)
+    BKW, BN, _stream, check_operands, launch_plan, sm_count)
 
 SOURCE = "int4_matmul.cu"
 GROUP = 128  # quantization group size along the (unpacked) input dim
@@ -34,7 +34,7 @@ int4_matmul_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 6 + [_P]
+_ARGTYPES = [_P] * 4 + [_I] * 8 + [_P]
 
 
 def reset_launch_counts() -> None:
@@ -107,13 +107,10 @@ def int4_matmul_kernel(x: torch.Tensor, w_packed: torch.Tensor,
     if m == 0:
         return out
     dev = x.get_device()
-    mt, splits = launch_plan(m, n, k // 2 // BKW, dev)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
     rc = _lib().int4_matmul_launch(
         x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), m, n, k,
-        int(out_dtype == torch.float32), mt, splits, _stream(dev))
+        m, n, k, int(out_dtype == torch.float32),
+        *launch_plan(m, n, k // 2 // BKW, sm_count(dev)), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"int4_matmul_launch failed: CUDA error {rc}")
     int4_matmul_launches += 1

@@ -95,6 +95,27 @@ def stream_matmul_reference(x: torch.Tensor, w: torch.Tensor,
     return torch.matmul(x.to(torch.bfloat16).float(), wt).to(torch.bfloat16)
 
 
+# Tiles of csrc/quant_matmul.cuh (the mma.sync pipeline): output columns
+# per CTA, weight rows per pipeline stage, rows per m16 tile.
+BN, BKW, BM_UNIT = 128, 64, 16
+
+
+def launch_plan(m: int, n: int, k_tiles: int,
+                sms: int) -> tuple[int, int]:
+    """(m16 tiles per CTA, K splits) for an ``[m, n]`` output over
+    ``k_tiles`` weight stages on a card of ``sms`` SMs.  Rows: 16, 32,
+    64, else 128 per CTA.  K is split until about four CTAs per SM stream
+    weights, keeping at least four stages per split (the pipeline depth)
+    and every split non-empty."""
+    mt = 1 if m <= 16 else 2 if m <= 32 else 4 if m <= 64 else 8
+    ctas = -(-m // (BM_UNIT * mt)) * (n // BN)
+    splits = 1
+    if ctas < 4 * sms:
+        splits = max(1, min(-(-4 * sms // ctas), k_tiles // 4, 16))
+    per = -(-k_tiles // splits)
+    return mt, -(-k_tiles // per)
+
+
 def _lib() -> ctypes.CDLL:
     from arcticinference_tpu_torch.ops.cuda.build import load
 
@@ -132,9 +153,9 @@ def stream_matmul_kernel(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("x and w must be on the same CUDA device")
     m, k = x.shape
     n = w.shape[1]
-    if k % fm.BKW or n % fm.BN:
-        raise ValueError(f"K={k} must be a multiple of {fm.BKW} and N={n} "
-                         f"of {fm.BN}")
+    if k % BKW or n % BN:
+        raise ValueError(f"K={k} must be a multiple of {BKW} and N={n} "
+                         f"of {BN}")
     if not (x.is_contiguous() and w.is_contiguous()) or \
             x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("x and w must be contiguous and 16-byte aligned")
@@ -142,7 +163,7 @@ def stream_matmul_kernel(x: torch.Tensor, w: torch.Tensor,
     if m == 0:
         return out
     dev = x.get_device()
-    mt, splits = fm.launch_plan(m, n, k // fm.BKW, dev)
+    mt, splits = launch_plan(m, n, k // BKW, fm.sm_count(dev))
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
     rc = _lib().stream_matmul_launch(

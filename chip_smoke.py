@@ -13,7 +13,9 @@ Phases, each reported on its own lines:
              at once, one process each (printing ``-Xptxas -v``:
              registers, shared memory, spills); ``cuobjdump -sass`` must
              find HMMA (tensor-core) instructions in every instance of
-             the ragged kernel and of the grouped decode kernel.
+             the ragged kernel and of the grouped decode kernel, and
+             HGMMA (wgmma) instructions in every instance of the
+             quantized matmul kernel (kernels 5 and 6).
 3. kernels:  each CUDA kernel against its plain PyTorch version at the
              main path's shapes, with its time, the plain version's, the
              bound and a library yardstick: the two attention kernels
@@ -35,9 +37,13 @@ Phases, each reported on its own lines:
              the mixed step and the tree-verify step against the plain
              version on the clean one, and the two quantized matmuls
              (Llama-3.1-8B's wqkv, wo, w_gateup, w_down and lm_head at
-             16, 64 and 2048 rows; fp8 everywhere, int8 on w_gateup,
-             int4 everywhere; fp8 and int8 at the Arctic drafter's head
-             [4096, 128256] and projection [4096, 4096], 16 and 64 rows),
+             16, 64, 128, 256 and 2048 rows, the LM head at 16 and 64;
+             fp8 everywhere, int8 on w_gateup, int4 everywhere; fp8 and
+             int8 at the Arctic drafter's head [4096, 128256] and
+             projection [4096, 4096], 16 and 64 rows; each row's output
+             bit for bit the same beside other rows and at another row
+             index, two launches alike, and a CUDA graph of one launch
+             replayed twice alike the eager launch),
              the HBM read probe (kernel 7) on the full 4 GiB buffer of
              seeded random bf16 values, and the four weight-stream matmul
              variants (kernel 8: f16 trick, bit trick, astype e4m3, astype
@@ -92,7 +98,8 @@ Phases, each reported on its own lines:
              matmul, the microbench the weight-stream kernel.
 Last, a shorter bf16 and fp8 run of phase 5, the drafter chains and the
 bench's device step (its CUDA graph) under ``torch.profiler``, each on an
-engine of its own (no timed run follows a profiled one).
+engine of its own (no timed run follows a profiled one); the device step
+must launch no split-K reduction of the quantized matmuls.
 
 The bench's JSON line comes before the kernels JSON; the last lines are
 the kernels JSON, the card's name and power limit, and ``{"ok": true,
@@ -177,9 +184,10 @@ MATMUL_SHAPES = (
     ("w_down", 14336, 4096, None, False),
     ("lm_head", 4096, 128256, None, True),
 )
-# Decode batches of 16 and 64 rows and a 2048-token prefill bucket; the LM
+# Decode batches of 16 and 64 rows, the fused steps' verify rows at batch
+# 32 and 64 x qlen 4 (128, 256) and a 2048-token prefill bucket; the LM
 # head sees only the sampled rows.
-MATMUL_ROWS = (16, 64, 2048)
+MATMUL_ROWS = (16, 64, 128, 256, 2048)
 # The Arctic drafter's quantized products at the 8B width (fp8 and int8
 # drafters, float32 out): its tied LM head and its MLP projection, at the
 # drafter batch buckets of 16 and 64 requests.
@@ -627,6 +635,38 @@ def row_invariance(case, qlen, pos_base) -> dict:
     return res
 
 
+def sass_text(lib) -> str:
+    """The library's SASS (``cuobjdump -sass``); raises if the tool is
+    missing."""
+    from arcticinference_tpu_torch.ops.cuda import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        raise AssertionError(f"cuobjdump not found beside nvcc ({tool})")
+    return subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def hgmma_counts(lib) -> dict:
+    """HGMMA (wgmma) instructions in each instance of the quantized
+    matmul kernel (kernels 5 and 6: weight format, x rows per CTA,
+    warpgroups along N and along K), read from the library's SASS."""
+    import re
+
+    counts, fn = {}, None
+    for line in sass_text(lib).splitlines():
+        if "Function :" in line:
+            m = re.search(r"qmm_wgmma_kernelINS0_\d+(\w+?)ELi(\d+)ELi(\d+)"
+                          r"ELi(\d+)E", line)
+            fn = (f"{m.group(1)} BM={m.group(2)} WGS={m.group(3)} "
+                  f"KW={m.group(4)}" if m else None)
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def hmma_counts(lib) -> dict:
     """HMMA (tensor-core) instructions in each instance of the ragged
     kernel (kernel 1) and of the grouped kernel (kernels 2 and 3), read
@@ -634,15 +674,8 @@ def hmma_counts(lib) -> dict:
     is missing."""
     import re
 
-    from arcticinference_tpu_torch.ops.cuda import build
-
-    tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    if not tool.exists():
-        raise AssertionError(f"cuobjdump not found beside nvcc ({tool})")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
     counts, fn = {}, None
-    for line in sass.splitlines():
+    for line in sass_text(lib).splitlines():
         if "Function :" in line:
             m = re.search(r"(ragged_attention|grouped_decode)_kernelINS_\d+"
                           r"(\w+?)ELi(\d+)E(?:Li(\d+)E)?", line)
@@ -1000,9 +1033,76 @@ def run_matmul_case(name, q, x, out_dtype, kernel, plain):
     return res
 
 
+def matmul_replay(mode, k, n, m, gen) -> dict:
+    """Kernel 5 (fp8) or 6 (int4) on one [k, n] weight at m rows, bit for
+    bit: every moved row of a launch against the same x row at another
+    index of a launch whose other rows are fresh random rows; two
+    launches alike; a CUDA graph of one launch, replayed twice, alike the
+    eager launch."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import int4_matmul as im
+
+    q = quantized_weight(mode, k, n, None, gen)
+    kernel = (im.int4_matmul_kernel if mode == "int4"
+              else fm.fp8_matmul_kernel)
+
+    def launch(x):
+        return kernel(x, q.weight, q.scale)
+
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    x2 = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    moves = {j: (j + m // 2 + 3) % m for j in range(0, m, max(1, m // 16))}
+    for j, j2 in moves.items():
+        x2[j2] = x[j]
+    out, out2, again = launch(x), launch(x2), launch(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(x)                           # warm up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = launch(x)
+    replays = []
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(bool(torch.equal(captured, out)))
+    k_tiles = (k // 2 if mode == "int4" else k) // fm.BKW
+    res = dict(case=f"{mode} [{k},{n}] M={m}",
+               plan=list(fm.launch_plan(m, n, k_tiles, fm.sm_count(0))),
+               rows_moved=len(moves),
+               rows_not_bitwise_equal=sum(
+                   not torch.equal(out2[j2], out[j])
+                   for j, j2 in moves.items()),
+               launches_equal=bool(torch.equal(again, out)),
+               graph_replays_equal=replays)
+    res["ok"] = (res["rows_not_bitwise_equal"] == 0
+                 and res["launches_equal"] and all(replays))
+    log("  replay " + json.dumps(res))
+    del graph, q
+    return res
+
+
+# Bitwise replay checks of kernels 5 and 6 (mode, K, N, rows): the bench's
+# decode step at 64 rows (wo split over a cluster, w_gateup one
+# warpgroup per CTA), w_down at 16, wqkv at 256 verify rows (K
+# warpgroups, two row tiles), w_gateup at a 2048-row prefill (two
+# warpgroups side by side).
+MATMUL_REPLAY = (("fp8", 4096, 4096, 64), ("fp8", 4096, 28672, 64),
+                 ("fp8", 14336, 4096, 16), ("fp8", 4096, 6144, 256),
+                 ("fp8", 4096, 28672, 2048), ("int4", 4096, 4096, 64),
+                 ("int4", 4096, 28672, 64), ("int4", 4096, 28672, 2048))
+
+
 def phase_matmul_kernels(seed):
     """Both quantized matmul kernels against their plain versions at the
-    Llama-3.1-8B weight shapes; returns (fp8/int8 cases, int4 cases)."""
+    Llama-3.1-8B weight shapes, then :func:`matmul_replay` on
+    :data:`MATMUL_REPLAY`; returns (fp8/int8 cases, int4 cases, replay
+    checks)."""
     import torch
 
     from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
@@ -1047,7 +1147,12 @@ def phase_matmul_kernels(seed):
     failed = [c["case"] for c in fp8_cases + int4_cases if not c["ok"]]
     if failed:
         raise AssertionError(f"kernel disagrees with plain version: {failed}")
-    return fp8_cases, int4_cases
+    replay = [matmul_replay(*case, gen) for case in MATMUL_REPLAY]
+    torch.cuda.empty_cache()
+    failed = [c["case"] for c in replay if not c["ok"]]
+    if failed:
+        raise AssertionError(f"rows or replays not bit for bit: {failed}")
+    return fp8_cases, int4_cases, replay
 
 
 def phase_probe_kernel(seed):
@@ -1564,6 +1669,13 @@ def profile_device_step(batch: int = 64, ctx: int = 192,
         return dict(device_step="not measured")
     qmm = sum(e.self_device_time_total for e in events
               if "qmm::" in e.key) / 1e3 / replays
+    # Split K is summed on chip: the step must launch no reduction of the
+    # quantized matmuls (PyTorch's own reductions are not theirs).
+    reductions = [e.key[:90] for e in events
+                  if "qmm::" in e.key and "reduce_kernel" in e.key]
+    if reductions:
+        raise AssertionError(f"the device step launches split-K "
+                             f"reductions: {reductions}")
     attn = sum(e.self_device_time_total for e in events
                if "grouped_decode_kernel" in e.key) / 1e3 / replays
     return dict(batch=batch, ctx=ctx, replays=replays,
@@ -2150,7 +2262,7 @@ def profile_generate(llm, rng, vocab) -> dict:
     attn_s = sum(e.self_device_time_total for e in events
                  if "ragged_attention_kernel" in e.key
                  or "grouped_decode_kernel" in e.key) / 1e6
-    # Both quantized matmul kernels and their split-K reduction.
+    # Both quantized matmul kernels (kernel 8's, too, on its own path).
     qmm_s = sum(e.self_device_time_total for e in events
                 if "qmm::" in e.key) / 1e6
     return dict(
@@ -2211,6 +2323,16 @@ def main() -> int:
     if len(hmma) != 12 or n_grouped != 8 or min(hmma.values()) == 0:
         raise AssertionError(
             f"ragged / grouped kernel instances without HMMA: {hmma}")
+    # The quantized matmuls run their products on wgmma: every instance
+    # (9 plans per weight format: e4m3 and int8, int4) must hold HGMMA.
+    hgmma = {src: hgmma_counts(lib) for src, lib in zip(sources, libs)
+             if src in (fm.SOURCE, im.SOURCE)}
+    log(f"[build] HGMMA instructions per quantized matmul instance: "
+        f"{json.dumps(hgmma)}")
+    if (len(hgmma[fm.SOURCE]) != 18 or len(hgmma[im.SOURCE]) != 9
+            or min(min(c.values()) for c in hgmma.values()) == 0):
+        raise AssertionError(
+            f"quantized matmul instances missing or without HGMMA: {hgmma}")
 
     csrc = "arcticinference_tpu_torch/csrc/"
     kernels = {
@@ -2261,7 +2383,7 @@ def main() -> int:
         log("[kernels] tree-mask path vs plain, token-tree verify steps")
         tree_cases = phase_tree_kernels(rng)
         log("[kernels] quantized matmuls vs plain, Llama-3.1-8B weights")
-        fp8_cases, int4_cases = phase_matmul_kernels(args.seed)
+        fp8_cases, int4_cases, replay = phase_matmul_kernels(args.seed)
         log("[kernels] HBM read probe vs plain, 4 GiB of random bf16")
         probe_cases = phase_probe_kernel(args.seed)
         log("[kernels] weight-stream matmul variants vs plain, "
@@ -2303,6 +2425,11 @@ def main() -> int:
                        for c in cases])
         kernels["grouped_decode_attention_kernel"]["row_invariance"] = \
             invariance
+        for key, mode, src in (("fp8_matmul_kernel", "fp8", fm.SOURCE),
+                               ("int4_matmul_kernel", "int4", im.SOURCE)):
+            kernels[key]["hgmma"] = hgmma[src]
+            kernels[key]["replay"] = [c for c in replay
+                                      if c["case"].startswith(mode)]
         kernels["hbm_read_probe"].update(
             tolerance="|out-plain| <= 1e-6 * sum(|summed values|)",
             library_note=probe_cases[0]["library_note"])

@@ -641,13 +641,14 @@ def quantized_case(mode, m, k, n, device, per_column=False, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m", [1, 16, 40, 200])
+@pytest.mark.parametrize("m", [1, 16, 40, 64, 128, 200, 256])
 @pytest.mark.parametrize("mode,per_column", [
     ("fp8", False), ("fp8", True), ("int8", False)])
 def test_fp8_matmul_kernel_matches_plain(cuda_device, mode, per_column, m,
                                          out_dtype):
-    """M=1..200 covers one to eight m16 tiles per CTA, padded rows and
-    split K (small grids) and no split."""
+    """M=1..256 covers the 16- to 128-row tiles, padded rows, one and two
+    row tiles, and split K over K warpgroups and a cluster (N = 384 is a
+    small grid)."""
     x, q = quantized_case(mode, m, 1024, 384, cuda_device, per_column)
     tfm.reset_launch_counts()
     out = tfm.fp8_matmul_kernel(x, q.weight, q.scale, out_dtype)
@@ -660,7 +661,7 @@ def test_fp8_matmul_kernel_matches_plain(cuda_device, mode, per_column, m,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m", [1, 16, 40, 200])
+@pytest.mark.parametrize("m", [1, 16, 40, 64, 128, 200, 256])
 @pytest.mark.parametrize("k", [1024, 384, 128])
 def test_int4_matmul_kernel_matches_plain(cuda_device, k, m, out_dtype):
     """K=384 and 128: the high half's rows start inside a scale group
@@ -681,8 +682,69 @@ def test_quantized_matmul_is_deterministic(cuda_device):
     x, q = quantized_case("fp8", 16, 4096, 512, cuda_device)
     a = tfm.fp8_matmul_kernel(x, q.weight, q.scale)
     b = tfm.fp8_matmul_kernel(x, q.weight, q.scale)
-    assert tfm.launch_plan(16, 512, 4096 // 64, x.get_device())[1] > 1
+    sms = tfm.sm_count(x.get_device())
+    assert tfm.launch_plan(16, 512, 4096 // 64, sms)[3] > 1
     assert torch.equal(a, b)
+
+
+def matmul(mode, x, q):
+    kernel = (tim.int4_matmul_kernel if mode == "int4"
+              else tfm.fp8_matmul_kernel)
+    return kernel(x, q.weight, q.scale)
+
+
+# (K, N, M): split K over K warpgroups and a cluster (N = 512); K
+# warpgroups alone (128 column tiles); one warpgroup per CTA (136 tiles);
+# two row tiles of 128; two warpgroups side by side at 2048 rows.
+REPLAY_SHAPES = [(4096, 512, 16), (4096, 512, 64), (2048, 16384, 64),
+                 (1024, 17408, 40), (1024, 512, 256), (1024, 2048, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,m", REPLAY_SHAPES)
+@pytest.mark.parametrize("mode", ["fp8", "int4"])
+def test_quantized_matmul_rows_are_replay_invariant(cuda_device, mode, k, n,
+                                                    m):
+    """A row's output is bit for bit the same whatever the other rows
+    hold and wherever the row sits in the launch: its float32 sums depend
+    only on the plan (which depends on the bucket of M)."""
+    x, q = quantized_case(mode, m, k, n, cuda_device)
+    out = matmul(mode, x, q)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x2 = torch.randn((m, k), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    moves = {j: (j + m // 2 + 3) % m for j in range(0, m, max(1, m // 8))}
+    for j, j2 in moves.items():
+        x2[j2] = x[j]
+    out2 = matmul(mode, x2, q)
+    torch.cuda.synchronize()
+    for j, j2 in moves.items():
+        assert torch.equal(out2[j2], out[j]), (j, j2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,m", [(4096, 512, 16), (2048, 16384, 64)])
+@pytest.mark.parametrize("mode", ["fp8", "int4"])
+def test_quantized_matmul_graph_replay_matches_eager(cuda_device, mode, k,
+                                                     n, m):
+    """One launch captured in a CUDA graph and replayed twice gives the
+    eager launch's bits (the split-K cluster and the K warpgroups keep
+    no state between launches)."""
+    x, q = quantized_case(mode, m, k, n, cuda_device)
+    eager = matmul(mode, x, q)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        matmul(mode, x, q)                        # warm up off the graph
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = matmul(mode, x, q)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 @pytest.mark.cuda
