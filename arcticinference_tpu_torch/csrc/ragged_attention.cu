@@ -8,8 +8,7 @@
 //   grouped_decode_attention_kernel (_grouped_decode_call /
 //                                    _grouped_decode_kernel; kernels 2, 3)
 //   decode_paged_attention_kernel   (_decode_attention_call /
-//                                    _decode_kernel; see "kernel 4" below
-//                                    for its own design)
+//                                    _decode_kernel; "kernel 4")
 //
 // What bounds them on an H100.  A decode row does 4 flops per KV element
 // it reads (2 for q.k, 2 for p.v) and a bf16 element is 2 bytes, so decode
@@ -101,6 +100,35 @@
 // >= 0; padding is a tail of slot -1).  The caller scatters the rows into
 // the cache once for the whole model after the layer stack.
 //
+// Kernel 4 computes kernel 2's function (no deferral) and is bound the
+// same way: KV bytes / 3.35 TB/s.  Its first design (one CTA per sequence,
+// fp32 FMA on the CUDA cores, one page in flight, warps re-reading every
+// page per 8 (kv head, row tile) units, whole token rows staged) took
+// 5.1x that floor at qlen 1 and 22.6x at qlen 8 (H100 80GB HBM3 at 700 W;
+// PERF.md).  This design is kernel 2's CTA on a finer grid:
+//   * One CTA per (sequence, kv head, page range).  A range is a fixed
+//     number of pages R (range_pages, a constant of the wrapper, never
+//     derived from B, qlen, the rows or the lengths), so a long sequence
+//     spreads over many SMs instead of holding one to the end of the
+//     launch: the tail of long sequences that idles kernel 2's SMs.
+//   * Inside a CTA, kernel 2's 16-slot chunks on four page streams
+//     (chunk c of the range to stream c % 4), three cp.async stages of
+//     per-head slices (one head's D columns per token, so any Hkv * D
+//     width is staged), fp8 converted to fp16 once per stage, q and P
+//     split hi + lo, mma.sync m16n8k16 with float32 sums, every q head
+//     of the GQA group a row of 16-row m-tiles: a range is read once for
+//     all 32 rows of qlen 8 at group 4.
+//   * A sequence whose rows attend one range writes its output from the
+//     CTA.  Otherwise each range's CTA writes its rows' float32 states
+//     (o, m, l) to scratch, and the last CTA of the (sequence, kv head)
+//     to finish, found by a counter that it resets, merges them in range
+//     order 0, 1, 2, ...: no float atomics, no order that depends on
+//     which CTA finishes first.
+//   * A range a row does not attend leaves an empty state, which the
+//     merge skips; within a range a chunk the row does not attend leaves
+//     its state bit for bit.  So a row's output is the same bits at any
+//     qlen, as kernel 2's rows are.
+//
 // The layout contract is the JAX package's: cache [L, N, 2, 32, Hkv*D],
 // q / out [T, Hq, D] bf16, block_tables [B, MaxBlk] int32.  block_size is 32.
 
@@ -124,9 +152,6 @@ constexpr float kNegInf = -__builtin_huge_valf();
 
 struct Bf16 {
   using T = uint16_t;
-  static __device__ __forceinline__ float cvt(uint16_t b) {
-    return __uint_as_float(static_cast<uint32_t>(b) << 16);
-  }
   static __device__ __forceinline__ uint16_t from_float(float f) {
     // Round to nearest even (finite inputs), as a bf16 cast does.
     uint32_t u = __float_as_uint(f);
@@ -137,44 +162,7 @@ struct Bf16 {
 
 struct Fp8 {
   using T = uint8_t;
-  static __device__ __forceinline__ float cvt(uint8_t b) {
-    __nv_fp8_e4m3 x;
-    x.__x = b;
-    return static_cast<float>(x);
-  }
 };
-
-template <int BYTES> struct Vec;
-template <> struct Vec<16> { using type = uint4; };
-template <> struct Vec<8> { using type = uint2; };
-template <> struct Vec<4> { using type = uint32_t; };
-template <> struct Vec<2> { using type = uint16_t; };
-
-// Load N consecutive elements with one vector load; convert to fp32.
-template <class E, int N>
-__device__ __forceinline__ void load_cvt(const typename E::T* p, float* f) {
-  using V = typename Vec<N * sizeof(typename E::T)>::type;
-  union {
-    V v;
-    typename E::T e[N];
-  } u;
-  u.v = *reinterpret_cast<const V*>(p);
-#pragma unroll
-  for (int i = 0; i < N; ++i) f[i] = E::cvt(u.e[i]);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // 16-byte asynchronous copy to shared memory; with src_bytes < 16 the
 // rest of the 16 bytes is filled with zeros (0: nothing is read).
@@ -185,69 +173,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(gmem), "r"(src_bytes)
                : "memory");
-}
-
-// ---- kernel 4's online-softmax step (CUDA cores) ---------------------------
-
-// Fold one chunk of at most 32 tokens into a warp's online-softmax state:
-// lane j owns token j, whose K row is krow (read only when k_ok) and whose
-// V row is vbase + j * v_stride (this lane's dims); K and V may lie in
-// device or shared memory.  q: the warp's RW query rows (fp32, scaled);
-// p: the warp's [RW][32] scratch.  ok[r]: row r attends this lane's
-// token; tokens at or past jmax carry no weight for any row.
-template <class KV, int D, int RW>
-__device__ __forceinline__ void fold_chunk(
-    float (*__restrict__ q)[D], float (*__restrict__ p)[kPage],
-    const typename KV::T* __restrict__ krow, bool k_ok,
-    const typename KV::T* __restrict__ vbase, int64_t v_stride,
-    const bool (&ok)[RW], int jmax, float (&m)[RW], float (&l)[RW],
-    float (&acc)[RW][D / 32]) {
-  constexpr int DPL = D / 32;
-  const int lane = threadIdx.x & 31;
-  float s[RW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r) s[r] = 0.f;
-  if (k_ok) {
-#pragma unroll
-    for (int c = 0; c < D; c += 8) {
-      float kf[8];
-      load_cvt<KV, 8>(krow + c, kf);
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        const float4 qa = *reinterpret_cast<const float4*>(&q[r][c]);
-        const float4 qb = *reinterpret_cast<const float4*>(&q[r][c + 4]);
-        s[r] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const float sv = ok[r] ? s[r] : kNegInf;
-    const float m_new = fmaxf(m[r], warp_max(sv));
-    // m_safe: an all-masked row keeps exp(-inf - 0) = 0 (no NaN).
-    const float m_safe = m_new == kNegInf ? 0.f : m_new;
-    const float alpha = m[r] == kNegInf ? 0.f : __expf(m[r] - m_safe);
-    const float pj = ok[r] ? __expf(sv - m_safe) : 0.f;
-    l[r] = l[r] * alpha + pj;  // per-lane partial; summed at the end
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha;
-    m[r] = m_new;
-    p[r][lane] = pj;
-  }
-  __syncwarp();
-#pragma unroll 4
-  for (int j = 0; j < jmax; ++j) {
-    float vf[DPL];
-    load_cvt<KV, DPL>(vbase + (int64_t)j * v_stride, vf);
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const float pj = p[r][j];
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[r][e] += pj * vf[e];
-    }
-  }
-  __syncwarp();
 }
 
 // ---- kernel 1: ragged work items, on tensor cores --------------------------
@@ -1211,171 +1136,343 @@ __global__ void __launch_bounds__(kGStreams * TILES * 32, 2 / TILES)
   }
 }
 
-// ---- kernel 4: one CTA per sequence ------------------------------------------
+// ---- kernel 4: split over fixed page ranges, on tensor cores ----------------
 
-// The TPU kernel's grid (one program per sequence) on Hopper: the CTA's
-// 8 warps cover every (kv head, row tile) unit of the sequence's rows, a
-// warp holding one unit's fp32 online-softmax state (RW rows) in
-// registers.  Each page is copied once per pass into shared memory as
-// whole token rows (Hkv*D contiguous elements per token, K then V, with
-// cp.async; rows padded by 16 bytes so a warp's 32 token rows fall on
-// distinct banks) and serves every unit's kv head from there.  A pass
-// covers 8 units: one pass reads each page once when qlen * group <= 16
-// rows per kv head and Hkv <= 8 (the 8B shape at qlen <= 4).
-constexpr int kWarps4 = 8;
-constexpr int kThreads4 = kWarps4 * 32;
-constexpr int kRowPad = 16;  // bytes after each token row in shared memory
+// One CTA per (sequence, kv head, range): blockIdx (seq, h, r), range r
+// covering pages [r * R, (r + 1) * R), R = range_pages.  The CTA is kernel
+// 2's (4 * TILES warps, warp w page stream w % 4 of m-tile w / 4), chunk
+// c of the range going to stream c % 4.  Range r's state of row i of the
+// (sequence, kv head) lies at part + (((seq * hkv + h) * n_ranges + r) *
+// rows_cap + i) * (D + kPartPad): o [D], m, l.
+constexpr int kPartPad = 4;  // floats after a row's o in `part`: m, l, pad
 
-template <class KV, int D, int RW>
-__host__ __device__ constexpr int smem4_bytes(int hkv_d) {
-  return 2 * kPage * (hkv_d * static_cast<int>(sizeof(typename KV::T)) +
-                      kRowPad) +
-         kWarps4 * RW * (D + kPage) * static_cast<int>(sizeof(float));
-}
-
-template <class KV, int D, int RW>
-__global__ void __launch_bounds__(kThreads4) decode_paged_kernel(
-    const uint16_t* __restrict__ q, uint16_t* __restrict__ out,
-    const typename KV::T* __restrict__ kv, const float* __restrict__ kv_scale,
-    const int* __restrict__ pos_base, const int* __restrict__ seq_lens,
-    const int* __restrict__ block_tables, int layer, int b, int t, int qlen,
-    int hq, int hkv, int max_blk, int64_t layer_stride, float scale) {
+template <class KV, int D, int TILES>
+__global__ void __launch_bounds__(kGStreams * TILES * 32, 2 / TILES)
+    decode_range_kernel(
+        const uint16_t* __restrict__ q, uint16_t* __restrict__ out,
+        const typename KV::T* __restrict__ kv,
+        const float* __restrict__ kv_scale, const int* __restrict__ pos_base,
+        const int* __restrict__ seq_lens,
+        const int* __restrict__ block_tables, float* __restrict__ part,
+        int* __restrict__ counter, int layer, int b, int t, int qlen, int hq,
+        int hkv, int max_blk, int64_t layer_stride, int range_pages,
+        int n_ranges, float scale) {
   using E = typename KV::T;
-  constexpr int DPL = D / 32;
+  using M = Mma<KV>;
+  using S = RaggedSmem<KV, D>;
+  using G = GroupedSmem<KV, D, TILES>;
+  constexpr int kThreadsG = kGStreams * TILES * 32;
+  constexpr int KS = D / 16;  // k-steps of q.k
+  constexpr int NT = D / 8;   // d tiles of p.v
+  constexpr int kPartRow = D + kPartPad;
   extern __shared__ __align__(16) unsigned char smem4[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int seq = blockIdx.x;
+  __shared__ int s_last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int stream = warp % kGStreams, tile = warp / kGStreams;
+  const int seq = blockIdx.x, h = blockIdx.y, range = blockIdx.z;
   const int group = hq / hkv;
-  const int hkv_d = hkv * D;
   const int tok0 = seq * qlen;
-  const int ntok = min(qlen, t - tok0);  // this sequence's rows in q
+  // Sequence slots past b (the token bucket is wider than b * qlen) and
+  // dead slots (seq_lens == 0) read no page: range 0 zeroes their rows.
+  const int ntok = min(qlen, t - tok0);
   if (ntok <= 0) return;
+  const int nrows = ntok * group;
   if (seq >= b || seq_lens[seq] <= 0) {
-    // A slot past b or a dead slot: its rows come out zero.
-    for (int idx = threadIdx.x; idx < ntok * hq * D; idx += kThreads4)
-      out[(int64_t)tok0 * hq * D + idx] = Bf16::from_float(0.f);
+    for (int idx = tid; range == 0 && idx < nrows * D; idx += kThreadsG) {
+      const int i = idx / D;
+      out[(int64_t)(tok0 + i / group) * hq * D + (h * group + i % group) * D +
+          idx % D] = 0;
+    }
     return;
   }
-  // Shared memory: K rows | V rows of one page, then per warp its RW q
-  // rows and its [RW][32] softmax scratch.
-  const int row_elems = hkv_d + kRowPad / static_cast<int>(sizeof(E));
-  E* sk = reinterpret_cast<E*>(smem4);
-  E* sv = sk + kPage * row_elems;
-  float(*sq)[D] = reinterpret_cast<float(*)[D]>(sv + kPage * row_elems);
-  float(*sp)[kPage] = reinterpret_cast<float(*)[kPage]>(sq + kWarps4 * RW);
-  float(*wq)[D] = sq + warp * RW;
-  float(*wp)[kPage] = sp + warp * RW;
-
-  const E* kv_layer = kv + layer * layer_stride;
-  const int* page_row = block_tables + (int64_t)seq * max_blk;
-  const int pos0 = pos_base[seq];
-  const float q_scale = scale * kv_scale[2 * layer];
-  const float v_scale = kv_scale[2 * layer + 1];
-  // The sequence's last position bounds the pages any row attends.
+  // No page past the block table's row (a step near max_model_len gives
+  // its rows past the limit a longer seq_len).
   const int npages = min((seq_lens[seq] + kPage - 1) / kPage, max_blk);
-  const int last_page = min(npages, (pos0 + ntok - 1) / kPage + 1);
-  const int rows_head = ntok * group;
-  const int tiles = (rows_head + RW - 1) / RW;
-  const int units = hkv * tiles;
-  const int chunks16 = hkv_d * static_cast<int>(sizeof(E)) / 16;
+  const int pos0 = pos_base[seq];
+  // The last slot any row attends, the chunks up to it and the ranges
+  // holding them (ops/cuda/ragged_attention.py: range_plan).
+  const int last_slot = min(pos0 + ntok - 1, npages * kPage - 1);
+  const int ncc = last_slot / kGChunk + 1;
+  const int nr = (last_slot / kPage) / range_pages + 1;
+  if (range >= nr) return;
+  const int c0 = range * range_pages * (kPage / kGChunk);
+  const int nch = min(ncc, c0 + range_pages * (kPage / kGChunk)) - c0;
+  const int* page_row = block_tables + (int64_t)seq * max_blk;
+  const E* kv_layer = kv + layer * layer_stride;
+  const int nk = nch > stream ? (nch - stream - 1) / kGStreams + 1 : 0;
+  const int bar = 1 + stream;
+  // k_scale (and log2 e, for exp2) folded into q, v_scale into the output.
+  const float qs = __fmul_rn(__fmul_rn(scale, kv_scale[2 * layer]), kLog2e);
+  const float v_scale = kv_scale[2 * layer + 1];
+  const int hkv_d = hkv * D;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  // This (sequence, kv head)'s states: range r's row i at part_sh +
+  // (r * rows_cap + i) * kPartRow; rows_cap = qlen * group.
+  const int rows_cap = qlen * group;
+  float* part_sh =
+      nr > 1 ? part + ((int64_t)seq * hkv + h) * n_ranges * rows_cap * kPartRow
+             : nullptr;
 
-  for (int unit0 = 0; unit0 < units; unit0 += kWarps4) {
-    const int unit = unit0 + warp;
-    const bool has = unit < units;
-    const int h = has ? unit / tiles : 0;
-    const int r0 = has ? (unit % tiles) * RW : 0;
-    // This warp's rows: row i of head h is token i / group under q head
-    // h * group + i % group; pos[r] is its causal limit (-1: no row).
-    int pos[RW];
-    int max_pos = -1;
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const int i = r0 + r;
-      pos[r] = (has && i < rows_head) ? pos0 + i / group : -1;
-      max_pos = max(max_pos, pos[r]);
+  // Chunk k of this stream into stage k % kStages.  Slots past last_slot
+  // and chunks past the range are never read: cp.async fills their rows
+  // with zeros, so a masked P of 0 never meets a stale or NaN V.
+  auto load = [&](int k) {
+    const int c = c0 + k * kGStreams + stream;
+    unsigned char* dst = smem4 + (k % kStages) * G::kStageBytes;
+    constexpr int kChunks = D * static_cast<int>(sizeof(E)) / 16;
+    constexpr int kElems = 16 / static_cast<int>(sizeof(E));
+    const E* kb = kv_layer +
+                  ((int64_t)page_row[c / 2] * 2 * kPage + (c % 2) * kGChunk) *
+                      hkv_d +
+                  h * D;
+    const E* vb = kb + kPage * hkv_d;
+    const int n_ok = min(kGChunk, last_slot - c * kGChunk + 1);
+#pragma unroll 4
+    for (int i = tile * 32 + lane; i < 2 * kGChunk * kChunks;
+         i += TILES * 32) {
+      const int row = i / kChunks, ch = i % kChunks;  // K rows, V rows
+      const int j = row % kGChunk;
+      const bool ok = j < n_ok;
+      const E* src = row < kGChunk ? kb : vb;
+      if (ok) src += (int64_t)j * hkv_d + ch * kElems;
+      cp_async16(dst + ((row / kGChunk) * kGStreams * kGChunk +
+                        stream * kGChunk + j) * S::kRawRow + ch * 16,
+                 src, ok ? 16 : 0);
     }
-    for (int idx = lane; idx < RW * D; idx += 32) {
-      const int r = idx / D, dd = idx % D, i = r0 + r;
-      float val = 0.f;
-      if (has && i < rows_head) {
-        const int head = h * group + i % group;
-        val = Bf16::cvt(q[(int64_t)(tok0 + i / group) * hq * D + head * D +
-                          dd]) *
-              q_scale;
+  };
+
+  for (int row0 = 0; row0 < nrows; row0 += TILES * kMTile) {
+    // The pass's q rows (zeros past the last row) go to the last stage,
+    // free until the main loop's first load, with the first chunk.
+    uint16_t* sq = reinterpret_cast<uint16_t*>(
+        smem4 + (kStages - 1) * G::kStageBytes);
+    for (int i = tid; i < TILES * kMTile * (D / 8); i += kThreadsG) {
+      const int r = i / (D / 8), ch = i % (D / 8), row = row0 + r;
+      const uint16_t* src = q;
+      if (row < nrows)
+        src += ((int64_t)(tok0 + row / group) * hq + h * group +
+                row % group) * D + ch * 8;
+      cp_async16(sq + r * S::kRow16 + ch * 8, src, row < nrows ? 16 : 0);
+    }
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < nk) load(st);
+      cp_async_commit();
+    }
+    // This thread's rows rbase and rbase + 8 and lim[hr], the last slot
+    // the row attends (-1: no row).
+    const int rbase = row0 + tile * kMTile + g;
+    bool live[2];
+    int lim[2];
+    int wfirst = INT_MAX, wlast = -1;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = rbase + 8 * hr;
+      live[hr] = r < nrows;
+      lim[hr] = live[hr] ? pos0 + r / group : -1;
+      if (live[hr]) wfirst = min(wfirst, lim[hr]);
+      wlast = max(wlast, lim[hr]);
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      wfirst = min(wfirst, __shfl_xor_sync(0xffffffffu, wfirst, off));
+      wlast = max(wlast, __shfl_xor_sync(0xffffffffu, wlast, off));
+    }
+
+    // q rows as A fragments (ldmatrix), scaled and split into hi + lo:
+    // register j of k-step kk holds d = 16 kk + c2 + 8 (j / 2) of row
+    // rbase + 8 (j % 2).
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    uint32_t qh[KS][4], ql[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t raw[4];
+      const int mi = lane >> 3, ri = lane & 7;
+      ldsm_x4(raw, sq + (tile * kMTile + (mi & 1) * 8 + ri) * S::kRow16 +
+                       kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw[j]));
+        x.x = __fmul_rn(x.x, qs);
+        x.y = __fmul_rn(x.y, qs);
+        qh[kk][j] = M::pack(x.x, x.y);
+        const float2 hf = M::unpack(qh[kk][j]);
+        ql[kk][j] = M::pack(__fsub_rn(x.x, hf.x), __fsub_rn(x.y, hf.y));
       }
-      wq[r][dd] = val;
     }
-    __syncwarp();
-    float m[RW], l[RW], acc[RW][DPL];
+    __syncthreads();  // the last stage is the main loop's again
+    float o[NT][4];
 #pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      m[r] = kNegInf;
-      l[r] = 0.f;
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
-    }
-    for (int pg = 0; pg < last_page; ++pg) {
-      // Whole token rows of the page, K then V, into shared memory.
-      const E* src = kv_layer + (int64_t)page_row[pg] * 2 * kPage * hkv_d;
-      for (int c = threadIdx.x; c < 2 * kPage * chunks16; c += kThreads4) {
-        const int row = c / chunks16;  // 0..63: K rows, then V rows
-        const int col = c % chunks16;
-        cp_async16(reinterpret_cast<unsigned char*>(sk + row * row_elems) +
-                       col * 16,
-                   reinterpret_cast<const unsigned char*>(
-                       src + (int64_t)row * hkv_d) +
-                       col * 16);
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    for (int k = 0; k < nk; ++k) {
+      if (k + kStages - 1 < nk) load(k + kStages - 1);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();
+      named_barrier(bar, TILES * 32);
+      const unsigned char* staged = smem4 + (k % kStages) * G::kStageBytes;
+      const uint16_t* tile16 = reinterpret_cast<const uint16_t*>(staged);
+      if constexpr (S::kConvert) {
+        uint16_t* conv = reinterpret_cast<uint16_t*>(
+            smem4 + kStages * G::kStageBytes);
+        convert_fp8_chunk<D, TILES>(staged, conv, stream);
+        named_barrier(bar, TILES * 32);
+        tile16 = conv;
       }
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 0;\n" ::);
-      __syncthreads();
-      if (has) {
-        const int kv_pos = pg * kPage + lane;
-        bool ok[RW];
-#pragma unroll
-        for (int r = 0; r < RW; ++r) ok[r] = kv_pos <= pos[r];
-        fold_chunk<KV, D, RW>(wq, wp, sk + lane * row_elems + h * D, true,
-                              sv + h * D + lane * DPL, row_elems, ok,
-                              min(kPage, max_pos - pg * kPage + 1), m, l,
-                              acc);
-      }
-      __syncthreads();  // the page buffer is free again
+      const int base = (c0 + k * kGStreams + stream) * kGChunk;
+      if (base <= wlast)
+        fold_chunk_grouped<KV, D>(
+            tile16 + stream * kGChunk * S::kRow16,
+            tile16 + (kGStreams + stream) * kGChunk * S::kRow16, base, lim,
+            base + kGChunk - 1 <= wfirst, qh, ql, o, m, l);
+      named_barrier(bar, TILES * 32);  // the stage is free again
     }
-    if (has) {
+    cp_async_wait<0>();
+    __syncthreads();  // every stream is done with the stages
+
 #pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        const float lr = warp_sum(l[r]);
-        if (pos[r] < 0) continue;
-        const int i = r0 + r;
-        const int head = h * group + i % group;
-        uint16_t* o =
-            out + (int64_t)(tok0 + i / group) * hq * D + head * D + lane * DPL;
-        const float f = v_scale / fmaxf(lr, 1e-20f);
+    for (int hr = 0; hr < 2; ++hr) {
+      l[hr] = __fadd_rn(l[hr], __shfl_xor_sync(0xffffffffu, l[hr], 1));
+      l[hr] = __fadd_rn(l[hr], __shfl_xor_sync(0xffffffffu, l[hr], 2));
+    }
+    // Streams 1..3 hand their states to stream 0 of the same tile, which
+    // merges them in stream order (one float per lane and value).
+    float* mg0 = reinterpret_cast<float*>(smem4) +
+                 tile * G::kMergeFloats * 32 + lane;
+    constexpr int kStride = TILES * G::kMergeFloats * 32;  // stream to stream
+    if (stream > 0) {
+      float* mg = mg0 + (stream - 1) * kStride;
 #pragma unroll
-        for (int e = 0; e < DPL; ++e) o[e] = Bf16::from_float(acc[r][e] * f);
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mg[(n * 4 + e) * 32] = o[n][e];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mg[(D / 2 + hr) * 32] = m[hr];
+        mg[(D / 2 + 2 + hr) * 32] = l[hr];
       }
     }
+    __syncthreads();
+    if (stream == 0) {
+      for (int j = 1; j < kGStreams; ++j) {
+        const float* mg = mg0 + (j - 1) * kStride;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const float m1 = mg[(D / 2 + hr) * 32];
+          const float l1 = mg[(D / 2 + 2 + hr) * 32];
+          const float mx = fmaxf(m[hr], m1);
+          const float mu = mx == kNegInf ? 0.f : mx;
+          const float f0 =
+              m[hr] == mx ? 1.f : fast_exp2(__fsub_rn(m[hr], mu));
+          const float f1 = m1 == mx ? 1.f : fast_exp2(__fsub_rn(m1, mu));
+          m[hr] = mx;
+          l[hr] = __fmaf_rn(l[hr], f0, __fmul_rn(l1, f1));
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 2 * hr; e < 2 * hr + 2; ++e)
+              o[n][e] =
+                  __fmaf_rn(o[n][e], f0, __fmul_rn(mg[(n * 4 + e) * 32], f1));
+        }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        if (!live[hr]) continue;
+        const int r = rbase + 8 * hr;
+        if (nr > 1) {
+          // The range's state of row r, for the merge.
+          float* prow = part_sh + ((int64_t)range * rows_cap + r) * kPartRow;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            *reinterpret_cast<float2*>(prow + n * 8 + c2) =
+                make_float2(o[n][2 * hr], o[n][2 * hr + 1]);
+          if (c2 == 0) *reinterpret_cast<float2*>(prow + D) =
+              make_float2(m[hr], l[hr]);
+          continue;
+        }
+        const float f = __fdiv_rn(v_scale, fmaxf(l[hr], 1e-20f));
+        uint16_t* orow = out + (int64_t)(tok0 + r / group) * hq * D +
+                         (h * group + r % group) * D + c2;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<uint32_t*>(orow + n * 8) =
+              pack_bf16(__fmul_rn(o[n][2 * hr], f),
+                        __fmul_rn(o[n][2 * hr + 1], f));
+      }
+    }
+    __syncthreads();  // the next pass reuses the shared memory
   }
+  if (nr == 1) return;
+
+  // The last CTA of the (sequence, kv head) to arrive merges the ranges.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(counter + (int64_t)seq * hkv + h, 1) == nr - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // Row i, columns c4 .. c4 + 3: range 0's state (every row attends slot
+  // 0), then ranges 1, 2, ... in order; a range the row does not attend
+  // (m = -inf) is skipped, so it changes no bit.  The same arithmetic as
+  // the stream merge and the single-range store.
+  for (int idx = tid; idx < nrows * (D / 4); idx += kThreadsG) {
+    const int i = idx / (D / 4), c4 = (idx % (D / 4)) * 4;
+    const float* p = part_sh + (int64_t)i * kPartRow;
+    float4 acc = __ldcg(reinterpret_cast<const float4*>(p + c4));
+    float2 ml = __ldcg(reinterpret_cast<const float2*>(p + D));
+    for (int rr = 1; rr < nr; ++rr) {
+      p += (int64_t)rows_cap * kPartRow;
+      const float2 ml1 = __ldcg(reinterpret_cast<const float2*>(p + D));
+      if (ml1.x == kNegInf) continue;
+      const float4 o1 = __ldcg(reinterpret_cast<const float4*>(p + c4));
+      const float mx = fmaxf(ml.x, ml1.x);
+      const float f0 = ml.x == mx ? 1.f : fast_exp2(__fsub_rn(ml.x, mx));
+      const float f1 = ml1.x == mx ? 1.f : fast_exp2(__fsub_rn(ml1.x, mx));
+      ml = make_float2(mx, __fmaf_rn(ml.y, f0, __fmul_rn(ml1.y, f1)));
+      acc.x = __fmaf_rn(acc.x, f0, __fmul_rn(o1.x, f1));
+      acc.y = __fmaf_rn(acc.y, f0, __fmul_rn(o1.y, f1));
+      acc.z = __fmaf_rn(acc.z, f0, __fmul_rn(o1.z, f1));
+      acc.w = __fmaf_rn(acc.w, f0, __fmul_rn(o1.w, f1));
+    }
+    const float f = __fdiv_rn(v_scale, fmaxf(ml.y, 1e-20f));
+    *reinterpret_cast<uint2*>(out + (int64_t)(tok0 + i / group) * hq * D +
+                              (h * group + i % group) * D + c4) =
+        make_uint2(pack_bf16(__fmul_rn(acc.x, f), __fmul_rn(acc.y, f)),
+                   pack_bf16(__fmul_rn(acc.z, f), __fmul_rn(acc.w, f)));
+  }
+  if (tid == 0) counter[(int64_t)seq * hkv + h] = 0;  // for the next launch
 }
 
-template <class KV, int D, int RW>
-cudaError_t launch_decode_paged(void* q, void* out, const void* kv,
+template <class KV, int D, int TILES>
+cudaError_t launch_decode_range(void* q, void* out, const void* kv,
                                 const float* kv_scale, const int* pos_base,
                                 const int* seq_lens, const int* block_tables,
-                                int layer, int b, int t, int qlen, int hq,
-                                int hkv, int max_blk, int64_t layer_stride,
+                                float* part, int* counter, int layer, int b,
+                                int t, int qlen, int hq, int hkv, int max_blk,
+                                int64_t layer_stride, int range_pages,
                                 float scale, cudaStream_t stream) {
-  auto* kernel = decode_paged_kernel<KV, D, RW>;
-  const int smem = smem4_bytes<KV, D, RW>(hkv * D);
+  auto* kernel = decode_range_kernel<KV, D, TILES>;
+  constexpr int smem = GroupedSmem<KV, D, TILES>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int n_seq = std::max(b, (t + qlen - 1) / qlen);
-  kernel<<<n_seq, kThreads4, smem, stream>>>(
+  const int n_ranges = (max_blk + range_pages - 1) / range_pages;
+  if (n_ranges > 1 && (part == nullptr || counter == nullptr))
+    return cudaErrorInvalidValue;
+  dim3 grid(n_seq, hkv, n_ranges);
+  using E = typename KV::T;
+  kernel<<<grid, kGStreams * TILES * 32, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<uint16_t*>(out),
-      static_cast<const typename KV::T*>(kv), kv_scale, pos_base, seq_lens,
-      block_tables, layer, b, t, qlen, hq, hkv, max_blk, layer_stride, scale);
+      static_cast<const E*>(kv), kv_scale, pos_base, seq_lens, block_tables,
+      part, counter, layer, b, t, qlen, hq, hkv, max_blk, layer_stride,
+      range_pages, n_ranges, scale);
   return cudaGetLastError();
 }
 
@@ -1462,17 +1559,17 @@ cudaError_t dispatch_grouped(int kv_fp8, int d, int rows, A... args) {
   return cudaErrorInvalidValue;
 }
 
-// Kernel 4's instances: (kv dtype, head dim, rows per warp 4 / 8 / 16).
+// Kernel 4's instances: (kv dtype, head dim, rows per pass: one or two
+// 16-row m-tiles).
 template <class... A>
-cudaError_t dispatch_decode_paged(int kv_fp8, int d, int rw, A... args) {
-#define ARCTIC_CASE(KVT, DD, RWW)                                        \
+cudaError_t dispatch_decode_range(int kv_fp8, int d, int rows, A... args) {
+#define ARCTIC_CASE(KVT, DD, TT)                                         \
   if ((kv_fp8 != 0) == std::is_same<KVT, Fp8>::value && d == DD &&      \
-      rw == RWW)                                                         \
-    return launch_decode_paged<KVT, DD, RWW>(args...);
-#define ARCTIC_CASES(KVT)                                                \
-  ARCTIC_CASE(KVT, 64, 4) ARCTIC_CASE(KVT, 64, 8) ARCTIC_CASE(KVT, 64, 16) \
-  ARCTIC_CASE(KVT, 128, 4) ARCTIC_CASE(KVT, 128, 8)                        \
-  ARCTIC_CASE(KVT, 128, 16)
+      rows == TT * kMTile)                                               \
+    return launch_decode_range<KVT, DD, TT>(args...);
+#define ARCTIC_CASES(KVT) \
+  ARCTIC_CASE(KVT, 64, 1) ARCTIC_CASE(KVT, 64, 2) \
+  ARCTIC_CASE(KVT, 128, 1) ARCTIC_CASE(KVT, 128, 2)
   ARCTIC_CASES(Bf16)
   ARCTIC_CASES(Fp8)
 #undef ARCTIC_CASES
@@ -1534,20 +1631,24 @@ extern "C" int grouped_decode_launch(
 }
 
 // Kernel 4: q / out [t, hq, D] bf16, rows of sequence s at [s*qlen,
-// (s+1)*qlen); one CTA per sequence.  Hkv*D elements of the cache must
-// fit 2 KiB (the host checks).
-extern "C" int decode_paged_launch(void* q, void* out, const void* kv,
-                                   const void* kv_scale, const void* pos_base,
-                                   const void* seq_lens,
-                                   const void* block_tables, int layer, int b,
-                                   int t, int qlen, int hq, int hkv, int d,
-                                   int max_blk, int64_t layer_stride,
-                                   int kv_fp8, int rows_per_warp, float scale,
-                                   void* stream) {
-  return static_cast<int>(dispatch_decode_paged(
-      kv_fp8, d, rows_per_warp, q, out, kv,
+// (s+1)*qlen); one CTA per (sequence, kv head, range of range_pages
+// pages), rows_per_tile 16 or 32 as for the grouped kernel.  part: float32
+// scratch of [B, hkv, ceil(max_blk / range_pages), qlen * hq / hkv, D + 4]
+// and counter: [B, hkv] int32, zero before the first launch (each launch
+// leaves it zero); both may be null when one range covers max_blk pages.
+extern "C" int decode_paged_launch(
+    void* q, void* out, const void* kv, const void* kv_scale,
+    const void* pos_base, const void* seq_lens, const void* block_tables,
+    void* part, void* counter, int layer, int b, int t, int qlen, int hq,
+    int hkv, int d, int max_blk, int64_t layer_stride, int kv_fp8,
+    int rows_per_tile, int range_pages, float scale, void* stream) {
+  if (range_pages < 1 || max_blk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_decode_range(
+      kv_fp8, d, rows_per_tile, q, out, kv,
       static_cast<const float*>(kv_scale), static_cast<const int*>(pos_base),
       static_cast<const int*>(seq_lens),
-      static_cast<const int*>(block_tables), layer, b, t, qlen, hq, hkv,
-      max_blk, layer_stride, scale, static_cast<cudaStream_t>(stream)));
+      static_cast<const int*>(block_tables), static_cast<float*>(part),
+      static_cast<int*>(counter), layer, b, t, qlen, hq, hkv, max_blk,
+      layer_stride, range_pages, scale, static_cast<cudaStream_t>(stream)));
 }

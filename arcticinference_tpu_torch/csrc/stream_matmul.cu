@@ -1,4 +1,4 @@
-// Decode weight-stream matmul variants for Hopper (sm_90a).
+// Decode weight-stream matmul variants for Hopper (sm_90a): kernel 8.
 //
 // Replaces benchmarks/stream_microbench.py make_pallas_body (the
 // pallas_call at stream_microbench.py:167) with its three kernel bodies:
@@ -18,43 +18,42 @@
 //   3 astype int8 (the same body on int8 weights): exact in bf16.
 //
 // What bounds it on an H100: at M = 64 the weight bytes, one per value
-// (w_gateup fused [4096, 28672]: 117 MB, 35 us at 3.35 TB/s).
+// (w_gateup fused [4096, 28672]: 117 MB, 35 us at 3.35 TB/s), and the
+// conversion of each byte to bf16 on the SMs that stream it.
 //
-// Design: the mma.sync tile pipeline of quant_matmul.cuh (the one the fp8
-// / int4 matmuls ran on before their wgmma redesign, kept for this
-// kernel alone): 4 warps own 128 output columns, 4 cp.async stages
-// of 64 x 128 weight bytes, mma.sync m16n8k16 bf16 with fp32 sums, each
-// byte converted once per CTA in the registers of the warp that
-// multiplies it, deterministic split K when the grid is small.  The
-// variants are the header's weight-format policy: two new ones here for
-// the tricks, the header's own e4m3 (cvt) and int8 formats for astype.
-// No scale: scale_mode none.
+// Design: the wgmma pipeline of the quantized matmuls (quant_wgmma.cuh,
+// kernels 5 and 6) with no scale (kScaleNone): TMA stages fed by one
+// producer thread, each weight byte converted to bf16 once per CTA in
+// the registers of the warpgroup whose wgmma reads it as operand A, x
+// rows as wgmma's N, and split K summed on chip within a cluster; the
+// plan is kernel 5's (fp8_matmul.launch_plan).  The astype variants are
+// the header's own e4m3 and int8 weight formats; the two tricks are two
+// more formats here, each with its own conversion arithmetic (comparing
+// conversion routes is what the microbench is for).  Every value is
+// exact in bf16, so its low 16 float bits are zero and the pair packs by
+// truncation.
 
-#include "quant_matmul.cuh"
+#include "quant_wgmma.cuh"
 
 namespace {
 
-using qmm::pack_bf16x2;
-
-// e4m3 byte j of w through the f16 shift-and-scale.
+// e4m3 byte j of lo and of hi through the f16 shift-and-scale, both at
+// once: the two bytes in the low bytes of a word's halves, f16x2 bits
+// (sign << 15) | (mag << 7) by two shifts and masks, widened to float and
+// times 2^8.
 struct F16TrickE4M3 {
-  static constexpr int kXCols = qmm::kBKW;
   static constexpr bool kPacked = false;
-  static __device__ __forceinline__ float value(uint32_t w, int j) {
-    const uint32_t u = (w >> (8 * j)) & 0xffu;
-    const unsigned short h =
-        static_cast<unsigned short>(((u & 0x80u) << 8) | ((u & 0x7fu) << 7));
-    return __half2float(__ushort_as_half(h)) * 256.f;
-  }
   static __device__ __forceinline__ uint32_t pair(uint32_t lo, uint32_t hi,
                                                   int j) {
-    return pack_bf16x2(value(lo, j), value(hi, j));
+    const uint32_t x = __byte_perm(lo, hi, j | ((j + 4) << 8));
+    const uint32_t h = ((x << 8) & 0x80008000u) | ((x << 7) & 0x3f803f80u);
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+    return qmm::upper_halves(f.x * 256.f, f.y * 256.f);
   }
 };
 
 // e4m3 byte j of w through the i32 bit surgery.
 struct BitTrickE4M3 {
-  static constexpr int kXCols = qmm::kBKW;
   static constexpr bool kPacked = false;
   static __device__ __forceinline__ float value(uint32_t w, int j) {
     const uint32_t u = (w >> (8 * j)) & 0xffu;
@@ -67,7 +66,7 @@ struct BitTrickE4M3 {
   }
   static __device__ __forceinline__ uint32_t pair(uint32_t lo, uint32_t hi,
                                                   int j) {
-    return pack_bf16x2(value(lo, j), value(hi, j));
+    return qmm::upper_halves(value(lo, j), value(hi, j));
   }
 };
 
@@ -75,35 +74,30 @@ enum Variant { kF16Trick = 0, kBitTrick = 1, kAstypeE4M3 = 2, kAstypeInt8 = 3 };
 
 }  // namespace
 
+// x [m, k] bf16, w [k, n] bytes, out [m, n] bf16; (bm, wgs, kwgs, splits)
+// is kernel 5's plan for (m, n, k / 64).  Returns a CUDA error code.
 extern "C" int stream_matmul_launch(const void* x, const void* w, void* out,
-                                    void* ws, int m, int n, int k,
-                                    int variant, int mt, int splits,
+                                    int m, int n, int k, int variant, int bm,
+                                    int wgs, int kwgs, int splits,
                                     void* stream) {
-  qmm::Args a;
-  a.x = static_cast<const uint16_t*>(x);
-  a.w = static_cast<const uint8_t*>(w);
-  a.scale = nullptr;
-  a.out = out;
-  a.ws = static_cast<float*>(ws);
-  a.m = m;
-  a.n = n;
-  a.k = k;
-  a.k_tiles = k / qmm::kBKW;
-  a.tiles_per_split = (a.k_tiles + splits - 1) / (splits > 0 ? splits : 1);
-  a.scale_mode = qmm::kScaleNone;
-  a.out_f32 = 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (variant) {
     case kF16Trick:
-      return static_cast<int>(qmm::launch<F16TrickE4M3>(a, mt, splits, st));
+      return static_cast<int>(qmm::launch<F16TrickE4M3>(
+          x, w, nullptr, out, m, n, k, qmm::kScaleNone, 0, bm, wgs, kwgs,
+          splits, st));
     case kBitTrick:
-      return static_cast<int>(qmm::launch<BitTrickE4M3>(a, mt, splits, st));
+      return static_cast<int>(qmm::launch<BitTrickE4M3>(
+          x, w, nullptr, out, m, n, k, qmm::kScaleNone, 0, bm, wgs, kwgs,
+          splits, st));
     case kAstypeE4M3:
-      return static_cast<int>(
-          qmm::launch<qmm::E4M3Weights>(a, mt, splits, st));
+      return static_cast<int>(qmm::launch<qmm::E4M3>(
+          x, w, nullptr, out, m, n, k, qmm::kScaleNone, 0, bm, wgs, kwgs,
+          splits, st));
     case kAstypeInt8:
-      return static_cast<int>(
-          qmm::launch<qmm::Int8Weights>(a, mt, splits, st));
+      return static_cast<int>(qmm::launch<qmm::Int8>(
+          x, w, nullptr, out, m, n, k, qmm::kScaleNone, 0, bm, wgs, kwgs,
+          splits, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,10 +14,10 @@
   attended from the operands, their cache write comes later).
 - :func:`decode_paged_attention_kernel` replaces
   ``...::decode_paged_attention_kernel``: the grouped kernel's function
-  without deferral, built on the TPU kernel's grid (one CTA per sequence,
-  whole token rows of each page staged once in shared memory for every
-  kv head).  As in the JAX package, nothing on the engine's path calls
-  it.
+  without deferral, split over fixed page ranges (one CTA per (sequence,
+  kv head, range of :data:`RANGE_PAGES` pages; :func:`range_plan`), the
+  ranges' states merged in range order.  As in the JAX package, nothing
+  on the engine's path calls it.
 
 Decode attention is bound by the KV bytes it reads (3.35 TB/s on an
 H100), a long prefill by the tensor cores' rate (the ragged and grouped
@@ -58,8 +58,8 @@ _RAGGED_ARGTYPES = [_P] * 14 + [_I] * 8 + [ctypes.c_int64] + [_I] * 2 + [
     ctypes.c_float, _P]
 _GROUPED_ARGTYPES = [_P] * 10 + [_I] * 8 + [ctypes.c_int64] + [_I] * 2 + [
     ctypes.c_float, _P]
-_DECODE_PAGED_ARGTYPES = [_P] * 7 + [_I] * 8 + [ctypes.c_int64] + [
-    _I] * 2 + [ctypes.c_float, _P]
+_DECODE_PAGED_ARGTYPES = [_P] * 9 + [_I] * 8 + [ctypes.c_int64] + [
+    _I] * 3 + [ctypes.c_float, _P]
 
 _KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
 _BLOCK_SIZE = 32
@@ -68,11 +68,19 @@ _BLOCK_SIZE = 32
 MAX_TREE_NODES = 30
 #: Most rows per sequence of a deferred-write step (one lane per new row).
 MAX_DEFERRED_QLEN = 32
-#: Most bytes of one token's K (or V) row that kernel 4 stages per page.
-MAX_ROW_BYTES = 2048
+#: Pages per range of kernel 4: one CTA per (sequence, kv head, range).
+RANGE_PAGES = 64
+#: Floats per row of kernel 4's range states: o [D], then m, l and padding.
+_PART_PAD = 4
 #: Query rows per warp of the ragged kernel (the m16 tile of its tensor-core
 #: products): the only rows-per-tile value its entry point takes.
 RAGGED_ROWS_PER_WARP = 16
+
+
+# Kernel 4's arrival counters per CUDA device ([B, Hkv] int32, zero
+# between launches: the last CTA of a (sequence, kv head) resets its own),
+# grown as needed.  Launches that share them run on one stream.
+_range_counters: dict[int, torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -478,6 +486,28 @@ def grouped_decode_attention_kernel(
     return out
 
 
+def range_plan(seq_len: int,
+               range_pages: int | None = None) -> list[tuple[int, int]]:
+    """Kernel 4's page ranges of a sequence whose rows attend ``seq_len``
+    slots: ``[(first page, end page)]``, range r covering pages ``[r *
+    range_pages, min((r + 1) * range_pages, pages))``.  It depends on
+    nothing but the length and ``range_pages``, never on the batch or
+    qlen; the kernel computes the same ranges from each sequence's last
+    attended slot.  ``range_pages`` defaults to :data:`RANGE_PAGES`."""
+    range_pages = range_pages or RANGE_PAGES
+    pages = -(-seq_len // _BLOCK_SIZE)
+    return [(p, min(p + range_pages, pages))
+            for p in range(0, pages, range_pages)]
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    cnt = _range_counters.get(device.index)
+    if cnt is None or cnt.numel() < n:
+        cnt = _range_counters[device.index] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=device)
+    return cnt
+
+
 def decode_paged_attention_kernel(
     q: torch.Tensor,
     kv_cache: torch.Tensor,
@@ -489,15 +519,21 @@ def decode_paged_attention_kernel(
     kv_scale: torch.Tensor | None = None,
     layer: int | torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Uniform-``qlen`` decode attention over the paged cache, one CTA per
-    sequence; the JAX kernel's contract.
+    """Uniform-``qlen`` decode attention over the paged cache; the JAX
+    kernel's contract.
 
     q: [B*qlen, Hq, D] sequence-major (token j of sequence i at row
     i*qlen + j); pos_base [B]: absolute position of each sequence's first
     new token; seq_lens [B]: its total tokens (context and new; 0 = a
     dead slot, whose rows come out zero).  Row j attends positions
-    ``<= pos_base + j``.  On the card one token's K row must fit
-    :data:`MAX_ROW_BYTES` (Hkv*D <= 1024 in bf16, 2048 in fp8).
+    ``<= pos_base + j``.  As for the grouped kernel, rows past ``B *
+    qlen`` come out zero.
+
+    On the card one CTA per (sequence, kv head, page range)
+    (:func:`range_plan`); a sequence over several ranges has its ranges'
+    float32 states merged in range order, through scratch of ``B * Hkv *
+    ceil(max_blk / RANGE_PAGES) * qlen * group`` rows of D + 4 floats.  A
+    row's output does not depend on ``qlen``.
     """
     global decode_paged_launches
     t, hq, d = q.shape
@@ -509,24 +545,32 @@ def decode_paged_attention_kernel(
                               block_tables, seq_lens, qlen, scale)
     _check(q, kv_cache)
     num_layers, n_blocks, _, bs, hkv_d = kv_cache.shape
-    if hkv_d * kv_cache.element_size() > MAX_ROW_BYTES:
-        raise ValueError(f"a token's K row of {hkv_d} x "
-                         f"{kv_cache.element_size()} bytes exceeds the "
-                         f"{MAX_ROW_BYTES} bytes kernel 4 stages")
+    hkv = hkv_d // d
     dev = q.device
     pos_base = _i32(pos_base, dev)
     seq_lens = _i32(seq_lens, dev)
     block_tables = _i32(block_tables, dev)
+    b, max_blk = block_tables.shape
     out = torch.empty_like(q)
-    rows_head = int(qlen) * hq // (hkv_d // d)
-    rows_per_warp = 4 if rows_head <= 4 else 8 if rows_head <= 8 else 16
+    rows_head = int(qlen) * hq // hkv
+    # The kernel's grid has a CTA for every range of the longest sequence
+    # the block table holds; those past a sequence's last range exit.
+    range_pages = RANGE_PAGES
+    n_ranges = len(range_plan(max_blk * _BLOCK_SIZE, range_pages))
+    part = counter = None
+    if n_ranges > 1:
+        part = torch.empty(b * hkv * n_ranges * rows_head * (d + _PART_PAD),
+                           dtype=torch.float32, device=dev)
+        counter = _counters(dev, b * hkv)
     rc = _lib().decode_paged_launch(
         q.data_ptr(), out.data_ptr(), kv_cache.data_ptr(),
         kv_scale.data_ptr(), pos_base.data_ptr(), seq_lens.data_ptr(),
-        block_tables.data_ptr(), layer, block_tables.shape[0], t, int(qlen),
-        hq, hkv_d // d, d, block_tables.shape[1], n_blocks * 2 * bs * hkv_d,
-        int(kv_cache.dtype == torch.float8_e4m3fn), rows_per_warp,
-        float(scale), _stream(dev))
+        block_tables.data_ptr(), None if part is None else part.data_ptr(),
+        None if counter is None else counter.data_ptr(), layer, b, t,
+        int(qlen), hq, hkv, d, max_blk, n_blocks * 2 * bs * hkv_d,
+        int(kv_cache.dtype == torch.float8_e4m3fn),
+        16 if rows_head <= 16 else 32, range_pages, float(scale),
+        _stream(dev))
     if rc != 0:
         raise RuntimeError(f"decode_paged_launch failed: CUDA error {rc}")
     decode_paged_launches += 1

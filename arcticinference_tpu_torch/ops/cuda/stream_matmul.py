@@ -18,6 +18,10 @@ scale, the weight bytes dequantized one of four ways (:data:`VARIANTS`):
 The two tricks map e4m3's NaN codes (0x7f, 0xff) to +-480; ``astype``
 gives NaN.  The weights of the microbench never hold those codes.
 
+The kernel runs the wgmma pipeline of the quantized matmuls (kernels 5
+and 6, ``csrc/quant_wgmma.cuh``) with no scale, on kernel 5's launch plan
+(:func:`plan`): split K is summed on chip, with no workspace.
+
 Given CPU tensors the wrapper computes the plain version
 (:func:`stream_matmul_reference`); given CUDA tensors it launches the
 kernel and raises on anything the kernel does not take.  Each launch adds
@@ -29,6 +33,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
 
 SOURCE = "stream_matmul.cu"
 
@@ -95,25 +101,11 @@ def stream_matmul_reference(x: torch.Tensor, w: torch.Tensor,
     return torch.matmul(x.to(torch.bfloat16).float(), wt).to(torch.bfloat16)
 
 
-# Tiles of csrc/quant_matmul.cuh (the mma.sync pipeline): output columns
-# per CTA, weight rows per pipeline stage, rows per m16 tile.
-BN, BKW, BM_UNIT = 128, 64, 16
-
-
-def launch_plan(m: int, n: int, k_tiles: int,
-                sms: int) -> tuple[int, int]:
-    """(m16 tiles per CTA, K splits) for an ``[m, n]`` output over
-    ``k_tiles`` weight stages on a card of ``sms`` SMs.  Rows: 16, 32,
-    64, else 128 per CTA.  K is split until about four CTAs per SM stream
-    weights, keeping at least four stages per split (the pipeline depth)
-    and every split non-empty."""
-    mt = 1 if m <= 16 else 2 if m <= 32 else 4 if m <= 64 else 8
-    ctas = -(-m // (BM_UNIT * mt)) * (n // BN)
-    splits = 1
-    if ctas < 4 * sms:
-        splits = max(1, min(-(-4 * sms // ctas), k_tiles // 4, 16))
-    per = -(-k_tiles // splits)
-    return mt, -(-k_tiles // per)
+def plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int, int]:
+    """The launch plan of an ``[m, k] @ [k, n]`` product on a card of
+    ``sms`` SMs: kernel 5's (:func:`fp8_matmul.launch_plan`), whose
+    pipeline this kernel runs."""
+    return fm.launch_plan(m, n, k // fm.BKW, sms)
 
 
 def _lib() -> ctypes.CDLL:
@@ -121,7 +113,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = load(SOURCE)
     if lib.stream_matmul_launch.argtypes is None:
-        lib.stream_matmul_launch.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+        lib.stream_matmul_launch.argtypes = [_P] * 3 + [_I] * 8 + [_P]
         lib.stream_matmul_launch.restype = _I
     return lib
 
@@ -139,8 +131,6 @@ def stream_matmul_kernel(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     if not x.is_cuda:
         return stream_matmul_reference(x, w, variant)
-    from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
-
     if w.dtype != WEIGHT_DTYPES[variant]:
         raise TypeError(f"variant {variant} takes {WEIGHT_DTYPES[variant]} "
                         f"weights, not {w.dtype}")
@@ -153,9 +143,9 @@ def stream_matmul_kernel(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("x and w must be on the same CUDA device")
     m, k = x.shape
     n = w.shape[1]
-    if k % BKW or n % BN:
-        raise ValueError(f"K={k} must be a multiple of {BKW} and N={n} "
-                         f"of {BN}")
+    if k % fm.BKW or n % fm.BN:
+        raise ValueError(f"K={k} must be a multiple of {fm.BKW} and N={n} "
+                         f"of {fm.BN}")
     if not (x.is_contiguous() and w.is_contiguous()) or \
             x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("x and w must be contiguous and 16-byte aligned")
@@ -163,14 +153,10 @@ def stream_matmul_kernel(x: torch.Tensor, w: torch.Tensor,
     if m == 0:
         return out
     dev = x.get_device()
-    mt, splits = launch_plan(m, n, k // BKW, fm.sm_count(dev))
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
     rc = _lib().stream_matmul_launch(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), m, n, k,
-        VARIANTS.index(variant), mt, splits,
-        torch._C._cuda_getCurrentRawStream(dev))
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+        VARIANTS.index(variant), *plan(m, n, k, fm.sm_count(dev)),
+        fm._stream(dev))
     if rc != 0:
         raise RuntimeError(f"stream_matmul_launch failed: CUDA error {rc}")
     stream_matmul_launches += 1

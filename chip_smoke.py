@@ -13,9 +13,10 @@ Phases, each reported on its own lines:
              at once, one process each (printing ``-Xptxas -v``:
              registers, shared memory, spills); ``cuobjdump -sass`` must
              find HMMA (tensor-core) instructions in every instance of
-             the ragged kernel and of the grouped decode kernel, and
-             HGMMA (wgmma) instructions in every instance of the
-             quantized matmul kernel (kernels 5 and 6).
+             the ragged kernel, the grouped decode kernel and the
+             page-range decode kernel (kernel 4), and HGMMA (wgmma)
+             instructions in every instance of the quantized matmul
+             pipeline (kernels 5 and 6, and kernel 8's variants on it).
 3. kernels:  each CUDA kernel against its plain PyTorch version at the
              main path's shapes, with its time, the plain version's, the
              bound and a library yardstick: the two attention kernels
@@ -24,7 +25,12 @@ Phases, each reported on its own lines:
              of B=64 sequences at qlen 1, 4 and 8, also on a poisoned
              cache, its rows held bit for bit against qlen-1 launches at
              qlen 4 and 8, the per-sequence decode kernel (kernel 4) on
-             the same steps, the grouped kernel's deferred-KV path
+             the same steps (bf16 and fp8, also on the poisoned cache,
+             its rows bit for bit against qlen-1 launches at qlen 4 and
+             8) and, beside kernel 2, on long-context steps (B=8 at
+             16384-32768 tokens, one slot dead, qlen 1 and 8, a
+             one-layer cache of 8192 pages), the grouped kernel's
+             deferred-KV path
              (kernel 3; B=64 sequences, 1 or 8 rows each, contexts
              128-2048, dead slots and slot -1 tails; also on a cache
              poisoned from pos_base on), beside kernel 2 on the same
@@ -156,6 +162,9 @@ BENCH_CURVE_RATES = (0.3, 1.0)
 # Draft trees of the tree-verify steps: 30 nodes, best first, from one
 # fixed seed (node i hangs off the frontier or an earlier node).
 TREE_NODES = 30
+# Pages of the long-context decode cache (8192 x 128 KiB in bf16: a
+# one-layer cache of 1 GiB, as a long-context deployment holds per layer).
+LONG_CTX_PAGES = 8192
 
 
 def _best_first_parents(seed: int, n: int) -> list[int]:
@@ -257,17 +266,18 @@ def host_time_us(fn, calls: int = 20) -> float:
 # ---------------------------------------------------------------------------
 
 class Case:
-    """One attention call: requests (ctx, qlen) on a random 32-layer cache
+    """One attention call: requests (ctx, qlen) on a random cache of
+    ``layers`` layers (32 by default) and at least ``n_blocks`` pages,
     with scattered page ids; everything on the card."""
 
     def __init__(self, name, reqs, kv_dtype, rng, t_pad=None, slot_rows=0,
-                 layer=17):
+                 layer=17, layers=None, n_blocks=None):
         import torch
 
         self.name, self.reqs, self.layer = name, reqs, layer
         b = len(reqs)
         pages = [-(-(c + q) // BS) if q > 0 else 0 for c, q in reqs]
-        n_blocks = sum(pages) + 1
+        n_blocks = max(n_blocks or 0, sum(pages) + 1)
         perm = rng.permutation(np.arange(1, n_blocks))
         max_blk = max(max(pages), 1)
         bt = np.zeros((b, max_blk), np.int32)
@@ -276,11 +286,12 @@ class Case:
             bt[r, :n] = perm[off:off + n]
             off += n
         dev = "cuda"
-        kv = torch.randn((LAYERS, n_blocks, 2, BS, HKV * D), device=dev,
+        layers = layers or LAYERS
+        kv = torch.randn((layers, n_blocks, 2, BS, HKV * D), device=dev,
                          dtype=torch.bfloat16) * 0.5
         self.kv = kv.to(kv_dtype)
         del kv
-        self.kv_scale = torch.ones((LAYERS, 2), device=dev)
+        self.kv_scale = torch.ones((layers, 2), device=dev)
         if kv_dtype == torch.float8_e4m3fn:
             self.kv_scale[layer] = torch.tensor([2.0, 0.5])
         total = sum(q for _, q in reqs)
@@ -584,41 +595,46 @@ def run_poisoned(case, schedule, fn_plain, qb):
     return res
 
 
-def run_poisoned_grouped(case, fn_plain, qlen, pos_base, inject=None):
-    """Kernel 2 (kernel 3 with ``inject``: knew, vnew and slot_mapping)
-    on :func:`poisoned_layer` against the plain version on the clean
-    cache; kernel 3's layer is poisoned from pos_base on (the new rows'
-    slots are not written yet)."""
+def run_poisoned_grouped(case, fn_plain, qlen, pos_base, inject=None,
+                         paged=False):
+    """Kernel 2 (kernel 3 with ``inject``: knew, vnew and slot_mapping;
+    kernel 4 with ``paged``) on :func:`poisoned_layer` against the plain
+    version on the clean cache; kernel 3's layer is poisoned from
+    pos_base on (the new rows' slots are not written yet)."""
     from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
 
     bad = poisoned_layer(case, None if inject is None
                          else pos_base.cpu().numpy())
     scale = case.kv_scale[case.layer:case.layer + 1]
+    fn = (ra.decode_paged_attention_kernel if paged
+          else ra.grouped_decode_attention_kernel)
 
     def kern():
-        return ra.grouped_decode_attention_kernel(
-            case.q, bad, pos_base, case.block_tables, case.seq_lens,
-            qlen=qlen, kv_scale=scale, layer=0, **(inject or {}))
+        return fn(case.q, bad, pos_base, case.block_tables, case.seq_lens,
+                  qlen=qlen, kv_scale=scale, layer=0, **(inject or {}))
 
     name = case.name
-    case.name = f"poisoned {name}"
+    case.name = f"poisoned {'decode_paged ' if paged else ''}{name}"
     res = run_case(case, kern, fn_plain)
     case.name = name
     return res
 
 
-def row_invariance(case, qlen, pos_base) -> dict:
-    """Kernel 2's rows against qlen-1 launches, bit for bit: row j of
-    each sequence of the qlen-``qlen`` step against the single row of a
-    qlen-1 step at pos_base + j (the same query, the same slots)."""
+def row_invariance(case, qlen, pos_base, paged=False) -> dict:
+    """Kernel 2's (``paged``: kernel 4's) rows against qlen-1 launches,
+    bit for bit: row j of each sequence of the qlen-``qlen`` step against
+    the single row of a qlen-1 step at pos_base + j (the same query, the
+    same slots)."""
     import torch
 
     from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
 
+    fn = (ra.decode_paged_attention_kernel if paged
+          else ra.grouped_decode_attention_kernel)
+
     def grouped(q, pb, sl, ql):
-        return ra.grouped_decode_attention_kernel(
-            q, case.kv, pb, case.block_tables, sl, qlen=ql,
-            kv_scale=case.kv_scale, layer=case.layer)
+        return fn(q, case.kv, pb, case.block_tables, sl, qlen=ql,
+                  kv_scale=case.kv_scale, layer=case.layer)
 
     out = grouped(case.q, pos_base, case.seq_lens, qlen)
     live = case.seq_lens > 0
@@ -629,8 +645,9 @@ def row_invariance(case, qlen, pos_base) -> dict:
         same = (out[j::qlen].view(torch.int16) == one.view(torch.int16))
         bad += int((~same.flatten(1).all(1)).sum())
     torch.cuda.synchronize()
-    res = dict(case=case.name, rows=int(case.q.shape[0]),
-               rows_not_bitwise_equal=bad, ok=bad == 0)
+    res = dict(case=case.name, kernel=4 if paged else 2,
+               rows=int(case.q.shape[0]), rows_not_bitwise_equal=bad,
+               ok=bad == 0)
     log("  row invariance " + json.dumps(res))
     return res
 
@@ -649,14 +666,15 @@ def sass_text(lib) -> str:
 
 def hgmma_counts(lib) -> dict:
     """HGMMA (wgmma) instructions in each instance of the quantized
-    matmul kernel (kernels 5 and 6: weight format, x rows per CTA,
+    matmul kernel (kernels 5, 6 and 8: weight format, x rows per CTA,
     warpgroups along N and along K), read from the library's SASS."""
     import re
 
     counts, fn = {}, None
     for line in sass_text(lib).splitlines():
         if "Function :" in line:
-            m = re.search(r"qmm_wgmma_kernelINS0_\d+(\w+?)ELi(\d+)ELi(\d+)"
+            m = re.search(r"qmm_wgmma_kernelI\w*?\d(F16TrickE4M3|"
+                          r"BitTrickE4M3|E4M3|Int8|Int4)ELi(\d+)ELi(\d+)"
                           r"ELi(\d+)E", line)
             fn = (f"{m.group(1)} BM={m.group(2)} WGS={m.group(3)} "
                   f"KW={m.group(4)}" if m else None)
@@ -669,15 +687,16 @@ def hgmma_counts(lib) -> dict:
 
 def hmma_counts(lib) -> dict:
     """HMMA (tensor-core) instructions in each instance of the ragged
-    kernel (kernel 1) and of the grouped kernel (kernels 2 and 3), read
-    from the library's SASS with ``cuobjdump -sass``; raises if the tool
-    is missing."""
+    kernel (kernel 1), the grouped kernel (kernels 2 and 3) and the
+    page-range decode kernel (kernel 4), read from the library's SASS
+    with ``cuobjdump -sass``; raises if the tool is missing."""
     import re
 
     counts, fn = {}, None
     for line in sass_text(lib).splitlines():
         if "Function :" in line:
-            m = re.search(r"(ragged_attention|grouped_decode)_kernelINS_\d+"
+            m = re.search(r"(ragged_attention|grouped_decode|decode_range)"
+                          r"_kernelINS_\d+"
                           r"(\w+?)ELi(\d+)E(?:Li(\d+)E)?", line)
             fn = (f"{m.group(1)} {m.group(2)}, D={m.group(3)}"
                   + (f", tiles={m.group(4)}" if m.group(4) else "")
@@ -719,6 +738,62 @@ def run_case(case, fn_kernel, fn_plain, iters_kernel=20, iters_plain=3):
                  and bool(np.isfinite(err)))
     log("  case " + json.dumps(res))
     return res
+
+
+def run_paged(case, fn_plain, qlen, pos_base, fn_kernel2, iters_plain=3):
+    """Kernel 4 on the case against its plain version, with kernel 2's
+    time, both wrappers' host microseconds a call and kernel 4's relative
+    difference from kernel 2 on the same step."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+
+    def kern4():
+        return ra.decode_paged_attention_kernel(
+            case.q, case.kv, pos_base, case.block_tables, case.seq_lens,
+            qlen, kv_scale=case.kv_scale, layer=case.layer)
+
+    name = case.name
+    case.name = f"decode_paged {name}"
+    res = run_case(case, kern4, fn_plain, iters_plain=iters_plain)
+    case.name = name
+    live = torch.from_numpy(case.req_np >= 0).cuda()
+    a, b = kern4()[live].float(), fn_kernel2()[live].float()
+    res["vs_kernel2_rel_err"] = float((a - b).norm() / b.norm())
+    res["kernel2_ms"] = cuda_time_ms(fn_kernel2, 20)
+    res["host_us"] = host_time_us(kern4)
+    res["kernel2_host_us"] = host_time_us(fn_kernel2)
+    res["ok"] = res["ok"] and res["vs_kernel2_rel_err"] <= REL_TOL
+    log(f"  kernel 4 vs kernel 2 on {name}: {res['ms']:.4f} ms against "
+        f"{res['kernel2_ms']:.4f} ms, relative difference "
+        f"{res['vs_kernel2_rel_err']:.3g}; host {res['host_us']:.1f} us "
+        f"against {res['kernel2_host_us']:.1f} us a call")
+    return res
+
+
+def decode_step(case, qlen):
+    """(pos_base, kernel 2 on the case, the plain version) of a uniform
+    decode step whose sequences end at their seq_lens."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.attention import (
+        ragged_paged_attention_reference)
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+
+    pos_base = torch.clamp(case.seq_lens - qlen, min=0)
+
+    def kern():
+        return ra.grouped_decode_attention_kernel(
+            case.q, case.kv, pos_base, case.block_tables, case.seq_lens,
+            qlen=qlen, kv_scale=case.kv_scale, layer=case.layer)
+
+    def plain():
+        return ragged_paged_attention_reference(
+            case.q, case.kv[case.layer], case.positions, case.req_idx,
+            case.block_tables, case.seq_lens,
+            kv_scale=case.kv_scale[case.layer])
+
+    return pos_base, kern, plain
 
 
 def phase_kernels(rng):
@@ -770,46 +845,45 @@ def phase_kernels(rng):
                     for r in range(64)]
             case = Case(f"decode B=64 qlen={qlen} {dt}", reqs, kv_dtype, rng,
                         t_pad=64 * qlen, slot_rows=qlen)
-            pos_base = torch.clamp(case.seq_lens - qlen, min=0)
-
-            def kern(case=case, qlen=qlen, pos_base=pos_base):
-                return ra.grouped_decode_attention_kernel(
-                    case.q, case.kv, pos_base, case.block_tables,
-                    case.seq_lens, qlen=qlen, kv_scale=case.kv_scale,
-                    layer=case.layer)
-
-            def plain(case=case):
-                return ragged_paged_attention_reference(
-                    case.q, case.kv[case.layer], case.positions,
-                    case.req_idx, case.block_tables, case.seq_lens,
-                    kv_scale=case.kv_scale[case.layer])
-
+            pos_base, kern, plain = decode_step(case, qlen)
             grouped_cases.append(run_case(case, kern, plain))
             grouped_cases.append(run_poisoned_grouped(case, plain, qlen,
                                                       pos_base))
             if qlen > 1:
                 invariance.append(row_invariance(case, qlen, pos_base))
 
-            # Kernel 4 (one CTA per sequence) on the same step.
-            def kern4(case=case, qlen=qlen, pos_base=pos_base):
-                return ra.decode_paged_attention_kernel(
-                    case.q, case.kv, pos_base, case.block_tables,
-                    case.seq_lens, qlen, kv_scale=case.kv_scale,
-                    layer=case.layer)
-
-            name = case.name
-            case.name = f"decode_paged {name}"
-            res = run_case(case, kern4, plain)
-            live = torch.from_numpy(case.req_np >= 0).cuda()
-            a, b = kern4()[live].float(), kern()[live].float()
-            res["vs_kernel2_rel_err"] = float((a - b).norm() / b.norm())
-            res["kernel2_ms"] = grouped_cases[-1]["ms"]
-            res["ok"] = res["ok"] and res["vs_kernel2_rel_err"] <= REL_TOL
-            log(f"  kernel 4 vs kernel 2 on {name}: {res['ms']:.4f} ms "
-                f"against {res['kernel2_ms']:.4f} ms, relative difference "
-                f"{res['vs_kernel2_rel_err']:.3g}")
-            paged_cases.append(res)
-            del case
+            # Kernel 4 (one CTA per sequence, kv head and page range) on
+            # the same step.
+            paged_cases.append(run_paged(case, plain, qlen, pos_base, kern))
+            paged_cases.append(run_poisoned_grouped(case, plain, qlen,
+                                                    pos_base, paged=True))
+            if qlen > 1:
+                invariance.append(row_invariance(case, qlen, pos_base,
+                                                 paged=True))
+            del case, kern, plain
+            torch.cuda.empty_cache()
+    # Long contexts: B=8 at 16384-32768 tokens (one slot dead) in a
+    # one-layer cache of 8192 pages; kernels 4 and 2 side by side.
+    for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        dt = "bf16" if kv_dtype == torch.bfloat16 else "fp8"
+        for qlen in (1, 8):
+            ctx = rng.integers(16384, 32769, 8)
+            dead = int(rng.integers(0, 8))
+            reqs = [(0, 0) if r == dead else (int(ctx[r]), qlen)
+                    for r in range(8)]
+            case = Case(f"decode B=8 ctx 16k-32k qlen={qlen} {dt}", reqs,
+                        kv_dtype, rng, t_pad=8 * qlen, slot_rows=qlen,
+                        layer=0, layers=1, n_blocks=LONG_CTX_PAGES)
+            pos_base, kern, plain = decode_step(case, qlen)
+            grouped_cases.append(run_case(case, kern, plain, iters_plain=1))
+            paged_cases.append(run_paged(case, plain, qlen, pos_base, kern,
+                                         iters_plain=1))
+            paged_cases.append(run_poisoned_grouped(case, plain, qlen,
+                                                    pos_base, paged=True))
+            if qlen > 1:
+                invariance.append(row_invariance(case, qlen, pos_base,
+                                                 paged=True))
+            del case, kern, plain
             torch.cuda.empty_cache()
     failed = [c["case"] for c in ragged_cases + grouped_cases + paged_cases
               + invariance if not c["ok"]]
@@ -2313,23 +2387,27 @@ def main() -> int:
         for line in build.build_logs.get(src, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("    " + line.strip())
-    # The ragged and grouped kernels run their products on the tensor
-    # cores: every instance (4 of kernel 1, 8 of kernels 2-3) must hold
+    # The attention kernels run their products on the tensor cores: every
+    # instance (4 of kernel 1, 8 of kernels 2-3, 8 of kernel 4) must hold
     # HMMA instructions.
     hmma = hmma_counts(libs[0])
-    log(f"[build] HMMA instructions per ragged / grouped kernel instance: "
+    log(f"[build] HMMA instructions per attention kernel instance: "
         f"{json.dumps(hmma)}")
     n_grouped = sum(k.startswith("grouped") for k in hmma)
-    if len(hmma) != 12 or n_grouped != 8 or min(hmma.values()) == 0:
+    n_range = sum(k.startswith("decode_range") for k in hmma)
+    if (len(hmma) != 20 or n_grouped != 8 or n_range != 8
+            or min(hmma.values()) == 0):
         raise AssertionError(
-            f"ragged / grouped kernel instances without HMMA: {hmma}")
+            f"attention kernel instances missing or without HMMA: {hmma}")
     # The quantized matmuls run their products on wgmma: every instance
-    # (9 plans per weight format: e4m3 and int8, int4) must hold HGMMA.
+    # (9 plans per weight format: e4m3 and int8, int4, and kernel 8's f16
+    # trick, bit trick, e4m3 and int8) must hold HGMMA.
     hgmma = {src: hgmma_counts(lib) for src, lib in zip(sources, libs)
-             if src in (fm.SOURCE, im.SOURCE)}
+             if src in (fm.SOURCE, im.SOURCE, sm.SOURCE)}
     log(f"[build] HGMMA instructions per quantized matmul instance: "
         f"{json.dumps(hgmma)}")
     if (len(hgmma[fm.SOURCE]) != 18 or len(hgmma[im.SOURCE]) != 9
+            or len(hgmma[sm.SOURCE]) != 36
             or min(min(c.values()) for c in hgmma.values()) == 0):
         raise AssertionError(
             f"quantized matmul instances missing or without HGMMA: {hgmma}")
@@ -2421,10 +2499,14 @@ def main() -> int:
                           f"||out-plain||/||plain|| <= {REL_TOL}",
                 cases=[{k: c[k] for k in (
                     "case", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "max_abs_err", "rel_err")}
+                    "library_ms", "max_abs_err", "rel_err", "kernel2_ms",
+                    "host_us", "kernel2_host_us", "kernel5_unit_scale_ms")
+                    if k in c}
                        for c in cases])
-        kernels["grouped_decode_attention_kernel"]["row_invariance"] = \
-            invariance
+        kernels["grouped_decode_attention_kernel"]["row_invariance"] = [
+            c for c in invariance if c["kernel"] == 2]
+        kernels["decode_paged_attention_kernel"]["row_invariance"] = [
+            c for c in invariance if c["kernel"] == 4]
         for key, mode, src in (("fp8_matmul_kernel", "fp8", fm.SOURCE),
                                ("int4_matmul_kernel", "int4", im.SOURCE)):
             kernels[key]["hgmma"] = hgmma[src]
@@ -2436,6 +2518,9 @@ def main() -> int:
         kernels["stream_matmul_kernel"]["kernel5_unit_scale_ms"] = next(
             c["kernel5_unit_scale_ms"] for c in stream_cases
             if c["case"] == kernels["stream_matmul_kernel"]["case"])
+        kernels["stream_matmul_kernel"]["hgmma"] = hgmma[sm.SOURCE]
+        kernels["decode_paged_attention_kernel"]["hmma"] = {
+            k: v for k, v in hmma.items() if k.startswith("decode_range")}
     if "forward" in phases:
         for quantization in (None, "fp8", "int4"):
             log(f"[forward] Llama-3.1-8B width, 2 layers, "

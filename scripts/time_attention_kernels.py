@@ -11,10 +11,14 @@ each at qb 8 and 32; the grouped decode kernel (kernel 2) on B=64
 sequences at contexts 128-4096, qlen 1, 4 and 8, and the per-sequence
 decode kernel (kernel 4) on the same steps; the deferred-KV path (kernel
 3) on B=64 sequences at contexts 128-2048, qlen 1 and 8; kernel 2 on the
-bench's decode shape (B=64 at contexts 192-320, qlen 1 and 4).  Prints
+bench's decode shape (B=64 at contexts 192-320, qlen 1 and 4); kernels 2
+and 4 on long contexts (B=8 at 16384-32768 tokens, qlen 1 and 8, a
+one-layer cache).  Prints
 one JSON line of milliseconds per call (CUDA events over 20 launches
 behind a spinning kernel, ``chip_smoke.cuda_time_ms``), with masked SDPA
-on each grouped and deferred step (``Case.library_ms``) as a yardstick.
+on each grouped and deferred step (``Case.library_ms``) as a yardstick
+and the host microseconds a call of kernels 2 and 4's wrappers at B=64
+(``chip_smoke.host_time_us``), after the card's name and power limit.
 To compare two trees, run it in each, in turns (A, B, B, A), in one call
 on the card.  Needs a CUDA device.
 """
@@ -74,6 +78,9 @@ def main() -> int:
 
         out[f"grouped B=64 qlen={qlen}"] = cs.cuda_time_ms(grouped, 20)
         out[f"decode_paged B=64 qlen={qlen}"] = cs.cuda_time_ms(paged, 20)
+        out[f"grouped B=64 qlen={qlen} host_us"] = cs.host_time_us(grouped)
+        out[f"decode_paged B=64 qlen={qlen} host_us"] = cs.host_time_us(
+            paged)
         out[f"sdpa decode B=64 qlen={qlen}"] = case.library_ms()
         del case
     for qlen in (1, 8):
@@ -105,7 +112,25 @@ def main() -> int:
             short, 20)
         out[f"sdpa B=64 ctx 192-320 qlen={qlen}"] = case.library_ms()
         del case
-    print(json.dumps(out))
+    layers, cs.LAYERS = cs.LAYERS, 1      # one layer of 1-2 GiB
+    for qlen in (1, 8):
+        reqs = [(int(c), qlen) for c in rng.integers(16384, 32769, 8)]
+        case = cs.Case("long", reqs, kv_dtype, rng, t_pad=8 * qlen,
+                       slot_rows=qlen, layer=0)
+        pos_base = torch.clamp(case.seq_lens - qlen, min=0)
+        for key, fn in (("grouped", ra.grouped_decode_attention_kernel),
+                        ("decode_paged", ra.decode_paged_attention_kernel)):
+            out[f"{key} B=8 ctx 16k-32k qlen={qlen}"] = cs.cuda_time_ms(
+                lambda fn=fn, case=case, qlen=qlen, pos_base=pos_base: fn(
+                    case.q, case.kv, pos_base, case.block_tables,
+                    case.seq_lens, qlen=qlen, kv_scale=case.kv_scale,
+                    layer=case.layer), 20)
+        out[f"sdpa B=8 ctx 16k-32k qlen={qlen}"] = case.library_ms()
+        del case
+        torch.cuda.empty_cache()
+    cs.LAYERS = layers
+    print(cs.smi(), flush=True)
+    print(json.dumps(out), flush=True)
     return 0
 
 

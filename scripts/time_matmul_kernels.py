@@ -10,7 +10,8 @@ at 16 and 64 (fp8; int8 on w_gateup at 16, 64 and 2048), the Arctic
 drafter's projection and head at 64 rows (float32 out); kernel 6
 (``int4_matmul_kernel``) on the same layer shapes at 16, 64, 256 and
 2048 rows; kernel 8 (``stream_matmul_kernel``, its four dequant variants)
-at the stream microbench's five shapes, 64 rows.  Each is timed with CUDA
+at the stream microbench's five shapes, 64 rows, beside kernel 5 with a
+unit scale on the same bytes.  Each is timed with CUDA
 events over 20 launches behind a spinning kernel, on weight copies that
 cycle past the 50 MB L2 (``chip_smoke.cuda_time_ms``, ``rotating``),
 with its wrapper's host microseconds per call (``host_time_us``) and one
@@ -50,6 +51,7 @@ def main() -> int:
         print("time_matmul_kernels: no CUDA device", file=sys.stderr)
         return 2
     gen = torch.Generator(device="cuda").manual_seed(0)
+    unit = torch.ones(1, dtype=torch.float32, device="cuda")
     out = {}
 
     def time_case(label, kernel, q, k, m, out_dtype=torch.bfloat16):
@@ -102,6 +104,8 @@ def main() -> int:
             copies = cs.rotating(w, w.nbytes)
             dense = cs.rotating(sm.dequant(w, variant).to(torch.bfloat16),
                                 2 * w.nbytes)
+            k5w = ws["int8" if variant == "astype_int8" else "fp8"]
+            k5 = cs.rotating(k5w, k5w.nbytes)
             out[f"stream {variant} {label} M={smb.M}"] = dict(
                 ms=cs.cuda_time_ms(
                     lambda: sm.stream_matmul_kernel(x, next(copies), variant),
@@ -109,8 +113,11 @@ def main() -> int:
                 host_us=cs.host_time_us(
                     lambda: sm.stream_matmul_kernel(x, w, variant)),
                 torch_mm_ms=cs.cuda_time_ms(
-                    lambda: torch.mm(x, next(dense)), 20))
-            del copies, dense
+                    lambda: torch.mm(x, next(dense)), 20),
+                kernel5_unit_scale_ms=cs.cuda_time_ms(
+                    lambda: fm.fp8_matmul_kernel(x, next(k5), unit,
+                                                 torch.bfloat16), 20))
+            del copies, dense, k5
         del ws, x
         torch.cuda.empty_cache()
     print(cs.smi(), flush=True)

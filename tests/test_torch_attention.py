@@ -215,21 +215,25 @@ def uniform_case(qlen, D, Bs, n_comp, rng, L=2, Hkv=2, Hq=4,
 
 @pytest.mark.parametrize("case", ["d32_f32_q4", "d128_bf16_q1",
                                   "d128_bf16_q4", "d128_fp8_q4",
-                                  "d128_bf16_q4_contiguous"])
+                                  "d128_bf16_q4_contiguous",
+                                  "d128_bf16_q4_wide"])
 def test_plain_matches_decode_paged_pallas_kernel(case):
     """Kernel 4 (``decode_paged_attention_kernel``): the port's wrapper on
     CPU tensors (its plain version) against the JAX kernel in interpret
     mode: D=32 in float32 with 8-token pages (tests/test_kernels.py's
     shape), D=128 in bf16 at qlen 1 and 4, an e4m3 cache with per-layer
-    [L, 2] scales; a dead slot and scattered block tables throughout, and
-    once consecutive ones (the TPU kernel's one-DMA run)."""
+    [L, 2] scales; a dead slot and scattered block tables throughout, once
+    consecutive ones (the TPU kernel's one-DMA run), and once 16 kv heads
+    (Hkv * D = 2048 bf16 elements a token row, which the TPU kernel
+    stages as any other width)."""
     rng = np.random.default_rng(21)
     d = 32 if case.startswith("d32") else 128
-    qlen = 1 if case.endswith("q1") else 4
+    qlen = 1 if "_q1" in case else 4
     bs = 8 if d == 32 else 32
+    heads = dict(Hkv=16, Hq=32) if case.endswith("wide") else {}
     q, kv, pos_base, bt, sl = uniform_case(
         qlen, d, bs, np.array([40, 0, 300, 7], np.int32), rng,
-        scattered=not case.endswith("contiguous"))
+        scattered=not case.endswith("contiguous"), **heads)
     if "f32" in case:
         kj, kt = jnp.asarray(kv), to_torch(kv)
         scale = np.ones((2, 2), np.float32)
@@ -249,6 +253,42 @@ def test_plain_matches_decode_paged_pallas_kernel(case):
     np.testing.assert_allclose(out[live], ref[live], atol=TOL, rtol=TOL)
     assert not out[~live].any() and not ref[~live].any()
     assert tra.decode_paged_launches == 0          # the CPU path ran
+
+
+@pytest.mark.parametrize("range_pages", [1, 2, 16, tra.RANGE_PAGES])
+def test_range_plan_covers_every_page_once(range_pages):
+    """Kernel 4's page ranges (``range_plan``, a function of the attended
+    length and the range size only): every page of the sequence once, in
+    order, in ranges of at most ``range_pages`` pages starting at
+    multiples of it; the kernel's own count of ranges
+    (``(last_slot // 32) // R + 1``) agrees."""
+    for seq_len in list(range(1, 70)) + [511, 512, 513, 4096, 32768]:
+        plan = tra.range_plan(seq_len, range_pages)
+        pages = -(-seq_len // 32)
+        assert [p for a, b in plan for p in range(a, b)] == list(
+            range(pages))
+        assert all(a % range_pages == 0 and 0 < b - a <= range_pages
+                   for a, b in plan)
+        assert len(plan) == ((seq_len - 1) // 32) // range_pages + 1
+
+
+@pytest.mark.parametrize("range_pages", [2, tra.RANGE_PAGES])
+def test_range_plan_does_not_depend_on_qlen_or_batch(range_pages):
+    """The ranges a row attends are the same whether it is row j of a
+    qlen-8 step or the single row of a qlen-1 step, and whichever other
+    sequences share the batch: each is a range of the longer row's plan
+    (the last one possibly cut short), so range boundaries never move."""
+    rng = np.random.default_rng(3)
+    batch = rng.integers(1, 5000, 16)
+    plans = {int(p): tra.range_plan(int(p) + 8, range_pages) for p in batch}
+    for p in batch[:8]:           # a smaller batch: the same plans
+        assert tra.range_plan(int(p) + 8, range_pages) == plans[int(p)]
+    for p, step in plans.items():
+        for j in range(8):
+            row = tra.range_plan(p + j + 1, range_pages)
+            assert row[:-1] == step[:len(row) - 1]
+            assert row[-1][0] == step[len(row) - 1][0]
+            assert row[-1][1] <= step[len(row) - 1][1]
 
 
 def test_plain_stops_at_the_block_table_end():

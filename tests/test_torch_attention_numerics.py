@@ -28,6 +28,18 @@ The grouped kernel's model adds its page streams (16-slot chunk c folded
 into stream c % 4, the streams merged in order) and its m16 row tiles, and
 shows a row's output bit for bit independent of its row index and of
 qlen, as the card check does for the kernel.
+
+Kernel 4's model (:func:`range_mma_model`) runs the grouped kernel's CTA
+on each range of R pages (``range_plan``) and merges the ranges' float32
+states in range order, skipping a range a row does not attend; it is held
+to the same bounds against the plain version and against the JAX
+``decode_paged_attention_kernel`` in interpret mode at qlen 1, 4 and 8,
+bf16 and fp8, at 2-page ranges (every context here spans several) and at
+the wrapper's range size, and its rows are shown independent of qlen bit
+for bit.  Rounding only q or only P once (the cheaper splits) misses the
+1e-3 bound with bf16 pages and outputs
+(``test_one_sided_split_misses_the_card_bound``), so kernel 4 keeps the
+hi + lo split of both.
 """
 
 import math
@@ -68,12 +80,16 @@ def mma_model(q, kv, positions, req_idx, block_tables, seq_lens, kv_scale,
     Hkv*D]; float32 out [T, Hq, D], padding rows zero.
 
     ``scheme="kernel"``: the rounding above.  ``scheme="single"``: q and
-    P each rounded to bf16 once (the TPU kernel's rounding)."""
+    P each rounded to bf16 once (the TPU kernel's rounding);
+    ``"q_single"`` / ``"p_single"``: only q / only P rounded once, the
+    other split."""
     t, hq, d = q.shape
     hkv = kv.shape[-1] // d
     group = hq // hkv
     fp8 = kv.dtype == torch.float8_e4m3fn
     dt = torch.float16 if fp8 and scheme == "kernel" else torch.bfloat16
+    split_q = scheme in ("kernel", "p_single")
+    split_p = scheme in ("kernel", "q_single")
     k_scale, v_scale = (float(x) for x in kv_scale)
     out = torch.zeros((t, hq, d))
     for r in torch.unique(req_idx[req_idx >= 0]).tolist():
@@ -85,7 +101,7 @@ def mma_model(q, kv, positions, req_idx, block_tables, seq_lens, kv_scale,
         v = kv[pages, 1].reshape(-1, hkv, d)[:s_len].float()
         qs = q[rows].float() * (d ** -0.5 * k_scale * LOG2E)
         qg = qs.reshape(-1, hkv, group, d)
-        if scheme == "kernel":
+        if split_q:
             q_hi, q_lo = _split(qg, dt)
             s = (torch.einsum("thgd,shd->thgs", q_hi, k)
                  + torch.einsum("thgd,shd->thgs", q_lo, k))
@@ -113,7 +129,7 @@ def mma_model(q, kv, positions, req_idx, block_tables, seq_lens, kv_scale,
             p = torch.exp2(sc - m_use[..., None])
             l_run = l_run * alpha + p.sum(-1)
             vc = v[lo:lo + PAGE]
-            if scheme == "kernel":
+            if split_p:
                 p_hi, p_lo = _split(p, dt)
                 pv = (torch.einsum("thgs,shd->thgd", p_hi, vc)
                       + torch.einsum("thgs,shd->thgd", p_lo, vc))
@@ -221,6 +237,27 @@ def test_single_bf16_rounding_misses_the_card_bound():
     kernel = mma_model(q, kt, pos, req, bt, sl, scale)
     assert _rel(single, plain) > REL_TOL
     assert _rel(kernel, plain) < REL_TOL / 10
+
+
+@pytest.mark.parametrize("scheme", ["q_single", "p_single"])
+def test_one_sided_split_misses_the_card_bound(scheme):
+    """Splitting only one of q and P (half the extra MMAs) also misses
+    the bound on the same inputs with bf16 pages and outputs: both
+    splits are needed (kernels 1-4)."""
+    rng = np.random.default_rng(9)
+    reqs = [(int(c), 1, None) for c in rng.integers(2800, 3200, 16)] + [
+        (2900, 64, None)]
+    case = tree_case(reqs, Hq=8, Hkv=2, D=128, seed=10)
+    q = torch.from_numpy(rng.standard_normal(case["q"].shape).astype(
+        np.float32) * 5.0).to(torch.bfloat16)
+    kt = torch.from_numpy(case["kv"] * 0.5).to(torch.bfloat16)
+    pos, req, bt, sl = _torch_args(case)
+    scale = np.ones(2, np.float32)
+    plain = ragged_paged_attention_reference(
+        q.float(), kt, pos, req, bt, sl, kv_scale=scale)
+    one = mma_model(q, kt, pos, req, bt, sl, scale, scheme=scheme)
+    assert _rel(one.to(torch.bfloat16).float(),
+                plain.to(torch.bfloat16).float()) > REL_TOL
 
 
 # ---- kernels 2 and 3: the grouped decode kernel -----------------------------
@@ -471,6 +508,156 @@ def test_grouped_model_rows_do_not_depend_on_qlen(kv_dtype):
             pb = pb0 + j0
             o = grouped_mma_model(qq, kt[1], pb, bt, pb + qlen, qlen,
                                   scale[1])
+            for j in range(qlen):
+                outs.setdefault(j0 + j, []).append(
+                    o.reshape(len(ctx), qlen, 8, 128)[:, j])
+    for j, rows in outs.items():
+        assert len(rows) == 3
+        for other in rows[1:]:
+            assert torch.equal(rows[0], other), f"position {j}"
+
+
+# ---- kernel 4: the grouped kernel's CTA over fixed page ranges --------------
+
+def range_mma_model(q, kv, pos_base, block_tables, seq_lens, qlen, kv_scale,
+                    range_pages):
+    """Kernel 4's arithmetic on one cache layer ``kv`` [N, 2, 32, Hkv*D];
+    float32 out [T, Hq, D], padding rows zero.
+
+    Per (sequence, kv head, range r of ``range_pages`` pages, as
+    ``range_plan`` cuts the rows' last attended slot), the grouped
+    kernel's CTA: 16-row m-tiles, 16-slot chunk c of the range into page
+    stream c % 4, q and P split hi + lo, the streams merged in stream
+    order.  One range: its state is the output.  Several: each range's
+    float32 state (o, m, l) per row, merged in range order 0, 1, ...,
+    a range the row does not attend (m = -inf) skipped."""
+    t, hq, d = q.shape
+    hkv = kv.shape[-1] // d
+    group = hq // hkv
+    b = block_tables.shape[0]
+    dt = torch.float16 if kv.dtype == torch.float8_e4m3fn else torch.bfloat16
+    k_scale, v_scale = (torch.tensor(float(x)) for x in kv_scale)
+    qs = (torch.tensor(d ** -0.5) * k_scale) * torch.tensor(LOG2E)
+    out = torch.zeros((t, hq, d))
+    slots = torch.arange(CHUNK)
+    for s in range(b):
+        tok0 = s * qlen
+        ntok = min(qlen, t - tok0)
+        if ntok <= 0 or int(seq_lens[s]) <= 0:
+            continue
+        npages = min(-(-int(seq_lens[s]) // PAGE), block_tables.shape[1])
+        pos0 = int(pos_base[s])
+        last = min(pos0 + ntok - 1, npages * PAGE - 1)
+        ranges = tra.range_plan(last + 1, range_pages)
+        for h in range(hkv):
+            for r0 in range(0, ntok * group, MTILE):
+                i = torch.arange(r0, r0 + MTILE)
+                live = i < ntok * group
+                tok = torch.where(live, i // group, 0)
+                x = torch.where(live[:, None],
+                                q[tok0 + tok, h * group + i % group].float(),
+                                0.0) * qs
+                q_hi, q_lo = _split(x, dt)
+                lim = torch.where(live, pos0 + tok, -1)
+                parts = []
+                for p0, p1 in ranges:
+                    states = [(torch.full((MTILE,), NEG), torch.zeros(MTILE),
+                               torch.zeros((MTILE, d)))] * STREAMS
+                    c_first = p0 * PAGE // CHUNK
+                    for c in range(c_first, min(p1 * PAGE // CHUNK,
+                                                last // CHUNK + 1)):
+                        base = c * CHUNK
+                        if base > int(lim.max()):
+                            continue
+                        page = int(block_tables[s, c // 2])
+                        rows = slice((c % 2) * CHUNK, (c % 2 + 1) * CHUNK)
+                        ok = (base + slots <= last)[:, None]
+                        k, v = (torch.where(
+                            ok, kv[page, y, rows, h * d:(h + 1) * d].float(),
+                            0.0) for y in (0, 1))
+                        sc = _f32(q_hi.double() @ k.double().T
+                                  + q_lo.double() @ k.double().T)
+                        sc = sc.masked_fill(
+                            ~(base + slots[None, :] <= lim[:, None]), NEG)
+                        st = (c - c_first) % STREAMS
+                        states[st] = _fold(states[st], sc, v, dt)
+                    m, l, o = states[0]
+                    for st in states[1:]:
+                        m, l, o = _merge((m, l, o), st)
+                    parts.append((m, l, o))
+                m, l, o = parts[0]
+                for pm, pl_, po in parts[1:]:
+                    use = pm != NEG
+                    mm, ll, oo = _merge((m, l, o), (pm, pl_, po))
+                    m = torch.where(use, mm, m)
+                    l = torch.where(use, ll, l)
+                    o = torch.where(use[:, None], oo, o)
+                o = o * (v_scale / l.clamp(min=1e-20))[:, None]
+                out[tok0 + tok[live], h * group + i[live] % group] = o[live]
+    return out
+
+
+# Contexts of kernel 4's steps: a dead slot, one range, rows on both sides
+# of a range boundary at 2-page ranges, and four ranges.
+RANGE_CTX = [45, 0, 60, 95, 250]
+
+
+@pytest.mark.parametrize("range_pages", [2, tra.RANGE_PAGES])
+@pytest.mark.parametrize("qlen", [1, 4, 8])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "fp8"])
+def test_range_rounding_meets_the_card_bound(kv_dtype, qlen, range_pages):
+    """Kernel 4's rounding against the port's float32 plain version
+    within the card's 1e-3 relative norm (1e-5 in float32), and against
+    the JAX ``decode_paged_attention_kernel`` in Pallas interpret mode at
+    head dim 128 within atol = rtol = 2e-2; q std 5."""
+    c, kj, _ = grouped_case(RANGE_CTX, qlen, 5.0, kv_dtype, 128, seed=4)
+    kt = to_torch(kj)
+    q = torch.from_numpy(c["q"])
+    bt, sl = torch.from_numpy(c["bt"]), torch.from_numpy(c["seq"])
+    pb = torch.clamp(sl - qlen, min=0)
+    scale = torch.from_numpy(c["scale"])
+    model = range_mma_model(q, kt[1], pb, bt, sl, qlen, scale[1],
+                            range_pages)
+    live = torch.repeat_interleave(sl > 0, qlen)
+    assert not model[~live].any()
+
+    def plain(qq):
+        return tra._plain_uniform(qq, kt, 1, scale, pb, bt, sl, qlen,
+                                  128 ** -0.5)
+
+    assert _rel(model[live], plain(q)[live]) <= REL_TOL / 100
+    assert _rel(model.to(torch.bfloat16)[live].float(),
+                plain(q.to(torch.bfloat16))[live].float()) <= REL_TOL
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jra.decode_paged_attention_kernel(
+            jnp.asarray(c["q"], jnp.bfloat16), kj, jnp.asarray(pb.numpy()),
+            jnp.asarray(c["bt"]), jnp.asarray(c["seq"]), qlen,
+            kv_scale=jnp.asarray(c["scale"]),
+            layer=jnp.asarray(1, jnp.int32)), np.float32)
+    np.testing.assert_allclose(model[live].numpy(), ref[live.numpy()],
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "fp8"])
+def test_range_model_rows_do_not_depend_on_qlen(kv_dtype):
+    """In the model of kernel 4 (2-page ranges) a row's output is bit for
+    bit the same at qlen 8, at qlen 4 and as the single row of a qlen-1
+    step: rows whose slots end in one range are written from it at qlen
+    1 and merged with later, empty ranges at qlen 8."""
+    ctx = [30, 60, 95, 200]
+    outs = {}
+    for qlen in (8, 4, 1):
+        c, kj, _ = grouped_case(ctx, 8, 5.0, kv_dtype, 128, seed=3)
+        q = torch.from_numpy(c["q"]).reshape(len(ctx), 8, 8, 128)
+        kt = to_torch(kj)
+        scale = torch.from_numpy(c["scale"])
+        bt = torch.from_numpy(c["bt"])
+        pb0 = torch.tensor(ctx, dtype=torch.int32)
+        for j0 in range(0, 8, qlen):
+            qq = q[:, j0:j0 + qlen].reshape(-1, 8, 128)
+            pb = pb0 + j0
+            o = range_mma_model(qq, kt[1], pb, bt, pb + qlen, qlen, scale[1],
+                                2)
             for j in range(qlen):
                 outs.setdefault(j0 + j, []).append(
                     o.reshape(len(ctx), qlen, 8, 128)[:, j])

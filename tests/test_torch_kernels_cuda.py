@@ -137,16 +137,25 @@ def test_grouped_kernel_matches_plain(cuda_device, d, qlen, t_rows,
     assert_matches(out, ref)
 
 
+@pytest.fixture(params=[2, tra.RANGE_PAGES], ids=lambda r: f"R{r}")
+def range_pages(request, monkeypatch):
+    """Kernel 4's range size: the wrapper's, and 2 pages (64 slots), at
+    which short contexts already span many ranges and their merge."""
+    monkeypatch.setattr(tra, "RANGE_PAGES", request.param)
+    return request.param
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
 @pytest.mark.parametrize("qlen,t_rows", [(1, 4), (1, 16), (4, 16), (8, 32),
                                          (32, 128)])
 @pytest.mark.parametrize("d", [128, 64])
-def test_decode_paged_kernel_matches_plain(cuda_device, d, qlen, t_rows,
-                                           kv_dtype):
-    """Kernel 4 (one CTA per sequence): dead slot 1, a context of 500 (16
-    pages), the token bucket wider than B * qlen once, 4 to 32 rows per kv
-    head (qlen 32: two passes of the CTA's warps over the pages)."""
+def test_decode_paged_kernel_matches_plain(cuda_device, range_pages, d, qlen,
+                                           t_rows, kv_dtype):
+    """Kernel 4 (one CTA per sequence, kv head and page range): dead slot
+    1, a context of 500 (16 pages: eight 2-page ranges merged), the token
+    bucket wider than B * qlen once, 4 to 32 rows per kv head (qlen 32:
+    four passes of the CTA's tiles over each range)."""
     reqs = [(17, qlen), (0, 0), (70, qlen), (500, qlen)]
     q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device, t_rows,
                                       d=d)
@@ -167,15 +176,79 @@ def test_decode_paged_kernel_matches_plain(cuda_device, d, qlen, t_rows,
 
 
 @pytest.mark.cuda
-def test_decode_paged_refuses_wide_rows(cuda_device):
-    """Kernel 4 stages whole token rows: more than 2 KiB a row raises."""
-    kv = torch.zeros((1, 2, 2, BS, 16 * 128), device=cuda_device,
-                     dtype=torch.bfloat16)
-    q = torch.zeros((1, 16, 128), device=cuda_device, dtype=torch.bfloat16)
-    one = torch.ones(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="exceeds"):
-        tra.decode_paged_attention_kernel(q, kv, one - 1, one[:, None], one,
-                                          1, layer=0)
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+def test_decode_paged_kernel_takes_wide_rows(cuda_device, range_pages,
+                                             kv_dtype):
+    """Kernel 4 stages one head's D columns per token: 16 kv heads of 128
+    (2048 elements a token row, refused by its first design) match the
+    plain version."""
+    rng = np.random.default_rng(4)
+    hkv, hq, qlen = 16, 32, 4
+    ctx = [40, 0, 600]
+    seq = np.array([c + qlen if c else 0 for c in ctx], np.int32)
+    pages = [-(-int(x) // BS) for x in seq]
+    bt = np.zeros((len(ctx), max(pages)), np.int32)
+    bt[0, :pages[0]] = np.arange(1, 1 + pages[0])
+    bt[2, :pages[2]] = np.arange(1 + pages[0], 1 + pages[0] + pages[2])
+    kv = torch.from_numpy(rng.standard_normal(
+        (1, sum(pages) + 1, 2, BS, hkv * D)).astype(np.float32) * 0.5)
+    q = torch.from_numpy(rng.standard_normal((len(ctx) * qlen, hq, D))
+                         .astype(np.float32) * Q_STD).to(torch.bfloat16)
+    kv = kv.to(kv_dtype)
+    pb = torch.tensor(ctx, dtype=torch.int32)
+    bt, sl = torch.from_numpy(bt), torch.from_numpy(seq)
+    out = tra.decode_paged_attention_kernel(
+        q.to(cuda_device), kv.to(cuda_device), pb.to(cuda_device),
+        bt.to(cuda_device), sl.to(cuda_device), qlen, layer=0)
+    ref = tra.decode_paged_attention_kernel(q, kv, pb, bt, sl, qlen, layer=0)
+    torch.cuda.synchronize()
+    assert_matches(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qlen", [1, 8])
+def test_decode_paged_kernel_at_long_contexts(cuda_device, qlen, kv_dtype):
+    """Kernel 4 and kernel 2 at contexts of 9000-20000 tokens (18-40
+    ranges a sequence, a dead slot) against the plain version."""
+    reqs = [(9000, qlen), (0, 0), (20000, qlen), (15001, qlen)]
+    q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device,
+                                      len(reqs) * qlen)
+    pb = torch.clamp(sl - qlen, min=0)
+    ref = tra.decode_paged_attention_kernel(
+        q.cpu(), kv.cpu(), pb.cpu(), bt.cpu(), sl.cpu(), qlen,
+        kv_scale=scale.cpu(), layer=1)
+    for fn in (tra.decode_paged_attention_kernel,
+               tra.grouped_decode_attention_kernel):
+        out = fn(q, kv, pb, bt, sl, qlen=qlen, kv_scale=scale, layer=1)
+        torch.cuda.synchronize()
+        assert_matches(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qlen", [4, 8])
+@pytest.mark.parametrize("d", [128, 64])
+def test_decode_paged_rows_do_not_depend_on_qlen(cuda_device, range_pages,
+                                                 d, qlen, kv_dtype):
+    """Row j of a kernel-4 launch at qlen ``qlen`` is bit for bit the
+    single row of a qlen-1 launch at position ctx + j.  Contexts put rows
+    on both sides of page and range boundaries (a row written from one
+    range at qlen 1 is merged with an empty later range at qlen 8), over
+    many ranges, and in a dead slot."""
+    ctx = [30, 509, 1020, 4093, 0, 9000, 2045, 62]
+    q, kv, scale, bt, sl, pb = uniform_step(ctx, qlen, kv_dtype,
+                                            cuda_device, d=d)
+    out = tra.decode_paged_attention_kernel(
+        q, kv, pb, bt, sl, qlen, kv_scale=scale, layer=1)
+    live = sl > 0
+    for j in range(qlen):
+        one = tra.decode_paged_attention_kernel(
+            q[j::qlen].contiguous(), kv, pb + j,
+            bt, torch.where(live, pb + j + 1, 0), 1, kv_scale=scale,
+            layer=1)
+        assert torch.equal(out[j::qlen].view(torch.int16),
+                           one.view(torch.int16)), f"row {j}"
 
 
 def deferred_rows(reqs, qlen, tails, kv_dtype, scale, t_rows, device,
@@ -861,6 +934,39 @@ def test_stream_tricks_read_nan_codes_as_480(cuda_device, variant):
     out = tsm.stream_matmul_kernel(x.to(cuda_device), w.to(cuda_device),
                                    variant).float().cpu()
     assert torch.equal(out, torch.full((16, 128), 480.0 - 960.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", tsm.VARIANTS)
+def test_stream_matmul_reads_every_code(cuda_device, variant):
+    """One-hot x rows against w [64, 256] holding every byte code (code j
+    in row j % 64 of column j, other codes elsewhere; the NaN codes 0x7f
+    and 0xff only in their own columns): each output equals the variant's
+    value of its weight byte, bit for bit (a signed zero compares equal:
+    the kernel adds +0 products to it), and NaN exactly where the plain
+    version gives NaN (astype_e4m3's columns 0x7f and 0xff: 0 * NaN)."""
+    k_idx = torch.arange(64)[:, None]
+    j_idx = torch.arange(256)[None, :]
+    codes = (j_idx + 5 * k_idx) % 256
+    nan_code = (codes & 0x7F) == 0x7F
+    codes = torch.where(nan_code, codes ^ 1, codes)
+    codes = torch.where(k_idx == j_idx % 64, j_idx, codes)
+    w = codes.to(torch.uint8).view(torch.int8)
+    if variant == "astype_e4m3":
+        w = w.view(torch.float8_e4m3fn)
+    x = torch.eye(64, dtype=torch.bfloat16)
+    out = tsm.stream_matmul_kernel(x.to(cuda_device), w.to(cuda_device),
+                                   variant).float().cpu()
+    ref = tsm.stream_matmul_reference(x, w, variant).float()
+    value = tsm.dequant(w, variant).to(torch.bfloat16).float()
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], value[~nan])
+    if variant == "astype_e4m3":
+        assert nan[:, 0x7F].all() and nan[:, 0xFF].all()
+        assert int(nan.sum()) == 2 * 64
+    else:
+        assert not nan.any()
 
 
 @pytest.mark.cuda

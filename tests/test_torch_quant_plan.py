@@ -18,6 +18,11 @@ float32 summation order, on the CPU.
   outputs' scale, the bound ``tests/test_torch_quant.py`` holds the plain
   versions to; the int4 Pallas kernel scales its float32 partial sums
   where the port rounds bf16(q * s)).
+- Kernel 8 (``ops/cuda/stream_matmul.py``) runs kernel 5's pipeline and
+  plan with no scale: its plan is kernel 5's at the stream microbench's
+  five shapes, and the same summation model on each variant's
+  dequantized weight is within one bf16 ulp of each Pallas body of
+  ``benchmarks/stream_microbench.py`` in interpret mode.
 """
 
 import jax.numpy as jnp
@@ -34,6 +39,11 @@ from arcticinference_tpu.ops.pallas.int4_matmul import (
 from arcticinference_tpu_torch.ops import fp8 as tfp8
 from arcticinference_tpu_torch.ops.cuda import fp8_matmul as tfm
 from arcticinference_tpu_torch.ops.cuda import int4_matmul as tim
+from arcticinference_tpu_torch.ops.cuda import stream_matmul as tsm
+
+from tests.test_torch_stream_matmul import (BODIES, jsm, layer0,
+                                            torch_weight,
+                                            within_one_bf16_ulp)
 
 SMS = 132  # H100 SXM
 # Llama-3.1-8B's quantized products: (K, N).
@@ -209,3 +219,69 @@ def test_summation_model_matches_pallas_kernel(fmt, k):
     got = kernel_model(fmt, torch.from_numpy(x), q, m).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL,
                                atol=TOL * np.abs(want).max())
+
+
+# ---- kernel 8: the weight-stream variants on kernel 5's pipeline ------------
+
+# The stream microbench's five shapes (K, N), 64 rows.
+STREAM_SHAPES = {"gateup": (4096, 14336), "down": (14336, 4096),
+                 "qo": (4096, 4096), "gateup-fused": (4096, 28672),
+                 "qkv-fused": (4096, 6144)}
+
+
+@pytest.mark.parametrize("name", list(STREAM_SHAPES))
+def test_stream_plan_is_kernel5_plan(name):
+    """Kernel 8 launches kernel 5's plan for the same product (its own
+    plan and split-K workspace are gone)."""
+    k, n = STREAM_SHAPES[name]
+    assert tsm.plan(64, n, k, SMS) == tfm.launch_plan(64, n, k // tfm.BKW,
+                                                      SMS)
+
+
+def stream_model(x: torch.Tensor, wd: torch.Tensor, m_plan: int
+                 ) -> torch.Tensor:
+    """Kernel 8's float32 result without a scale: kernel 5's summation
+    order (:func:`kernel_model`) on the weight's dequantized values."""
+    k, n = wd.shape
+    tiles = k // tfm.BKW
+    _, _, kwgs, splits = tfm.launch_plan(m_plan, n, tiles, SMS)
+    xf = x.to(torch.bfloat16).float()
+    acc = None
+    for t0, t1 in split_ranges(tiles, splits):
+        part = None
+        for w in range(kwgs):
+            rows = torch.cat([torch.arange(t * tfm.BKW, (t + 1) * tfm.BKW)
+                              for t in range(t0 + w, t1, kwgs)])
+            wsum = xf[:, rows] @ wd[rows]
+            part = wsum if part is None else part + wsum
+        acc = part if acc is None else acc + part
+    return acc
+
+
+@pytest.mark.parametrize("variant", ["f16trick", "bittrick", "astype_e4m3",
+                                     "astype_int8"])
+def test_stream_model_matches_pallas_body(variant):
+    """The summation model of kernel 8 (64 rows, K = 4096 split three
+    ways over two K warpgroups, N = 256) against the microbench's Pallas
+    body of the variant in interpret mode, weights from its ``gen_ws``:
+    bf16 outputs within one bf16 ulp (only the order of the float32 sums
+    differs)."""
+    m, k, n = 64, 4096, 256
+    assert tfm.launch_plan(m, n, k // tfm.BKW, SMS)[2:] == (2, 3)
+    kernel, dt = BODIES[variant]
+    wbytes = layer0(k, n, dt)
+    x = np.random.default_rng(7).standard_normal((m, k)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    wj = jnp.asarray(wbytes)
+    wj = (wj.view(jnp.float8_e4m3fn) if variant == "astype_e4m3"
+          else wj.view(jnp.int8))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jsm.make_pallas_body(kernel, m, k, n, 512, 128)(
+            xj, wj).astype(jnp.float32))
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32)))
+    wd = tsm.dequant(torch_weight(wbytes, variant), variant).to(
+        torch.bfloat16).float()
+    got = stream_model(xt, wd, m).to(torch.bfloat16).float().numpy()
+    assert np.isfinite(want).all()
+    ok = within_one_bf16_ulp(got, want)
+    assert ok.all(), (np.abs(got - want).max(), int((~ok).sum()))
