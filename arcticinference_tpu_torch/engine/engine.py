@@ -25,8 +25,11 @@ row of each request's last accepted token, after a synchronous step or
 inside the fused loop's step; a ``distilled_tied`` drafter
 (``spec/distill.py``) uses the target's own embedding and LM head.  The
 ``hidden_capture`` hook hands committed tokens and their hidden rows to
-distillation.  Guided decoding, penalties and logprobs raise
-``NotImplementedError``.
+distillation.  Requests with repetition / presence / frequency penalties
+or ``logprobs`` ride the synchronous step (also beside the fused loop,
+which does not mirror them): penalties act on the step's logits, and
+each committed token gets a ``{token: logprob}`` dict of the step's
+ranked candidates.  Guided decoding raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -126,10 +129,8 @@ class LLMEngine:
         if not prompt_token_ids:
             raise ValueError("prompt must not be empty")
         sampling = sampling or SamplingParams()
-        if (sampling.guided is not None or sampling.needs_penalties
-                or sampling.logprobs is not None):
-            raise NotImplementedError(
-                "guided decoding, penalties and logprobs are not ported yet")
+        if sampling.guided is not None:
+            raise NotImplementedError("guided decoding is not ported yet")
         if sampling.stop and self.tokenizer is None:
             raise ValueError(
                 "string stop sequences need a tokenizer (none is "
@@ -239,8 +240,12 @@ class LLMEngine:
             kind = "verify"
         else:
             kind = "mixed"
-        argmax, sampled, hidden_rows = self.runner.execute(step_inputs,
-                                                           self._generator)
+        # Logprobs need the step's ranked candidates.
+        need_topk = any(s.request.sampling.logprobs
+                        for s in sched_out.scheduled)
+        argmax, sampled, hidden_rows, *ranked = self.runner.execute(
+            step_inputs, self._generator, need_topk)
+        topk, topk_logp = ranked if need_topk else (None, None)
         finished: list[Request] = []
         # Sample row of each committed request's last accepted token (the
         # row a drafter chains from).
@@ -262,6 +267,14 @@ class LLMEngine:
                     else argmax)[lo:lo + k]
             new_tokens, n_acc, row = self._verify(req, s, rows)
             accepted_row[req.req_id] = lo + row
+            if req.sampling.logprobs and topk is not None:
+                # Row lo+i ranks the candidates of new_tokens[i] (as the
+                # JAX engine reads them, trees included).
+                n = req.sampling.logprobs
+                req.output_logprobs.extend(
+                    {int(t): float(p) for t, p in
+                     zip(topk[lo + i][:n], topk_logp[lo + i][:n])}
+                    for i in range(len(new_tokens)))
             self.scheduler.update_after_step(s, new_tokens, n_acc)
             self._update_suffix_cache(req, new_tokens)
             if self.hidden_capture is not None and s.spec_parents is None:

@@ -34,6 +34,9 @@ class RequestOutput:
     finish_reason: str = "stop"
     num_accepted_draft_tokens: int = 0
     num_draft_tokens: int = 0
+    #: Per generated token, {token id: logprob} of the top
+    #: ``SamplingParams.logprobs`` candidates (None when not asked for).
+    logprobs: Optional[list[dict]] = None
 
 
 def fp8_kv_scales(kv: torch.Tensor, old_scale: torch.Tensor,
@@ -119,6 +122,8 @@ class LLM:
                 finish_reason=req.status.name.lower(),
                 num_accepted_draft_tokens=req.num_accepted_draft_tokens,
                 num_draft_tokens=req.num_draft_tokens,
+                logprobs=(req.output_logprobs[:len(req.output_token_ids)]
+                          if req.output_logprobs else None),
             ))
         return outputs
 

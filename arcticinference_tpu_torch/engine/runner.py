@@ -17,9 +17,14 @@ token rows: a linear chain as consecutive positions, a token tree with
 depth-based positions and per-row ancestor bitmasks, lowered onto the
 work items for the ragged kernel's tree-mask path.  A step also hands
 back its sample rows' hidden states, on the device, for the MLP / LSTM
-drafters.  Not ported yet (they
-raise ``NotImplementedError``): meshes (tp / sp / dp / pp), guided
-decoding and penalties.
+drafters.  Repetition / presence / frequency penalties act on the
+float32 logits before the argmax and the sampler, from each request's
+token history (``pen_out_tokens`` / ``pen_all_tokens``, built only on
+steps where a request asks for them); with ``need_topk`` a step also
+returns each sample row's top :data:`ModelRunner.GUIDED_TOPK` ids and
+their log-softmax values (logprobs).  Not ported yet (they raise
+``NotImplementedError``): meshes (tp / sp / dp / pp) and guided
+decoding.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from arcticinference_tpu_torch.ops.cuda.ragged_attention import (
     build_work_items, tree_masks, tree_work_items)
 from arcticinference_tpu_torch.ops.kv_cache import (KVCacheSpec,
                                                     allocate_kv_cache)
-from arcticinference_tpu_torch.ops.sampling import sample
+from arcticinference_tpu_torch.ops.sampling import apply_penalties, sample
 from arcticinference_tpu_torch.utils import (cdiv, default_token_buckets,
                                              device_memory_bytes,
                                              pad_to_bucket)
@@ -59,6 +64,9 @@ class StepInputs:
 
 
 class ModelRunner:
+
+    #: Ranked candidates a step returns with ``need_topk`` (logprobs).
+    GUIDED_TOPK = 16
 
     def __init__(self, config: EngineConfig, module, arch, params: dict,
                  device: torch.device):
@@ -191,20 +199,22 @@ class ModelRunner:
         logits_indices = np.zeros(s_pad, np.int32)
         logits_indices[:len(sample_rows)] = sample_rows
 
-        # Sampling params per row.  The penalty rows stay neutral: a
-        # request asking for penalties is refused by the engine.
+        # Sampling params per row (every verify row of a request).
         temperature = np.zeros(s_pad, np.float32)
         top_k = np.zeros(s_pad, np.int32)
         top_p = np.ones(s_pad, np.float32)
         min_p = np.zeros(s_pad, np.float32)
         seeds = np.full(s_pad, -1, np.int32)
         counters = np.zeros(s_pad, np.int32)
+        rep_pen = np.ones(s_pad, np.float32)
+        pres_pen = np.zeros(s_pad, np.float32)
+        freq_pen = np.zeros(s_pad, np.float32)
+        any_penalties = False
         for r, s in enumerate(scheduled):
             req = s.request
             sp = req.sampling
-            if sp.guided is not None or sp.needs_penalties:
-                raise NotImplementedError(
-                    "guided decoding and penalties are not ported")
+            if sp.guided is not None:
+                raise NotImplementedError("guided decoding is not ported")
             lo, k = row_start[r], row_count[r]
             temperature[lo:lo + k] = sp.temperature
             top_k[lo:lo + k] = sp.top_k
@@ -216,6 +226,11 @@ class ModelRunner:
                 # so a seeded request's stream is schedule-invariant.
                 end = req.num_computed_tokens + s.num_new_tokens
                 counters[lo:lo + k] = np.arange(end - k + 1, end + 1)
+            if sp.needs_penalties:
+                rep_pen[lo:lo + k] = sp.repetition_penalty
+                pres_pen[lo:lo + k] = sp.presence_penalty
+                freq_pen[lo:lo + k] = sp.frequency_penalty
+                any_penalties = True
 
         # attn_qb == 1 marks a pure-decode step (one frontier row per
         # request, token order == request order): the model routes it to
@@ -250,15 +265,32 @@ class ModelRunner:
             seq_lens=seq_lens, logits_indices=logits_indices,
             temperature=temperature, top_k=top_k, top_p=top_p,
             min_p=min_p, seeds=seeds, counters=counters,
-            rep_pen=np.ones(s_pad, np.float32),
-            pres_pen=np.zeros(s_pad, np.float32),
-            freq_pen=np.zeros(s_pad, np.float32),
+            rep_pen=rep_pen, pres_pen=pres_pen, freq_pen=freq_pen,
             attn_item_req=item_req, attn_item_qstart=item_qstart,
             attn_item_qlen=item_qlen, attn_item_pages=item_pages,
             attn_item_pos_base=item_pos_base, attn_token_item=token_item,
             attn_token_off=token_off,
             **tree_arrays,
         )
+        if any_penalties:
+            # Token histories of the requests asking for penalties, -1
+            # padded to a bucketed length; every verify row of a request
+            # carries its history before this step (as in the JAX runner).
+            la = pad_to_bucket(
+                max(max(s.request.num_tokens for s in scheduled), 1),
+                self.token_buckets + [self.config.model.max_model_len])
+            pen_out = np.full((s_pad, la), -1, np.int32)
+            pen_all = np.full((s_pad, la), -1, np.int32)
+            for r, s in enumerate(scheduled):
+                req = s.request
+                if not req.sampling.needs_penalties:
+                    continue
+                lo, k = row_start[r], row_count[r]
+                pen_out[lo:lo + k, :len(req.output_token_ids)] = \
+                    req.output_token_ids
+                pen_all[lo:lo + k, :req.num_tokens] = req.all_token_ids
+            arrays["pen_out_tokens"] = pen_out
+            arrays["pen_all_tokens"] = pen_all
         return StepInputs(arrays=arrays, t_pad=t_pad, s_pad=s_pad,
                           attn_qb=attn_qb, sample_row_start=row_start,
                           sample_row_count=row_count, total_tokens=total)
@@ -291,19 +323,26 @@ class ModelRunner:
 
     @torch.inference_mode()
     def launch(self, inputs: dict, attn_qb: int, need_sampling: bool,
-               generator: torch.Generator):
+               generator: torch.Generator, need_topk: bool = False):
         """The step's device work on uploaded ``inputs`` (see
-        :meth:`upload`): forward, logits of the sample rows, argmax and,
-        with ``need_sampling``, sampling.  Returns device tensors
-        (argmax [s_pad] int32, sampled [s_pad] int32, rows [s_pad,
-        hidden]); nothing here reads the device back, so a timing loop or
-        a CUDA graph can replay it."""
+        :meth:`upload`): forward, logits of the sample rows, penalties
+        (when the step carries token histories), argmax and, with
+        ``need_sampling``, sampling.  Returns device tensors (argmax
+        [s_pad] int32, sampled [s_pad] int32, rows [s_pad, hidden]) and,
+        with ``need_topk``, the sample rows' top :data:`GUIDED_TOPK` ids
+        [s_pad, K] int32 and their log-softmax values [s_pad, K] float32;
+        nothing here reads the device back, so a timing loop or a CUDA
+        graph can replay it."""
         inputs = dict(inputs, kv_scale=self.kv_scale)
         attn = self.module.make_attn_impl(attn_qb)
         self.kv, h = self.module.forward(self.params, self.arch, self.kv,
                                          inputs, attn_impl=attn)
         rows = h[inputs["logits_indices"].long()]
         logits = self.module.compute_logits(self.params, rows)
+        if "pen_out_tokens" in inputs:
+            logits = apply_penalties(
+                logits, inputs["pen_out_tokens"], inputs["pen_all_tokens"],
+                inputs["rep_pen"], inputs["pres_pen"], inputs["freq_pen"])
         argmax = torch.argmax(logits, dim=-1).to(torch.int32)
         if need_sampling:
             sampled = sample(logits, inputs["temperature"], inputs["top_k"],
@@ -312,23 +351,33 @@ class ModelRunner:
                              counters=inputs["counters"])
         else:
             sampled = argmax
-        return argmax, sampled, rows
+        if not need_topk:
+            return argmax, sampled, rows
+        # Ranked candidates for logprobs: log-softmax values of the top
+        # ids, over the logits the tokens are chosen from.
+        vals, cand = torch.topk(logits, self.GUIDED_TOPK, dim=-1)
+        logp = vals - torch.logsumexp(logits, dim=-1, keepdim=True)
+        return argmax, sampled, rows, cand.to(torch.int32), logp
 
     def dispatch(self, step_inputs: StepInputs,
-                 generator: torch.Generator):
+                 generator: torch.Generator, need_topk: bool = False):
         """Enqueue one step (upload and :meth:`launch`) without reading
         anything back; returns the device tensors of :meth:`launch`.
         Counterpart of the JAX runner's ``dispatch``."""
         return self.launch(
             self.upload(step_inputs.arrays), step_inputs.attn_qb,
-            bool(step_inputs.arrays["temperature"].max() > 0), generator)
+            bool(step_inputs.arrays["temperature"].max() > 0), generator,
+            need_topk)
 
     def execute(self, step_inputs: StepInputs,
-                generator: torch.Generator):
+                generator: torch.Generator, need_topk: bool = False):
         """One synchronous step; returns (argmax, sampled, rows): the
         sample rows' argmax and sampled tokens as host int32 arrays
         [s_pad], and their hidden states (after the final norm, the rows
         that feed ``compute_logits``) [s_pad, hidden], left on the device
-        for a drafter."""
-        argmax, sampled, rows = self.dispatch(step_inputs, generator)
-        return argmax.cpu().numpy(), sampled.cpu().numpy(), rows
+        for a drafter; with ``need_topk`` also the top-K ids [s_pad, K]
+        and their log-probabilities [s_pad, K] as host arrays."""
+        argmax, sampled, rows, *topk = self.dispatch(step_inputs,
+                                                     generator, need_topk)
+        return (argmax.cpu().numpy(), sampled.cpu().numpy(), rows,
+                *(x.cpu().numpy() for x in topk))

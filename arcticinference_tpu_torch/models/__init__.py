@@ -2,7 +2,8 @@
 
 Each module exposes ``Arch.from_hf_config``, ``init_params``,
 ``load_hf_state``, ``fuse_params``, ``forward``, ``compute_logits`` and
-``make_attn_impl``.  Llama only in this part of the port.
+``make_attn_impl``.  Llama, Qwen2 / Qwen2.5 and Qwen3 in this part of
+the port.
 """
 
 from importlib import import_module
@@ -10,14 +11,17 @@ from importlib import import_module
 _REGISTRY = {
     "llama": "arcticinference_tpu_torch.models.llama",
     "LlamaForCausalLM": "arcticinference_tpu_torch.models.llama",
+    "qwen2": "arcticinference_tpu_torch.models.qwen2",
+    "Qwen2ForCausalLM": "arcticinference_tpu_torch.models.qwen2",
+    "qwen3": "arcticinference_tpu_torch.models.qwen3",
+    "Qwen3ForCausalLM": "arcticinference_tpu_torch.models.qwen3",
 }
 
 # Architectures the JAX package serves that are not ported yet.
 _NOT_PORTED = (
     "llama_swiftkv", "LlamaSwiftKVForCausalLM", "bert", "BertModel",
     "BertForMaskedLM", "BertForSequenceClassification", "mixtral",
-    "MixtralForCausalLM", "qwen2", "Qwen2ForCausalLM", "qwen3",
-    "Qwen3ForCausalLM", "mlp_speculator",
+    "MixtralForCausalLM", "mlp_speculator",
     "ArcticMLPSpeculatorPreTrainedModel",
     "ArcticLSTMSpeculatorPreTrainedModel")
 
@@ -25,7 +29,8 @@ _NOT_PORTED = (
 def get_model_module(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"model architecture {name!r} is not ported yet (Llama only)")
+            f"model architecture {name!r} is not ported yet (Llama, Qwen2 "
+            "and Qwen3 are)")
     if name not in _REGISTRY:
         raise ValueError(
             f"Unknown model architecture {name!r}; known: {sorted(_REGISTRY)}")

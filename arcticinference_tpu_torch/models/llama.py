@@ -19,6 +19,14 @@ Weight-only quantization (``quantization="fp8" | "int8" | "int4"``)
 turns the matmul weights and the LM head into ``QuantizedLinear`` leaves
 (``ops/fp8.py``) and, when the LM head is untied, the embedding table
 into fp8.
+
+The Qwen families share this decoder body (``models/qwen2.py``,
+``models/qwen3.py``): ``attention_bias`` adds q/k/v biases after the
+projections (``bq``/``bk``/``bv``, fused to ``bqkv``), ``qk_norm`` a
+per-head RMSNorm on q and k before RoPE (``q_norm``/``k_norm``).  Biases
+and norms are never quantized; a bias is added to the product's output,
+after a quantized matmul kernel returns, as the JAX package adds it
+outside its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -59,10 +67,9 @@ class LlamaArch:  # registry alias: Arch (see bottom of module)
     tie_word_embeddings: bool = False
     max_position: int = 131072
     eos_token_id: Optional[int] = None
-    # Family variants of the JAX package (Qwen2 biases, Qwen3 qk-norm);
-    # read from configs so they can be refused, not ported yet.
-    attention_bias: bool = False
-    qk_norm: bool = False
+    # Family variants sharing the Llama decoder body:
+    attention_bias: bool = False   # Qwen2/2.5: biases on q/k/v projections
+    qk_norm: bool = False          # Qwen3: per-head RMSNorm on q and k
 
     @classmethod
     def from_hf_config(cls, cfg: dict[str, Any]) -> "LlamaArch":
@@ -99,12 +106,6 @@ def _first_eos(eos):
     return eos
 
 
-def _check_supported(arch: LlamaArch) -> None:
-    if arch.attention_bias or arch.qk_norm:
-        raise NotImplementedError(
-            "attention biases / qk-norm (Qwen variants) are not ported yet")
-
-
 def init_params(arch: LlamaArch, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 quantization: Optional[str] = None,
@@ -121,7 +122,6 @@ def init_params(arch: LlamaArch, generator: torch.Generator,
     """
     if device is None:
         device = generator.device
-    _check_supported(arch)
     d, hq, hkv, dh = (arch.hidden_size, arch.num_heads, arch.num_kv_heads,
                       arch.head_dim)
     li, nl = arch.intermediate_size, arch.num_layers
@@ -159,6 +159,13 @@ def init_params(arch: LlamaArch, generator: torch.Generator,
         },
         "final_norm": ones(d),
     }
+    if arch.attention_bias:
+        params["layers"]["bq"] = w(nl, hq * dh)
+        params["layers"]["bk"] = w(nl, hkv * dh)
+        params["layers"]["bv"] = w(nl, hkv * dh)
+    if arch.qk_norm:
+        params["layers"]["q_norm"] = ones(nl, dh)
+        params["layers"]["k_norm"] = ones(nl, dh)
     if not arch.tie_word_embeddings:
         head = w(d, arch.vocab_size)
         params["lm_head"] = (weight_quantize(head, quantization)
@@ -203,16 +210,21 @@ def embed_lookup(params: dict, ids: torch.Tensor) -> torch.Tensor:
 
 
 def fuse_params(params: dict, interleave: int = 1) -> dict:
-    """Fuse q|k|v -> ``wqkv`` and gate|up -> ``w_gateup`` (one matmul
-    each), quantized parts through :func:`fuse_quantized` (per-part
-    scales kept exactly, as per-column scales).  The unfused tensors are
-    dropped as soon as their fused one exists, so at most one extra group
-    is alive at a time.  ``interleave > 1`` (sharded fusion) raises."""
+    """Fuse q|k|v -> ``wqkv`` (and their biases -> ``bqkv``) and
+    gate|up -> ``w_gateup`` (one matmul each), quantized parts through
+    :func:`fuse_quantized` (per-part scales kept exactly, as per-column
+    scales).  The unfused tensors are dropped as soon as their fused one
+    exists, so at most one extra group is alive at a time.
+    ``interleave > 1`` (sharded fusion) raises."""
     layers = dict(params["layers"])
     if "wq" in layers:
         layers["wqkv"] = fuse_quantized(
             [layers.pop("wq"), layers.pop("wk"), layers.pop("wv")],
             interleave)
+        if "bq" in layers:
+            layers["bqkv"] = torch.cat(
+                [layers.pop("bq"), layers.pop("bk"), layers.pop("bv")],
+                dim=-1)
     if "w_gate" in layers:
         layers["w_gateup"] = fuse_quantized(
             [layers.pop("w_gate"), layers.pop("w_up")], interleave)
@@ -225,6 +237,8 @@ def _qkv(h, lp, arch):
     t = h.shape[0]
     if "wqkv" in lp:
         y = matmul(h, lp["wqkv"])
+        if "bqkv" in lp:      # Qwen2: the bias in the product's dtype
+            y = y + lp["bqkv"].to(y.dtype)
         nq = arch.num_heads * arch.head_dim
         nkv = arch.num_kv_heads * arch.head_dim
         q, k, v = y[:, :nq], y[:, nq:nq + nkv], y[:, nq + nkv:]
@@ -232,9 +246,16 @@ def _qkv(h, lp, arch):
         q = matmul(h, lp["wq"])
         k = matmul(h, lp["wk"])
         v = matmul(h, lp["wv"])
+        if "bq" in lp:
+            q = q + lp["bq"].to(q.dtype)
+            k = k + lp["bk"].to(k.dtype)
+            v = v + lp["bv"].to(v.dtype)
     q = q.reshape(t, arch.num_heads, arch.head_dim)
     k = k.reshape(t, arch.num_kv_heads, arch.head_dim)
     v = v.reshape(t, arch.num_kv_heads, arch.head_dim)
+    if "q_norm" in lp:        # Qwen3: per-head RMSNorm before RoPE
+        q = rms_norm(q, lp["q_norm"], arch.rms_norm_eps)
+        k = rms_norm(k, lp["k_norm"], arch.rms_norm_eps)
     return q, k, v
 
 
@@ -457,7 +478,15 @@ _LAYER_MAP = {
     "mlp.down_proj.weight": ("w_down", True),
     "input_layernorm.weight": ("input_norm", False),
     "post_attention_layernorm.weight": ("post_norm", False),
+    # Family variants (absent in plain Llama checkpoints):
+    "self_attn.q_proj.bias": ("bq", False),        # Qwen2/2.5
+    "self_attn.k_proj.bias": ("bk", False),
+    "self_attn.v_proj.bias": ("bv", False),
+    "self_attn.q_norm.weight": ("q_norm", False),  # Qwen3
+    "self_attn.k_norm.weight": ("k_norm", False),
 }
+
+_OPTIONAL_LAYER_KEYS = ("bq", "bk", "bv", "q_norm", "k_norm")
 
 
 def load_hf_state(arch: LlamaArch, tensors: dict[str, torch.Tensor],
@@ -475,7 +504,6 @@ def load_hf_state(arch: LlamaArch, tensors: dict[str, torch.Tensor],
     Optional per-layer fp8-KV scales (``k_scale``/``v_scale``) land in
     ``params["kv_scales"]`` [L, 2]."""
     device = resolve_device(device)
-    _check_supported(arch)
     nl = arch.num_layers
     stacks: dict[str, list] = {k: [None] * nl for k, _ in _LAYER_MAP.values()}
     scales: dict[str, list] = {k: [None] * nl for k, _ in _LAYER_MAP.values()}
@@ -512,6 +540,8 @@ def load_hf_state(arch: LlamaArch, tensors: dict[str, torch.Tensor],
             else:
                 stacks[key][layer] = arr.t() if transpose else arr
     for key, stack in stacks.items():
+        if key in _OPTIONAL_LAYER_KEYS and all(s is None for s in stack):
+            continue  # a variant's parameter this checkpoint lacks
         missing = [i for i, s in enumerate(stack) if s is None]
         if missing:
             raise ValueError(f"missing layers {missing} for {key}")

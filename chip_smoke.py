@@ -53,7 +53,16 @@ Phases, each reported on its own lines:
              the HBM read probe (kernel 7) on the full 4 GiB buffer of
              seeded random bf16 values, and the four weight-stream matmul
              variants (kernel 8: f16 trick, bit trick, astype e4m3, astype
-             int8) at the five Llama-3.1-8B decode shapes, 64 rows.
+             int8) at the five Llama-3.1-8B decode shapes, 64 rows.  At
+             Qwen2.5-7B's GQA group 7 (Hq=28, Hkv=4, D=128, a 28-layer
+             cache; bf16 and fp8 KV): the ragged kernel on the mixed step
+             (qb 8 and 32), on it poisoned and on the 2048-token prefill
+             chunk (qb 32: 224-row items, two row passes), kernels 2 and
+             4 on B=64 decode steps at qlen 1, 4 and 8, also poisoned,
+             their rows bit for bit against qlen-1 launches; kernel 5 at
+             the Qwen2.5-7B and Qwen3-8B weights Llama's do not cover (16,
+             64 and 2048 rows; w_down's K of 18944 and 12288 among them),
+             with bit-for-bit row replays.
 4. forward:  the full-width Llama-3.1-8B shapes at 2 layers, random
              weights in bf16, fp8 and int4: one prefill, one decode and
              one token-tree verify step through ``forward`` with the
@@ -61,7 +70,9 @@ Phases, each reported on its own lines:
              logits compared.  Then the fused loop's wide step (16 slots
              x 8 rows) in bf16 and fp8 with ARCTIC_TPU_DEFERRED_KV on and
              off: logits compared, caches byte-identical, the deferred
-             path launched once per layer only with the flag.
+             path launched once per layer only with the flag.  Then the
+             prefill, decode and tree-verify steps at the full Qwen2.5-7B
+             and Qwen3-8B widths, 2 layers, in bf16 and fp8.
 5. generate: ``LLM.generate`` at the full Llama-3.1-8B width and depth
              (random weights), 16 requests x 32 greedy tokens, in bf16,
              then four times with suffix speculation
@@ -87,7 +98,16 @@ Phases, each reported on its own lines:
              a run with suffix decoding must accept drafts on the native
              suffix tree, a fused run must run fused steps, and a quantized
              run's matmul kernel must launch 129 times per step (4 per
-             layer and the LM head).
+             layer and the LM head).  Then ``LLM.generate`` at the full
+             width and depth of Qwen2.5-7B (28 layers) and Qwen3-8B (36
+             layers), random weights, 16 x 32 greedy tokens in bf16 and
+             fp8 (kernel 5 launched 113 and 145 times a step), and
+             Qwen3-8B in fp8 with requests asking for penalties
+             (repetition 1.2, presence 0.5, frequency 0.3) and 5 logprobs:
+             the penalties moving logits, bit for bit as the plain
+             version computes them on the CPU, each logprob list as long
+             as the tokens, its top id the committed token, the requests
+             without penalties giving the plain fp8 run's tokens.
 6. bench:    the port's headline bench (``arcticinference_tpu_torch.bench``)
              in this process at the full Llama-3.1-8B width and depth with
              fp8 weights: decode tok/s at batch 64 and 1, the device step
@@ -139,6 +159,25 @@ LLAMA_8B = dict(
                       original_max_position_embeddings=8192),
 )
 HQ, HKV, D, BS, LAYERS = 32, 8, 128, 32, 32
+# Qwen/Qwen2.5-7B-Instruct and Qwen/Qwen3-8B (their config.json on the
+# Hugging Face Hub), with head_dim 128 (Qwen2.5's hidden / heads; Qwen3's
+# explicit head_dim).
+QWEN25_7B = dict(
+    vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+    num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+    head_dim=128, rope_theta=1000000.0, rms_norm_eps=1e-6,
+    max_position_embeddings=32768, tie_word_embeddings=False)
+QWEN3_8B = dict(
+    vocab_size=151936, hidden_size=4096, intermediate_size=12288,
+    num_hidden_layers=36, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=128, rope_theta=1000000.0, rms_norm_eps=1e-6,
+    max_position_embeddings=40960, tie_word_embeddings=False)
+# Architecture (registry name) and dims of each model the script drives.
+MODELS = {"llama-3.1-8b": ("llama", LLAMA_8B),
+          "qwen2.5-7b": ("qwen2", QWEN25_7B),
+          "qwen3-8b": ("qwen3", QWEN3_8B)}
+# Qwen2.5-7B's attention: GQA group 7 (28 q heads over 4 kv heads).
+G7_HQ, G7_HKV = 28, 4
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from arcticinference_tpu_torch.utils import chip_specs  # noqa: E402
 
@@ -197,15 +236,26 @@ MATMUL_SHAPES = (
 # 32 and 64 x qlen 4 (128, 256) and a 2048-token prefill bucket; the LM
 # head sees only the sampled rows.
 MATMUL_ROWS = (16, 64, 128, 256, 2048)
+# Kernel 5's Qwen products that Llama's do not cover, (name, K, N, fused
+# part widths, float32 out), at 16, 64 and 2048 rows (the heads at 16
+# and 64).
+QWEN_MATMUL_SHAPES = (
+    ("qwen2.5 wqkv", 3584, 4608, (3584, 512, 512), False),
+    ("qwen2.5 wo", 3584, 3584, None, False),
+    ("qwen2.5 w_gateup", 3584, 37888, (18944, 18944), False),
+    ("qwen2.5 w_down", 18944, 3584, None, False),
+    ("qwen2.5 lm_head", 3584, 152064, None, True),
+    ("qwen3 w_gateup", 4096, 24576, (12288, 12288), False),
+    ("qwen3 w_down", 12288, 4096, None, False),
+    ("qwen3 lm_head", 4096, 151936, None, True),
+)
+QWEN_MATMUL_ROWS = (16, 64, 2048)
 # The Arctic drafter's quantized products at the 8B width (fp8 and int8
 # drafters, float32 out): its tied LM head and its MLP projection, at the
 # drafter batch buckets of 16 and 64 requests.
 DRAFTER_MATMULS = (("head", 4096, 128256), ("proj", 4096, 4096))
 DRAFTER_ROWS = (16, 64)
 L2_BYTES = 50 * 2 ** 20
-# Matmul kernel launches per step: wqkv, wo, w_gateup, w_down per layer,
-# and the LM head.
-MATMUL_LAUNCHES_PER_STEP = 4 * LLAMA_8B["num_hidden_layers"] + 1
 
 
 def log(*a) -> None:
@@ -271,10 +321,11 @@ class Case:
     with scattered page ids; everything on the card."""
 
     def __init__(self, name, reqs, kv_dtype, rng, t_pad=None, slot_rows=0,
-                 layer=17, layers=None, n_blocks=None):
+                 layer=17, layers=None, n_blocks=None, hq=HQ, hkv=HKV):
         import torch
 
         self.name, self.reqs, self.layer = name, reqs, layer
+        self.hq, self.hkv = hq, hkv
         b = len(reqs)
         pages = [-(-(c + q) // BS) if q > 0 else 0 for c, q in reqs]
         n_blocks = max(n_blocks or 0, sum(pages) + 1)
@@ -287,7 +338,7 @@ class Case:
             off += n
         dev = "cuda"
         layers = layers or LAYERS
-        kv = torch.randn((layers, n_blocks, 2, BS, HKV * D), device=dev,
+        kv = torch.randn((layers, n_blocks, 2, BS, hkv * D), device=dev,
                          dtype=torch.bfloat16) * 0.5
         self.kv = kv.to(kv_dtype)
         del kv
@@ -315,7 +366,7 @@ class Case:
         self.req_idx = torch.from_numpy(req).to(dev)
         self.block_tables = torch.from_numpy(bt).to(dev)
         self.seq_lens = torch.from_numpy(seq).to(dev)
-        self.q = torch.randn((t, HQ, D), device=dev,
+        self.q = torch.randn((t, hq, D), device=dev,
                              dtype=torch.bfloat16) * Q_STD
 
     def schedule_np(self, qb):
@@ -348,9 +399,9 @@ class Case:
         slots each row attends."""
         kv_elem = self.kv.element_size()
         live = self.req_np >= 0
-        kv_bytes = int(self.seq_np.sum()) * 2 * HKV * D * kv_elem
-        io_bytes = (int(live.sum()) + self.t) * HQ * D * 2
-        flops = 4.0 * D * HQ * float(self.attended(live).sum())
+        kv_bytes = int(self.seq_np.sum()) * 2 * self.hkv * D * kv_elem
+        io_bytes = (int(live.sum()) + self.t) * self.hq * D * 2
+        flops = 4.0 * D * self.hq * float(self.attended(live).sum())
         t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S
         t_flops = flops / BF16_FLOP_PER_S
         by = "bytes" if t_bytes >= t_flops else "operations"
@@ -371,7 +422,8 @@ class Case:
         import torch
         import torch.nn.functional as F
 
-        g = HQ // HKV
+        hkv = self.hkv
+        g = self.hq // hkv
         groups: dict[int, list[int]] = {}
         for r, (_, ql) in enumerate(self.reqs):
             if ql > 0:
@@ -382,9 +434,9 @@ class Case:
         for ql, rs in groups.items():
             n = len(rs)
             s_max = max(self.reqs[r][0] + ql for r in rs)
-            qd = torch.empty((n, HKV, ql * g, D), device="cuda",
+            qd = torch.empty((n, hkv, ql * g, D), device="cuda",
                              dtype=torch.bfloat16)
-            kd = torch.zeros((n, HKV, s_max, D), device="cuda",
+            kd = torch.zeros((n, hkv, s_max, D), device="cuda",
                              dtype=torch.bfloat16)
             vd = torch.zeros_like(kd)
             mask = torch.zeros((n, 1, ql * g, s_max), device="cuda",
@@ -393,15 +445,15 @@ class Case:
                 c = self.reqs[r][0]
                 s = c + ql
                 pg = self.block_tables[r, :-(-s // BS)].long()
-                kd[i, :, :s] = (kv_l[pg, 0].reshape(-1, HKV, D)[:s]
+                kd[i, :, :s] = (kv_l[pg, 0].reshape(-1, hkv, D)[:s]
                                 * ks[0]).transpose(0, 1)
-                vd[i, :, :s] = (kv_l[pg, 1].reshape(-1, HKV, D)[:s]
+                vd[i, :, :s] = (kv_l[pg, 1].reshape(-1, hkv, D)[:s]
                                 * ks[1]).transpose(0, 1)
                 rows_np = np.nonzero(self.req_np == r)[0]
                 rows = torch.from_numpy(rows_np)
                 # [ql, Hq, D] -> [Hkv, ql * g, D]: row = token * g + head.
-                qd[i] = self.q[rows.cuda()].view(ql, HKV, g, D).transpose(
-                    0, 1).reshape(HKV, ql * g, D)
+                qd[i] = self.q[rows.cuda()].view(ql, hkv, g, D).transpose(
+                    0, 1).reshape(hkv, ql * g, D)
                 mask[i, 0] = torch.from_numpy(self.allowed(
                     rows_np, s_max)).cuda().repeat_interleave(g, dim=0)
             calls.append((qd, kd, vd, mask))
@@ -796,7 +848,16 @@ def decode_step(case, qlen):
     return pos_base, kern, plain
 
 
-def phase_kernels(rng):
+def phase_kernels(rng, hq=HQ, hkv=HKV, layers=LAYERS, prefix="",
+                  long_context=True):
+    """The attention kernels against their plain versions at ``hq`` q
+    heads over ``hkv`` (Llama-3.1-8B's by default; Qwen2.5-7B's group 7
+    with ``prefix`` "g7 "), in a ``layers``-layer cache, bf16 and fp8 KV:
+    the ragged kernel on a mixed step (also poisoned) and a 2048-token
+    prefill chunk at qb 8 and 32; kernels 2 and 4 on B=64 decode steps at
+    qlen 1, 4 and 8, also poisoned, their rows bit for bit against qlen-1
+    launches; with ``long_context`` both on B=8 steps at 16384-32768
+    tokens.  Returns (ragged, grouped, paged, invariance) cases."""
     import torch
 
     from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
@@ -811,9 +872,11 @@ def phase_kernels(rng):
         decode = [(int(c), 1) for c in rng.integers(128, 4096, 32)]
         mixed = [(0, 512), (1024, 1024)] + decode
         for name, reqs, t_pad in (
-                (f"mixed 512+1024+32dec {dt}", mixed, 2048),
-                (f"prefill 2048@ctx2048 {dt}", [(2048, 2048)], 2048)):
-            case = Case(name, reqs, kv_dtype, rng, t_pad=t_pad)
+                (f"{prefix}mixed 512+1024+32dec {dt}", mixed, 2048),
+                (f"{prefix}prefill 2048@ctx2048 {dt}", [(2048, 2048)],
+                 2048)):
+            case = Case(name, reqs, kv_dtype, rng, t_pad=t_pad, hq=hq,
+                        hkv=hkv, layers=layers)
             for qb in (8, 32):
                 sched = case.schedule(qb)
 
@@ -832,7 +895,7 @@ def phase_kernels(rng):
 
                 case.name = f"{name} qb={qb}"
                 ragged_cases.append(run_case(case, kern, plain))
-            if name.startswith("mixed"):
+            if "mixed" in name:
                 ragged_cases.append(run_poisoned(case, sched, plain, qb))
             del case
             torch.cuda.empty_cache()
@@ -843,8 +906,9 @@ def phase_kernels(rng):
             dead = rng.choice(64, 6, replace=False)
             reqs = [(0, 0) if r in dead else (int(ctx[r]), qlen)
                     for r in range(64)]
-            case = Case(f"decode B=64 qlen={qlen} {dt}", reqs, kv_dtype, rng,
-                        t_pad=64 * qlen, slot_rows=qlen)
+            case = Case(f"{prefix}decode B=64 qlen={qlen} {dt}", reqs,
+                        kv_dtype, rng, t_pad=64 * qlen, slot_rows=qlen,
+                        hq=hq, hkv=hkv, layers=layers)
             pos_base, kern, plain = decode_step(case, qlen)
             grouped_cases.append(run_case(case, kern, plain))
             grouped_cases.append(run_poisoned_grouped(case, plain, qlen,
@@ -864,7 +928,8 @@ def phase_kernels(rng):
             torch.cuda.empty_cache()
     # Long contexts: B=8 at 16384-32768 tokens (one slot dead) in a
     # one-layer cache of 8192 pages; kernels 4 and 2 side by side.
-    for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
+    for kv_dtype in ((torch.bfloat16, torch.float8_e4m3fn)
+                     if long_context else ()):
         dt = "bf16" if kv_dtype == torch.bfloat16 else "fp8"
         for qlen in (1, 8):
             ctx = rng.integers(16384, 32769, 8)
@@ -1169,12 +1234,17 @@ def matmul_replay(mode, k, n, m, gen) -> dict:
 MATMUL_REPLAY = (("fp8", 4096, 4096, 64), ("fp8", 4096, 28672, 64),
                  ("fp8", 14336, 4096, 16), ("fp8", 4096, 6144, 256),
                  ("fp8", 4096, 28672, 2048), ("int4", 4096, 4096, 64),
-                 ("int4", 4096, 28672, 64), ("int4", 4096, 28672, 2048))
+                 ("int4", 4096, 28672, 64), ("int4", 4096, 28672, 2048),
+                 # The Qwen plans: w_down's K of 18944 and 12288 at 16
+                 # rows, Qwen2.5's wqkv and w_gateup at 64 and 2048.
+                 ("fp8", 18944, 3584, 16), ("fp8", 12288, 4096, 16),
+                 ("fp8", 3584, 4608, 64), ("fp8", 3584, 37888, 2048))
 
 
 def phase_matmul_kernels(seed):
     """Both quantized matmul kernels against their plain versions at the
-    Llama-3.1-8B weight shapes, then :func:`matmul_replay` on
+    Llama-3.1-8B weight shapes, kernel 5 at the Qwen ones
+    (:data:`QWEN_MATMUL_SHAPES`), then :func:`matmul_replay` on
     :data:`MATMUL_REPLAY`; returns (fp8/int8 cases, int4 cases, replay
     checks)."""
     import torch
@@ -1206,6 +1276,19 @@ def phase_matmul_kernels(seed):
                     kernel, plain))
             del q
             torch.cuda.empty_cache()
+    for name, k, n, parts, f32 in QWEN_MATMUL_SHAPES:
+        q = quantized_weight("fp8", k, n, parts, gen)
+        out_dtype = torch.float32 if f32 else torch.bfloat16
+        for m in QWEN_MATMUL_ROWS:
+            if f32 and m > 64:
+                continue
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            fp8_cases.append(run_matmul_case(
+                f"fp8 {name} [{k},{n}] M={m}", q, x, out_dtype,
+                fm.fp8_matmul_kernel, fm.fp8_matmul_reference))
+        del q
+        torch.cuda.empty_cache()
     for mode in ("fp8", "int8"):
         for name, k, n in DRAFTER_MATMULS:
             q = quantized_weight(mode, k, n, None, gen)
@@ -1351,16 +1434,18 @@ def phase_stream_kernels(seed):
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def plain_matmuls(module):
-    """Run ``module``'s matmuls through the kernels' plain versions."""
+def plain_matmuls():
+    """Run the decoder's matmuls (``models/llama.py``, whose layers the
+    Qwen modules share) through the kernels' plain versions."""
+    from arcticinference_tpu_torch.models import llama
     from arcticinference_tpu_torch.ops import fp8
 
-    saved = module.matmul
-    module.matmul = fp8.matmul_reference
+    saved = llama.matmul
+    llama.matmul = fp8.matmul_reference
     try:
         yield
     finally:
-        module.matmul = saved
+        llama.matmul = saved
 
 
 def reset_counts() -> None:
@@ -1397,7 +1482,10 @@ def launch_counts() -> dict:
             "stream_matmul_kernel": sm.stream_matmul_launches}
 
 
-def phase_forward(rng, quantization=None):
+def phase_forward(rng, quantization=None, model="llama-3.1-8b"):
+    """``model``'s full width (:data:`MODELS`) at 2 layers: a prefill, a
+    decode and a token-tree verify step through ``forward`` with the
+    kernels and with the plain versions; logits compared."""
     import torch
 
     from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
@@ -1409,9 +1497,11 @@ def phase_forward(rng, quantization=None):
     from arcticinference_tpu_torch.engine.scheduler import Scheduler
     from arcticinference_tpu_torch.models.loader import load_model
 
+    arch_name, dims = MODELS[model]
     cfg = EngineConfig(
-        model=ModelConfig(model="llama", dtype="bfloat16", max_model_len=4096,
-                          hf_overrides={**LLAMA_8B, "num_hidden_layers": 2},
+        model=ModelConfig(model=arch_name, dtype="bfloat16",
+                          max_model_len=4096,
+                          hf_overrides={**dims, "num_hidden_layers": 2},
                           quantization=quantization),
         cache=CacheConfig(num_blocks=256),
         scheduler=SchedulerConfig(max_num_seqs=64,
@@ -1445,7 +1535,7 @@ def phase_forward(rng, quantization=None):
                 kv = runner.kv.clone()
                 reset_counts()
                 with (contextlib.nullcontext() if name == "kernel"
-                      else plain_matmuls(module)):
+                      else plain_matmuls()):
                     attn = (module.make_attn_impl(si.attn_qb)
                             if name == "kernel" else module.plain_attn)
                     kv, h = module.forward(runner.params, arch, kv, inputs,
@@ -1467,7 +1557,7 @@ def phase_forward(rng, quantization=None):
         top2 = b.topk(2, dim=-1).values
         near_tie = (top2[:, 0] - top2[:, 1]) <= 2 * diff
         finite = bool(torch.isfinite(a).all())
-        res = dict(step=step, quantization=quantization,
+        res = dict(model=model, step=step, quantization=quantization,
                    attn_qb=si.attn_qb, rows=a.shape[0], vocab=a.shape[1],
                    max_abs_diff=diff, max_abs_logit=scale,
                    argmax_agree=float(agree.float().mean()),
@@ -1672,7 +1762,8 @@ def phase_generate(rng):
                                              int(n))]
                for n in rng.integers(128, 1025, 16)]
     runs = {}
-    runs["bf16"], ref = run_generate(None, prompts)
+    runs["bf16"], outs = run_generate(None, prompts)
+    ref = [o.token_ids for o in outs]
     for spec in ("suffix", "suffix tree", "suffix fused",
                  "suffix fused deferred"):
         runs[spec], _ = run_generate(None, prompts, spec=spec, reference=ref)
@@ -1687,6 +1778,105 @@ def phase_generate(rng):
                                          reference=ref, lstm_dir=lstm_dir)
     for q in ("fp8", "int4"):
         runs[q], _ = run_generate(q, prompts)
+    return runs
+
+
+# The penalties + logprobs run (Qwen3-8B, fp8): request i asks for the
+# penalties when i % 4 < 2 and for 5 logprobs when i % 4 is even.
+PENALTIES = dict(repetition_penalty=1.2, presence_penalty=0.5,
+                 frequency_penalty=0.3)
+
+
+@contextlib.contextmanager
+def checked_penalties():
+    """Hold every engine step's ``apply_penalties`` on the card against
+    the plain computation of the same inputs on the CPU, bit for bit
+    (float32 elementwise arithmetic, integer counts), and count the steps
+    and the logits the penalties moved.  Yields the counts."""
+    import torch
+
+    from arcticinference_tpu_torch.engine import runner as runner_mod
+
+    orig = runner_mod.apply_penalties
+    seen = {"steps": 0, "moved_logits": 0, "not_bitwise_equal": 0}
+
+    def checked(logits, *args):
+        out = orig(logits, *args)
+        cpu = orig(logits.cpu(), *(a.cpu() for a in args))
+        seen["steps"] += 1
+        seen["moved_logits"] += int((out != logits).sum())
+        seen["not_bitwise_equal"] += int(not torch.equal(out.cpu(), cpu))
+        return out
+
+    runner_mod.apply_penalties = checked
+    try:
+        yield seen
+    finally:
+        runner_mod.apply_penalties = orig
+
+
+def phase_generate_qwen(rng):
+    """``LLM.generate`` at the full width and depth of Qwen2.5-7B (28
+    layers, GQA group 7, q/k/v biases) and Qwen3-8B (36 layers, qk-norm),
+    random weights: 16 requests x 32 greedy tokens in bf16 and in fp8
+    (kernel 5 launched 4 x layers + 1 times a step), then Qwen3-8B in fp8
+    with a quarter of the requests asking for penalties, a quarter for 5
+    logprobs, a quarter for both: penalties applied on every step, moving
+    logits, bit for bit as the plain version computes them on the CPU;
+    each logprob list as long as the tokens, its top id the committed
+    token; the requests without penalties giving the plain fp8 run's
+    tokens.  Returns {run: result}."""
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+
+    runs = {}
+    for model in ("qwen2.5-7b", "qwen3-8b"):
+        vocab = MODELS[model][1]["vocab_size"]
+        prompts = [[int(x) for x in rng.integers(0, vocab, int(n))]
+                   for n in rng.integers(128, 1025, 16)]
+        for q in (None, "fp8"):
+            runs[f"{model} {q or 'bf16'}"], plain = run_generate(
+                q, prompts, model=model)
+        if model != "qwen3-8b":
+            continue
+        sampling = [SamplingParams(max_tokens=32,
+                                   logprobs=5 if i % 2 == 0 else None,
+                                   **(PENALTIES if i % 4 < 2 else {}))
+                    for i in range(16)]
+        with checked_penalties() as pen:
+            res, outs = run_generate("fp8", prompts, model=model,
+                                     sampling=sampling)
+        lp_ok = all(
+            (o.logprobs is None) == (sp.logprobs is None)
+            and (o.logprobs is None or (
+                len(o.logprobs) == len(o.token_ids)
+                and all(len(lp) == 5 and next(iter(lp)) == t
+                        and all(np.isfinite(v) and v <= 0
+                                for v in lp.values())
+                        for lp, t in zip(o.logprobs, o.token_ids))))
+            for o, sp in zip(outs, sampling))
+        unpenalised_same = all(o.token_ids == p.token_ids
+                               for i, (o, p) in enumerate(zip(outs, plain))
+                               if i % 4 >= 2)
+        res.update(penalty_steps=pen, logprobs_consistent=lp_ok,
+                   unpenalised_match_plain_run=unpenalised_same,
+                   penalised_match_plain_run=sum(
+                       o.token_ids == p.token_ids
+                       for i, (o, p) in enumerate(zip(outs, plain))
+                       if i % 4 < 2),
+                   first_logprobs=outs[0].logprobs[0])
+        log("  penalties + logprobs " + json.dumps(
+            {k: res[k] for k in ("penalty_steps", "logprobs_consistent",
+                                 "unpenalised_match_plain_run",
+                                 "penalised_match_plain_run",
+                                 "first_logprobs")}))
+        # Penalties on the steps that hold a penalised request, moving
+        # logits, as the plain version computes them.
+        if not (lp_ok and unpenalised_same
+                and 0 < pen["steps"] <= res["engine_steps"]
+                and pen["moved_logits"] > 0
+                and pen["not_bitwise_equal"] == 0):
+            raise AssertionError(f"penalties / logprobs run failed: {res}")
+        runs[f"{model} fp8 penalties logprobs"] = res
     return runs
 
 
@@ -1880,18 +2070,23 @@ def speculative_config(spec, lstm_dir=None):
         enable_suffix_decoding=suffix, **(SUFFIX_KNOBS if suffix else {}))
 
 
-def engine_config(quantization, spec=None, lstm_dir=None):
-    """The generate runs' engine: Llama-3.1-8B shape, 32 layers, with
-    :func:`speculative_config` of ``spec`` (None: no speculation)."""
+def engine_config(quantization, spec=None, lstm_dir=None,
+                  model="llama-3.1-8b"):
+    """The generate runs' engine: ``model``'s shape (:data:`MODELS`) at
+    full depth, with :func:`speculative_config` of ``spec`` (None: no
+    speculation)."""
     from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
                                                   ModelConfig,
                                                   SchedulerConfig)
 
+    arch_name, dims = MODELS[model]
     return EngineConfig(
-        model=ModelConfig(model="llama", dtype="bfloat16", max_model_len=4096,
-                          hf_overrides=LLAMA_8B, quantization=quantization),
-        # 2048 blocks x 4 MiB (2 x 32 layers x 8 heads x 32 tokens x 128 x
-        # 2 B) = 8 GiB of KV beside the weights (~16 GB in bf16).
+        model=ModelConfig(model=arch_name, dtype="bfloat16",
+                          max_model_len=4096, hf_overrides=dims,
+                          quantization=quantization),
+        # 2048 blocks x 4 MiB (Llama-3.1-8B: 2 x 32 layers x 8 heads x 32
+        # tokens x 128 x 2 B) = 8 GiB of KV beside the weights (~16 GB in
+        # bf16); Qwen2.5-7B 3.5 GiB, Qwen3-8B 9 GiB.
         cache=CacheConfig(num_blocks=2048),
         scheduler=SchedulerConfig(max_num_seqs=64,
                                   max_num_batched_tokens=2048),
@@ -2061,17 +2256,19 @@ def drafter_chain_report(drafter, vocab, hidden) -> dict:
 
 
 def run_generate(quantization, prompts, spec=None, reference=None,
-                 lstm_dir=None):
-    """One timed ``LLM.generate`` run on a new engine (``reference``: the
-    bf16 run's tokens, which seed a speculative run's suffix cache).
-    Returns (result, output tokens)."""
+                 lstm_dir=None, model="llama-3.1-8b", sampling=None):
+    """One timed ``LLM.generate`` run on a new engine of ``model``
+    (``reference``: the bf16 run's tokens, which seed a speculative run's
+    suffix cache; ``sampling``: one ``SamplingParams`` per prompt, 32
+    greedy tokens by default).  Returns (result, outputs)."""
     import torch
 
     from arcticinference_tpu_torch.engine.llm import LLM
     from arcticinference_tpu_torch.engine.request import SamplingParams
 
+    dims = MODELS[model][1]
     t0 = time.perf_counter()
-    llm = LLM(engine_config(quantization, spec, lstm_dir))  # cuda:0
+    llm = LLM(engine_config(quantization, spec, lstm_dir, model))  # cuda:0
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     vocab = llm.engine.arch.vocab_size
@@ -2096,7 +2293,8 @@ def run_generate(quantization, prompts, spec=None, reference=None,
             env_flag("ARCTIC_TPU_FUSED_FORCE_WIDTH",
                      "wide" if deferred else None):
         outs = llm.generate(prompt_token_ids=prompts,
-                            sampling_params=SamplingParams(max_tokens=32))
+                            sampling_params=sampling
+                            or SamplingParams(max_tokens=32))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
@@ -2105,8 +2303,8 @@ def run_generate(quantization, prompts, spec=None, reference=None,
     dec = steps.get("decode", {})
     n_tok = sum(len(o.token_ids) for o in outs)
     res = dict(
-        quantization=quantization, spec=spec,
-        layers=LLAMA_8B["num_hidden_layers"], requests=len(outs),
+        model=model, quantization=quantization, spec=spec,
+        layers=dims["num_hidden_layers"], requests=len(outs),
         finished=sum(o.finish_reason == "finished_length" for o in outs),
         prompt_tokens=sum(len(p) for p in prompts), generated_tokens=n_tok,
         wall_s=wall, init_s=init_s, engine_steps=n_steps,
@@ -2131,13 +2329,13 @@ def run_generate(quantization, prompts, spec=None, reference=None,
                    width_stats=llm.engine.width_stats,
                    sync_checked_dispatches=checked["dispatches"],
                    drained_steps=drafted)
-    head_key = f"{LLAMA_8B['hidden_size']}x{LLAMA_8B['vocab_size']}"
+    head_key = f"{dims['hidden_size']}x{dims['vocab_size']}"
     if drafter is not None:
         res.update(drafter=drafter.kind, drafter_quantization=(
             llm.engine.spec_config.quantization),
             fp8_matmul_launches_by_shape=fp8_shapes,
             drafter_chain=drafter_chain_report(
-                drafter, vocab, LLAMA_8B["hidden_size"]))
+                drafter, vocab, dims["hidden_size"]))
     log("  generate " + json.dumps(res))
     matmul = {"fp8": "fp8_matmul_kernel",
               "int4": "int4_matmul_kernel"}.get(quantization)
@@ -2171,8 +2369,11 @@ def run_generate(quantization, prompts, spec=None, reference=None,
                  == (spec == "suffix fused deferred"))
     drafter_fp8 = drafter is not None and \
         llm.engine.spec_config.quantization == "fp8"
+    # wqkv, wo, w_gateup and w_down per layer, and the LM head.
+    per_step = 4 * dims["num_hidden_layers"] + 1
+    res["matmul_launches_per_step"] = per_step if matmul else 0
     for key in ("fp8_matmul_kernel", "int4_matmul_kernel"):
-        want = MATMUL_LAUNCHES_PER_STEP * n_steps if key == matmul else 0
+        want = per_step * n_steps if key == matmul else 0
         if key == "fp8_matmul_kernel" and drafter_fp8:
             # The fp8 drafter's products (a bf16 target): its head at
             # every draft position of every fused step at least.
@@ -2182,11 +2383,10 @@ def run_generate(quantization, prompts, spec=None, reference=None,
         ok = ok and launches[key] == want
     if not ok:
         raise AssertionError(f"end-to-end check failed: {res}")
-    tokens = [o.token_ids for o in outs]
     llm.close()
-    del llm, outs
+    del llm
     free_cuda_memory()
-    return res, tokens
+    return res, outs
 
 
 def profile_run(quantization, rng) -> dict:
@@ -2291,8 +2491,8 @@ def host_breakdown(runner):
             return out
         return call
 
-    def timed_execute(step_inputs, generator):
-        out = timed("execute", execute)(step_inputs, generator)
+    def timed_execute(step_inputs, *a, **k):
+        out = timed("execute", execute)(step_inputs, *a, **k)
         times.rows.append((step_inputs.attn_qb, part["prepare"],
                            part["forward"], part["execute"]))
         return out
@@ -2452,7 +2652,8 @@ def main() -> int:
                      "(make_pallas_body)"),
     }
     if "kernels" in phases:
-        log("[kernels] kernel vs plain, Hq=32 Hkv=8 D=128, 32-layer cache")
+        log(f"[kernels] kernel vs plain, Hq={HQ} Hkv={HKV} D={D}, "
+            f"{LAYERS}-layer cache")
         ragged, grouped, paged, invariance = phase_kernels(rng)
         log("[kernels] deferred-KV path (kernel 3) vs plain, and kernel 2 "
             "on the same steps with the rows written")
@@ -2460,7 +2661,15 @@ def main() -> int:
         grouped = grouped + grouped_written
         log("[kernels] tree-mask path vs plain, token-tree verify steps")
         tree_cases = phase_tree_kernels(rng)
-        log("[kernels] quantized matmuls vs plain, Llama-3.1-8B weights")
+        log(f"[kernels] kernels 1, 2 and 4 at GQA group 7 (Qwen2.5-7B: "
+            f"Hq={G7_HQ} Hkv={G7_HKV} D={D}) vs plain")
+        g7 = phase_kernels(rng, hq=G7_HQ, hkv=G7_HKV,
+                           layers=QWEN25_7B["num_hidden_layers"],
+                           prefix="g7 ", long_context=False)
+        ragged, grouped, paged, invariance = (
+            a + b for a, b in zip((ragged, grouped, paged, invariance), g7))
+        log("[kernels] quantized matmuls vs plain, Llama-3.1-8B weights; "
+            "kernel 5 at Qwen2.5-7B's and Qwen3-8B's")
         fp8_cases, int4_cases, replay = phase_matmul_kernels(args.seed)
         log("[kernels] HBM read probe vs plain, 4 GiB of random bf16")
         probe_cases = phase_probe_kernel(args.seed)
@@ -2530,12 +2739,28 @@ def main() -> int:
             log(f"[forward] fused wide step (16 slots x 8 rows), 2 layers, "
                 f"{quantization or 'bf16'} weights, deferred KV on vs off")
             phase_forward_deferred(rng, quantization)
+        for model in ("qwen2.5-7b", "qwen3-8b"):
+            for quantization in (None, "fp8"):
+                log(f"[forward] {model} width, 2 layers, "
+                    f"{quantization or 'bf16'} weights, kernels vs plain")
+                phase_forward(rng, quantization, model)
     if "generate" in phases:
         log("[generate] LLM.generate, Llama-3.1-8B shape, 32 layers, bf16, "
             "suffix speculation (linear, tree, fused loop, fused loop with "
             "deferred KV), Arctic drafters (MLP fused and sync, fp8 LSTM "
             "fused, MLP + suffix fused), then fp8 and int4 weights")
         runs = phase_generate(rng)
+        log("[generate] LLM.generate, Qwen2.5-7B (28 layers) and Qwen3-8B "
+            "(36 layers) shapes, bf16 and fp8; Qwen3-8B fp8 with penalties "
+            "and logprobs")
+        qwen_runs = phase_generate_qwen(rng)
+        # This slice's path: the Qwen runs' launches, each run's own.
+        for key in ("ragged_paged_attention_kernel",
+                    "grouped_decode_attention_kernel", "fp8_matmul_kernel"):
+            kernels[key]["launches_qwen"] = {
+                run: dict(launches=r["launches"][key],
+                          engine_steps=r["engine_steps"])
+                for run, r in qwen_runs.items()}
         # Each kernel's launches from the run of its own path.
         for key, run in (("ragged_paged_attention_kernel", "bf16"),
                          ("ragged_paged_attention_kernel (tree mask)",

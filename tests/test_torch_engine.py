@@ -172,11 +172,22 @@ def test_step_kinds_are_recorded(tiny_llm):
 
 
 def test_unported_features_raise(tiny_llm, tmp_path):
+    """Guided decoding, SwiftKV and a drafter without its weights still
+    raise; penalties and logprobs are ported (they raised before): such
+    requests run, with one logprob dict per token."""
     with pytest.raises(NotImplementedError):
-        tiny_llm.engine.add_request(
-            "x", [1, 2], SamplingParams(repetition_penalty=1.2))
-    with pytest.raises(NotImplementedError):
-        tiny_llm.engine.add_request("y", [1, 2], SamplingParams(logprobs=2))
+        tiny_llm.engine.add_request("g", [1, 2],
+                                    SamplingParams(guided=object()))
+    outs = tiny_llm.generate(
+        prompt_token_ids=[[1, 2, 3], [4, 5]],
+        sampling_params=[SamplingParams(max_tokens=4, repetition_penalty=1.2,
+                                        presence_penalty=0.5,
+                                        frequency_penalty=0.3),
+                         SamplingParams(max_tokens=4, logprobs=2)])
+    assert [len(o.token_ids) for o in outs] == [4, 4]
+    assert outs[0].logprobs is None
+    assert [len(lp) for lp in outs[1].logprobs] == [2] * 4
+    assert [next(iter(lp)) for lp in outs[1].logprobs] == outs[1].token_ids
     # A distilled drafter (spec/distill.py) is ported; one whose
     # checkpoint lacks its weights file raises.
     (tmp_path / "config.json").write_text('{"distilled_tied": true}')

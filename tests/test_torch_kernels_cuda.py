@@ -462,6 +462,87 @@ def test_grouped_kernel_at_group_8(cuda_device, deferred, qlen, kv_dtype):
     assert_matches(out, ref)
 
 
+# Qwen2.5-7B's GQA group: 28 q heads over 4 kv heads.  Here 14 over 2
+# (the cache's kv heads): a decode row maps to token r / 7 under q head
+# h * 7 + r % 7, so kernel 2's and 4's tiles hold 7 rows at qlen 1, 28 at
+# qlen 4 and 56 at qlen 8 (two passes of 32).
+HQ_GROUP_7 = 7 * HKV
+GROUP_7_CTX = [30, 0, 1000, 4093, 62, 509]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qlen", [1, 4, 8])
+@pytest.mark.parametrize("kernel", ["grouped", "decode_paged"])
+def test_decode_kernels_at_group_7(cuda_device, monkeypatch, kernel, qlen,
+                                   kv_dtype):
+    """Kernels 2 and 4 at group 7 against the plain version, on a clean
+    cache and on one poisoned past every seq_len and in every unused
+    block; kernel 4 at 2-page ranges too (a context of 4093 spans 64)."""
+    q, kv, scale, bt, sl, _ = uniform_step(GROUP_7_CTX, qlen, kv_dtype,
+                                           cuda_device, hq=HQ_GROUP_7)
+    pb = torch.clamp(sl - qlen, min=0)
+    fn = (tra.grouped_decode_attention_kernel if kernel == "grouped"
+          else tra.decode_paged_attention_kernel)
+    ref = fn(q.cpu(), kv.cpu(), pb.cpu(), bt.cpu(), sl.cpu(), qlen=qlen,
+             kv_scale=scale.cpu(), layer=1)
+    for cache in (kv, poisoned(kv, bt, sl)):
+        out = fn(q, cache, pb, bt, sl, qlen=qlen, kv_scale=scale, layer=1)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all()
+        assert_matches(out, ref)
+    if kernel == "decode_paged":
+        monkeypatch.setattr(tra, "RANGE_PAGES", 2)
+        out = fn(q, kv, pb, bt, sl, qlen=qlen, kv_scale=scale, layer=1)
+        torch.cuda.synchronize()
+        assert_matches(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qlen", [4, 8])
+@pytest.mark.parametrize("kernel", ["grouped", "decode_paged"])
+def test_group_7_rows_do_not_depend_on_qlen(cuda_device, kernel, qlen,
+                                            kv_dtype):
+    """At group 7 as at group 4: row j of a qlen-``qlen`` launch is bit
+    for bit the single row of a qlen-1 launch at position ctx + j."""
+    q, kv, scale, bt, sl, pb = uniform_step(GROUP_7_CTX, qlen, kv_dtype,
+                                            cuda_device, hq=HQ_GROUP_7)
+    fn = (tra.grouped_decode_attention_kernel if kernel == "grouped"
+          else tra.decode_paged_attention_kernel)
+    out = fn(q, kv, pb, bt, sl, qlen=qlen, kv_scale=scale, layer=1)
+    live = sl > 0
+    for j in range(qlen):
+        one = fn(q[j::qlen].contiguous(), kv, pb + j, bt,
+                 torch.where(live, pb + j + 1, 0), qlen=1, kv_scale=scale,
+                 layer=1)
+        assert torch.equal(out[j::qlen].view(torch.int16),
+                           one.view(torch.int16)), f"row {j}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("qb", [8, 32])
+def test_ragged_kernel_at_group_7(cuda_device, qb, kv_dtype):
+    """Kernel 1 at group 7: a 32-token item has 224 rows (two passes of
+    the CTA's 128, the second partial), an 8-token item 56; prefill
+    chunks beside decode rows, on a clean and a poisoned cache."""
+    reqs = [(40, 64), (500, 7), (3000, 1), (0, 45), (1023, 1)]
+    t_pad = 128
+    q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device, t_pad)
+    q = torch.cat([q, q.flip(0)], dim=1)[:, :HQ_GROUP_7].contiguous()
+    pos, req = ragged_rows(reqs, t_pad, cuda_device)
+    ref = ragged_paged_attention_reference(q, kv[1], pos, req, bt, sl,
+                                           kv_scale=scale[1])
+    live = req >= 0
+    for cache in (kv, poisoned(kv, bt, sl)):
+        out = tra.ragged_paged_attention_kernel(
+            q, cache, pos, req, bt, sl, qb=qb, kv_scale=scale, layer=1)
+        torch.cuda.synchronize()
+        assert_matches(out[live], ref[live])
+        assert not out[~live].any()
+
+
 def random_tree(rng, n):
     """Parents of a best-first tree of ``n`` nodes: node i hangs off the
     frontier (-1) or an earlier node."""
@@ -818,6 +899,39 @@ def test_quantized_matmul_graph_replay_matches_eager(cuda_device, mode, k,
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager)
+
+
+# The Qwen2.5-7B and Qwen3-8B products the Llama shapes do not cover
+# (K, N): wqkv, wo, w_gateup, w_down and the LM head of Qwen2.5-7B
+# (hidden 3584, intermediate 18944), w_gateup and w_down of Qwen3-8B
+# (hidden 4096, intermediate 12288) and its LM head.
+QWEN_SHAPES = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584),
+               (3584, 152064), (4096, 24576), (12288, 4096), (4096, 151936)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 64, 2048])
+@pytest.mark.parametrize("k,n", QWEN_SHAPES)
+def test_fp8_matmul_kernel_at_qwen_shapes(cuda_device, k, n, m):
+    """Kernel 5 at the Qwen weights (the plans they pick: split K on
+    w_down's K = 18944, the wide LM heads) against the plain version;
+    each moved row bit for bit beside fresh rows."""
+    if m == 2048 and n > 100000:
+        pytest.skip("the LM head sees only the sample rows (<= 64 here)")
+    x, q = quantized_case("fp8", m, k, n, cuda_device)
+    out_dtype = torch.float32 if n > 100000 else torch.bfloat16
+    out = tfm.fp8_matmul_kernel(x, q.weight, q.scale, out_dtype)
+    ref = tfm.fp8_matmul_reference(x, q.weight, q.scale, out_dtype)
+    torch.cuda.synchronize()
+    assert_matches(out, ref)
+    x2 = torch.randn_like(x)
+    moves = {j: (j + m // 2 + 3) % m for j in range(0, m, max(1, m // 8))}
+    for j, j2 in moves.items():
+        x2[j2] = x[j]
+    out2 = tfm.fp8_matmul_kernel(x2, q.weight, q.scale, out_dtype)
+    torch.cuda.synchronize()
+    for j, j2 in moves.items():
+        assert torch.equal(out2[j2], out[j]), (j, j2)
 
 
 @pytest.mark.cuda

@@ -60,11 +60,15 @@ def step_inputs(reqs, block_tables, t_pad, attn_qb):
     return arrays, np.array(rows, np.int32)
 
 
-def run_both(arch, jparams, tparams, steps, rng):
-    """Run each step through both models; return per-step logits."""
+def run_both(arch, jparams, tparams, steps, rng, kv_dtype="bfloat16",
+             caches=None):
+    """Run each step through both models; return per-step logits.  The
+    paged cache is bf16 by default, as both runners allocate it.  Each
+    step's caches are held together unless ``caches`` is a list, which
+    then receives each step's (port, JAX) caches as numpy arrays."""
     jkv = jalloc(JSpec(arch.num_layers, 16, arch.num_kv_heads, BS,
-                       arch.head_dim, jnp.bfloat16))
-    tkv = torch.zeros(tuple(jkv.shape), dtype=torch.bfloat16)
+                       arch.head_dim, getattr(jnp, kv_dtype)))
+    tkv = torch.zeros(tuple(jkv.shape), dtype=getattr(torch, kv_dtype))
     ks = np.ones((arch.num_layers, 2), np.float32)
     bt = np.zeros((B_SLOTS, MAX_BLK), np.int32)
     bt[0, :2] = [3, 7]
@@ -89,8 +93,11 @@ def run_both(arch, jparams, tparams, steps, rng):
                                  attn_impl=tllama.make_attn_impl(attn_qb))
         tl = tllama.compute_logits(tparams, th[torch.from_numpy(rows).long()])
         jcache = np.asarray(jkv.astype(jnp.float32))
-        np.testing.assert_allclose(tkv.float().numpy()[:, 1:],
-                                   jcache[:, 1:], rtol=1e-2, atol=1e-3)
+        if caches is not None:
+            caches.append((tkv.float().numpy(), jcache))
+        else:
+            np.testing.assert_allclose(tkv.float().numpy()[:, 1:],
+                                       jcache[:, 1:], rtol=1e-2, atol=1e-3)
         out.append((tl.numpy(), jl))
     return out
 
@@ -205,14 +212,21 @@ def test_params_from_jax_keeps_keys_and_layout():
 
 
 def test_init_params_refuses_unported_variants():
-    """Qwen variants still raise; weight-only quantization is ported."""
-    arch = tllama.LlamaArch(attention_bias=True)
+    """The Qwen variants are ported: attention biases and qk-norm weights
+    are drawn (they raised before); weight-only quantization leaves them
+    unquantized.  Interleaved (sharded) fusion is still refused."""
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
-        tllama.init_params(arch, gen, torch.float32)
-    small = tllama.LlamaArch(vocab_size=64, hidden_size=128,
-                             intermediate_size=256, num_layers=1,
-                             num_heads=4, num_kv_heads=2, head_dim=32)
-    params = tllama.init_params(small, gen, quantization="fp8")
+    small = dict(vocab_size=64, hidden_size=128, intermediate_size=256,
+                 num_layers=1, num_heads=4, num_kv_heads=2, head_dim=32)
+    arch = tllama.LlamaArch(attention_bias=True, qk_norm=True, **small)
+    layers = tllama.init_params(arch, gen, torch.float32)["layers"]
+    assert {k: tuple(layers[k].shape) for k in (
+        "bq", "bk", "bv", "q_norm", "k_norm")} == dict(
+        bq=(1, 128), bk=(1, 64), bv=(1, 64), q_norm=(1, 32), k_norm=(1, 32))
+    params = tllama.init_params(tllama.LlamaArch(**small), gen,
+                                quantization="fp8")
     assert isinstance(params["layers"]["wq"], tfp8.QuantizedLinear)
     assert params["layers"]["wq"].weight.dtype == torch.float8_e4m3fn
+    assert "bq" not in params["layers"]
+    with pytest.raises(NotImplementedError):
+        tllama.fuse_params(params, interleave=2)
