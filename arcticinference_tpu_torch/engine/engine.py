@@ -29,7 +29,11 @@ distillation.  Requests with repetition / presence / frequency penalties
 or ``logprobs`` ride the synchronous step (also beside the fused loop,
 which does not mirror them): penalties act on the step's logits, and
 each committed token gets a ``{token: logprob}`` dict of the step's
-ranked candidates.  Guided decoding raises ``NotImplementedError``.
+ranked candidates.  A SwiftKV model (``llama_swiftkv``) composes with
+suffix decoding, the drafters (their hidden rows are its sample rows)
+and hidden capture, on the synchronous step and the fused loop; token
+trees with it raise, as in the JAX package.  Guided decoding raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -72,6 +76,10 @@ class LLMEngine:
         # Detokenizer for string stop sequences (set by LLM).
         self.tokenizer = None
         self.runner = ModelRunner(config, module, arch, params, self.device)
+        if spec is not None and spec.use_tree_spec and self.runner.swift:
+            raise NotImplementedError(
+                "use_tree_spec does not compose with SwiftKV (the "
+                "early-exit halves re-run draft rows with different masks)")
         self.scheduler = Scheduler(config.scheduler, config.cache,
                                    self.runner.num_blocks)
         self.engine_stats = EngineStats()

@@ -39,8 +39,13 @@ distillation capture (``spec/distill.py``) and the bench run the same
 program; the host copies them, at the drain, only while the engine's
 ``hidden_capture`` hook is installed.
 
-Not ported (they raise or are not offered): meshes, multihost, dp, pp and
-SwiftKV.
+A SwiftKV model runs here too (the reference's "all-combined"
+config: SwiftKV with a drafter and suffix decoding on this loop): at the
+decode frontier every row is a sample row, so each program's forward
+keeps all of them (``logits_indices`` = every row) and both of its
+halves run the grouped decode kernel.
+
+Not ported (they raise or are not offered): meshes, multihost, dp and pp.
 """
 
 from __future__ import annotations
@@ -166,6 +171,10 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
                 "seq_lens": n_comp + rr,
                 "kv_scale": kv_scale,
             }
+            if runner.swift:
+                # SwiftKV: every verify row is a sample row.
+                inputs["logits_indices"] = torch.arange(
+                    b * rr, dtype=torch.int32, device=dev)
             runner.kv, h = module.forward(params, arch, runner.kv, inputs,
                                           attn_impl=attn_wide)
             logits = module.compute_logits(params, h)      # [B*rr, V]
@@ -201,6 +210,9 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
                 "seq_lens": pos + 1,                       # per-row seq
                 "kv_scale": kv_scale,
             }
+            if runner.swift:
+                inputs["logits_indices"] = torch.arange(
+                    R, dtype=torch.int32, device=dev)
             # Never deferred: row j of a slot is its own sequence and
             # reads rows 0..j-1 of the slot from the cache, where only
             # the per-layer write puts them.  Deferred, they would be

@@ -22,9 +22,12 @@ float32 logits before the argmax and the sampler, from each request's
 token history (``pen_out_tokens`` / ``pen_all_tokens``, built only on
 steps where a request asks for them); with ``need_topk`` a step also
 returns each sample row's top :data:`ModelRunner.GUIDED_TOPK` ids and
-their log-softmax values (logprobs).  Not ported yet (they raise
-``NotImplementedError``): meshes (tp / sp / dp / pp) and guided
-decoding.
+their log-softmax values (logprobs).  A SwiftKV model
+(``NEEDS_SWIFT_SCHEDULE``) gets a second attention schedule over the
+sample rows (the ``swift_*`` arrays, :func:`swift_schedule`) and returns
+the sample rows' hidden states itself (``RETURNS_SAMPLE_ROWS``).  Not
+ported yet (they raise ``NotImplementedError``): meshes (tp / sp / dp /
+pp, and with them the dp-stacked swift schedules) and guided decoding.
 """
 
 from __future__ import annotations
@@ -47,6 +50,30 @@ from arcticinference_tpu_torch.utils import (cdiv, default_token_buckets,
 
 _F32_KEYS = ("temperature", "top_p", "min_p", "rep_pen", "pres_pen",
              "freq_pen")
+
+
+def swift_schedule(row_count, last_pos: np.ndarray, s_pad: int,
+                   block_size: int) -> dict[str, np.ndarray]:
+    """The SwiftKV step's second ragged schedule: work items of at most 8
+    rows over the sample rows (``row_count[r]`` of request ``r``, which
+    end at position ``last_pos[r]``, contiguous per request in the
+    ``s_pad`` layout), as ``swift_<key>`` arrays; the JAX runner's."""
+    b = len(last_pos)
+    srow = np.zeros(b, np.int64)
+    srow[:len(row_count)] = row_count
+    sched = build_work_items(srow, last_pos, 8, block_size, s_pad // 8 + b,
+                             s_pad)
+    return {f"swift_{k}": a for k, a in zip(
+        ("item_req", "item_qstart", "item_qlen", "item_pages",
+         "item_pos_base", "token_item", "token_off"), sched)}
+
+
+def _nbytes(tree) -> int:
+    """Bytes of a parameter tree's tensors (a quantized weight's values
+    and scales), nested dicts included."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.nbytes
 
 
 @dataclass
@@ -83,6 +110,11 @@ class ModelRunner:
         # checkpoint's parameters; they are runner state, not weights.
         loaded_kv_scales = params.pop("kv_scales", None)
         self.params = module.fuse_params(params)
+        # SwiftKV: the second schedule over the sample rows, and forward
+        # hands back those rows itself.
+        self.swift = bool(getattr(module, "NEEDS_SWIFT_SCHEDULE", False))
+        self.returns_rows = bool(getattr(module, "RETURNS_SAMPLE_ROWS",
+                                         False))
 
         cache_cfg = config.cache
         self.block_size = cache_cfg.block_size
@@ -113,10 +145,7 @@ class ModelRunner:
         """Size the cache from the device's memory, less the weights (a
         quantized weight's values and scales) and a 1 GiB reserve for
         activations."""
-        param_bytes = sum(
-            x.nbytes
-            for x in (*self.params["layers"].values(),
-                      *(v for k, v in self.params.items() if k != "layers")))
+        param_bytes = _nbytes(self.params)
         budget = (int(device_memory_bytes(self.device)
                       * self.config.cache.hbm_utilization)
                   - param_bytes - (1 << 30))
@@ -291,6 +320,9 @@ class ModelRunner:
                 pen_all[lo:lo + k, :req.num_tokens] = req.all_token_ids
             arrays["pen_out_tokens"] = pen_out
             arrays["pen_all_tokens"] = pen_all
+        if self.swift:
+            arrays.update(swift_schedule(row_count, last_pos, s_pad,
+                                         self.block_size))
         return StepInputs(arrays=arrays, t_pad=t_pad, s_pad=s_pad,
                           attn_qb=attn_qb, sample_row_start=row_start,
                           sample_row_count=row_count, total_tokens=total)
@@ -337,7 +369,8 @@ class ModelRunner:
         attn = self.module.make_attn_impl(attn_qb)
         self.kv, h = self.module.forward(self.params, self.arch, self.kv,
                                          inputs, attn_impl=attn)
-        rows = h[inputs["logits_indices"].long()]
+        rows = (h if self.returns_rows
+                else h[inputs["logits_indices"].long()])
         logits = self.module.compute_logits(self.params, rows)
         if "pen_out_tokens" in inputs:
             logits = apply_penalties(

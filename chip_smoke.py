@@ -62,7 +62,13 @@ Phases, each reported on its own lines:
              their rows bit for bit against qlen-1 launches; kernel 5 at
              the Qwen2.5-7B and Qwen3-8B weights Llama's do not cover (16,
              64 and 2048 rows; w_down's K of 18944 and 12288 among them),
-             with bit-for-bit row replays.
+             with bit-for-bit row replays.  SwiftKV's shapes: the ragged
+             kernel on a swift half (16 one-row requests at contexts
+             128-2048 beside 4 four-row verify chunks, on the runner's
+             8-row schedule over the sample rows; also poisoned), and
+             kernel 5 on the fused KV operand of Llama-3.1-SwiftKV-8B's
+             16 later layers ([4096, 32768], per-column fp8 scales) at
+             16, 64 and 2048 rows, with bit-for-bit row replays.
 4. forward:  the full-width Llama-3.1-8B shapes at 2 layers, random
              weights in bf16, fp8 and int4: one prefill, one decode and
              one token-tree verify step through ``forward`` with the
@@ -72,7 +78,12 @@ Phases, each reported on its own lines:
              off: logits compared, caches byte-identical, the deferred
              path launched once per layer only with the flag.  Then the
              prefill, decode and tree-verify steps at the full Qwen2.5-7B
-             and Qwen3-8B widths, 2 layers, in bf16 and fp8.
+             and Qwen3-8B widths, 2 layers, in bf16 and fp8.  Then
+             Llama-3.1-SwiftKV-8B's width at 4 layers (2 + 2) in bf16, fp8
+             and int4: a prefill with its third prompt chunked (sample
+             rows at the chunks' ends), a mixed step and a pure decode
+             step; logits and caches compared, kernel 5 launched 4 x 4
+             + 2 times a step.
 5. generate: ``LLM.generate`` at the full Llama-3.1-8B width and depth
              (random weights), 16 requests x 32 greedy tokens, in bf16,
              then four times with suffix speculation
@@ -108,9 +119,25 @@ Phases, each reported on its own lines:
              version computes them on the CPU, each logprob list as long
              as the tokens, its top id the committed token, the requests
              without penalties giving the plain fp8 run's tokens.
-6. bench:    the port's headline bench (``arcticinference_tpu_torch.bench``)
-             in this process at the full Llama-3.1-8B width and depth with
-             fp8 weights: decode tok/s at batch 64 and 1, the device step
+             Between the Llama and the Qwen runs, Llama-3.1-SwiftKV-8B at
+             full width and depth (16 + 16
+             layers, random weights) on the Llama runs' prompts, bf16 and
+             fp8 (kernel 5 launched 130 times a step: one fused KV
+             operand), suffix decoding on the synchronous step and on the
+             fused loop (seeded from the SwiftKV bf16 run), an MLP drafter
+             on the fused loop and the all-combined config (MLP drafter +
+             suffix decoding, fused); the bf16 and fp8 runs of both
+             models also time a 2048-token prefill step and a decode step
+             of 16 x 512 as CUDA graphs, printed beside each other with
+             the runs' mixed- and decode-step host times.
+6. bench:    the serving matrix first (``python -m
+             arcticinference_tpu_torch.benchmarks.serve_bench`` over
+             baseline, suffix, spec, swiftkv and all, one process each, at
+             Llama-3.1-8B's shape in fp8, 32 prompts x 128 in x 64 out;
+             every config must finish every prompt), then the port's
+             headline bench (``arcticinference_tpu_torch.bench``) in this
+             process at the full Llama-3.1-8B width and depth with fp8
+             weights: decode tok/s at batch 64 and 1, the device step
              (a CUDA graph of ``runner.dispatch``'s launches), GB/s against
              the HBM probes, the int8 device step, a drafter distilled
              here against the target (capture, 600 Adam steps, save), its
@@ -172,8 +199,12 @@ QWEN3_8B = dict(
     num_hidden_layers=36, num_attention_heads=32, num_key_value_heads=8,
     head_dim=128, rope_theta=1000000.0, rms_norm_eps=1e-6,
     max_position_embeddings=40960, tie_word_embeddings=False)
+# Snowflake/Llama-3.1-SwiftKV-8B-Instruct (its config.json): Llama-3.1-8B
+# with the later 16 of its 32 layers on the projected KV.
+LLAMA_SWIFTKV_8B = dict(LLAMA_8B, num_key_value_layers=16)
 # Architecture (registry name) and dims of each model the script drives.
 MODELS = {"llama-3.1-8b": ("llama", LLAMA_8B),
+          "llama-3.1-swiftkv-8b": ("llama_swiftkv", LLAMA_SWIFTKV_8B),
           "qwen2.5-7b": ("qwen2", QWEN25_7B),
           "qwen3-8b": ("qwen3", QWEN3_8B)}
 # Qwen2.5-7B's attention: GQA group 7 (28 q heads over 4 kv heads).
@@ -250,6 +281,11 @@ QWEN_MATMUL_SHAPES = (
     ("qwen3 lm_head", 4096, 151936, None, True),
 )
 QWEN_MATMUL_ROWS = (16, 64, 2048)
+# SwiftKV's stacked K / V projection of its 16 later layers, fused into
+# one operand [4096, 2 x 16 x 1024] (one fp8 scale per layer and part,
+# as per-column scales), at decode batches and a 2048-token prefill.
+SWIFT_KV_SHAPE = ("swift kv", 4096, 2 * 16 * 1024, (1024,) * 32, False)
+SWIFT_KV_ROWS = (16, 64, 2048)
 # The Arctic drafter's quantized products at the 8B width (fp8 and int8
 # drafters, float32 out): its tied LM head and its MLP projection, at the
 # drafter batch buckets of 16 and 64 requests.
@@ -957,6 +993,56 @@ def phase_kernels(rng, hq=HQ, hkv=HKV, layers=LAYERS, prefix="",
     return ragged_cases, grouped_cases, paged_cases, invariance
 
 
+def phase_swift_kernels(rng):
+    """The ragged kernel on SwiftKV's swift half, bf16 and fp8 KV: 16
+    requests with one sample row each at contexts 128-2048 beside 4
+    requests with 4 verify rows each, 32 rows (the sample-row bucket), on
+    the runner's 8-row schedule over the sample rows
+    (``engine.runner.swift_schedule``); also on the poisoned cache."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.runner import swift_schedule
+    from arcticinference_tpu_torch.ops.attention import (
+        ragged_paged_attention_reference)
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+
+    cases = []
+    for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        dt = "bf16" if kv_dtype == torch.bfloat16 else "fp8"
+        reqs = ([(int(c), 1) for c in rng.integers(128, 2049, 16)]
+                + [(int(c), 4) for c in rng.integers(128, 2049, 4)])
+        case = Case(f"swift half 16x1+4x4 ctx128-2048 {dt}", reqs, kv_dtype,
+                    rng, t_pad=32)
+        arrays = swift_schedule(
+            [n for _, n in reqs], np.array([c + n - 1 for c, n in reqs]),
+            case.t, BS)
+        sched = tuple(torch.from_numpy(arrays[f"swift_{k}"]).cuda()
+                      for k in ("item_req", "item_qstart", "item_qlen",
+                                "item_pages", "item_pos_base", "token_item",
+                                "token_off"))
+
+        def kern(case=case, sched=sched):
+            return ra.ragged_paged_attention_kernel(
+                case.q, case.kv, case.positions, case.req_idx,
+                case.block_tables, case.seq_lens, qb=8, schedule=sched,
+                kv_scale=case.kv_scale, layer=case.layer)
+
+        def plain(case=case):
+            return ragged_paged_attention_reference(
+                case.q, case.kv[case.layer], case.positions, case.req_idx,
+                case.block_tables, case.seq_lens,
+                kv_scale=case.kv_scale[case.layer])
+
+        cases.append(run_case(case, kern, plain))
+        cases.append(run_poisoned(case, sched, plain, 8))
+        del case
+        torch.cuda.empty_cache()
+    failed = [c["case"] for c in cases if not c["ok"]]
+    if failed:
+        raise AssertionError(f"kernel disagrees with plain version: {failed}")
+    return cases
+
+
 def phase_deferred_kernels(rng):
     """Kernel 3 (grouped decode with injected rows) against its plain
     version, and kernel 2 on the same step with the rows written into the
@@ -1172,18 +1258,19 @@ def run_matmul_case(name, q, x, out_dtype, kernel, plain):
     return res
 
 
-def matmul_replay(mode, k, n, m, gen) -> dict:
+def matmul_replay(mode, k, n, m, gen, parts=None) -> dict:
     """Kernel 5 (fp8) or 6 (int4) on one [k, n] weight at m rows, bit for
     bit: every moved row of a launch against the same x row at another
     index of a launch whose other rows are fresh random rows; two
     launches alike; a CUDA graph of one launch, replayed twice, alike the
-    eager launch."""
+    eager launch.  ``parts``: the weight fused from parts of these widths
+    (per-column scales)."""
     import torch
 
     from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
     from arcticinference_tpu_torch.ops.cuda import int4_matmul as im
 
-    q = quantized_weight(mode, k, n, None, gen)
+    q = quantized_weight(mode, k, n, parts, gen)
     kernel = (im.int4_matmul_kernel if mode == "int4"
               else fm.fp8_matmul_kernel)
 
@@ -1211,7 +1298,7 @@ def matmul_replay(mode, k, n, m, gen) -> dict:
         torch.cuda.synchronize()
         replays.append(bool(torch.equal(captured, out)))
     k_tiles = (k // 2 if mode == "int4" else k) // fm.BKW
-    res = dict(case=f"{mode} [{k},{n}] M={m}",
+    res = dict(case=f"{mode} [{k},{n}]{' fused' if parts else ''} M={m}",
                plan=list(fm.launch_plan(m, n, k_tiles, fm.sm_count(0))),
                rows_moved=len(moves),
                rows_not_bitwise_equal=sum(
@@ -1239,13 +1326,17 @@ MATMUL_REPLAY = (("fp8", 4096, 4096, 64), ("fp8", 4096, 28672, 64),
                  # rows, Qwen2.5's wqkv and w_gateup at 64 and 2048.
                  ("fp8", 18944, 3584, 16), ("fp8", 12288, 4096, 16),
                  ("fp8", 3584, 4608, 64), ("fp8", 3584, 37888, 2048))
+# ... and SwiftKV's fused KV operand at its three row counts.
+SWIFT_REPLAY = tuple(("fp8", 4096, SWIFT_KV_SHAPE[2], m)
+                     for m in SWIFT_KV_ROWS)
 
 
 def phase_matmul_kernels(seed):
     """Both quantized matmul kernels against their plain versions at the
     Llama-3.1-8B weight shapes, kernel 5 at the Qwen ones
-    (:data:`QWEN_MATMUL_SHAPES`), then :func:`matmul_replay` on
-    :data:`MATMUL_REPLAY`; returns (fp8/int8 cases, int4 cases, replay
+    (:data:`QWEN_MATMUL_SHAPES`) and on SwiftKV's fused KV operand
+    (:data:`SWIFT_KV_SHAPE`), then :func:`matmul_replay` on
+    :data:`MATMUL_REPLAY` and :data:`SWIFT_REPLAY`; returns (fp8/int8 cases, int4 cases, replay
     checks)."""
     import torch
 
@@ -1289,6 +1380,16 @@ def phase_matmul_kernels(seed):
                 fm.fp8_matmul_kernel, fm.fp8_matmul_reference))
         del q
         torch.cuda.empty_cache()
+    name, k, n, parts, _ = SWIFT_KV_SHAPE
+    q = quantized_weight("fp8", k, n, parts, gen)
+    for m in SWIFT_KV_ROWS:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        fp8_cases.append(run_matmul_case(
+            f"fp8 {name} [{k},{n}] M={m}", q, x, torch.bfloat16,
+            fm.fp8_matmul_kernel, fm.fp8_matmul_reference))
+    del q
+    torch.cuda.empty_cache()
     for mode in ("fp8", "int8"):
         for name, k, n in DRAFTER_MATMULS:
             q = quantized_weight(mode, k, n, None, gen)
@@ -1305,6 +1406,8 @@ def phase_matmul_kernels(seed):
     if failed:
         raise AssertionError(f"kernel disagrees with plain version: {failed}")
     replay = [matmul_replay(*case, gen) for case in MATMUL_REPLAY]
+    replay += [matmul_replay(*case, gen, parts=SWIFT_KV_SHAPE[3])
+               for case in SWIFT_REPLAY]
     torch.cuda.empty_cache()
     failed = [c["case"] for c in replay if not c["ok"]]
     if failed:
@@ -1436,7 +1539,8 @@ def phase_stream_kernels(seed):
 @contextlib.contextmanager
 def plain_matmuls():
     """Run the decoder's matmuls (``models/llama.py``, whose layers the
-    Qwen modules share) through the kernels' plain versions."""
+    Qwen and SwiftKV modules share) through the kernels' plain
+    versions."""
     from arcticinference_tpu_torch.models import llama
     from arcticinference_tpu_torch.ops import fp8
 
@@ -1482,10 +1586,22 @@ def launch_counts() -> dict:
             "stream_matmul_kernel": sm.stream_matmul_launches}
 
 
+def matmul_launches_per_step(arch) -> int:
+    """Quantized matmul launches of one forward: wqkv, wo, w_gateup and
+    w_down per layer and the LM head; SwiftKV's later layers launch wq in
+    place of wqkv, and its fused KV operand one more."""
+    return 4 * arch.num_layers + 1 + int(
+        getattr(arch, "num_swift_layers", 0) > 0)
+
+
 def phase_forward(rng, quantization=None, model="llama-3.1-8b"):
     """``model``'s full width (:data:`MODELS`) at 2 layers: a prefill, a
     decode and a token-tree verify step through ``forward`` with the
-    kernels and with the plain versions; logits compared."""
+    kernels and with the plain versions; logits compared.  SwiftKV at 4
+    layers (2 + 2), no tree step (trees do not compose with it): a
+    prefill whose sample rows end the chunks (the third prompt chunked),
+    a mixed step (its rest beside two decode rows), a pure decode step;
+    logits and caches compared."""
     import torch
 
     from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
@@ -1498,10 +1614,13 @@ def phase_forward(rng, quantization=None, model="llama-3.1-8b"):
     from arcticinference_tpu_torch.models.loader import load_model
 
     arch_name, dims = MODELS[model]
+    swift = arch_name == "llama_swiftkv"
+    layers = ({"num_hidden_layers": 4, "num_key_value_layers": 2} if swift
+              else {"num_hidden_layers": 2})
     cfg = EngineConfig(
         model=ModelConfig(model=arch_name, dtype="bfloat16",
                           max_model_len=4096,
-                          hf_overrides={**dims, "num_hidden_layers": 2},
+                          hf_overrides={**dims, **layers},
                           quantization=quantization),
         cache=CacheConfig(num_blocks=256),
         scheduler=SchedulerConfig(max_num_seqs=64,
@@ -1510,7 +1629,8 @@ def phase_forward(rng, quantization=None, model="llama-3.1-8b"):
     module, arch, params = load_model(cfg.model, dev)
     runner = ModelRunner(cfg, module, arch, params, dev)
     sched = Scheduler(cfg.scheduler, cfg.cache, runner.num_blocks)
-    for i, n in enumerate((200, 500, 1000, 300)):
+    for i, n in enumerate((1200, 600, 900) if swift
+                          else (200, 500, 1000, 300)):
         sched.add_request(Request(
             f"f{i}", [int(x) for x in rng.integers(0, arch.vocab_size, n)],
             SamplingParams(max_tokens=4)))
@@ -1518,7 +1638,8 @@ def phase_forward(rng, quantization=None, model="llama-3.1-8b"):
                   "int4": "int4_matmul_kernel"}.get(quantization)
     tree_key = "ragged_paged_attention_kernel (tree mask)"
     results = []
-    for step in ("prefill", "decode", "tree verify"):
+    for step in (("prefill", "mixed", "decode") if swift
+                 else ("prefill", "decode", "tree verify")):
         if step == "tree verify":
             # Each request verifies a 12-node draft tree next.
             for i, req in enumerate(sched.running):
@@ -1529,7 +1650,8 @@ def phase_forward(rng, quantization=None, model="llama-3.1-8b"):
         si = runner.prepare_inputs(out)
         inputs = runner.upload(si.arrays)
         inputs["kv_scale"] = runner.kv_scale
-        logits, launches = {}, {}
+        logits, launches, caches = {}, {}, {}
+        n_rows = sum(si.sample_row_count)
         with torch.inference_mode():
             for name in ("kernel", "plain"):
                 kv = runner.kv.clone()
@@ -1538,16 +1660,15 @@ def phase_forward(rng, quantization=None, model="llama-3.1-8b"):
                       else plain_matmuls()):
                     attn = (module.make_attn_impl(si.attn_qb)
                             if name == "kernel" else module.plain_attn)
-                    kv, h = module.forward(runner.params, arch, kv, inputs,
-                                           attn_impl=attn)
-                    rows = h[inputs["logits_indices"].long()
-                             [:sum(si.sample_row_count)]]
+                    kv, h = module.forward(runner.params, arch, kv,
+                                           dict(inputs), attn_impl=attn)
+                    rows = (h[:n_rows] if runner.returns_rows else
+                            h[inputs["logits_indices"].long()[:n_rows]])
                     logits[name] = module.compute_logits(runner.params, rows)
                 torch.cuda.synchronize()
                 launches[name] = launch_counts()
-                if name == "kernel":
-                    kv_next = kv
-        runner.kv = kv_next
+                caches[name] = kv
+        runner.kv = caches["kernel"]
         a, b = logits["kernel"], logits["plain"]
         diff = float((a - b).abs().max())
         scale = float(b.abs().max())
@@ -1557,23 +1678,38 @@ def phase_forward(rng, quantization=None, model="llama-3.1-8b"):
         top2 = b.topk(2, dim=-1).values
         near_tie = (top2[:, 0] - top2[:, 1]) <= 2 * diff
         finite = bool(torch.isfinite(a).all())
+        # The caches but block 0 (the padding rows' slot -1 writes).
+        ck, cp = (caches[n][:, 1:].float() for n in ("kernel", "plain"))
+        cache_rel = float((ck - cp).norm() / cp.norm())
         res = dict(model=model, step=step, quantization=quantization,
                    attn_qb=si.attn_qb, rows=a.shape[0], vocab=a.shape[1],
                    max_abs_diff=diff, max_abs_logit=scale,
                    argmax_agree=float(agree.float().mean()),
                    near_tie_rows=int(near_tie.sum()), finite=finite,
+                   cache_rel_diff=cache_rel,
                    kernel_launches=launches["kernel"],
                    plain_launches=launches["plain"])
+        del caches, ck, cp
         log("  forward " + json.dumps(res))
         # bf16 activations: each kernel output is rounded to bf16 on both
         # paths and their float32 sums differ in order, so one-ulp flips
         # (2^-8 relative) propagate through 2 layers and the LM head.
+        # The cached K / V rows differ by one-ulp bf16 flips where the
+        # layers' inputs did.
         ok = (finite and diff <= 0.05 * scale
               and bool((agree | near_tie).all())
+              and cache_rel <= 2e-2
               and not any(launches["plain"].values()))
         if matmul_key is not None:
             ok = ok and launches["kernel"][matmul_key] == \
-                4 * arch.num_layers + 1
+                matmul_launches_per_step(arch)
+        if step == "decode":
+            # Both halves of a pure decode step on the grouped kernel.
+            ok = ok and si.attn_qb == 1 and launches["kernel"][
+                "grouped_decode_attention_kernel"] == arch.num_layers
+        elif swift:
+            ok = ok and launches["kernel"][
+                "ragged_paged_attention_kernel"] == arch.num_layers
         # Only the tree step goes through the tree-mask path, every layer.
         want_tree = arch.num_layers if step == "tree verify" else 0
         ok = ok and launches["kernel"][tree_key] == want_tree
@@ -1757,12 +1893,12 @@ def phase_forward_deferred(rng, quantization=None):
 def phase_generate(rng):
     """The same 16 requests at 32 layers in bf16, with suffix speculation
     (linear, then token trees) seeded from the bf16 run's output, then
-    with fp8 and int4 weights; returns {run name: result}."""
+    with fp8 and int4 weights; returns ({run name: result}, prompts)."""
     prompts = [[int(x) for x in rng.integers(0, LLAMA_8B["vocab_size"],
                                              int(n))]
                for n in rng.integers(128, 1025, 16)]
     runs = {}
-    runs["bf16"], outs = run_generate(None, prompts)
+    runs["bf16"], outs = run_generate(None, prompts, device_steps=True)
     ref = [o.token_ids for o in outs]
     for spec in ("suffix", "suffix tree", "suffix fused",
                  "suffix fused deferred"):
@@ -1777,7 +1913,63 @@ def phase_generate(rng):
             runs[spec], _ = run_generate(None, prompts, spec=spec,
                                          reference=ref, lstm_dir=lstm_dir)
     for q in ("fp8", "int4"):
-        runs[q], _ = run_generate(q, prompts)
+        runs[q], _ = run_generate(q, prompts, device_steps=q == "fp8")
+    return runs, prompts
+
+
+# SwiftKV's generate runs: (run name, weights, speculation).
+SWIFT_RUNS = (("swiftkv bf16", None, None), ("swiftkv fp8", "fp8", None),
+              ("swiftkv suffix", None, "suffix"),
+              ("swiftkv suffix fused", None, "suffix fused"),
+              ("swiftkv mlp fused", None, "mlp fused"),
+              ("swiftkv all", None, "mlp suffix fused"))
+
+
+def step_time(run, kind) -> dict:
+    """A run's ``kind`` steps (``mixed`` or ``decode``): count, p50 and
+    mean host milliseconds (each step ends in a device synchronisation)."""
+    st = run["steps"].get(kind)
+    if not st:
+        return {}
+    return dict(count=st["count"], p50_ms=st["p50_ms"],
+                mean_ms=st["total_s"] / st["count"] * 1e3)
+
+
+def phase_generate_swift(prompts, llama_runs):
+    """``LLM.generate`` at the full width and depth of
+    Llama-3.1-SwiftKV-8B (random weights) on the Llama runs' prompts,
+    16 x 32 greedy tokens: bf16 and fp8, suffix decoding on the
+    synchronous step and on the fused loop (seeded from the SwiftKV bf16
+    run), an MLP drafter on the fused loop, and the all-combined config
+    (MLP drafter + suffix decoding, fused).  Prints the mixed- and
+    decode-step times beside the Llama-3.1-8B runs' from this process.
+    Returns {run: result}."""
+    runs = {}
+    ref = None
+    for name, q, spec in SWIFT_RUNS:
+        runs[name], outs = run_generate(q, prompts, spec=spec, reference=ref,
+                                        model="llama-3.1-swiftkv-8b",
+                                        device_steps=spec is None)
+        if ref is None:
+            ref = [o.token_ids for o in outs]
+    for q in ("bf16", "fp8"):
+        lr, sr = llama_runs[q], runs[f"swiftkv {q}"]
+        cmp = {"weights": q, "card": smi()}
+        for kind in ("mixed", "decode"):
+            a, b = step_time(lr, kind), step_time(sr, kind)
+            cmp[kind] = {"llama-3.1-8b": a, "llama-3.1-swiftkv-8b": b}
+            if a and b:
+                cmp[kind]["swiftkv_over_llama_p50"] = b["p50_ms"] / a["p50_ms"]
+                cmp[kind]["swiftkv_over_llama_mean"] = (b["mean_ms"]
+                                                        / a["mean_ms"])
+        # The same steps' device time (CUDA graphs), host enqueue apart.
+        cmp["device_step_ms"] = {
+            step: {"llama-3.1-8b": ms,
+                   "llama-3.1-swiftkv-8b": sr["device_step_ms"][step],
+                   "swiftkv_over_llama": sr["device_step_ms"][step] / ms}
+            for step, ms in lr["device_step_ms"].items()}
+        log("  swiftkv vs llama step times " + json.dumps(cmp))
+        runs[f"swiftkv {q}"]["vs_llama"] = cmp
     return runs
 
 
@@ -2015,6 +2207,38 @@ def phase_bench() -> dict:
         raise AssertionError(f"bench check failed: {problems}")
     return dict(bench=out, bench_launches=bench_launches, stream=rows,
                 stream_launches=stream_launches)
+
+
+SERVE_BENCH_PROMPTS = 32
+
+
+def phase_serve_bench() -> list:
+    """``python -m arcticinference_tpu_torch.benchmarks.serve_bench`` over
+    its five configs at its card shapes and the JAX harness's defaults
+    (32 prompts, 128 tokens in, 64 out, the random workload), each config
+    in a process of its own; every config must finish every prompt.
+    Returns the configs' JSON objects."""
+    from arcticinference_tpu_torch.benchmarks.serve_bench import CONFIGS
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "arcticinference_tpu_torch.benchmarks.serve_bench",
+         "--configs", *CONFIGS, "--num-prompts", str(SERVE_BENCH_PROMPTS)],
+        capture_output=True, text=True, timeout=900,
+        cwd=str(Path(__file__).resolve().parent))
+    wall = time.perf_counter() - t0
+    results = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith("{")]
+    for r in results:
+        log("  serve_bench " + json.dumps(r))
+    log(f"[bench] serve_bench: {wall:.1f} s")
+    done = {r["config"]: r["finished"] for r in results}
+    if proc.returncode != 0 or done != {c: SERVE_BENCH_PROMPTS
+                                        for c in CONFIGS}:
+        raise AssertionError(f"serve_bench failed (rc {proc.returncode}, "
+                             f"finished {done}): {proc.stderr[-3000:]}")
+    return results
 
 
 def seed_suffix_cache(cache, prompts, outputs, vocab):
@@ -2255,12 +2479,63 @@ def drafter_chain_report(drafter, vocab, hidden) -> dict:
     return out
 
 
+def prefill_step_inputs(llm, n: int):
+    """A prefill step of one ``n``-token prompt (its blocks allocated;
+    the caller frees them)."""
+    from arcticinference_tpu_torch.engine.request import (Request,
+                                                          SamplingParams)
+    from arcticinference_tpu_torch.engine.scheduler import (ScheduledRequest,
+                                                            SchedulerOutput)
+
+    runner = llm.engine.runner
+    rng = np.random.default_rng(8)
+    req = Request(req_id="prefill", prompt_token_ids=[
+        int(x) for x in rng.integers(1, runner.arch.vocab_size - 1, n)],
+        sampling=SamplingParams(max_tokens=4))
+    llm.engine.scheduler.block_manager.grow_to(req.block_ids, n)
+    sched = SchedulerOutput()
+    sched.scheduled.append(ScheduledRequest(req, n, []))
+    return runner.prepare_inputs(sched), req
+
+
+# The device steps timed beside the generate runs of Llama-3.1-8B and
+# Llama-3.1-SwiftKV-8B: a 2048-token prefill chunk (one prompt) and a
+# decode step of 16 sequences at 512 tokens.
+DEVICE_PREFILL_TOKENS = 2048
+DEVICE_DECODE = (16, 512)
+
+
+def device_step_ms(llm) -> dict:
+    """Device ms of a prefill step of :data:`DEVICE_PREFILL_TOKENS` tokens
+    and of a decode step at :data:`DEVICE_DECODE`, each step's launches
+    captured in a CUDA graph (``bench.capture_step_graph``) and replayed
+    between CUDA events, so the host's enqueue does not show."""
+    from arcticinference_tpu_torch import bench
+    from arcticinference_tpu_torch.utils import events_ms
+
+    eng = llm.engine
+    si, req = prefill_step_inputs(llm, DEVICE_PREFILL_TOKENS)
+    try:
+        graph = bench.capture_step_graph(eng.runner, si, eng._generator)
+        prefill = events_ms(graph.replay, 10)
+        del graph
+    finally:
+        eng.scheduler.block_manager.free(req.block_ids)
+    decode = bench.measure_device_step(llm, *DEVICE_DECODE, iters=20)
+    return {f"prefill {DEVICE_PREFILL_TOKENS}": prefill,
+            f"decode B={DEVICE_DECODE[0]} ctx={DEVICE_DECODE[1]}":
+                decode["device_ms"]}
+
+
 def run_generate(quantization, prompts, spec=None, reference=None,
-                 lstm_dir=None, model="llama-3.1-8b", sampling=None):
+                 lstm_dir=None, model="llama-3.1-8b", sampling=None,
+                 device_steps=False):
     """One timed ``LLM.generate`` run on a new engine of ``model``
     (``reference``: the bf16 run's tokens, which seed a speculative run's
     suffix cache; ``sampling``: one ``SamplingParams`` per prompt, 32
-    greedy tokens by default).  Returns (result, outputs)."""
+    greedy tokens by default; ``device_steps``: then
+    :func:`device_step_ms` on the same engine).  Returns (result,
+    outputs)."""
     import torch
 
     from arcticinference_tpu_torch.engine.llm import LLM
@@ -2369,8 +2644,9 @@ def run_generate(quantization, prompts, spec=None, reference=None,
                  == (spec == "suffix fused deferred"))
     drafter_fp8 = drafter is not None and \
         llm.engine.spec_config.quantization == "fp8"
-    # wqkv, wo, w_gateup and w_down per layer, and the LM head.
-    per_step = 4 * dims["num_hidden_layers"] + 1
+    # wqkv, wo, w_gateup and w_down per layer, and the LM head (and
+    # SwiftKV's fused KV operand).
+    per_step = matmul_launches_per_step(llm.engine.arch)
     res["matmul_launches_per_step"] = per_step if matmul else 0
     for key in ("fp8_matmul_kernel", "int4_matmul_kernel"):
         want = per_step * n_steps if key == matmul else 0
@@ -2383,6 +2659,11 @@ def run_generate(quantization, prompts, spec=None, reference=None,
         ok = ok and launches[key] == want
     if not ok:
         raise AssertionError(f"end-to-end check failed: {res}")
+    if device_steps:
+        res["device_step_ms"] = device_step_ms(llm)
+        log("  device steps " + json.dumps(dict(
+            model=model, quantization=quantization,
+            device_step_ms=res["device_step_ms"], card=res["card"])))
     llm.close()
     del llm
     free_cuda_memory()
@@ -2668,8 +2949,12 @@ def main() -> int:
                            prefix="g7 ", long_context=False)
         ragged, grouped, paged, invariance = (
             a + b for a, b in zip((ragged, grouped, paged, invariance), g7))
+        log("[kernels] ragged kernel on SwiftKV's swift half (the sample "
+            "rows' schedule) vs plain")
+        ragged = ragged + phase_swift_kernels(rng)
         log("[kernels] quantized matmuls vs plain, Llama-3.1-8B weights; "
-            "kernel 5 at Qwen2.5-7B's and Qwen3-8B's")
+            "kernel 5 at Qwen2.5-7B's and Qwen3-8B's and on SwiftKV's "
+            "fused KV operand")
         fp8_cases, int4_cases, replay = phase_matmul_kernels(args.seed)
         log("[kernels] HBM read probe vs plain, 4 GiB of random bf16")
         probe_cases = phase_probe_kernel(args.seed)
@@ -2744,12 +3029,20 @@ def main() -> int:
                 log(f"[forward] {model} width, 2 layers, "
                     f"{quantization or 'bf16'} weights, kernels vs plain")
                 phase_forward(rng, quantization, model)
+        for quantization in (None, "fp8", "int4"):
+            log(f"[forward] Llama-3.1-SwiftKV-8B width, 4 layers (2 + 2), "
+                f"{quantization or 'bf16'} weights, kernels vs plain")
+            phase_forward(rng, quantization, "llama-3.1-swiftkv-8b")
     if "generate" in phases:
         log("[generate] LLM.generate, Llama-3.1-8B shape, 32 layers, bf16, "
             "suffix speculation (linear, tree, fused loop, fused loop with "
             "deferred KV), Arctic drafters (MLP fused and sync, fp8 LSTM "
             "fused, MLP + suffix fused), then fp8 and int4 weights")
-        runs = phase_generate(rng)
+        runs, prompts = phase_generate(rng)
+        log("[generate] LLM.generate, Llama-3.1-SwiftKV-8B shape, 32 layers "
+            "(16 + 16), bf16 and fp8, suffix (sync and fused), MLP drafter "
+            "fused, all-combined (MLP + suffix, fused)")
+        swift_runs = phase_generate_swift(prompts, runs)
         log("[generate] LLM.generate, Qwen2.5-7B (28 layers) and Qwen3-8B "
             "(36 layers) shapes, bf16 and fp8; Qwen3-8B fp8 with penalties "
             "and logprobs")
@@ -2761,6 +3054,16 @@ def main() -> int:
                 run: dict(launches=r["launches"][key],
                           engine_steps=r["engine_steps"])
                 for run, r in qwen_runs.items()}
+        # SwiftKV's runs: kernels 1, 2 and 5 on the swift half's
+        # schedules and the fused KV operand.
+        for key in ("ragged_paged_attention_kernel",
+                    "grouped_decode_attention_kernel", "fp8_matmul_kernel"):
+            kernels[key]["launches_swiftkv"] = {
+                run: dict(launches=r["launches"][key],
+                          engine_steps=r["engine_steps"])
+                for run, r in swift_runs.items()}
+        kernels["fp8_matmul_kernel"]["swiftkv_launches_per_step"] = \
+            swift_runs["swiftkv fp8"]["matmul_launches_per_step"]
         # Each kernel's launches from the run of its own path.
         for key, run in (("ragged_paged_attention_kernel", "bf16"),
                          ("ragged_paged_attention_kernel (tree mask)",
@@ -2775,6 +3078,10 @@ def main() -> int:
                          ("int4_matmul_kernel", "int4")):
             kernels[key]["launches"] = runs[run]["launches"][key]
     if "bench" in phases:
+        log("[bench] the serving matrix (benchmarks/serve_bench.py): "
+            "baseline, suffix, spec, swiftkv, all; Llama-3.1-8B shapes, "
+            "fp8, one process each")
+        phase_serve_bench()
         log("[bench] the port's bench: Llama-3.1-8B, 32 layers, fp8 "
             "weights, drafter distilled here; then the stream microbench")
         res = phase_bench()

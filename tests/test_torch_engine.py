@@ -172,9 +172,10 @@ def test_step_kinds_are_recorded(tiny_llm):
 
 
 def test_unported_features_raise(tiny_llm, tmp_path):
-    """Guided decoding, SwiftKV and a drafter without its weights still
-    raise; penalties and logprobs are ported (they raised before): such
-    requests run, with one logprob dict per token."""
+    """Guided decoding and a drafter without its weights still raise;
+    penalties and logprobs are ported (they raised before): such
+    requests run, with one logprob dict per token.  SwiftKV is ported
+    too (tests/test_torch_swiftkv.py)."""
     with pytest.raises(NotImplementedError):
         tiny_llm.engine.add_request("g", [1, 2],
                                     SamplingParams(guided=object()))
@@ -195,9 +196,6 @@ def test_unported_features_raise(tiny_llm, tmp_path):
     d["speculative"] = dict(method="arctic", model=str(tmp_path))
     with pytest.raises(FileNotFoundError, match="model.safetensors"):
         LLM(tcfg.EngineConfig.from_dict(d), device="cpu")
-    with pytest.raises(NotImplementedError):     # SwiftKV schedules
-        LLM(tcfg.EngineConfig.from_dict(config_dict("llama_swiftkv", TINY)),
-            device="cpu")
 
 
 @pytest.mark.parametrize("quantization", [None, "int4"])
@@ -231,11 +229,14 @@ def test_cuda_default_never_falls_back_to_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("entry", ["load_model", "LLM"])
+@pytest.mark.parametrize("entry", ["load_model", "LLM", "LLM swiftkv"])
 def test_entry_points_run_on_the_card_by_default(entry):
     """Without ``device`` the model goes to cuda:0; with no card that
-    raises rather than running on the CPU."""
-    conf = tcfg.EngineConfig.from_dict(config_dict(hf=TINY))
+    raises rather than running on the CPU.  SwiftKV's engine too."""
+    conf = tcfg.EngineConfig.from_dict(
+        config_dict("llama_swiftkv", dict(TINY, num_hidden_layers=4,
+                                          num_key_value_layers=2))
+        if entry.endswith("swiftkv") else config_dict(hf=TINY))
 
     def build():
         if entry == "load_model":

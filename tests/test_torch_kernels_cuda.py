@@ -1098,3 +1098,169 @@ def test_stream_matmul_refuses_what_it_does_not_take(cuda_device):
         tsm.stream_matmul_kernel(x.float(), ws["astype_int8"],
                                  "astype_int8")
     assert tsm.stream_matmul_launches == 0
+
+
+# ---------------------------------------------------------------------------
+# SwiftKV's shapes: the swift half's schedule, the fused KV operand, and
+# the model's step with the kernels against the plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d", [128, 64])
+def test_ragged_kernel_on_the_swift_schedule(cuda_device, d, kv_dtype):
+    """The swift half of a mixed step: six requests with one sample row
+    and two with four verify rows, on the runner's 8-row schedule over
+    the sample rows (``swift_schedule``), padded to 32 rows (padding
+    rows are request -1 and come out zero)."""
+    from arcticinference_tpu_torch.engine.runner import swift_schedule
+
+    reqs = [(c, 1) for c in (37, 300, 95, 511, 64, 128)] + [(200, 4),
+                                                           (77, 4)]
+    s_pad = 32
+    q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device, s_pad,
+                                      d=d)
+    pos = np.zeros(s_pad, np.int32)
+    req = np.full(s_pad, -1, np.int32)
+    t = 0
+    for r, (c, n) in enumerate(reqs):
+        pos[t:t + n], req[t:t + n] = np.arange(c, c + n), r
+        t += n
+    sched = swift_schedule([n for _, n in reqs],
+                           np.array([c + n - 1 for c, n in reqs]), s_pad, BS)
+    sched = tuple(torch.from_numpy(sched[f"swift_{k}"]).to(cuda_device)
+                  for k in ("item_req", "item_qstart", "item_qlen",
+                            "item_pages", "item_pos_base", "token_item",
+                            "token_off"))
+    pos_t = torch.from_numpy(pos).to(cuda_device)
+    req_t = torch.from_numpy(req).to(cuda_device)
+    tra.reset_launch_counts()
+    out = tra.ragged_paged_attention_kernel(q, kv, pos_t, req_t, bt, sl,
+                                            qb=8, schedule=sched,
+                                            kv_scale=scale, layer=1)
+    ref = ragged_paged_attention_reference(q, kv[1], pos_t, req_t, bt, sl,
+                                           kv_scale=scale[1])
+    torch.cuda.synchronize()
+    assert tra.ragged_attention_launches == 1
+    live = req_t >= 0
+    assert_matches(out[live], ref[live])
+    assert not out[~live].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 64, 2048])
+@pytest.mark.parametrize("mode", ["fp8", "int8"])
+def test_fp8_matmul_on_the_fused_swift_kv_operand(cuda_device, mode, m):
+    """The stacked per-layer K / V projections fused into one operand
+    (per-layer scales as per-column scales): one launch against its
+    plain version, and each layer's columns against that layer's own
+    product at the same bounds."""
+    from arcticinference_tpu_torch.models.llama_swiftkv import fuse_swift_kv
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    kb, k, e = 4, 1024, 256
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    wk, wv = (tfp8.quantize_layers(torch.randn(
+        (kb, k, e), generator=gen, device=cuda_device), mode)
+        for _ in range(2))
+    fused = fuse_swift_kv(wk, wv)
+    assert fused.weight.shape == (k, 2 * kb * e)
+    assert fused.scale.shape == (2 * kb * e,)
+    tfm.reset_launch_counts()
+    out = tfm.fp8_matmul_kernel(x, fused.weight, fused.scale)
+    torch.cuda.synchronize()
+    assert tfm.fp8_matmul_launches == 1
+    assert_matches(out, tfm.fp8_matmul_reference(x, fused.weight,
+                                                 fused.scale))
+    for j, part in enumerate([wk[i] for i in range(kb)]
+                             + [wv[i] for i in range(kb)]):
+        own = tfm.fp8_matmul_kernel(x, part.weight, part.scale)
+        assert_matches(out[:, j * e:(j + 1) * e], own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantization", [None, "fp8"])
+def test_swiftkv_forward_kernels_match_plain(cuda_device, quantization):
+    """A 4-layer SwiftKV (2 + 2) at head dim 128 on the card: a mixed
+    step (two prefill chunks, a sample row each, padded sample rows) and
+    a decode step through the kernels against the same steps through
+    the plain versions: the real sample rows within 2e-2 of the plain
+    ones (norm of the difference over the norm: bf16 activations through
+    four layers), every row finite, the caches (but block 0, where
+    padding rows write) at atol = rtol = 2e-2,
+    every kernel launched (the fused KV operand once a step)."""
+    from arcticinference_tpu_torch.engine.runner import swift_schedule
+    from arcticinference_tpu_torch.models import llama as tllama
+    from arcticinference_tpu_torch.models import llama_swiftkv as tsw
+
+    arch = tsw.LlamaSwiftKVArch(
+        vocab_size=512, hidden_size=512, intermediate_size=1024,
+        num_layers=4, num_heads=4, num_kv_heads=2, head_dim=128,
+        num_key_value_layers=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = tsw.fuse_params(tsw.init_params(arch, gen, torch.bfloat16,
+                                             quantization))
+    bt = torch.tensor([[1, 2, 3, 0], [4, 5, 0, 0]], dtype=torch.int32)
+    kv0 = torch.zeros((4, 8, 2, BS, 256), dtype=torch.bfloat16,
+                      device=cuda_device)
+    caches = {"kernel": kv0.clone(), "plain": kv0.clone()}
+    rng = np.random.default_rng(0)
+    for reqs, t_pad, attn_qb in (([(0, 70), (0, 40)], 128, 32),
+                                 ([(70, 1), (40, 1)], 16, 1)):
+        pos = np.zeros(t_pad, np.int32)
+        req = np.full(t_pad, -1, np.int32)
+        slots = np.full(t_pad, -1, np.int32)
+        rows = []
+        t = 0
+        for r, (c, n) in enumerate(reqs):
+            p = np.arange(c, c + n)
+            pos[t:t + n], req[t:t + n] = p, r
+            slots[t:t + n] = bt.numpy()[r, p // BS] * BS + p % BS
+            t += n
+            rows.append(t - 1)
+        li = np.zeros(16, np.int32)
+        li[:2] = rows
+        last = np.array([c + n - 1 for c, n in reqs])
+        qlens = np.array([n for _, n in reqs])
+        sched = tra.build_work_items(qlens, last,
+                                     8 if attn_qb == 1 else attn_qb, BS,
+                                     t_pad // 8 + 2, t_pad)
+        arrays = dict(input_ids=rng.integers(0, 512, t_pad).astype(np.int32),
+                      positions=pos, req_idx=req, slot_mapping=slots,
+                      block_tables=bt.numpy(), logits_indices=li,
+                      seq_lens=last.astype(np.int32) + 1)
+        arrays.update(zip(tllama._SCHEDULE_KEYS, sched))
+        arrays.update(swift_schedule([1, 1], last, 16, BS))
+        inputs = {k: torch.from_numpy(np.array(v)).to(cuda_device)
+                  for k, v in arrays.items()}
+        out = {}
+        for name in ("kernel", "plain"):
+            tra.reset_launch_counts()
+            tfm.reset_launch_counts()
+            saved = tllama.matmul
+            if name == "plain":
+                tllama.matmul = tfp8.matmul_reference
+            try:
+                caches[name], out[name] = tsw.forward(
+                    params, arch, caches[name], dict(inputs),
+                    attn_impl=(tsw.make_attn_impl(attn_qb)
+                               if name == "kernel" else tsw.plain_attn))
+            finally:
+                tllama.matmul = saved
+            torch.cuda.synchronize()
+            if name == "kernel":
+                key = ("grouped_decode_launches" if attn_qb == 1
+                       else "ragged_attention_launches")
+                assert getattr(tra, key) == 4
+                if quantization:
+                    # 4 per first-half layer, the KV operand, 4 per
+                    # later layer (wq, wo, w_gateup, w_down).
+                    assert tfm.fp8_matmul_launches == 4 * 2 + 1 + 4 * 2
+        a, b = out["kernel"][:2].float(), out["plain"][:2].float()
+        assert torch.isfinite(out["kernel"]).all()
+        assert float((a - b).norm() / b.norm()) < 2e-2
+        # Block 0 takes the padding rows' writes (slot -1).
+        torch.testing.assert_close(caches["kernel"][:, 1:].float(),
+                                   caches["plain"][:, 1:].float(),
+                                   atol=2e-2, rtol=2e-2)
