@@ -5,17 +5,25 @@ Counterpart of ``arcticinference_tpu/engine/engine.py``:
   schedule -> prepare inputs -> device step -> host verify
   -> commit tokens / stops -> update suffix cache -> propose next drafts
 
-This part of the port runs the synchronous step
-(``LLMEngine._step_sync`` in the JAX package) and, for suffix
-speculation, the device-resident fused decode loop
+Without speculation the engine pipelines its steps, as the JAX engine
+does by default (``SchedulerConfig.async_scheduling``): step N+1 is
+dispatched before step N's tokens reach the host, a token the host has
+not seen yet rides the device from one step's output vector into the
+next step's input (``passthrough``), placeholders (:data:`PENDING_TOKEN`)
+stand in for it on the host, and each step's tokens are copied back
+behind an event and committed ``pipeline_depth`` steps later
+(:meth:`LLMEngine._sync_oldest`), where stop conditions trim what was
+produced past them.  Penalties, guided grammars that the device pool
+cannot hold (non-DFA decoders, more grammars than slots, grammars larger
+than a slot) and the ``hidden_capture`` hook take the synchronous step
+(``LLMEngine._step_sync`` in the JAX package) instead.
+
+Speculation runs the synchronous step and, for suffix speculation or a
+drafter, the device-resident fused decode loop
 (``engine/fused_decode.py``; ``SpeculativeConfig.enable_fused_decode``,
-the default for linear suffix drafts): while it is active, decode steps
-verify and draft on the device, and prefills and non-fusable requests
-ride interleaved synchronous steps.  ``async_scheduling`` (the JAX
-package's pipelined step with device-side token passthrough) is not
-ported yet: when it is requested, which is the default, the engine says
-so once at start-up and runs the synchronous step, which gives the same
-tokens.  Speculation is suffix decoding
+the default): while it is active, decode steps verify and draft on the
+device, and prefills and non-fusable requests ride interleaved
+synchronous steps.  Speculation is suffix decoding
 (``SpeculativeConfig(method="suffix")``), with linear drafts or token
 trees (``use_tree_spec``, on the synchronous step), or the Arctic MLP /
 LSTM draft models (``method="arctic"``, ``"mlp_speculator"``,
@@ -26,14 +34,21 @@ inside the fused loop's step; a ``distilled_tied`` drafter
 (``spec/distill.py``) uses the target's own embedding and LM head.  The
 ``hidden_capture`` hook hands committed tokens and their hidden rows to
 distillation.  Requests with repetition / presence / frequency penalties
-or ``logprobs`` ride the synchronous step (also beside the fused loop,
-which does not mirror them): penalties act on the step's logits, and
+ride the synchronous step (also beside the fused loop, which does not
+mirror them), as do requests with ``logprobs`` beside the fused loop;
 each committed token gets a ``{token: logprob}`` dict of the step's
 ranked candidates.  A SwiftKV model (``llama_swiftkv``) composes with
 suffix decoding, the drafters (their hidden rows are its sample rows)
 and hidden capture, on the synchronous step and the fused loop; token
-trees with it raise, as in the JAX package.  Guided decoding raises
-``NotImplementedError``.
+trees with it raise, as in the JAX package.
+
+Guided decoding (``SamplingParams.guided``, a decoder from
+``serving/structured.py``): a DFA decoder's allowed-token mask is
+applied to the logits on the device, from the host on the synchronous
+step and from the device grammar pool on the pipelined one (the
+automaton state advancing on the device; the host replays each committed
+token when it drains the step); other decoders pick the first allowed
+of the step's ranked candidates on the synchronous step.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from arcticinference_tpu_torch.config import EngineConfig
@@ -61,6 +77,43 @@ from arcticinference_tpu_torch.stats import (EngineStats, SpecDecodingStats,
 from arcticinference_tpu_torch.utils import resolve_device
 
 logger = logging.getLogger("arcticinference_tpu_torch")
+
+# Host-side placeholder for a token whose value is still on the device
+# (the pipelined step); always patched before user-visible output.
+PENDING_TOKEN = -7
+
+
+class _InflightStep:
+    """A dispatched step whose tokens have not been committed yet (the
+    pipelined step): its output vector on the device (the next step's
+    passthrough source), the vector's host copy (pinned on the card) and
+    the event recorded after the copy (None on the CPU)."""
+
+    __slots__ = ("step_inputs", "tokens_dev", "tokens_host", "event",
+                 "commits", "gstate_base")
+
+    def __init__(self, step_inputs, tokens_dev):
+        self.step_inputs = step_inputs
+        self.tokens_dev = tokens_dev
+        if tokens_dev.is_cuda:
+            self.tokens_host = torch.empty(tokens_dev.shape,
+                                           dtype=tokens_dev.dtype,
+                                           pin_memory=True)
+            self.tokens_host.copy_(tokens_dev, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.tokens_host, self.event = tokens_dev, None
+        # (request, output position, absolute row in the vector, sample
+        # row of its logprobs or -1)
+        self.commits: list = []
+        # Offset of the grammar-state segment in the vector (0: none).
+        self.gstate_base = 0
+
+    def host_tokens(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.tokens_host.numpy()
 
 
 class LLMEngine:
@@ -92,10 +145,16 @@ class LLMEngine:
         # (hidden rows, [(req_id, row, emitted token)]) by the synchronous
         # step and at the fused loop's drain.
         self.hidden_capture = None
-        # The JAX engine pipelines steps only without speculation.
-        if config.scheduler.async_scheduling and spec is None:
-            logger.info("async_scheduling=True: the pipelined step is not "
-                        "ported yet; running the synchronous step")
+        # Pipelined steps need no host-side drafts: without speculation
+        # only, as in the JAX engine.
+        self._pipeline = config.scheduler.async_scheduling and spec is None
+        self._pipeline_depth = config.scheduler.pipeline_depth
+        self._inflight: list[_InflightStep] = []
+        self._pending_ref: dict = {}
+        # Device grammar pool: id(grammar index) -> (slot, index); slots
+        # are shared by requests with the same compiled grammar and
+        # reclaimed lazily once their requests finish.
+        self._guided_slots: dict[int, tuple] = {}
 
         self.spec_config = spec
         self._suffix_cache: Optional[SuffixCache] = None
@@ -137,8 +196,6 @@ class LLMEngine:
         if not prompt_token_ids:
             raise ValueError("prompt must not be empty")
         sampling = sampling or SamplingParams()
-        if sampling.guided is not None:
-            raise NotImplementedError("guided decoding is not ported yet")
         if sampling.stop and self.tokenizer is None:
             raise ValueError(
                 "string stop sequences need a tokenizer (none is "
@@ -167,11 +224,17 @@ class LLMEngine:
         req = self.scheduler.abort_request(req_id)
         if req is not None:
             self._evict_spec_state(req)
+            # Steps in flight skip it when they drain; its placeholders
+            # never become output.
+            self._pending_ref.pop(req_id, None)
+            out = req.output_token_ids
+            if PENDING_TOKEN in out:
+                del out[out.index(PENDING_TOKEN):]
         return req
 
     @property
     def has_unfinished(self) -> bool:
-        return self.scheduler.num_unfinished > 0
+        return self.scheduler.num_unfinished > 0 or bool(self._inflight)
 
     def close(self) -> None:
         """Release the prompt-tree worker pool and its pending futures
@@ -209,6 +272,9 @@ class LLMEngine:
         return finished
 
     def _step_inner(self) -> tuple[Optional[str], int, list[Request]]:
+        if self._pipeline and not self._needs_sync():
+            return ("pipelined", *self._step_pipelined())
+        flushed = self._flush_inflight()[1]
         # Device-resident fused decode while requests sit at their decode
         # frontier; prefills and admissions ride its interleaved sync
         # steps, or this iteration's sync step when it is not active.
@@ -224,7 +290,268 @@ class LLMEngine:
                 # Exited with nothing to report (e.g. block pre-extension
                 # failed before the first dispatch): the sync path makes
                 # progress this iteration.
-        return self._step_sync()
+        kind, emitted, finished = self._step_sync()
+        return kind, emitted, flushed + finished
+
+    def _needs_sync(self) -> bool:
+        """Whether some request (or the capture hook) forces the
+        synchronous step.  Penalties need host-known token histories at
+        dispatch time (a pipelined step would upload placeholders); the
+        ``hidden_capture`` hook takes rows from synchronous steps only.
+        Guided requests ride the pipeline when every grammar is
+        DFA-compiled and the device pool holds them all (masks and
+        state advance then run on the device); other decoders need the
+        host's pick each step.  Logprobs ride the pipeline (their ranked
+        candidates are read when the step drains)."""
+        if self.hidden_capture is not None:
+            return True
+        reqs = (*self.scheduler.running, *self.scheduler.waiting)
+        if any(r.sampling.needs_penalties for r in reqs):
+            return True
+        indexes = set()
+        for r in reqs:
+            g = r.sampling.guided
+            if g is None:
+                continue
+            idx = getattr(g, "index", None)
+            if idx is None or not self.runner.guided_fits_pool(idx):
+                return True
+            indexes.add(id(idx))
+        return len(indexes) > self.runner.GUIDED_POOL_SLOTS
+
+    def _guided_slot(self, decoder) -> int:
+        """Pool slot of this decoder's grammar, its tables uploaded at
+        first use; slots are keyed by compiled-grammar identity (the
+        ``TokenDfaIndex`` cache makes same-pattern requests share one)."""
+        key = id(decoder.index)
+        entry = self._guided_slots.get(key)
+        if entry is not None:
+            return entry[0]
+        if len(self._guided_slots) >= self.runner.GUIDED_POOL_SLOTS:
+            live = {id(r.sampling.guided.index)
+                    for r in (*self.scheduler.running,
+                              *self.scheduler.waiting)
+                    if getattr(r.sampling.guided, "index", None)
+                    is not None}
+            self._guided_slots = {k: v for k, v in
+                                  self._guided_slots.items() if k in live}
+        used = {slot for slot, _ in self._guided_slots.values()}
+        slot = next(i for i in range(self.runner.GUIDED_POOL_SLOTS)
+                    if i not in used)
+        self.runner.upload_guided_tables(slot, decoder.index)
+        # The strong reference keeps the index's id() from being reused
+        # while the slot maps it.
+        self._guided_slots[key] = (slot, decoder.index)
+        return slot
+
+    # ------------------------------------------------------------------ #
+    # Pipelined step
+    # ------------------------------------------------------------------ #
+
+    def _step_pipelined(self) -> tuple[int, list[Request]]:
+        """Dispatch this iteration's step with placeholders for its
+        tokens, then commit the oldest steps in flight beyond
+        ``pipeline_depth``; returns (tokens committed, finished
+        requests)."""
+        sched_out = self.scheduler.schedule()
+        emitted, flushed = 0, []
+        if sched_out.preempted:
+            # A preempted request's placeholders must land before its
+            # restart feeds its tokens again.
+            emitted, flushed = self._flush_inflight()
+            # The drain can finish requests of this schedule (a stop on
+            # their last pending token): their entries are stale.
+            sched_out.scheduled = [s for s in sched_out.scheduled
+                                   if not s.request.status.is_finished]
+        if not sched_out.scheduled:
+            n, fin = self._sync_oldest()
+            return emitted + n, flushed + fin
+        self._maybe_observe(sched_out)
+
+        # Passthrough: a request whose newest token is still on the
+        # device reads it from the previous step's output vector.
+        passthrough = {}
+        prev = self._inflight[-1] if self._inflight else None
+        for s in sched_out.scheduled:
+            req = s.request
+            if not req.output_token_ids or \
+                    req.output_token_ids[-1] != PENDING_TOKEN:
+                continue
+            step_obj, row_abs = self._pending_ref[req.req_id]
+            # Produced two or more steps back: drain the oldest steps
+            # until the value lands or its step is the newest in flight.
+            while step_obj is not prev and self._inflight and \
+                    req.output_token_ids[-1] == PENDING_TOKEN and \
+                    self._inflight[-1] is not step_obj:
+                n, fin = self._sync_oldest()
+                emitted += n
+                flushed.extend(fin)
+            if req.output_token_ids[-1] == PENDING_TOKEN:
+                passthrough[req.req_id] = row_abs
+        # That drain can finish scheduled requests (stop strings, grammar
+        # completion): drop their entries.
+        sched_out.scheduled = [s for s in sched_out.scheduled
+                               if not s.request.status.is_finished]
+        if not sched_out.scheduled:
+            return emitted, flushed
+
+        prev = self._inflight[-1] if self._inflight else None
+        # Device-resident guided state: from the previous step's vector
+        # when this request's state is in flight there, else the host
+        # decoder's committed state.
+        guided_dev = {}
+        for s in sched_out.scheduled:
+            g = s.request.sampling.guided
+            if g is None:
+                continue
+            src = -1
+            if prev is not None and prev.step_inputs.guided_index and \
+                    s.request.req_id in prev.step_inputs.guided_index:
+                src = (prev.gstate_base
+                       + prev.step_inputs.guided_index[s.request.req_id])
+            guided_dev[s.request.req_id] = (self._guided_slot(g), src,
+                                            g.state)
+        step_inputs = self.runner.prepare_inputs(sched_out, passthrough,
+                                                 guided_dev or None)
+        need_topk = any(s.request.sampling.logprobs
+                        for s in sched_out.scheduled)
+        tokens_dev, _ = self.runner.dispatch(
+            step_inputs, self._generator, need_topk,
+            prev_tokens=None if prev is None else prev.tokens_dev)
+        inflight = _InflightStep(step_inputs, tokens_dev)
+        s_pad = step_inputs.s_pad
+        if step_inputs.gstate_count:
+            inflight.gstate_base = 2 * s_pad + (
+                2 * s_pad * self.runner.GUIDED_TOPK if need_topk else 0)
+        # Optimistic commit: a placeholder for every produced token.
+        for r, s in enumerate(sched_out.scheduled):
+            req = s.request
+            if req.num_computed_tokens + s.num_new_tokens < req.num_tokens:
+                self.scheduler.update_after_step(s, [], 0)
+                continue
+            lo = step_inputs.sample_row_start[r]
+            row_abs = lo + (s_pad if req.sampling.temperature > 0 else 0)
+            inflight.commits.append(
+                (req, len(req.output_token_ids), row_abs,
+                 lo if need_topk and req.sampling.logprobs else -1))
+            self.scheduler.update_after_step(s, [PENDING_TOKEN], 0)
+            self._pending_ref[req.req_id] = (inflight, row_abs)
+        self._inflight.append(inflight)
+
+        finished = list(flushed)
+        while len(self._inflight) > self._pipeline_depth:
+            n, fin = self._sync_oldest()
+            emitted += n
+            finished.extend(fin)
+        self.engine_stats.num_steps += 1
+        self.engine_stats.num_finished += len(finished)
+        return emitted, finished
+
+    def _sync_oldest(self) -> tuple[int, list[Request]]:
+        """Commit the oldest step in flight: patch its placeholders with
+        the tokens (and logprobs), replay guided tokens on the host
+        decoders and apply stop conditions; returns (tokens committed,
+        finished requests)."""
+        if not self._inflight:
+            return 0, []
+        step = self._inflight.pop(0)
+        tokens = step.host_tokens()
+        s_pad, kk = step.step_inputs.s_pad, self.runner.GUIDED_TOPK
+        finished: list[Request] = []
+        emitted = 0
+        for req, out_pos, row_abs, lp_row in step.commits:
+            if req.status.is_finished:
+                continue   # stopped by an earlier commit: discarded
+            assert req.output_token_ids[out_pos] == PENDING_TOKEN
+            tok = int(tokens[row_abs])
+            req.output_token_ids[out_pos] = tok
+            emitted += 1
+            if lp_row >= 0:
+                # Ranked candidates ride the vector: [argmax, sampled,
+                # top-K ids, bitcast log-probs].
+                cand = tokens[2 * s_pad + lp_row * kk:
+                              2 * s_pad + (lp_row + 1) * kk]
+                logp = tokens[2 * s_pad + (s_pad + lp_row) * kk:
+                              2 * s_pad + (s_pad + lp_row + 1) * kk] \
+                    .view(np.float32)
+                n = req.sampling.logprobs
+                while len(req.output_logprobs) <= out_pos:
+                    req.output_logprobs.append({})
+                req.output_logprobs[out_pos] = {
+                    int(t): float(p) for t, p in zip(cand[:n], logp[:n])}
+            ref = self._pending_ref.get(req.req_id)
+            if ref is not None and ref[0] is step:
+                del self._pending_ref[req.req_id]
+            if req.first_token_time is None:
+                req.first_token_time = time.time()
+            stop = None
+            g = req.sampling.guided
+            if g is not None:
+                # The host decoder replays the committed token and stays
+                # the authority on completion; tokens sampled past it
+                # (the device's bit-0 sentinel) are trimmed, as length
+                # overshoot is.
+                g.advance_token(tok)
+                if g.state == -1:
+                    # Compile-time token_dead_ends() rules out grammars
+                    # that could strand a request, so a dead state means
+                    # the device let a forbidden token through: fail the
+                    # request rather than return a trimmed output.
+                    logger.warning(
+                        "guided request %s reached a dead grammar state "
+                        "at output position %d (token %d); aborting it",
+                        req.req_id, out_pos, tok)
+                    del req.output_token_ids[out_pos:]
+                    stop = RequestStatus.FINISHED_ABORTED
+                elif g.finished():
+                    del req.output_token_ids[out_pos + 1:]
+                    stop = RequestStatus.FINISHED_STOPPED
+            if stop is None:
+                stop = self._check_stop_prefix(req)
+            if stop is not None:
+                req.finish_time = time.time()
+                self.scheduler.finish_request(req, stop)
+                self._pending_ref.pop(req.req_id, None)
+                finished.append(req)
+        return emitted, finished
+
+    def _check_stop_prefix(self, req: Request) -> Optional[RequestStatus]:
+        """Stop conditions over the host-known prefix of the output (the
+        tokens before the first placeholder)."""
+        out = req.output_token_ids
+        prefix = (out.index(PENDING_TOKEN) if PENDING_TOKEN in out
+                  else len(out))
+        sp = req.sampling
+        for i in range(prefix):
+            tok = out[i]
+            if (not sp.ignore_eos and self.eos_token_id is not None
+                    and tok == self.eos_token_id) or \
+                    tok in sp.stop_token_ids:
+                del out[i + 1:]
+                return RequestStatus.FINISHED_STOPPED
+        if self._check_stop_strings(req, prefix):
+            del out[prefix:]
+            return RequestStatus.FINISHED_STOPPED
+        if prefix >= sp.max_tokens:
+            del out[sp.max_tokens:]
+            return RequestStatus.FINISHED_LENGTH
+        if len(req.prompt_token_ids) + prefix >= \
+                self.config.model.max_model_len:
+            del out[prefix:]
+            return RequestStatus.FINISHED_LENGTH
+        return None
+
+    def _flush_inflight(self) -> tuple[int, list[Request]]:
+        emitted, out = 0, []
+        while self._inflight:
+            n, fin = self._sync_oldest()
+            emitted += n
+            out.extend(fin)
+        return emitted, out
+
+    # ------------------------------------------------------------------ #
+    # Synchronous step
+    # ------------------------------------------------------------------ #
 
     def _step_sync(self, sched_out: Optional[SchedulerOutput] = None
                    ) -> tuple[Optional[str], int, list[Request]]:
@@ -248,9 +575,15 @@ class LLMEngine:
             kind = "verify"
         else:
             kind = "mixed"
-        # Logprobs need the step's ranked candidates.
-        need_topk = any(s.request.sampling.logprobs
-                        for s in sched_out.scheduled)
+        # Logprobs need the step's ranked candidates, and so do guided
+        # decoders without a mask (DFA decoders' masks ride the step).
+        mask_capable = "guided_rows" in step_inputs.arrays
+        need_topk = any(
+            s.request.sampling.logprobs
+            or (s.request.sampling.guided is not None
+                and not (mask_capable and getattr(
+                    s.request.sampling.guided, "mask_words", None)))
+            for s in sched_out.scheduled)
         argmax, sampled, hidden_rows, *ranked = self.runner.execute(
             step_inputs, self._generator, need_topk)
         topk, topk_logp = ranked if need_topk else (None, None)
@@ -268,6 +601,13 @@ class LLMEngine:
                 continue
             lo = step_inputs.sample_row_start[r]
             k = step_inputs.sample_row_count[r]
+            if req.sampling.guided is not None:
+                if self._commit_guided(req, s, lo + k - 1, argmax, sampled,
+                                       topk, topk_logp, mask_capable):
+                    finished.append(req)
+                accepted_row[req.req_id] = lo
+                emitted += 1
+                continue
             # Greedy requests accept against the argmax chain; requests
             # with temperature > 0 sample every verify row from the target
             # distribution, and accepting draft == sample is unbiased.
@@ -308,6 +648,52 @@ class LLMEngine:
         self.engine_stats.num_steps += 1
         self.engine_stats.num_finished += len(finished)
         return kind, emitted, finished
+
+    def _commit_guided(self, req: Request, s, row: int, argmax, sampled,
+                       topk, topk_logp, mask_capable: bool) -> bool:
+        """Commit a guided request's token of this synchronous step (its
+        sample row ``row``); returns whether the request finished.  A
+        masked row's token is valid by construction; a decoder without a
+        mask picks the first allowed of the ranked candidates, else the
+        grammar's own fallback."""
+        guided = req.sampling.guided
+        if mask_capable and getattr(guided, "mask_words", None) is not None:
+            tok = int((sampled if req.sampling.temperature > 0
+                       else argmax)[row])
+            if not guided.allows_token(tok):
+                # All-zero mask (a wedged automaton): degrade.
+                tok = guided.fallback_token()
+                if tok is None:
+                    tok = int(argmax[row])
+        elif topk is not None:
+            tok = guided.pick(topk[row])
+            if tok is None:
+                tok = guided.fallback_token()
+            if tok is None:
+                tok = int(argmax[row])
+        else:
+            tok = int(argmax[row])
+        guided.advance_token(tok)
+        if req.sampling.logprobs and topk_logp is not None:
+            n = req.sampling.logprobs
+            req.output_logprobs.append({
+                int(t): float(p)
+                for t, p in zip(topk[row][:n], topk_logp[row][:n])})
+        self.scheduler.update_after_step(s, [int(tok)], 0)
+        if req.first_token_time is None:
+            req.first_token_time = time.time()
+        stop = req.check_stop(self.eos_token_id,
+                              self.config.model.max_model_len)
+        if stop is None and self._check_stop_strings(req):
+            stop = RequestStatus.FINISHED_STOPPED
+        if stop is None and guided.finished():
+            stop = RequestStatus.FINISHED_STOPPED
+        if stop is None:
+            return False
+        req.finish_time = time.time()
+        self.scheduler.finish_request(req, stop)
+        self._evict_spec_state(req)
+        return True
 
     def _verify(self, req: Request, s, rows) -> tuple[list[int], int, int]:
         """The tokens a request commits from its verify rows ``rows`` (the
@@ -353,21 +739,25 @@ class LLMEngine:
         req.num_draft_tokens += n_drafts
         req.num_accepted_draft_tokens += n_accepted
 
-    def _check_stop_strings(self, req: Request) -> bool:
+    def _check_stop_strings(self, req: Request,
+                            known: Optional[int] = None) -> bool:
         """OpenAI ``stop`` string sequences: finish when one appears in
-        the decoded output; ``req.final_text`` records the user-visible
-        text cut just before the stop."""
+        the decoded output (its first ``known`` tokens, by default all);
+        ``req.final_text`` records the user-visible text cut just before
+        the stop."""
         sp = req.sampling
         if not sp.stop or self.tokenizer is None:
             return False
         out = req.output_token_ids
+        if known is None:
+            known = len(out)
         # Bounded re-decode window: stop sequences are short; the slack
         # covers multi-token renderings and BPE boundary effects.
         win = 16 + max(len(s) for s in sp.stop)
-        text = self.tokenizer.decode(out[max(0, len(out) - win):])
+        text = self.tokenizer.decode(out[max(0, known - win):known])
         if not any(s in text for s in sp.stop):
             return False
-        full = self.tokenizer.decode(out)
+        full = self.tokenizer.decode(out[:known])
         cut = min((idx for idx in (full.find(s) for s in sp.stop)
                    if idx != -1), default=-1)
         req.final_text = full[:cut] if cut >= 0 else full

@@ -562,7 +562,7 @@ class FusedDecodeLoop:
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(self._seeds.integers(1 << 62)))
         self._state["generator"] = gen
-        self._bt_dev = self._upload(self._bt_np)
+        self._bt_dev = self.runner.upload_array(self._bt_np)
         self._inflight = []
         self.active = True
         # Admission steps may preempt on block pressure; loop-owned
@@ -573,15 +573,6 @@ class FusedDecodeLoop:
         self.width_stats["entries"] += 1
         logger.debug("fused decode: entered with %d requests (B=%d, K=%d)",
                      len(running), b, k)
-
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        """A host array on the device without a host sync: through pinned
-        memory and a non-blocking copy on the card (the pinned block is
-        not reused before the copy ends), a private copy on the CPU."""
-        dev = self.runner.device
-        if dev.type != "cuda":
-            return torch.from_numpy(np.array(x))
-        return torch.from_numpy(x).pin_memory().to(dev, non_blocking=True)
 
     # -- stepping -------------------------------------------------------
 
@@ -711,11 +702,13 @@ class FusedDecodeLoop:
         elif paths_np is self._empty_paths_np:
             # Narrow / backoff steps reuse the cached device copy.
             if self._empty_paths_dev is None:
-                self._empty_paths_dev = self._upload(paths_np)
+                self._empty_paths_dev = self.runner.upload_array(
+                    paths_np)
             h_pack = self._empty_paths_dev
         else:
-            h_pack = self._upload(paths_np)
-        args = () if rplan_np is None else (self._upload(rplan_np),)
+            h_pack = self.runner.upload_array(paths_np)
+        args = () if rplan_np is None else (
+            self.runner.upload_array(rplan_np),)
         drafter = self.engine._drafter
         self._state, telem, hidden = fn(
             None if drafter is None else drafter.params, self._state,
@@ -918,7 +911,7 @@ class FusedDecodeLoop:
                     req.block_ids[before:]
                 changed = True
         if changed:
-            self._bt_dev = self._upload(self._bt_np)
+            self._bt_dev = self.runner.upload_array(self._bt_np)
         return True
 
     def _drain_one(self) -> list:

@@ -103,6 +103,11 @@ class LLM:
                     sub = dataclasses.replace(
                         sp, n=1,
                         seed=sp.seed + i if sp.seed is not None else None)
+                    if hasattr(sub.guided, "clone"):
+                        # Guided decoders are stateful: each completion
+                        # tracks its own automaton state.
+                        sub = dataclasses.replace(sub,
+                                                  guided=sub.guided.clone())
                 requests.append(
                     self.engine.add_request(rid, list(ids), sub))
 

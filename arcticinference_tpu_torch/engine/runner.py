@@ -8,8 +8,20 @@ attention work-item schedule), so the two compare element for element.
 Every array then goes to the device in one int32 and one float32 copy.
 :meth:`ModelRunner.dispatch` enqueues a step and reads nothing back (a
 timing loop or a CUDA graph can replay its device work,
-:meth:`ModelRunner.launch`); :meth:`ModelRunner.execute` is dispatch
-plus the tokens' copy to the host.
+:meth:`ModelRunner.launch`); it returns the step's packed int32 output
+vector, in the JAX runner's layout ``[argmax s_pad | sampled s_pad |
+top-K ids s_pad*K | bitcast log-probs s_pad*K | grammar states g_pad]``
+(the last three parts only when asked for).  :meth:`ModelRunner.execute`
+is dispatch plus the vector's copy to the host, unpacked.
+
+The engine's pipelined step feeds tokens the host has not seen yet from
+the previous step's vector (``passthrough``: the step's ``input_src``
+rows), and, for guided requests, the automaton states too: the grammar
+tables of up to :data:`ModelRunner.GUIDED_POOL_SLOTS` grammars live in a
+device pool (:meth:`ModelRunner.upload_guided_tables`), whose mask rows
+the step applies and whose transitions advance the states
+(``ops/guided.py``).  The synchronous step ships a host-built vocab mask
+per guided row instead (``guided_rows`` / ``guided_mask``).
 
 Weights may be plain or weight-only quantized (``QuantizedLinear``
 leaves: fp8, int8, int4).  Speculative drafts ride the step as extra
@@ -22,17 +34,19 @@ float32 logits before the argmax and the sampler, from each request's
 token history (``pen_out_tokens`` / ``pen_all_tokens``, built only on
 steps where a request asks for them); with ``need_topk`` a step also
 returns each sample row's top :data:`ModelRunner.GUIDED_TOPK` ids and
-their log-softmax values (logprobs).  A SwiftKV model
-(``NEEDS_SWIFT_SCHEDULE``) gets a second attention schedule over the
-sample rows (the ``swift_*`` arrays, :func:`swift_schedule`) and returns
-the sample rows' hidden states itself (``RETURNS_SAMPLE_ROWS``).  Not
-ported yet (they raise ``NotImplementedError``): meshes (tp / sp / dp /
-pp, and with them the dp-stacked swift schedules) and guided decoding.
+their log-softmax values (logprobs, and the candidates of guided
+decoders without masks).  A SwiftKV model (``NEEDS_SWIFT_SCHEDULE``)
+gets a second attention schedule over the sample rows (the ``swift_*``
+arrays, :func:`swift_schedule`) and returns the sample rows' hidden
+states itself (``RETURNS_SAMPLE_ROWS``).  Not ported yet (they raise
+``NotImplementedError``): meshes (tp / sp / dp / pp, and with them the
+dp-stacked swift schedules).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,7 +57,10 @@ from arcticinference_tpu_torch.ops.cuda.ragged_attention import (
     build_work_items, tree_masks, tree_work_items)
 from arcticinference_tpu_torch.ops.kv_cache import (KVCacheSpec,
                                                     allocate_kv_cache)
-from arcticinference_tpu_torch.ops.sampling import apply_penalties, sample
+from arcticinference_tpu_torch.ops.guided import (guided_advance,
+                                                 guided_mask_rows)
+from arcticinference_tpu_torch.ops.sampling import (apply_penalties,
+                                                    apply_vocab_mask, sample)
 from arcticinference_tpu_torch.utils import (cdiv, default_token_buckets,
                                              device_memory_bytes,
                                              pad_to_bucket)
@@ -88,12 +105,24 @@ class StepInputs:
     sample_row_start: list[int]
     sample_row_count: list[int]
     total_tokens: int = 0
+    # Device-resident guided decoding: req_id -> index into the step's
+    # guided rows, and the padded guided-row count (the grammar-state
+    # segment's length at the end of the output vector).
+    guided_index: Optional[dict] = None
+    gstate_count: int = 0
 
 
 class ModelRunner:
 
-    #: Ranked candidates a step returns with ``need_topk`` (logprobs).
+    #: Ranked candidates a step returns with ``need_topk`` (logprobs,
+    #: guided decoders without masks).
     GUIDED_TOPK = 16
+
+    #: The device grammar pool of the pipelined guided path: grammars
+    #: (slots), DFA states and transition intervals per grammar.
+    GUIDED_POOL_SLOTS = 8
+    GUIDED_POOL_STATES = 1024
+    GUIDED_POOL_TRANS = 16384
 
     def __init__(self, config: EngineConfig, module, arch, params: dict,
                  device: torch.device):
@@ -140,6 +169,9 @@ class ModelRunner:
             config.scheduler.max_num_batched_tokens)
         self.sample_buckets = default_token_buckets(
             max(16, config.scheduler.max_num_batched_tokens))
+        # Allocated at the first guided request on the pipelined step
+        # (131 MB of masks at a 128k vocabulary).
+        self._guided_pool: Optional[dict] = None
 
     def _auto_num_blocks(self, kv_dtype: torch.dtype) -> int:
         """Size the cache from the device's memory, less the weights (a
@@ -161,7 +193,15 @@ class ModelRunner:
     # Input preparation (host)
     # ------------------------------------------------------------------ #
 
-    def prepare_inputs(self, sched_out: SchedulerOutput) -> StepInputs:
+    def prepare_inputs(self, sched_out: SchedulerOutput,
+                       passthrough: Optional[dict] = None,
+                       guided_dev: Optional[dict] = None) -> StepInputs:
+        """``passthrough`` maps req_id -> absolute index into the
+        PREVIOUS step's output vector of a token whose value has not
+        reached the host yet (the pipelined step).  ``guided_dev`` maps
+        req_id -> (pool slot, src, init state) for the device-resident
+        guided path: src indexes the previous step's output vector (its
+        grammar-state segment), or is -1 to seed from the init state."""
         scheduled = sched_out.scheduled
         total = sum(s.num_new_tokens for s in scheduled)
         t_pad = pad_to_bucket(max(total, 1), self.token_buckets)
@@ -190,6 +230,11 @@ class ModelRunner:
             ctx = req.num_computed_tokens
             toks = (req.all_token_ids + s.spec_token_ids)[ctx:ctx + n]
             assert len(toks) == n, (len(toks), n, ctx)
+            if passthrough and req.req_id in passthrough:
+                # The first fed token is the previous step's output,
+                # still on the device; its host value is a placeholder.
+                input_src[t] = passthrough[req.req_id]
+                toks = [0] + list(toks[1:])
             input_ids[t:t + n] = toks
             positions[t:t + n] = np.arange(ctx, ctx + n)
             if s.spec_parents is not None and s.spec_token_ids:
@@ -242,8 +287,6 @@ class ModelRunner:
         for r, s in enumerate(scheduled):
             req = s.request
             sp = req.sampling
-            if sp.guided is not None:
-                raise NotImplementedError("guided decoding is not ported")
             lo, k = row_start[r], row_count[r]
             temperature[lo:lo + k] = sp.temperature
             top_k[lo:lo + k] = sp.top_k
@@ -260,6 +303,29 @@ class ModelRunner:
                 pres_pen[lo:lo + k] = sp.presence_penalty
                 freq_pen[lo:lo + k] = sp.frequency_penalty
                 any_penalties = True
+
+        # Grammar-guided vocab bitmasks (DFA-backed decoders) for the
+        # row that commits a token: the host's mask of the automaton's
+        # state, or (pipelined) the device pool's row of a state that
+        # rides the output vector.
+        guided_entries: list[tuple[int, np.ndarray]] = []
+        dev_entries: list[tuple[int, int, int, int, str]] = []
+        for r, s in enumerate(scheduled):
+            req = s.request
+            g = req.sampling.guided
+            if g is None or getattr(g, "mask_words", None) is None:
+                continue
+            if req.num_computed_tokens + s.num_new_tokens < \
+                    req.num_tokens:
+                continue   # mid-prefill: no token committed this step
+            row = row_start[r] + row_count[r] - 1
+            if guided_dev is not None and req.req_id in guided_dev:
+                slot, src, init = guided_dev[req.req_id]
+                dev_entries.append((row, slot, src, init, req.req_id))
+            else:
+                guided_entries.append((row, g.mask_words()))
+        assert not (guided_entries and dev_entries), \
+            "host-mask and device-pool guided rows cannot mix in a step"
 
         # attn_qb == 1 marks a pure-decode step (one frontier row per
         # request, token order == request order): the model routes it to
@@ -301,6 +367,32 @@ class ModelRunner:
             attn_token_off=token_off,
             **tree_arrays,
         )
+        g_buckets = [g for g in (1, 2, 4, 8, 16, 32, 64, 128)
+                     if g <= max(b, 1)] + [b]
+        guided_index = None
+        gstate_count = 0
+        if guided_entries:
+            w = (self.arch.vocab_size + 31) // 32
+            g_pad = pad_to_bucket(len(guided_entries), g_buckets)
+            grows = np.full(g_pad, -1, np.int32)
+            gmask = np.zeros((g_pad, w), np.uint32)
+            for i, (row, mask) in enumerate(guided_entries):
+                grows[i] = row
+                gmask[i, :len(mask)] = mask   # short mask: tail stays 0
+            arrays["guided_rows"] = grows
+            arrays["guided_mask"] = gmask.view(np.int32)
+        elif dev_entries:
+            g_pad = pad_to_bucket(len(dev_entries), g_buckets)
+            grows, gslot, gsrc, ginit = (np.full(g_pad, -1, np.int32)
+                                         for _ in range(4))
+            guided_index = {}
+            for i, (row, slot, src, init, rid) in enumerate(dev_entries):
+                grows[i], gslot[i] = row, slot
+                gsrc[i], ginit[i] = src, init
+                guided_index[rid] = i
+            arrays.update(guided_rows=grows, gd_slot=gslot, gd_src=gsrc,
+                          gd_init=ginit)
+            gstate_count = g_pad
         if any_penalties:
             # Token histories of the requests asking for penalties, -1
             # padded to a bucketed length; every verify row of a request
@@ -325,7 +417,66 @@ class ModelRunner:
                                          self.block_size))
         return StepInputs(arrays=arrays, t_pad=t_pad, s_pad=s_pad,
                           attn_qb=attn_qb, sample_row_start=row_start,
-                          sample_row_count=row_count, total_tokens=total)
+                          sample_row_count=row_count, total_tokens=total,
+                          guided_index=guided_index,
+                          gstate_count=gstate_count)
+
+    # ------------------------------------------------------------------ #
+    # Device grammar pool (pipelined guided decoding)
+    # ------------------------------------------------------------------ #
+
+    def guided_fits_pool(self, index) -> bool:
+        return (index.dfa.n_states <= self.GUIDED_POOL_STATES
+                and len(index.dfa.trans_lo) <= self.GUIDED_POOL_TRANS)
+
+    def upload_array(self, x: np.ndarray) -> torch.Tensor:
+        """A host array on the device without a host sync: through pinned
+        memory and a non-blocking copy on the card (the pinned block is
+        not reused before the copy ends), a private copy on the CPU."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type != "cuda":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _ensure_guided_pool(self) -> dict:
+        if self._guided_pool is None:
+            w = (self.arch.vocab_size + 31) // 32
+            p, s, i = (self.GUIDED_POOL_SLOTS, self.GUIDED_POOL_STATES,
+                       self.GUIDED_POOL_TRANS)
+            dev, i32 = self.device, torch.int32
+            self._guided_pool = dict(
+                masks=torch.zeros((p, s, w), dtype=i32, device=dev),
+                keys=torch.full((p, i), np.iinfo(np.int32).max, dtype=i32,
+                                device=dev),
+                hi=torch.full((p, i), -1, dtype=i32, device=dev),
+                nxt=torch.full((p, i), -1, dtype=i32, device=dev),
+                cps=None)
+        return self._guided_pool
+
+    def upload_guided_tables(self, slot: int, index) -> None:
+        """Load grammar ``index`` (a ``TokenDfaIndex``) into pool slot
+        ``slot``; the copies are enqueued, nothing waits for the
+        device."""
+        if not self.guided_fits_pool(index):
+            raise ValueError("grammar exceeds the device pool")
+        pool = self._ensure_guided_pool()
+        masks, keys, hi, nxt = index.device_tables()
+        w = pool["masks"].shape[-1]
+        mrow = np.zeros((self.GUIDED_POOL_STATES, w), np.int32)
+        mrow[:masks.shape[0], :masks.shape[1]] = masks.view(np.int32)
+        i_pad = self.GUIDED_POOL_TRANS
+        krow = np.full(i_pad, np.iinfo(np.int32).max, np.int32)
+        krow[:len(keys)] = keys
+        hrow = np.full(i_pad, -1, np.int32)
+        hrow[:len(hi)] = hi
+        nrow = np.full(i_pad, -1, np.int32)
+        nrow[:len(nxt)] = nxt
+        for name, host in (("masks", mrow), ("keys", krow), ("hi", hrow),
+                           ("nxt", nrow)):
+            pool[name][slot].copy_(self.upload_array(host))
+        if pool["cps"] is None:
+            pool["cps"] = self.upload_array(
+                index.vocab.cps_matrix().view(np.int32))
 
     # ------------------------------------------------------------------ #
     # Device step
@@ -355,17 +506,26 @@ class ModelRunner:
 
     @torch.inference_mode()
     def launch(self, inputs: dict, attn_qb: int, need_sampling: bool,
-               generator: torch.Generator, need_topk: bool = False):
+               generator: torch.Generator, need_topk: bool = False,
+               prev_tokens: Optional[torch.Tensor] = None, seeds=None,
+               counters=None):
         """The step's device work on uploaded ``inputs`` (see
-        :meth:`upload`): forward, logits of the sample rows, penalties
-        (when the step carries token histories), argmax and, with
-        ``need_sampling``, sampling.  Returns device tensors (argmax
-        [s_pad] int32, sampled [s_pad] int32, rows [s_pad, hidden]) and,
-        with ``need_topk``, the sample rows' top :data:`GUIDED_TOPK` ids
-        [s_pad, K] int32 and their log-softmax values [s_pad, K] float32;
-        nothing here reads the device back, so a timing loop or a CUDA
-        graph can replay it."""
+        :meth:`upload`): passthrough tokens (and grammar states) from
+        ``prev_tokens``, the previous step's output vector; forward,
+        logits of the sample rows, penalties (when the step carries token
+        histories), guided masks, argmax and, with ``need_sampling``,
+        sampling (``seeds`` / ``counters``: the host's arrays, by default
+        the uploaded ones, which only a CPU step can read).  Returns the
+        packed int32 output vector (module docstring) and the sample
+        rows' hidden states [s_pad, hidden]; nothing here reads the
+        device back, so a timing loop or a CUDA graph can replay it."""
         inputs = dict(inputs, kv_scale=self.kv_scale)
+        if prev_tokens is not None:
+            src = inputs["input_src"]
+            inputs["input_ids"] = torch.where(
+                src >= 0,
+                prev_tokens[src.clamp(0, prev_tokens.shape[0] - 1).long()],
+                inputs["input_ids"])
         attn = self.module.make_attn_impl(attn_qb)
         self.kv, h = self.module.forward(self.params, self.arch, self.kv,
                                          inputs, attn_impl=attn)
@@ -376,31 +536,71 @@ class ModelRunner:
             logits = apply_penalties(
                 logits, inputs["pen_out_tokens"], inputs["pen_all_tokens"],
                 inputs["rep_pen"], inputs["pres_pen"], inputs["freq_pen"])
+        gstates = None
+        if "gd_slot" in inputs:
+            # Pipelined guided rows: the automaton state comes from the
+            # previous step's vector (or the host), its mask row from the
+            # grammar pool.
+            g_src = inputs["gd_src"]
+            gstates = inputs["gd_init"]
+            if prev_tokens is not None:
+                gstates = torch.where(
+                    g_src >= 0,
+                    prev_tokens[g_src.clamp(0, prev_tokens.shape[0] - 1)
+                                .long()], gstates)
+            logits = apply_vocab_mask(
+                logits, inputs["guided_rows"],
+                guided_mask_rows(gstates, inputs["gd_slot"],
+                                 self._guided_pool["masks"]))
+        elif "guided_rows" in inputs:
+            logits = apply_vocab_mask(logits, inputs["guided_rows"],
+                                      inputs["guided_mask"])
         argmax = torch.argmax(logits, dim=-1).to(torch.int32)
         if need_sampling:
-            sampled = sample(logits, inputs["temperature"], inputs["top_k"],
-                             inputs["top_p"], generator,
-                             min_p=inputs["min_p"], seeds=inputs["seeds"],
-                             counters=inputs["counters"])
+            sampled = sample(
+                logits, inputs["temperature"], inputs["top_k"],
+                inputs["top_p"], generator, min_p=inputs["min_p"],
+                seeds=inputs["seeds"] if seeds is None else seeds,
+                counters=inputs["counters"] if counters is None
+                else counters)
         else:
             sampled = argmax
-        if not need_topk:
-            return argmax, sampled, rows
-        # Ranked candidates for logprobs: log-softmax values of the top
-        # ids, over the logits the tokens are chosen from.
-        vals, cand = torch.topk(logits, self.GUIDED_TOPK, dim=-1)
-        logp = vals - torch.logsumexp(logits, dim=-1, keepdim=True)
-        return argmax, sampled, rows, cand.to(torch.int32), logp
+        parts = [argmax, sampled]
+        if need_topk:
+            # Ranked candidates: log-softmax values of the top ids, over
+            # the logits the tokens are chosen from, bitcast to int32.
+            vals, cand = torch.topk(logits, self.GUIDED_TOPK, dim=-1)
+            logp = (vals - torch.logsumexp(logits, dim=-1, keepdim=True))
+            parts += [cand.to(torch.int32).reshape(-1),
+                      logp.float().contiguous().view(torch.int32)
+                      .reshape(-1)]
+        if gstates is not None:
+            # Advance each grammar state by the token the engine commits
+            # (sampled or greedy by the row's temperature); the next step
+            # reads it from this vector.
+            pool = self._guided_pool
+            s_rows = inputs["guided_rows"].clamp(0, logits.shape[0] - 1) \
+                .long()
+            tok = torch.where(inputs["temperature"][s_rows] > 0,
+                              sampled[s_rows], argmax[s_rows])
+            parts.append(guided_advance(
+                gstates, inputs["gd_slot"], tok, pool["cps"], pool["keys"],
+                pool["hi"], pool["nxt"]))
+        return torch.cat(parts), rows
 
     def dispatch(self, step_inputs: StepInputs,
-                 generator: torch.Generator, need_topk: bool = False):
+                 generator: torch.Generator, need_topk: bool = False,
+                 prev_tokens: Optional[torch.Tensor] = None):
         """Enqueue one step (upload and :meth:`launch`) without reading
-        anything back; returns the device tensors of :meth:`launch`.
+        anything back; returns (the packed output vector, the sample
+        rows' hidden states), both on the device.  ``prev_tokens`` is the
+        previous step's vector when the step passes tokens through.
         Counterpart of the JAX runner's ``dispatch``."""
+        arrays = step_inputs.arrays
         return self.launch(
-            self.upload(step_inputs.arrays), step_inputs.attn_qb,
-            bool(step_inputs.arrays["temperature"].max() > 0), generator,
-            need_topk)
+            self.upload(arrays), step_inputs.attn_qb,
+            bool(arrays["temperature"].max() > 0), generator, need_topk,
+            prev_tokens, arrays["seeds"], arrays["counters"])
 
     def execute(self, step_inputs: StepInputs,
                 generator: torch.Generator, need_topk: bool = False):
@@ -410,7 +610,13 @@ class ModelRunner:
         that feed ``compute_logits``) [s_pad, hidden], left on the device
         for a drafter; with ``need_topk`` also the top-K ids [s_pad, K]
         and their log-probabilities [s_pad, K] as host arrays."""
-        argmax, sampled, rows, *topk = self.dispatch(step_inputs,
-                                                     generator, need_topk)
-        return (argmax.cpu().numpy(), sampled.cpu().numpy(), rows,
-                *(x.cpu().numpy() for x in topk))
+        tokens, rows = self.dispatch(step_inputs, generator, need_topk)
+        tokens = tokens.cpu().numpy()
+        s = step_inputs.s_pad
+        if not need_topk:
+            return tokens[:s], tokens[s:2 * s], rows
+        k = self.GUIDED_TOPK
+        topk = tokens[2 * s:2 * s + s * k].reshape(s, k)
+        logp = tokens[2 * s + s * k:2 * s + 2 * s * k].reshape(s, k) \
+            .view(np.float32)
+        return tokens[:s], tokens[s:2 * s], rows, topk, logp

@@ -39,6 +39,9 @@ environment_variables: dict[str, Callable[[], Any]] = {
     "ARCTIC_TPU_FUSED_CORRUPT_RATE":
         lambda: float(os.environ.get("ARCTIC_TPU_FUSED_CORRUPT_RATE", "0")
                       or 0),
+    # Turn off the DFA-compiled guided-decoding path (device-applied vocab
+    # bitmasks): guided requests take the partial-matching decoders.
+    "ARCTIC_TPU_DISABLE_GUIDED_DFA": _flag("ARCTIC_TPU_DISABLE_GUIDED_DFA"),
     # Print the fused loop's per-step width choice to stderr.
     "ARCTIC_TPU_FUSED_DEBUG":
         lambda: bool(os.environ.get("ARCTIC_TPU_FUSED_DEBUG")),

@@ -26,11 +26,13 @@ def _row_uniforms(n: int, v: int, generator: torch.Generator,
     """[n, v] uniforms in (0, 1): rows with seed >= 0 draw from a
     generator seeded with (seed, counter), so a seeded request reproduces
     its stream however it was co-scheduled; other rows draw from the
-    engine's ``generator``."""
+    engine's ``generator``.  ``seeds`` / ``counters`` are host values
+    (numpy arrays, sequences or CPU tensors): the seeded rows are built
+    without reading the device back."""
     u = torch.rand((n, v), generator=generator, device=device)
     if seeds is not None:
-        seeds_h = seeds.tolist()
-        counters_h = (counters.tolist() if counters is not None
+        seeds_h = _host_ints(seeds)
+        counters_h = (_host_ints(counters) if counters is not None
                       else [0] * n)
         for i, (s, c) in enumerate(zip(seeds_h, counters_h)):
             if s >= 0:
@@ -38,6 +40,15 @@ def _row_uniforms(n: int, v: int, generator: torch.Generator,
                 g.manual_seed((int(s) << 32) | (int(c) & 0xFFFFFFFF))
                 u[i] = torch.rand(v, generator=g, device=device)
     return u.clamp_(min=torch.finfo(torch.float32).tiny)
+
+
+def _host_ints(x) -> list[int]:
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise ValueError("seeds and counters must be host arrays (a "
+                             "device tensor would be read back)")
+        return x.tolist()
+    return [int(a) for a in x]
 
 
 def sample(logits: torch.Tensor, temperature: torch.Tensor,
@@ -52,7 +63,8 @@ def sample(logits: torch.Tensor, temperature: torch.Tensor,
     greedy; top_k 0 => disabled; top_p 1 => disabled).  min_p: [N]
     (0 => disabled): drop tokens whose probability is below min_p *
     max-probability (after temperature).  seeds/counters: [N] per-row
-    seeded sampling (seed < 0 = the step generator).  Returns [N] int32.
+    seeded sampling (seed < 0 = the step generator), host values (see
+    :func:`_row_uniforms`).  Returns [N] int32.
     """
     n, v = logits.shape
     neg_inf = float("-inf")
@@ -126,20 +138,25 @@ def apply_vocab_mask(logits: torch.Tensor, rows: torch.Tensor,
     logits: [N, V]; rows: [G] sample-row indices (-1 = padding, dropped);
     mask_words: [G, W] packed little-endian bitmask (int32 bit i of word
     w = token ``32*w + i``), W*32 >= V.  Disallowed tokens' logits become
-    the dtype's minimum; other rows are returned unchanged.
+    the dtype's minimum; other rows are returned unchanged.  Clamped
+    indices and a ``torch.where``, no boolean indexing: nothing waits
+    for the device.
     """
     g, w = mask_words.shape
-    v = logits.shape[-1]
+    n, v = logits.shape
+    dev = logits.device
     shifts = torch.arange(32, dtype=mask_words.dtype,
                           device=mask_words.device)
     bits = (mask_words[:, :, None] >> shifts) & 1
     allow = bits.reshape(g, w * 32)[:, :v] != 0
-    keep = rows >= 0
-    tgt = rows[keep].long()
-    out = logits.clone()
-    out[tgt] = torch.where(allow[keep], logits[tgt],
-                           torch.finfo(logits.dtype).min)
-    return out
+    # Which guided row masks each logits row (-1: none); padding rows
+    # land on a spare entry past the end.
+    entry = torch.full((n + 1,), -1, dtype=torch.long, device=dev)
+    entry.scatter_(0, torch.where(rows < 0, n, rows).long(),
+                   torch.arange(g, device=dev))
+    entry = entry[:n]
+    masked = (entry[:, None] >= 0) & ~allow[entry.clamp(min=0)]
+    return torch.where(masked, torch.finfo(logits.dtype).min, logits)
 
 
 def verify_greedy(draft_tokens: torch.Tensor, num_draft: torch.Tensor,

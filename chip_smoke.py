@@ -149,6 +149,29 @@ Phases, each reported on its own lines:
              the distilled drafter's acceptance must exceed 0.5, and the
              bench must launch the probe, the attention kernels and the fp8
              matmul, the microbench the weight-stream kernel.
+7. pipeline: the pipelined step (the JAX engine's default without
+             speculation) against the synchronous one on one engine of
+             Llama-3.1-8B at full width and depth (random weights, prefix
+             caching off), bf16 then fp8: ``LLM.generate`` over 32 prompts
+             of 64-1024 tokens x 64 new tokens, greedy (three alternating
+             pairs, for the decode-phase step wall times) and
+             seeded at temperature 0.8; every pipelined pure-decode
+             dispatch (and the copy of its output vector) under
+             ``torch.cuda.set_sync_debug_mode("error")``.  fp8 tokens must
+             be identical and kernel 5 launch 129 times a dispatch; a bf16
+             divergence is allowed only where some step up to it ran at
+             another shape in the two runs (cuBLAS picks its algorithm by
+             shape).  Then guided decoding on the fp8 engine over a
+             synthetic tokenizer of 128256 tokens made from a seed: a JSON
+             schema, a date regex and a 5-way choice compiled with the
+             native sweeper (compile time, states, transitions, pool
+             upload time), 32 requests of 48 tokens (8 per grammar, 8
+             unguided; half greedy, half seeded at temperature 1.0)
+             through the device grammar pool (pipelined) and through host
+             masks (synchronous): the same tokens, every guided output
+             alive in its DFA, a finished one accepting, a finished JSON
+             one parsing, none aborted, guided pipelined dispatches under
+             the sync check.
 Last, a shorter bf16 and fp8 run of phase 5, the drafter chains and the
 bench's device step (its CUDA graph) under ``torch.profiler``, each on an
 engine of its own (no timed run follows a profiled one); the device step
@@ -224,7 +247,8 @@ REL_TOL = 1e-3
 # tolerance (a planted off-by-one mask fails both checks; PERF.md).
 Q_STD = 5.0
 
-PHASES = ("device", "build", "kernels", "forward", "generate", "bench")
+PHASES = ("device", "build", "kernels", "forward", "generate", "bench",
+          "pipeline")
 # Corruption rates of phase 6's curve (the bench's own sweep is 0.12, 0.3,
 # 0.6, 1.0; two points keep the script within its time).
 BENCH_CURVE_RATES = (0.3, 1.0)
@@ -2312,8 +2336,11 @@ def engine_config(quantization, spec=None, lstm_dir=None,
         # tokens x 128 x 2 B) = 8 GiB of KV beside the weights (~16 GB in
         # bf16); Qwen2.5-7B 3.5 GiB, Qwen3-8B 9 GiB.
         cache=CacheConfig(num_blocks=2048),
+        # These runs time and break down the synchronous step
+        # (``host_breakdown``); the pipeline phase runs the pipelined one.
         scheduler=SchedulerConfig(max_num_seqs=64,
-                                  max_num_batched_tokens=2048),
+                                  max_num_batched_tokens=2048,
+                                  async_scheduling=False),
         speculative=None if spec is None else speculative_config(spec,
                                                                  lstm_dir))
 
@@ -2668,6 +2695,417 @@ def run_generate(quantization, prompts, spec=None, reference=None,
     del llm
     free_cuda_memory()
     return res, outs
+
+
+# The pipeline phase: 32 prompts of 64-1024 tokens, 64 new tokens each;
+# the guided runs 32 requests of 48 tokens over three grammars and
+# unguided requests.
+PIPELINE_PROMPTS, PIPELINE_NEW, GUIDED_NEW = 32, 64, 48
+# Alternating pipelined / synchronous timing pairs (greedy).
+PIPELINE_PAIRS = 3
+# The second schema of tests/test_guided_dfa.py (a bounded string and
+# an array of enums), a date and a 5-way choice.
+GUIDED_SPECS = (
+    ("schema", {"json": {
+        "type": "object",
+        "properties": {"name": {"type": "string", "maxLength": 8},
+                       "tags": {"type": "array",
+                                "items": {"enum": ["x", "y"]},
+                                "maxItems": 3}},
+        "required": ["name"]}}),
+    ("date", {"regex": r"\d{4}-\d{2}-\d{2}"}),
+    ("choice", {"choice": ["positive", "negative", "neutral", "mixed",
+                           "unknown"]}),
+)
+
+
+class SyntheticTokenizer:
+    """A tokenizer of Llama-3.1's vocabulary size (128256) made from a
+    fixed seed: ids 0-255 are single characters (printable ASCII first),
+    ids 256-127999 strings of 2-12 characters over printable ASCII with
+    extra JSON punctuation (a third with a leading space), and ids
+    128000-128255 special tokens that decode to "" (Llama-3.1's
+    ``eos_token_id`` 128001 among them).  It gives the token sweeper and
+    the device pool a real vocabulary width; no tokenizer of a supported
+    model is in the repository."""
+
+    eos_token_id = 128001
+
+    def __init__(self, vocab_size: int = 128256, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        singles = [chr(c) for c in range(32, 127)] + ["\n", "\t"]
+        singles += [chr(0xA1 + i) for i in range(256 - len(singles))]
+        alphabet = np.array(list(
+            "".join(chr(c) for c in range(32, 127)) + '{}[]":,' * 4))
+        n = 128000 - 256
+        lens = rng.integers(2, 13, n)
+        chars = rng.choice(alphabet, int(lens.sum()))
+        space = rng.random(n) < 1 / 3
+        words, k = [], 0
+        for ln, sp in zip(lens, space):
+            w = "".join(chars[k:k + ln])
+            k += ln
+            words.append(" " + w[1:] if sp else w)
+        self.vocab = singles + words + [""] * (vocab_size - 128000)
+
+    def __len__(self):
+        return len(self.vocab)
+
+    def decode(self, ids, **kw):
+        return "".join(self.vocab[i] for i in ids)
+
+
+@contextlib.contextmanager
+def pipeline_recorder(llm):
+    """Record each engine step's wall time and each produced token's step
+    shape (t_pad, s_pad, attn_qb), and run every pipelined pure-decode
+    dispatch, with the copy of its output vector, under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host synchronisation
+    there raises.  Yields a dict of lists and counts."""
+    import torch
+
+    from arcticinference_tpu_torch.engine import engine as engine_mod
+
+    eng = llm.engine
+    runner = eng.runner
+    prep, dispatch, step = runner.prepare_inputs, runner.dispatch, eng.step
+    inflight_cls = engine_mod._InflightStep
+    rec = dict(steps=[], shapes={}, dispatches=0, checked=0,
+               checked_guided=0, guided_dispatches=0, prepare=[])
+    cur = {}
+
+    def recorded_prepare(sched_out, *a, **k):
+        t = time.perf_counter()
+        si = prep(sched_out, *a, **k)
+        rec["prepare"].append((time.perf_counter() - t,
+                               "guided_mask" in si.arrays))
+        shape = (si.t_pad, si.s_pad, si.attn_qb)
+        cur["qb"] = si.attn_qb
+        for s in sched_out.scheduled:
+            req = s.request
+            if req.num_computed_tokens + s.num_new_tokens >= req.num_tokens:
+                rec["shapes"][(req.req_id, len(req.output_token_ids))] = \
+                    shape
+        return si
+
+    def checked_dispatch(si, *a, **k):
+        rec["dispatches"] += 1
+        guided = "gd_slot" in si.arrays
+        rec["guided_dispatches"] += guided
+        if not (eng._pipeline and si.attn_qb == 1):
+            return dispatch(si, *a, **k)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = dispatch(si, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rec["checked"] += 1
+        rec["checked_guided"] += guided
+        return out
+
+    class CheckedInflight(inflight_cls):
+        def __init__(self, *a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                super().__init__(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    def timed_step():
+        cur["qb"] = None
+        t = time.perf_counter()
+        out = step()
+        rec["steps"].append((time.perf_counter() - t, cur["qb"]))
+        return out
+
+    runner.prepare_inputs, runner.dispatch = recorded_prepare, \
+        checked_dispatch
+    eng.step = timed_step
+    engine_mod._InflightStep = CheckedInflight
+    try:
+        yield rec
+    finally:
+        del runner.prepare_inputs, runner.dispatch, eng.step
+        engine_mod._InflightStep = inflight_cls
+
+
+def pipeline_run(llm, prompts, params, pipelined: bool) -> tuple:
+    """One ``generate`` with the pipelined step on or off, on ``llm``'s
+    engine; returns (result, outputs, recorder)."""
+    import torch
+
+    from arcticinference_tpu_torch.stats import StepTimeStats
+
+    eng = llm.engine
+    eng._pipeline = pipelined
+    eng.step_times = StepTimeStats()
+    steps0 = eng.engine_stats.num_steps
+    reset_counts()
+    t0 = time.perf_counter()
+    with pipeline_recorder(llm) as rec:
+        outs = llm.generate(prompt_token_ids=prompts, sampling_params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kinds = dict(eng.step_times._counts)
+    decode = [t for t, qb in rec["steps"] if qb == 1]
+    res = dict(pipelined=pipelined, wall_s=wall, kinds=kinds,
+               engine_steps=eng.engine_stats.num_steps - steps0,
+               dispatches=rec["dispatches"],
+               sync_checked_dispatches=rec["checked"],
+               decode_steps=len(decode),
+               decode_step_ms=float(np.median(decode)) * 1e3
+               if decode else None,
+               tokens=sum(len(o.token_ids) for o in outs),
+               launches=launch_counts())
+    if ("pipelined" in kinds) != pipelined or \
+            any(o.finish_reason == "finished_aborted" for o in outs):
+        raise AssertionError(f"pipeline run failed: {res}")
+    if pipelined and rec["checked"] == 0:
+        raise AssertionError("no pipelined decode dispatch was checked")
+    if eng._inflight or eng._pending_ref:
+        raise AssertionError("steps left in flight after generate")
+    return res, outs, rec
+
+
+def divergence(pipe, sync, rec_p, rec_s) -> dict:
+    """Token agreement of two runs and, per request, the first position
+    where they differ and whether some step up to it ran at another
+    shape (t_pad, s_pad, attn_qb) in the two runs."""
+    firsts = []
+    for a, b in zip(pipe, sync):
+        if a.token_ids == b.token_ids:
+            continue
+        j = next((i for i, (x, y) in enumerate(zip(a.token_ids,
+                                                   b.token_ids)) if x != y),
+                 min(len(a.token_ids), len(b.token_ids)))
+        shape_differs = any(
+            rec_p["shapes"].get((a.req_id, i)) !=
+            rec_s["shapes"].get((b.req_id, i)) for i in range(j + 1))
+        firsts.append(dict(position=j, shape_differs=shape_differs))
+    return dict(agree=len(pipe) - len(firsts), requests=len(pipe),
+                first_divergence=min((f["position"] for f in firsts),
+                                     default=None),
+                divergences=firsts)
+
+
+def phase_pipeline(rng) -> dict:
+    """The pipelined step (the JAX engine's default) against the
+    synchronous one on one Llama-3.1-8B engine (full width and depth,
+    random weights, prefix caching off), bf16 then fp8: greedy and
+    seeded tokens, decode-phase step wall times, every pipelined decode
+    dispatch under the sync check; then guided decoding on the fp8
+    engine over :class:`SyntheticTokenizer`: three grammars compiled
+    with the native sweeper, their tables uploaded into the device
+    pool, 32 requests through the pool (pipelined) and through host
+    masks (synchronous).  Returns {run: result}."""
+    import dataclasses
+
+    import torch
+
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+
+    prompts = [[int(x) for x in rng.integers(0, LLAMA_8B["vocab_size"],
+                                             int(n))]
+               for n in rng.integers(64, 1025, PIPELINE_PROMPTS)]
+    greedy = SamplingParams(max_tokens=PIPELINE_NEW, ignore_eos=True)
+    seeded = [SamplingParams(max_tokens=PIPELINE_NEW, ignore_eos=True,
+                             temperature=0.8, seed=i)
+              for i in range(PIPELINE_PROMPTS)]
+    runs = {}
+    for quantization in (None, "fp8"):
+        name = quantization or "bf16"
+        cfg = engine_config(quantization)
+        cfg = dataclasses.replace(
+            cfg, cache=dataclasses.replace(cfg.cache,
+                                           enable_prefix_caching=False),
+            scheduler=dataclasses.replace(cfg.scheduler,
+                                          async_scheduling=True))
+        t0 = time.perf_counter()
+        llm = LLM(cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        pairs = []
+        for _ in range(PIPELINE_PAIRS):
+            pipe, outs_p, rec_p = pipeline_run(llm, prompts, greedy, True)
+            sync, outs_s, rec_s = pipeline_run(llm, prompts, greedy, False)
+            pairs.append((pipe, sync, divergence(outs_p, outs_s, rec_p,
+                                                 rec_s)))
+        pipe_s, outs_p, rec_p = pipeline_run(llm, prompts, seeded, True)
+        sync_s, outs_s, rec_s = pipeline_run(llm, prompts, seeded, False)
+        div_seeded = divergence(outs_p, outs_s, rec_p, rec_s)
+        pipe, sync, div = pairs[0]
+        per_step = matmul_launches_per_step(llm.engine.arch)
+        res = dict(
+            model="llama-3.1-8b", quantization=name, init_s=init_s,
+            greedy=div, seeded=div_seeded,
+            greedy_agree_per_pair=[d["agree"] for _, _, d in pairs],
+            decode_step_ms=dict(
+                pipelined=[p["decode_step_ms"] for p, _, _ in pairs],
+                sync=[q["decode_step_ms"] for _, q, _ in pairs],
+                pipelined_median=float(np.median(
+                    [p["decode_step_ms"] for p, _, _ in pairs])),
+                sync_median=float(np.median(
+                    [q["decode_step_ms"] for _, q, _ in pairs]))),
+            wall_s=dict(pipelined=[p["wall_s"] for p, _, _ in pairs],
+                        sync=[q["wall_s"] for _, q, _ in pairs]),
+            runs=dict(greedy_pipelined=pipe, greedy_sync=sync,
+                      seeded_pipelined=pipe_s, seeded_sync=sync_s),
+            card=smi())
+        res["ratio_pipelined_to_sync"] = (
+            res["decode_step_ms"]["pipelined_median"]
+            / res["decode_step_ms"]["sync_median"])
+        log(f"  pipeline {name} " + json.dumps(res))
+        ok = all(p["launches"]["ragged_paged_attention_kernel"] > 0
+                 and p["launches"]["grouped_decode_attention_kernel"] > 0
+                 for p in (pipe, sync, pipe_s, sync_s))
+        if quantization:
+            # fp8: kernel 5's rows are bit for bit whatever their
+            # neighbours, so the two steps give the same tokens; every
+            # dispatch launches it 129 times.
+            ok = ok and all(d["agree"] == PIPELINE_PROMPTS
+                            for _, _, d in pairs) \
+                and div_seeded["agree"] == PIPELINE_PROMPTS
+            ok = ok and all(
+                r["launches"]["fp8_matmul_kernel"]
+                == per_step * r["dispatches"]
+                for r in (pipe, sync, pipe_s, sync_s))
+        else:
+            # bf16: cuBLAS picks its algorithm by shape, so a divergence
+            # is allowed where the two runs' step shapes differ.
+            ok = ok and all(f["shape_differs"]
+                            for d in [d for _, _, d in pairs] + [div_seeded]
+                            for f in d["divergences"])
+        if not ok:
+            raise AssertionError(f"pipeline check failed: {res}")
+        runs[name] = res
+        if quantization:
+            runs["guided"] = phase_guided(llm)
+        llm.close()
+        del llm
+        free_cuda_memory()
+    return runs
+
+
+def phase_guided(llm) -> dict:
+    """Guided decoding on ``llm`` (fp8) over a synthetic 128256-token
+    vocabulary: compile time, DFA states and transitions of each grammar,
+    its pool upload time; 32 requests (8 per grammar and 8 unguided, half
+    greedy, half seeded at temperature 1.0) through the device pool and
+    through host masks, held against each other and their grammars."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+    from arcticinference_tpu_torch.serving import guided_dfa
+    from arcticinference_tpu_torch.serving.structured import (
+        make_guided_decoder)
+
+    eng = llm.engine
+    vocab = eng.arch.vocab_size
+    t0 = time.perf_counter()
+    tok = SyntheticTokenizer(vocab)
+    tok_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    guided_dfa.vocab_codepoints(tok, vocab)
+    vocab_s = time.perf_counter() - t0
+    grammars, decoders = {}, {}
+    for name, spec in GUIDED_SPECS:
+        t0 = time.perf_counter()
+        dec = make_guided_decoder(tok, spec, vocab_size=vocab)
+        compile_s = time.perf_counter() - t0
+        if not isinstance(dec, guided_dfa.DfaGuidedDecoder) or \
+                dec.index._handle is None:
+            raise AssertionError(f"{name}: no native DFA decoder ({dec})")
+        dfa = dec.index.dfa
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._guided_slot(dec)
+        torch.cuda.synchronize()
+        grammars[name] = dict(
+            compile_s=compile_s, states=dfa.n_states,
+            transitions=len(dfa.trans_lo),
+            fits_pool=eng.runner.guided_fits_pool(dec.index),
+            pool_upload_ms=(time.perf_counter() - t0) * 1e3)
+        decoders[name] = dec
+    rng = np.random.default_rng(1)
+    prompts = [[int(x) for x in rng.integers(0, 128000, int(n))]
+               for n in rng.integers(64, 257, 32)]
+    groups = [name for name, _ in GUIDED_SPECS] + [None]
+
+    def params():
+        out = []
+        for i in range(32):
+            g = groups[i // 8]
+            out.append(SamplingParams(
+                max_tokens=GUIDED_NEW, temperature=1.0 * (i % 2),
+                seed=1000 + i if i % 2 else None,
+                guided=None if g is None else decoders[g].clone()))
+        return out
+
+    mask_time = [0.0, 0]
+    mask_words = guided_dfa.DfaGuidedDecoder.mask_words
+
+    def timed_mask_words(self):
+        t = time.perf_counter()
+        m = mask_words(self)
+        mask_time[0] += time.perf_counter() - t
+        mask_time[1] += 1
+        return m
+
+    pipe, outs_p, rec_p = pipeline_run(llm, prompts, params(), True)
+    guided_dfa.DfaGuidedDecoder.mask_words = timed_mask_words
+    try:
+        sync, outs_s, rec_s = pipeline_run(llm, prompts, params(), False)
+    finally:
+        guided_dfa.DfaGuidedDecoder.mask_words = mask_words
+    mask_steps = [t for t, has in rec_s["prepare"] if has]
+    plain_steps = [t for t, has in rec_p["prepare"]]
+    checks = []
+    for i, (a, b) in enumerate(zip(outs_p, outs_s)):
+        g = groups[i // 8]
+        if g is None:
+            continue
+        idx = decoders[g].index
+        st = idx.dfa.start
+        for t in a.token_ids:
+            st = idx.advance(st, t)
+            if st < 0:
+                break
+        done = a.finish_reason == "finished_stopped"
+        parsed = None
+        if done and g == "schema":
+            parsed = json.loads(tok.decode(a.token_ids))
+        checks.append(dict(group=g, alive=st >= 0,
+                           finished=done, accepting=idx.is_accept(st),
+                           text=tok.decode(a.token_ids)[:40],
+                           json=parsed is not None))
+    res = dict(
+        tokenizer_s=tok_s, vocab_table_s=vocab_s, grammars=grammars,
+        pipelined=pipe, sync=sync,
+        guided_dispatches=rec_p["guided_dispatches"],
+        sync_checked_guided_dispatches=rec_p["checked_guided"],
+        tokens_equal=[a.token_ids == b.token_ids
+                      for a, b in zip(outs_p, outs_s)].count(True),
+        sync_mask_steps=len(mask_steps),
+        sync_prepare_ms_p50=float(np.median(mask_steps)) * 1e3
+        if mask_steps else None,
+        pipelined_prepare_ms_p50=float(np.median(plain_steps)) * 1e3,
+        sync_mask_words_ms_per_step=(mask_time[0] / len(mask_steps) * 1e3
+                                     if mask_steps else None),
+        finished=sum(c["finished"] for c in checks),
+        outputs=checks, card=smi())
+    log("  guided " + json.dumps(res))
+    ok = (all(g["fits_pool"] for g in grammars.values())
+          and res["guided_dispatches"] > 0
+          and res["sync_checked_guided_dispatches"] > 0
+          and res["tokens_equal"] == 32 and res["sync_mask_steps"] > 0
+          and all(c["alive"] and (c["accepting"] or not c["finished"])
+                  for c in checks)
+          and all(c["json"] for c in checks
+                  if c["group"] == "schema" and c["finished"]))
+    if not ok:
+        raise AssertionError(f"guided check failed: {res}")
+    return res
 
 
 def profile_run(quantization, rng) -> dict:
@@ -3091,6 +3529,25 @@ def main() -> int:
             res["bench_launches"]["hbm_read_probe"]
         kernels["stream_matmul_kernel"]["launches"] = \
             res["stream_launches"]["stream_matmul_kernel"]
+    if "pipeline" in phases:
+        log("[pipeline] LLM.generate, Llama-3.1-8B shape, 32 layers, bf16 "
+            "and fp8: the pipelined step against the synchronous one; "
+            "guided decoding (device pool and host masks), fp8")
+        pipe_runs = phase_pipeline(rng)
+        # This slice's path: the pipelined runs' launches, each run's own
+        # (the counts set to 0 before each run).
+        for key in ("ragged_paged_attention_kernel",
+                    "grouped_decode_attention_kernel", "fp8_matmul_kernel"):
+            kernels[key]["launches_pipeline"] = {
+                f"{name} {run}": dict(launches=r["launches"][key],
+                                      dispatches=r["dispatches"])
+                for name in ("bf16", "fp8")
+                for run, r in pipe_runs[name]["runs"].items()
+                if run.endswith("pipelined")}
+            r = pipe_runs["guided"]["pipelined"]
+            kernels[key]["launches_pipeline"]["fp8 guided pipelined"] = \
+                dict(launches=r["launches"][key],
+                     dispatches=r["dispatches"])
     if "generate" in phases:
         log("[profile] shorter bf16 and fp8 runs and the drafter chains "
             "under torch.profiler")

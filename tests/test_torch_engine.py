@@ -31,7 +31,11 @@ from arcticinference_tpu_torch.engine.request import (Request,
 from arcticinference_tpu_torch.engine.runner import ModelRunner
 from arcticinference_tpu_torch.engine.scheduler import Scheduler
 from arcticinference_tpu_torch.models.loader import load_model
+from arcticinference_tpu_torch.serving.structured import make_guided_decoder
+from arcticinference_tpu_torch.stats import StepTimeStats
 from arcticinference_tpu_torch.utils import resolve_device
+
+from tests.test_torch_guided_dfa import ByteTokenizer
 
 TINY = dict(vocab_size=97, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4,
@@ -164,21 +168,39 @@ def test_seeded_sampling_is_reproducible(tiny_llm):
 
 
 def test_step_kinds_are_recorded(tiny_llm):
-    tiny_llm.generate(prompt_token_ids=[[1] * 40, [2] * 3],
-                      sampling_params=SamplingParams(max_tokens=4))
-    summary = tiny_llm.engine.step_times.summary()
-    assert summary["decode"]["tokens"] > 0
-    assert summary["mixed"]["count"] > 0
+    """The default (pipelined) engine records ``pipelined`` steps with
+    the tokens they commit; the synchronous step records ``decode`` and
+    ``mixed`` steps."""
+    eng = tiny_llm.engine
+    for pipelined in (True, False):
+        eng._pipeline = pipelined
+        eng.step_times = StepTimeStats()
+        tiny_llm.generate(prompt_token_ids=[[1] * 40, [2] * 3],
+                          sampling_params=SamplingParams(max_tokens=4))
+        summary = eng.step_times.summary()
+        if pipelined:
+            assert set(summary) == {"pipelined"}
+            assert summary["pipelined"]["tokens"] == 8
+        else:
+            assert summary["decode"]["tokens"] > 0
+            assert summary["mixed"]["count"] > 0
+    eng._pipeline = True
 
 
 def test_unported_features_raise(tiny_llm, tmp_path):
-    """Guided decoding and a drafter without its weights still raise;
-    penalties and logprobs are ported (they raised before): such
-    requests run, with one logprob dict per token.  SwiftKV is ported
-    too (tests/test_torch_swiftkv.py)."""
-    with pytest.raises(NotImplementedError):
-        tiny_llm.engine.add_request("g", [1, 2],
-                                    SamplingParams(guided=object()))
+    """A drafter without its weights still raises.  Guided decoding,
+    penalties and logprobs are ported (they raised before): a guided
+    request gives its grammar's output, the others run with one logprob
+    dict per token.  SwiftKV is ported too
+    (tests/test_torch_swiftkv.py)."""
+    guided = make_guided_decoder(ByteTokenizer(), {"regex": "[0-9]{3}"},
+                                 vocab_size=97)
+    out = tiny_llm.generate(prompt_token_ids=[[1, 2]],
+                            sampling_params=SamplingParams(max_tokens=8,
+                                                           guided=guided))
+    assert ByteTokenizer().decode(out[0].token_ids).isdigit()
+    assert len(out[0].token_ids) == 3
+    assert out[0].finish_reason == "finished_stopped"
     outs = tiny_llm.generate(
         prompt_token_ids=[[1, 2, 3], [4, 5]],
         sampling_params=[SamplingParams(max_tokens=4, repetition_penalty=1.2,

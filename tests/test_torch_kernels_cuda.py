@@ -1264,3 +1264,148 @@ def test_swiftkv_forward_kernels_match_plain(cuda_device, quantization):
         torch.testing.assert_close(caches["kernel"][:, 1:].float(),
                                    caches["plain"][:, 1:].float(),
                                    atol=2e-2, rtol=2e-2)
+
+
+class _CharTokenizer:
+    """ids 0..127 are char codes; tokens past them decode to ""."""
+
+    def __init__(self, vocab):
+        self.vocab = [chr(i) for i in range(128)] + [""] * (vocab - 128)
+
+    def __len__(self):
+        return len(self.vocab)
+
+    def decode(self, ids, **kw):
+        return "".join(self.vocab[i] for i in ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+def test_pipelined_dispatch_has_no_host_sync(cuda_device, guided):
+    """A small Llama (head dim 128) generating on the pipelined step:
+    every pure-decode dispatch, seeded sampling and (guided) the device
+    grammar pool included, and the copy of its output vector, run under
+    ``torch.cuda.set_sync_debug_mode("error")``; the guided outputs walk
+    their grammar to an accepting state."""
+    from arcticinference_tpu_torch.config import EngineConfig
+    from arcticinference_tpu_torch.engine import engine as tengine
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+    from arcticinference_tpu_torch.serving.structured import (
+        make_guided_decoder)
+
+    cfg = EngineConfig.from_dict(dict(
+        model=dict(model="llama", max_model_len=512, dtype="bfloat16",
+                   hf_overrides=dict(vocab_size=384, hidden_size=256,
+                                     intermediate_size=512,
+                                     num_hidden_layers=2,
+                                     num_attention_heads=2,
+                                     num_key_value_heads=1, head_dim=128)),
+        cache=dict(num_blocks=64),
+        scheduler=dict(max_num_seqs=8, max_num_batched_tokens=256)))
+    llm = LLM(cfg)
+    eng, runner = llm.engine, llm.engine.runner
+    assert eng._pipeline
+    tok = _CharTokenizer(384)
+    checked = {"dispatches": 0, "guided": 0}
+    dispatch, inflight = runner.dispatch, tengine._InflightStep
+
+    def checked_dispatch(si, *a, **k):
+        if si.attn_qb != 1:
+            return dispatch(si, *a, **k)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = dispatch(si, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked["dispatches"] += 1
+        checked["guided"] += "gd_slot" in si.arrays
+        return out
+
+    class CheckedInflight(inflight):
+        def __init__(self, *a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                super().__init__(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    decs = [make_guided_decoder(tok, {"regex": r"\d{4}-\d{2}-\d{2}"})
+            if guided and i % 2 else None for i in range(6)]
+    runner.dispatch = checked_dispatch
+    tengine._InflightStep = CheckedInflight
+    try:
+        outs = llm.generate(
+            prompt_token_ids=[[1 + i, 2, 3] * (5 + i) for i in range(6)],
+            sampling_params=[SamplingParams(
+                max_tokens=16, temperature=0.8 * (i % 3 > 0),
+                seed=i if i % 3 else None, ignore_eos=True, guided=d)
+                for i, d in enumerate(decs)])
+    finally:
+        del runner.dispatch
+        tengine._InflightStep = inflight
+    assert checked["dispatches"] > 0
+    assert (checked["guided"] > 0) == guided
+    assert "pipelined" in eng.step_times.summary()
+    for o, d in zip(outs, decs):
+        if d is None:
+            assert len(o.token_ids) == 16
+            continue
+        st = d.index.dfa.start
+        for t in o.token_ids:
+            st = d.index.advance(st, t)
+        assert d.index.is_accept(st) and o.finish_reason == \
+            "finished_stopped"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [139, 128256])
+def test_guided_ops_on_the_card_match_cpu(cuda_device, v):
+    """``guided_mask_rows``, ``guided_advance`` and ``apply_vocab_mask``
+    on the card against the same ops on the CPU, on seeded random pools
+    and masks with padding rows: equal, and no host sync on the card."""
+    from arcticinference_tpu_torch.ops import guided as tguided
+    from arcticinference_tpu_torch.ops import sampling as tsampling
+    from arcticinference_tpu_torch.serving.guided_dfa import PAD_CP
+
+    rng = np.random.default_rng(v)
+    p, s_pad, i_pad, g, w, lmax = 3, 64, 256, 16, (v + 31) // 32, 32
+    masks = rng.integers(-2 ** 31, 2 ** 31, (p, s_pad, w),
+                         dtype=np.int64).astype(np.int32)
+    keys = np.full((p, i_pad), np.iinfo(np.int32).max, np.int32)
+    his = np.full((p, i_pad), -1, np.int32)
+    nxt = np.full((p, i_pad), -1, np.int32)
+    for slot in range(p):
+        st = np.sort(rng.integers(0, 40, 200))
+        lo = rng.integers(0, 130, 200)
+        order = np.lexsort((lo, st))
+        keys[slot, :200] = (st[order] << 21) | lo[order]
+        his[slot, :200] = lo[order] + rng.integers(0, 5, 200)
+        nxt[slot, :200] = rng.integers(-1, 40, 200)
+    cps = rng.integers(0, 130, (v, lmax)).astype(np.int32)
+    cps[rng.integers(1, lmax, v)[:, None] <= np.arange(lmax)] = PAD_CP
+    states = rng.integers(-1, 42, g).astype(np.int32)
+    slots = rng.integers(-1, p, g).astype(np.int32)
+    tokens = rng.integers(0, v, g).astype(np.int32)
+    logits = rng.normal(0, 2, (32, v)).astype(np.float32)
+    rows = np.full(g, -1, np.int32)
+    rows[:10] = rng.choice(32, 10, replace=False)
+    host = [torch.from_numpy(x) for x in (states, slots, tokens, masks, cps,
+                                          keys, his, nxt, logits, rows)]
+    dev = [x.to(cuda_device) for x in host]
+
+    def ops(t):
+        mask_rows = tguided.guided_mask_rows(t[0], t[1], t[3])
+        return (mask_rows,
+                tguided.guided_advance(t[0], t[1], t[2], *t[4:8]),
+                tsampling.apply_vocab_mask(t[8], t[9], mask_rows))
+
+    want = ops(host)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops(dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, atol=0, rtol=0)
