@@ -66,7 +66,8 @@ from arcticinference_tpu_torch.engine.fused_decode import FusedDecodeLoop
 from arcticinference_tpu_torch.engine.request import (Request, RequestStatus,
                                                       SamplingParams)
 from arcticinference_tpu_torch.engine.runner import ModelRunner
-from arcticinference_tpu_torch.engine.scheduler import (Scheduler,
+from arcticinference_tpu_torch.engine.scheduler import (ScheduledRequest,
+                                                        Scheduler,
                                                         SchedulerOutput)
 from arcticinference_tpu_torch.models.loader import load_model
 from arcticinference_tpu_torch.ops.cuda.ragged_attention import MAX_TREE_NODES
@@ -139,6 +140,10 @@ class LLMEngine:
         self.step_times = StepTimeStats()
         self.spec_stats = SpecDecodingStats()
         self._last_log = time.time()
+        # The running torch.profiler trace (start_profile) and where
+        # stop_profile writes its trace.
+        self._profiler = None
+        self._trace_dir: Optional[str] = None
         self._generator = torch.Generator(device=self.device).manual_seed(
             config.model.seed)
         # Distillation hook (spec/distill.py HiddenCapture): called with
@@ -252,6 +257,99 @@ class LLMEngine:
             self.close()
         except Exception:
             pass
+
+    # ------------------------------------------------------------------ #
+    # Profiling
+    # ------------------------------------------------------------------ #
+
+    def start_profile(self, trace_dir: str) -> None:
+        """Begin a ``torch.profiler`` trace (host ops of this thread and,
+        on the card, every kernel of the process); :meth:`stop_profile`
+        writes it to ``trace_dir`` as a Chrome trace.  vLLM's
+        /start_profile.  Start and stop on the same thread."""
+        if self._profiler is not None:
+            raise RuntimeError("a profiler trace is already running")
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        self._profiler, self._trace_dir = prof, trace_dir
+
+    def stop_profile(self) -> Optional[str]:
+        """End the trace begun by :meth:`start_profile` and write it;
+        returns the trace's path (None when none was running)."""
+        import os
+
+        prof = self._profiler
+        if prof is None:
+            return None
+        self._profiler = None
+        prof.stop()
+        os.makedirs(self._trace_dir, exist_ok=True)
+        path = os.path.join(self._trace_dir,
+                            f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        return path
+
+    # ------------------------------------------------------------------ #
+    # Scoring
+    # ------------------------------------------------------------------ #
+
+    def score(self, prompt_token_ids) -> list[np.ndarray]:
+        """Teacher-forced per-token logprobs (OpenAI ``echo`` / lm_eval
+        ``loglikelihood``; the JAX package's ``ScoringMixin``): for each
+        sequence, the logprob of token i+1 given tokens [0..i], a float64
+        array of length len(seq) - 1.
+        Sequences are batched up to ``max_num_batched_tokens`` and
+        ``max_num_seqs``; one longer than the token budget raises."""
+        sched = self.config.scheduler
+        budget = sched.max_num_batched_tokens
+        out: list[np.ndarray] = []
+        batch: list[list[int]] = []
+        total = 0
+        for ids in prompt_token_ids:
+            if len(ids) > budget:
+                raise ValueError(
+                    f"sequence of {len(ids)} tokens exceeds "
+                    f"max_num_batched_tokens={budget}")
+            if total + len(ids) > budget or len(batch) >= sched.max_num_seqs:
+                out.extend(self._score_batch(batch))
+                batch, total = [], 0
+            batch.append(list(ids))
+            total += len(ids)
+        if batch:
+            out.extend(self._score_batch(batch))
+        return out
+
+    def _score_batch(self, batch: list[list[int]]) -> list[np.ndarray]:
+        """One prefill-shaped forward over ``batch`` in borrowed cache
+        blocks (freed afterwards; nothing enters the scheduler)."""
+        runner = self.runner
+        bm = self.scheduler.block_manager
+        reqs = []
+        sched = SchedulerOutput()
+        try:
+            for i, ids in enumerate(batch):
+                req = Request(req_id=f"score-{i}", prompt_token_ids=ids,
+                              sampling=SamplingParams(max_tokens=1))
+                reqs.append(req)
+                bm.grow_to(req.block_ids, len(ids))
+                sched.scheduled.append(ScheduledRequest(req, len(ids), []))
+            si = runner.prepare_inputs(sched)
+            targets = np.full(si.t_pad, -1, np.int32)
+            t = 0
+            spans = []
+            for ids in batch:
+                n = len(ids)
+                targets[t:t + n - 1] = ids[1:]
+                spans.append((t, n - 1))
+                t += n
+            lp = runner.execute_score(si, targets)
+        finally:
+            for req in reqs:
+                bm.free(req.block_ids)
+        return [np.asarray(lp[a:a + n], np.float64) for a, n in spans]
 
     # ------------------------------------------------------------------ #
     # Step loop

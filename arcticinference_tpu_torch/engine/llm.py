@@ -6,7 +6,10 @@
                         sampling_params=SamplingParams(max_tokens=32))
 
 ``LLM(config, device="cpu")`` runs on the CPU.  Prompts are token ids;
-text prompts need a checkpoint that ships a tokenizer.
+text prompts need a checkpoint that ships a tokenizer.  ``LLM.score``
+(and ``LLMEngine.score``, the server's ``echo`` path) returns
+teacher-forced per-token logprobs; ``with LLM(...) as llm:`` closes the
+engine at the end.
 """
 
 from __future__ import annotations
@@ -51,27 +54,45 @@ def fp8_kv_scales(kv: torch.Tensor, old_scale: torch.Tensor,
     return np.maximum(amax, 1e-6) / FP8_MAX * margin
 
 
+def load_tokenizer(config: EngineConfig):
+    """The checkpoint's Hugging Face tokenizer, or None when the model
+    directory ships no tokenizer files (requests then carry token ids).
+    Tokenizer files without ``transformers`` installed raise: the port has
+    no tokenizer of its own, and silently serving without one would turn
+    every text request into an error later."""
+    path = Path(config.model.tokenizer or config.model.model)
+    if not (path / "tokenizer_config.json").exists() and \
+            not (path / "tokenizer.json").exists():
+        return None
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise RuntimeError(
+            f"{path} ships tokenizer files, but the transformers package "
+            "that reads them is not installed; install it, or serve a "
+            "model directory without tokenizer files and send token ids") \
+            from e
+    return AutoTokenizer.from_pretrained(str(path))
+
+
 class LLM:
 
     def __init__(self, config: EngineConfig,
                  device: Union[str, torch.device, None] = None):
         self.config = config
         self.engine = LLMEngine(config, device=device)
-        self.tokenizer = self._load_tokenizer()
+        self.tokenizer = load_tokenizer(config)
         if self.tokenizer is not None:
             self.engine.tokenizer = self.tokenizer
             if self.engine.eos_token_id is None:
                 self.engine.eos_token_id = self.tokenizer.eos_token_id
         self._next_id = 0
 
-    def _load_tokenizer(self):
-        path = Path(self.config.model.tokenizer or self.config.model.model)
-        if not (path / "tokenizer_config.json").exists() and \
-                not (path / "tokenizer.json").exists():
-            return None
-        from transformers import AutoTokenizer
+    def __enter__(self):
+        return self
 
-        return AutoTokenizer.from_pretrained(str(path))
+    def __exit__(self, *exc):
+        self.close()
 
     def generate(
         self,
@@ -136,6 +157,10 @@ class LLM:
         """Release the engine's host resources (the suffix prompt-tree
         worker pool); idempotent."""
         self.engine.close()
+
+    def score(self, prompt_token_ids) -> list[np.ndarray]:
+        """Teacher-forced per-token logprobs: :meth:`LLMEngine.score`."""
+        return self.engine.score(prompt_token_ids)
 
     def calibrate_kv_scales(self, prompt_token_ids,
                             margin: float = 1.0) -> np.ndarray:

@@ -620,3 +620,35 @@ class ModelRunner:
         logp = tokens[2 * s + s * k:2 * s + 2 * s * k].reshape(s, k) \
             .view(np.float32)
         return tokens[:s], tokens[s:2 * s], rows, topk, logp
+
+    #: Rows of the LM head per chunk of :meth:`execute_score`: float32
+    #: logits of a whole prompt at a 128k vocabulary are GBs; 256-row
+    #: chunks keep the peak flat.
+    SCORE_CHUNK = 256
+
+    @torch.inference_mode()
+    def execute_score(self, step_inputs: StepInputs,
+                      targets: np.ndarray) -> np.ndarray:
+        """Per-row logprob of ``targets`` [t_pad] (the next token at each
+        fed row) after a forward over the step's prompt rows, as a host
+        float32 array [t_pad]; rows with target < 0 hold values the
+        caller ignores.  Counterpart of the JAX runner's
+        ``execute_score``."""
+        if self.returns_rows:
+            raise NotImplementedError(
+                "scoring needs every row's hidden state; a SwiftKV model's "
+                "forward returns only the sample rows")
+        inputs = dict(self.upload(step_inputs.arrays),
+                      kv_scale=self.kv_scale)
+        attn = self.module.make_attn_impl(step_inputs.attn_qb)
+        self.kv, h = self.module.forward(self.params, self.arch, self.kv,
+                                         inputs, attn_impl=attn)
+        tgt = torch.from_numpy(np.asarray(targets, np.int64)).to(h.device)
+        out = torch.empty(h.shape[0], dtype=torch.float32, device=h.device)
+        for a in range(0, h.shape[0], self.SCORE_CHUNK):
+            b = min(a + self.SCORE_CHUNK, h.shape[0])
+            logits = self.module.compute_logits(self.params, h[a:b])
+            t = tgt[a:b].clamp(0, logits.shape[-1] - 1)
+            out[a:b] = (logits.gather(1, t[:, None])[:, 0]
+                        - torch.logsumexp(logits, dim=-1))
+        return out.cpu().numpy()

@@ -1,0 +1,542 @@
+"""OpenAI-compatible HTTP server of the port.
+
+Counterpart of ``arcticinference_tpu/serving/openai_server.py``, with the
+same routes, bodies and semantics, served by the port's standard-library
+HTTP layer (``serving/http.py``) in place of ``aiohttp``:
+/v1/completions and /v1/chat/completions (SSE streaming with
+``"stream": true``; ``n > 1`` fan-out; ``echo`` with ``max_tokens: 0``
+scores the prompt), /v1/embeddings (a causal deployment answers 400),
+/v1/models, /health, /metrics (JSON engine stats), /start_profile and
+/stop_profile (a ``torch.profiler`` Chrome trace).  Guided decoding
+rides ``response_format`` (``json_object`` / ``json_schema``) and the
+``guided_regex`` / ``guided_choice`` / ``guided_json`` fields.
+
+Run (on ``cuda:0``; ``--device cpu`` on the CPU):
+
+    python -m arcticinference_tpu_torch serve --config config.json \\
+        --port 8000 [--model DIR]
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import dataclasses
+import json
+import os
+import sys
+import tempfile
+import time
+import uuid
+from pathlib import Path
+from typing import Any, Optional, Union
+
+import torch
+
+from arcticinference_tpu_torch.config import (EngineConfig, ParallelConfig,
+                                              SpeculativeConfig)
+from arcticinference_tpu_torch.engine.async_engine import AsyncLLMEngine
+from arcticinference_tpu_torch.engine.llm import load_tokenizer
+from arcticinference_tpu_torch.engine.request import SamplingParams
+from arcticinference_tpu_torch.models.loader import read_hf_config
+from arcticinference_tpu_torch.serving.http import (App, HTTPError, Request,
+                                                    StreamResponse,
+                                                    json_response)
+
+# Encoder architectures the JAX server answers /v1/embeddings with.
+_ENCODER_ARCHS = ("bert", "BertModel", "BertForMaskedLM",
+                  "BertForSequenceClassification")
+
+
+def _arch_name(config: EngineConfig) -> str:
+    hf_cfg = read_hf_config(config.model.model)
+    if hf_cfg is not None:
+        return (hf_cfg.get("architectures") or ["LlamaForCausalLM"])[0]
+    return config.model.model
+
+
+class OpenAIServer:
+
+    def __init__(self, config: EngineConfig,
+                 served_model_name: Optional[str] = None,
+                 device: Union[str, torch.device, None] = None):
+        self.config = config
+        if _arch_name(config) in _ENCODER_ARCHS:
+            raise NotImplementedError(
+                "encoder architectures (BERT, /v1/embeddings) are not "
+                "ported yet: ROADMAP.md Queue 1, the encoders item")
+        self.engine = AsyncLLMEngine(config, device=device)
+        self.model_name = served_model_name or config.model.model
+        self.tokenizer = load_tokenizer(config)
+        if self.tokenizer is not None:
+            # String stop sequences are detected inside the engine loop.
+            self.engine.engine.tokenizer = self.tokenizer
+        self.app = App()
+        for method, path, handler in (
+                ("POST", "/v1/completions", self.completions),
+                ("POST", "/v1/chat/completions", self.chat_completions),
+                ("POST", "/v1/embeddings", self.embeddings),
+                ("GET", "/v1/models", self.models),
+                ("GET", "/health", self.health),
+                ("GET", "/metrics", self.metrics),
+                ("POST", "/start_profile", self.start_profile),
+                ("POST", "/stop_profile", self.stop_profile)):
+            self.app.add_route(method, path, handler)
+        self.app.on_cleanup.append(self._cleanup)
+
+    async def _cleanup(self, app) -> None:
+        self.engine.close()
+
+    # -- helpers ---------------------------------------------------------
+
+    def _sampling_from(self, body: dict[str, Any]) -> SamplingParams:
+        guided = None
+        fmt = body.get("response_format") or {}
+        spec = None
+        if fmt.get("type") == "json_object":
+            spec = {"json": True}
+        elif fmt.get("type") == "json_schema":
+            schema = (fmt.get("json_schema") or {}).get("schema")
+            spec = {"json": schema if isinstance(schema, dict) else True}
+        elif body.get("guided_regex"):
+            spec = {"regex": body["guided_regex"]}
+        elif body.get("guided_choice"):
+            spec = {"choice": body["guided_choice"]}
+        elif body.get("guided_json"):
+            spec = {"json": body["guided_json"]}
+        if spec is not None:
+            if self.tokenizer is None:
+                raise HTTPError(400, "guided decoding requires a tokenizer")
+            from arcticinference_tpu_torch.serving.structured import (
+                make_guided_decoder)
+
+            # The model's logits width (may exceed len(tokenizer)).
+            guided = make_guided_decoder(
+                self.tokenizer, spec,
+                vocab_size=self.engine.engine.runner.arch.vocab_size)
+        logprobs = body.get("logprobs")
+        stop = body.get("stop") or ()
+        if isinstance(stop, str):
+            stop = (stop,)
+        seed = body.get("seed")
+        return SamplingParams(
+            max_tokens=int(body.get("max_tokens", 128)),
+            temperature=float(body.get("temperature", 0.0)),
+            top_p=float(body.get("top_p", 1.0)),
+            top_k=int(body.get("top_k", 0)),
+            min_p=float(body.get("min_p", 0.0)),
+            seed=int(seed) if seed is not None else None,
+            repetition_penalty=float(body.get("repetition_penalty", 1.0)),
+            presence_penalty=float(body.get("presence_penalty", 0.0)),
+            frequency_penalty=float(body.get("frequency_penalty", 0.0)),
+            ignore_eos=bool(body.get("ignore_eos", False)),
+            stop_token_ids=tuple(body.get("stop_token_ids", ())),
+            stop=tuple(str(s) for s in stop),
+            n=int(body.get("n", 1)),
+            guided=guided,
+            logprobs=int(logprobs) if logprobs else None,
+        )
+
+    @staticmethod
+    def _trim_stops(text: str, stops) -> tuple[str, bool]:
+        """Cut the completion text just before the first stop sequence
+        (OpenAI excludes the stop text from the response)."""
+        cut = min((i for i in (text.find(s) for s in stops) if i != -1),
+                  default=-1)
+        return (text[:cut], True) if cut >= 0 else (text, False)
+
+    def _encode(self, text: str) -> list[int]:
+        if self.tokenizer is None:
+            raise HTTPError(
+                400, json.dumps({"error": "no tokenizer loaded; send "
+                                          "prompt_token_ids"}),
+                content_type="application/json")
+        return self.tokenizer.encode(text)
+
+    def _decode(self, ids: list[int]) -> str:
+        if self.tokenizer is None:
+            return " ".join(map(str, ids))
+        return self.tokenizer.decode(ids, skip_special_tokens=True)
+
+    # -- endpoints -------------------------------------------------------
+
+    async def health(self, request: Request):
+        if self.engine.dead:
+            return json_response({"status": "engine_error",
+                                  "reason": self.engine.dead_reason},
+                                 status=503)
+        if self.engine.stalled:
+            # The step thread has not progressed while work is queued: a
+            # wedged device step.  Routers treat 503 as unhealthy.
+            return json_response({"status": "stalled"}, status=503)
+        return json_response({"status": "ok"})
+
+    async def embeddings(self, request: Request):
+        return json_response(
+            {"error": "this deployment serves a causal LM; use the "
+                      "offline LLM.encode API or the gRPC embedding "
+                      "fleet for decoder pooling"}, status=400)
+
+    async def models(self, request: Request):
+        return json_response({
+            "object": "list",
+            "data": [{"id": self.model_name, "object": "model",
+                      "owned_by": "arcticinference-tpu"}],
+        })
+
+    async def metrics(self, request: Request):
+        eng = self.engine.engine
+        st = eng.engine_stats
+        return json_response({
+            "num_waiting": len(eng.scheduler.waiting),
+            "num_running": len(eng.scheduler.running),
+            "num_steps": st.num_steps,
+            "num_finished": st.num_finished,
+            "num_prompt_tokens": st.num_prompt_tokens,
+            "num_generated_tokens": st.num_generated_tokens,
+            "num_cached_prompt_tokens":
+                eng.scheduler.num_cached_prompt_tokens,
+            "generation_tokens_per_s": round(st.tokens_per_second(), 2),
+            "step_times": eng.step_times.summary(),
+            "spec_decoding": eng.spec_stats.summary(),
+        })
+
+    async def start_profile(self, request: Request):
+        """Begin a ``torch.profiler`` trace on the step thread (vLLM
+        /start_profile parity); /stop_profile writes it to
+        ``trace_dir``."""
+        body = {}
+        if request.can_read_body:
+            try:
+                body = await request.json()
+            except HTTPError:
+                body = {}
+        trace_dir = body.get("trace_dir") or os.path.join(
+            tempfile.gettempdir(), "arctic_tpu_torch_trace")
+        try:
+            await asyncio.wrap_future(self.engine.call_on_engine_thread(
+                self.engine.engine.start_profile, trace_dir))
+        except RuntimeError as e:  # double start
+            return json_response({"error": str(e)}, status=400)
+        return json_response({"status": "profiling",
+                              "trace_dir": trace_dir})
+
+    async def stop_profile(self, request: Request):
+        await asyncio.wrap_future(self.engine.call_on_engine_thread(
+            self.engine.engine.stop_profile))
+        return json_response({"status": "ok"})
+
+    async def completions(self, request: Request):
+        body = await request.json()
+        prompt = body.get("prompt")
+        prompt_ids = body.get("prompt_token_ids")
+        if prompt_ids is None:
+            if prompt is None:
+                raise HTTPError(400, "prompt required")
+            if isinstance(prompt, list):
+                prompt = prompt[0]
+            prompt_ids = self._encode(prompt)
+        rid = f"cmpl-{uuid.uuid4().hex[:16]}"
+        if body.get("echo") and int(body.get("max_tokens", 128)) == 0:
+            # Prompt-logprob scoring (lm_eval loglikelihood): no
+            # generation, teacher-forced per-token logprobs.
+            lp = await asyncio.to_thread(self._score_sync, prompt_ids)
+            return json_response({
+                "id": rid, "object": "text_completion",
+                "created": int(time.time()), "model": self.model_name,
+                "choices": [{
+                    "index": 0,
+                    "text": self._decode(prompt_ids),
+                    "token_ids": list(prompt_ids),
+                    "logprobs": {
+                        "tokens": [self._decode([t]) for t in prompt_ids],
+                        "token_logprobs": [None] + [float(x) for x in lp],
+                    },
+                    "finish_reason": "stop",
+                }],
+                "usage": _usage(prompt_ids, []),
+            })
+        sampling = self._sampling_from(body)
+        if body.get("stream"):
+            if sampling.n > 1:
+                raise HTTPError(400, "stream with n>1 unsupported")
+            return await self._stream_completion(
+                request, rid, prompt_ids, sampling, chat=False)
+        fans = self._fan_out(body, sampling, rid)
+        results = await asyncio.gather(*[
+            self._collect(prompt_ids, sp, sub_rid)
+            for sub_rid, sp in fans])
+        _check_aborted(results)
+        choices = []
+        all_ids = []
+        for i, (token_ids, finish, logprobs) in enumerate(results):
+            all_ids.extend(token_ids)
+            text = self._decode(token_ids)
+            if sampling.stop:
+                text, hit = self._trim_stops(text, sampling.stop)
+                if hit:
+                    finish = "finished_stopped"
+            choice = {
+                "index": i,
+                "text": text,
+                "token_ids": token_ids,
+                "finish_reason": _reason(finish),
+            }
+            if logprobs is not None:
+                choice["logprobs"] = {
+                    "tokens": [self._decode([t]) for t in token_ids],
+                    "token_logprobs": [lp.get(t) for t, lp in
+                                       zip(token_ids, logprobs)],
+                    "top_logprobs": [
+                        {self._decode([t]): v for t, v in lp.items()}
+                        for lp in logprobs],
+                }
+            choices.append(choice)
+        return json_response({
+            "id": rid, "object": "text_completion",
+            "created": int(time.time()), "model": self.model_name,
+            "choices": choices,
+            "usage": _usage(prompt_ids, all_ids),
+        })
+
+    def _score_sync(self, prompt_ids):
+        """Scoring on a worker thread, behind the step loop's lock."""
+        with self.engine._engine_lock:
+            return self.engine.engine.score([list(prompt_ids)])[0]
+
+    def _fan_out(self, body, sampling, rid):
+        """n > 1: one engine request per choice.  Each choice gets its own
+        guided decoder (stateful) and a distinct derived seed."""
+        if sampling.n <= 1:
+            return [(rid, sampling)]
+        fans = []
+        for i in range(sampling.n):
+            sp = (self._sampling_from(body) if sampling.guided is not None
+                  else dataclasses.replace(sampling))
+            if sp.seed is not None:
+                sp.seed = sp.seed + i
+            fans.append((f"{rid}-{i}", sp))
+        return fans
+
+    async def chat_completions(self, request: Request):
+        body = await request.json()
+        messages = body.get("messages")
+        if not messages:
+            raise HTTPError(400, "messages required")
+        prompt_ids = self._chat_prompt_ids(messages)
+        sampling = self._sampling_from(body)
+        rid = f"chatcmpl-{uuid.uuid4().hex[:16]}"
+        if body.get("stream"):
+            if sampling.n > 1:
+                raise HTTPError(400, "stream with n>1 unsupported")
+            return await self._stream_completion(
+                request, rid, prompt_ids, sampling, chat=True)
+        fans = self._fan_out(body, sampling, rid)
+        results = await asyncio.gather(*[
+            self._collect(prompt_ids, sp, sub_rid)
+            for sub_rid, sp in fans])
+        _check_aborted(results)
+        choices = []
+        all_ids = []
+        for i, (token_ids, finish, _) in enumerate(results):
+            all_ids.extend(token_ids)
+            text = self._decode(token_ids)
+            if sampling.stop:
+                text, hit = self._trim_stops(text, sampling.stop)
+                if hit:
+                    finish = "finished_stopped"
+            choices.append({
+                "index": i,
+                "message": {"role": "assistant", "content": text},
+                "finish_reason": _reason(finish),
+            })
+        return json_response({
+            "id": rid, "object": "chat.completion",
+            "created": int(time.time()), "model": self.model_name,
+            "choices": choices,
+            "usage": _usage(prompt_ids, all_ids),
+        })
+
+    def _chat_prompt_ids(self, messages: list[dict]) -> list[int]:
+        if self.tokenizer is not None and \
+                getattr(self.tokenizer, "chat_template", None):
+            return self.tokenizer.apply_chat_template(
+                messages, add_generation_prompt=True)
+        text = "\n".join(f"{m.get('role')}: {m.get('content')}"
+                         for m in messages) + "\nassistant:"
+        return self._encode(text)
+
+    async def _collect(self, prompt_ids, sampling, rid):
+        token_ids: list[int] = []
+        finish = None
+        logprobs = None
+        try:
+            async for chunk in self.engine.generate(prompt_ids, sampling,
+                                                    rid):
+                token_ids.extend(chunk.new_token_ids)
+                if chunk.finished:
+                    finish = chunk.finish_reason
+                    if chunk.logprobs is not None:
+                        logprobs = chunk.logprobs
+        except asyncio.CancelledError:
+            # The client disconnected mid-request (the HTTP layer cancels
+            # the handler): stop the engine-side request too.
+            await self.engine.abort(rid)
+            raise
+        return token_ids, finish, logprobs
+
+    async def _stream_completion(self, request, rid, prompt_ids, sampling,
+                                 chat: bool):
+        resp = StreamResponse(headers={
+            "Content-Type": "text/event-stream",
+            "Cache-Control": "no-cache",
+        })
+        await resp.prepare(request)
+        sent_text = ""
+        all_ids: list[int] = []
+        obj = "chat.completion.chunk" if chat else "text_completion"
+        try:
+            async for chunk in self.engine.generate(prompt_ids, sampling,
+                                                    rid):
+                all_ids.extend(chunk.new_token_ids)
+                full = self._decode(all_ids)
+                if sampling.stop:
+                    full, _ = self._trim_stops(full, sampling.stop)
+                delta_text = full[len(sent_text):]
+                # Hold back partial unicode tails.
+                if delta_text.endswith("�"):
+                    delta_text = ""
+                if delta_text:
+                    sent_text = full
+                payload = {
+                    "id": rid, "object": obj,
+                    "created": int(time.time()),
+                    "model": self.model_name,
+                    "choices": [
+                        {"index": 0,
+                         "delta": {"content": delta_text}}
+                        if chat else
+                        {"index": 0, "text": delta_text,
+                         "token_ids": chunk.new_token_ids}],
+                }
+                if chunk.finished:
+                    payload["choices"][0]["finish_reason"] = _reason(
+                        chunk.finish_reason)
+                await resp.write(
+                    f"data: {json.dumps(payload)}\n\n".encode())
+            await resp.write(b"data: [DONE]\n\n")
+        except (ConnectionResetError, asyncio.CancelledError):
+            await self.engine.abort(rid)
+            raise
+        await resp.write_eof()
+        return resp
+
+
+def _check_aborted(results) -> None:
+    """Engine-aborted generations (e.g. a guided request stranded by a
+    device mask inconsistency) surface as an error response, never a
+    silently truncated 200."""
+    if any(finish == "finished_aborted" for _, finish, *_ in results):
+        raise HTTPError(500, "generation aborted by the engine")
+
+
+def _reason(finish: Optional[str]) -> str:
+    if finish == "finished_length":
+        return "length"
+    if finish in ("finished_aborted", "engine_error"):
+        # Never dress an engine abort up as a clean stop: streaming
+        # clients must see the failure (non-streaming paths answer 500).
+        return "error"
+    return "stop"
+
+
+def _usage(prompt_ids, token_ids) -> dict:
+    return {
+        "prompt_tokens": len(prompt_ids),
+        "completion_tokens": len(token_ids),
+        "total_tokens": len(prompt_ids) + len(token_ids),
+    }
+
+
+def build_config(args: argparse.Namespace) -> EngineConfig:
+    if args.config:
+        cfg = EngineConfig.from_dict(json.loads(Path(args.config)
+                                                .read_text()))
+    else:
+        cfg = EngineConfig()
+    if args.model:
+        cfg.model.model = args.model
+        cfg.model.tokenizer = args.model
+    if args.quantization:
+        cfg.model.quantization = args.quantization
+    if args.max_model_len:
+        cfg.model.max_model_len = args.max_model_len
+    if args.max_num_seqs:
+        cfg.scheduler.max_num_seqs = args.max_num_seqs
+    if args.max_num_batched_tokens:
+        cfg.scheduler.max_num_batched_tokens = args.max_num_batched_tokens
+    if args.kv_cache_dtype:
+        cfg.cache.kv_cache_dtype = args.kv_cache_dtype
+    if args.block_size:
+        cfg.cache.block_size = args.block_size
+    # The mesh flags build the JAX CLI's ParallelConfig; the runner
+    # refuses any world size above 1.
+    if (args.tensor_parallel_size or args.ulysses_sequence_parallel_size
+            or args.enable_shift_parallel):
+        cfg.parallel = ParallelConfig(
+            tensor_parallel_size=args.tensor_parallel_size or 1,
+            ulysses_sequence_parallel_size=(
+                args.ulysses_sequence_parallel_size or 1),
+            enable_shift_parallel=args.enable_shift_parallel,
+            shift_parallel_threshold=args.shift_parallel_threshold)
+    if args.speculative_config:
+        cfg.speculative = SpeculativeConfig.from_json(
+            args.speculative_config)
+    return cfg
+
+
+def make_server(argv=None) -> tuple[OpenAIServer, argparse.Namespace]:
+    """The server the command line asks for (not yet listening) and the
+    parsed arguments."""
+    parser = argparse.ArgumentParser(
+        description="OpenAI-compatible server of the PyTorch port")
+    parser.add_argument("--model", default=None)
+    parser.add_argument("--config", default=None,
+                        help="EngineConfig JSON file")
+    parser.add_argument("--device", default="cuda:0",
+                        help="cuda:0 (default) or cpu")
+    parser.add_argument("--quantization", default=None)
+    parser.add_argument("--speculative-config", default=None,
+                        help='JSON, e.g. {"method": "suffix"}')
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--max-model-len", type=int, default=None)
+    parser.add_argument("--max-num-seqs", type=int, default=None)
+    parser.add_argument("--max-num-batched-tokens", type=int, default=None)
+    parser.add_argument("--kv-cache-dtype", default=None,
+                        choices=[None, "auto", "bfloat16", "fp8"])
+    parser.add_argument("--block-size", type=int, default=None)
+    parser.add_argument("--tensor-parallel-size", type=int, default=None)
+    parser.add_argument("--ulysses-sequence-parallel-size", type=int,
+                        default=None)
+    parser.add_argument("--enable-shift-parallel", action="store_true")
+    parser.add_argument("--shift-parallel-threshold", type=int,
+                        default=512)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    multihost = [a.split("=")[0] for a in argv
+                 if a.startswith("--multihost-")]
+    if multihost:
+        raise NotImplementedError(
+            f"{', '.join(multihost)}: multi-host serving is not ported; "
+            "the port serves one device")
+    args = parser.parse_args(argv)
+    return OpenAIServer(build_config(args), device=args.device), args
+
+
+def main(argv=None) -> None:
+    server, args = make_server(argv)
+    server.app.run(args.host, args.port)
+
+
+if __name__ == "__main__":
+    main()

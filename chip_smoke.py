@@ -172,6 +172,40 @@ Phases, each reported on its own lines:
              alive in its DFA, a finished one accepting, a finished JSON
              one parsing, none aborted, guided pipelined dispatches under
              the sync check.
+8. serve:    the OpenAI-compatible server at the serving matrix's
+             baseline config (Llama-3.1-8B at full width and depth, fp8,
+             random weights from the config's seed; 4096-token contexts,
+             32 sequences, 2048 batched tokens, 800 blocks).  (a) ``python
+             -m arcticinference_tpu_torch serve`` as a subprocess: /health,
+             /v1/models, 4 greedy completions one at a time by token ids
+             (prompts of 128-1024 tokens that share no prefix, 64 tokens,
+             ``ignore_eos``), a warm-up burst and a burst of 32 such
+             completions arriving 25 ms apart (half over SSE; each must finish with ``length`` and
+             64 tokens, a stream end in ``[DONE]``), 2 ``echo`` /
+             ``max_tokens: 0`` scoring requests, /start_profile, 2
+             requests, /stop_profile (the Chrome trace must name the CUDA
+             kernels of kernels 1, 2 and 5), a streamed client that
+             disconnects after its first chunk (/metrics must show no
+             running request within 5 s), the burst twice through the
+             port's router (``serving/router.py``) with a dead backend
+             beside the server and once more directly (direct, router,
+             router, direct, each on fresh prompts of the same lengths;
+             every request succeeds, /replicas marks the dead one
+             unhealthy), /metrics, and SIGTERM (the server must exit
+             within 30 s).  Client-observed TTFT p50 / p99, mean TPOT and
+             output tok/s of each burst, and the median ms of GET /health
+             and /v1/models directly and through the router.  (b) The same
+             config in this process: ``LLM.generate`` of each sequential
+             prompt alone must give the server's tokens id for id, and
+             ``LLM.score`` of each echo prompt its ``token_logprobs``
+             exactly.  (c) An in-process ``OpenAIServer`` over the
+             synthetic tokenizer: a chat completion (the fallback
+             template), ``guided_choice``, ``guided_regex`` and a
+             ``json_schema`` response format (each output must conform),
+             ``n: 2`` with a seed, an echo request and a streamed chat
+             through the port's Dynasor proxy (the stream passes through,
+             the backend counts the probes); kernels 1, 2 and 5 must
+             launch in this part (``launches_serve``).
 Last, a shorter bf16 and fp8 run of phase 5, the drafter chains and the
 bench's device step (its CUDA graph) under ``torch.profiler``, each on an
 engine of its own (no timed run follows a profiled one); the device step
@@ -186,10 +220,14 @@ script needs a CUDA device and the repository around it.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import gc
 import itertools
 import json
+import os
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -248,7 +286,7 @@ REL_TOL = 1e-3
 Q_STD = 5.0
 
 PHASES = ("device", "build", "kernels", "forward", "generate", "bench",
-          "pipeline")
+          "pipeline", "serve")
 # Corruption rates of phase 6's curve (the bench's own sweep is 0.12, 0.3,
 # 0.6, 1.0; two points keep the script within its time).
 BENCH_CURVE_RATES = (0.3, 1.0)
@@ -291,6 +329,10 @@ MATMUL_SHAPES = (
 # 32 and 64 x qlen 4 (128, 256) and a 2048-token prefill bucket; the LM
 # head sees only the sampled rows.
 MATMUL_ROWS = (16, 64, 128, 256, 2048)
+# The LM head's rows: the sampled rows of those decode batches, then echo
+# scoring's chunks of the prompt rows (ModelRunner.SCORE_CHUNK = 256, the
+# BM=128 plan with a float32 epilogue) and a ragged remainder of one.
+LM_HEAD_ROWS = (16, 64, 256, 137)
 # Kernel 5's Qwen products that Llama's do not cover, (name, K, N, fused
 # part widths, float32 out), at 16, 64 and 2048 rows (the heads at 16
 # and 64).
@@ -1381,9 +1423,7 @@ def phase_matmul_kernels(seed):
                 continue
             q = quantized_weight(mode, k, n, parts, gen)
             out_dtype = torch.float32 if f32 else torch.bfloat16
-            for m in MATMUL_ROWS:
-                if name == "lm_head" and m > 64:
-                    continue
+            for m in LM_HEAD_ROWS if name == "lm_head" else MATMUL_ROWS:
                 x = torch.randn((m, k), generator=gen, device="cuda").to(
                     torch.bfloat16)
                 cases.append(run_matmul_case(
@@ -2747,12 +2787,18 @@ class SyntheticTokenizer:
             k += ln
             words.append(" " + w[1:] if sp else w)
         self.vocab = singles + words + [""] * (vocab_size - 128000)
+        self._char_ids = {c: i for i, c in enumerate(self.vocab[:256])}
 
     def __len__(self):
         return len(self.vocab)
 
     def decode(self, ids, **kw):
         return "".join(self.vocab[i] for i in ids)
+
+    def encode(self, text, **kw):
+        """Each character to its single-character id (ids 0-255): what
+        chat prompts and Dynasor's text prompts need."""
+        return [self._char_ids[c] for c in text]
 
 
 @contextlib.contextmanager
@@ -3106,6 +3152,522 @@ def phase_guided(llm) -> dict:
     if not ok:
         raise AssertionError(f"guided check failed: {res}")
     return res
+
+# The serve phase: serve_bench's baseline config behind the OpenAI server;
+# 4 sequential completions, bursts of 32 arriving 25 ms apart, 64 tokens
+# each.
+SERVE_SEQUENTIAL, SERVE_BURST, SERVE_NEW, SERVE_ARRIVAL_S = 4, 32, 64, 0.025
+# The CUDA kernels of kernels 1, 2 and 5 as a profiler trace names them.
+SERVE_TRACE_KERNELS = {"ragged_paged_attention_kernel":
+                           "ragged_attention_kernel",
+                       "grouped_decode_attention_kernel":
+                           "grouped_decode_kernel",
+                       "fp8_matmul_kernel": "qmm_wgmma_kernel"}
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_process(cmd, log_path):
+    """``cmd`` in the repository root, its output into ``log_path``."""
+    out = open(log_path, "w")
+    try:
+        return subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                cwd=str(Path(__file__).resolve().parent))
+    finally:
+        out.close()
+
+
+def stop_process(proc, timeout: float) -> float:
+    """SIGTERM, then wait up to ``timeout`` s (killed past it); returns
+    the seconds it took to exit, inf when it had to be killed."""
+    if proc.poll() is not None:
+        return 0.0
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return float("inf")
+    return time.perf_counter() - t0
+
+
+async def wait_healthy(url, proc, log_path, timeout: float) -> float:
+    from arcticinference_tpu_torch.serving import http
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc.poll() is not None:
+            raise AssertionError(f"{url} exited ({proc.returncode}): "
+                                 f"{Path(log_path).read_text()[-3000:]}")
+        try:
+            async with http.get(url + "/health", timeout=2) as r:
+                if r.status == 200:
+                    return time.perf_counter() - t0
+        except (OSError, EOFError, ValueError):
+            pass
+        await asyncio.sleep(0.5)
+    raise AssertionError(f"{url} not healthy after {timeout} s: "
+                         f"{Path(log_path).read_text()[-3000:]}")
+
+
+async def get_json(url: str):
+    from arcticinference_tpu_torch.serving import http
+
+    async with http.get(url, timeout=60) as r:
+        return r.status, await r.json()
+
+
+async def completion(url: str, body: dict, stream: bool = False) -> dict:
+    """One /v1/completions request, timed on the client: its tokens,
+    finish reason, end-to-end seconds, and for a stream the time to its
+    first token and the seconds between its first and last token."""
+    from arcticinference_tpu_torch.serving import http
+
+    t0 = time.perf_counter()
+    res = dict(stream=stream, status=None, ids=[], finish=None)
+    async with http.post(url + "/v1/completions",
+                         json=dict(body, stream=stream), timeout=600) as r:
+        res["status"] = r.status
+        if not stream:
+            data = await r.json()
+            if r.status == 200:
+                ch = data["choices"][0]
+                res.update(ids=ch["token_ids"], finish=ch["finish_reason"],
+                           usage=data["usage"], body=data)
+            else:
+                res["body"] = data
+        else:
+            times, done = [], False
+            async for line in r.iter_lines():
+                if not line.startswith(b"data: "):
+                    continue
+                payload = line[6:].strip()
+                if payload == b"[DONE]":
+                    done = True
+                    continue
+                ch = json.loads(payload)["choices"][0]
+                if ch.get("token_ids"):
+                    times.append(time.perf_counter())
+                    res["ids"].extend(ch["token_ids"])
+                res["finish"] = ch.get("finish_reason", res["finish"])
+            res.update(done=done, ttft_s=times[0] - t0 if times else None,
+                       decode_s=times[-1] - times[0] if times else None)
+    res["t0"], res["t1"] = t0, time.perf_counter()
+    return res
+
+
+async def burst(url: str, prompts) -> dict:
+    """The burst: one request per prompt, arriving SERVE_ARRIVAL_S apart,
+    every other one streamed; each must finish with ``length`` and
+    SERVE_NEW tokens.  Returns the client-side summary and results."""
+
+    start = time.perf_counter()
+
+    async def one(i, p):
+        await asyncio.sleep(max(0.0, start + i * SERVE_ARRIVAL_S
+                                - time.perf_counter()))
+        return await completion(url, dict(
+            prompt_token_ids=p, max_tokens=SERVE_NEW, ignore_eos=True),
+            stream=i % 2 == 0)
+
+    results = await asyncio.gather(*[one(i, p)
+                                     for i, p in enumerate(prompts)])
+    bad = [i for i, r in enumerate(results)
+           if r["status"] != 200 or r["finish"] != "length"
+           or len(r["ids"]) != SERVE_NEW
+           or (r["stream"] and not r["done"])
+           or (not r["stream"]
+               and r["usage"]["completion_tokens"] != len(r["ids"]))]
+    if bad:
+        raise AssertionError(f"burst requests failed: "
+                             f"{[results[i] for i in bad[:3]]}")
+    streamed = [r for r in results if r["stream"]]
+    ttft = np.array([r["ttft_s"] for r in streamed]) * 1e3
+    tpot = [r["decode_s"] / (len(r["ids"]) - 1) * 1e3 for r in streamed]
+    wall = max(r["t1"] for r in results) - min(r["t0"] for r in results)
+    summary = dict(
+        requests=len(results), streamed=len(streamed),
+        ttft_p50_ms=float(np.percentile(ttft, 50)),
+        ttft_p99_ms=float(np.percentile(ttft, 99)),
+        tpot_mean_ms=float(np.mean(tpot)),
+        e2e_p50_ms=float(np.median([(r["t1"] - r["t0"]) * 1e3
+                                    for r in results])),
+        output_tokens_per_s=sum(len(r["ids"]) for r in results) / wall,
+        wall_s=wall)
+    return summary
+
+
+async def http_overhead(url: str, n: int = 50) -> dict:
+    """Median client-side ms of GET /health and GET /v1/models over ``n``
+    requests each (a new connection each): the HTTP layer's cost of a
+    request with no engine work (through a router: plus its hop)."""
+    out = {}
+    for path in ("/health", "/v1/models"):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            status, _ = await get_json(url + path)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise AssertionError(f"GET {path}: {status}")
+        out[path] = float(np.median(times))
+    return out
+
+
+async def disconnect_after_first_chunk(url: str) -> float:
+    """A streamed client that closes its connection after the first
+    chunk; returns the seconds until /metrics shows no running or waiting
+    request (at most 5)."""
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(url)
+    reader, writer = await asyncio.open_connection(parts.hostname,
+                                                   parts.port)
+    body = json.dumps(dict(prompt_token_ids=list(range(1000, 1256)),
+                           max_tokens=2048, ignore_eos=True,
+                           stream=True)).encode()
+    writer.write(b"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+                 b"Content-Type: application/json\r\n"
+                 b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+    await writer.drain()
+    await asyncio.wait_for(reader.readuntil(b"data: "), 120)
+    writer.close()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 5.0:
+        _, m = await get_json(url + "/metrics")
+        if m["num_running"] == 0 and m["num_waiting"] == 0:
+            return time.perf_counter() - t0
+        await asyncio.sleep(0.05)
+    raise AssertionError(f"disconnected request still running: {m}")
+
+
+def trace_kernel_counts(trace_dir: str) -> dict:
+    """Launches of each of kernels 1, 2 and 5 that the profiler's Chrome
+    trace in ``trace_dir`` names, and the trace's kernel count."""
+    paths = sorted(Path(trace_dir).glob("*.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"expected one trace in {trace_dir}: {paths}")
+    events = json.loads(paths[0].read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    counts = {key: sum(sym in k for k in kernels)
+              for key, sym in SERVE_TRACE_KERNELS.items()}
+    counts["kernels"] = len(kernels)
+    counts["trace_mb"] = paths[0].stat().st_size / 1e6
+    return counts
+
+
+def serve_part_a(cfg_path, prompts, workdir) -> dict:
+    """Part (a): the server as a subprocess, driven over HTTP.
+    ``prompts``: {"sequential", "bursts" (five of the same lengths, other
+    tokens: no prefix-cache hits; a warm-up, then direct, router, router,
+    direct), "echo", "profile"}."""
+    seq_prompts, echo_prompts = prompts["sequential"], prompts["echo"]
+
+    port, dead = free_port(), free_port()
+    url = f"http://127.0.0.1:{port}"
+    server_log = os.path.join(workdir, "server.log")
+    server = start_process([sys.executable, "-m", "arcticinference_tpu_torch",
+                            "serve", "--config", cfg_path, "--port",
+                            str(port), "--host", "127.0.0.1"], server_log)
+    res = dict(card=smi())
+    router = None
+
+    async def run():
+        nonlocal router
+        t = time.perf_counter()
+        res["server_ready_s"] = await wait_healthy(url, server, server_log,
+                                                   600)
+        status, models = await get_json(url + "/v1/models")
+        if status != 200 or models["data"][0]["object"] != "model":
+            raise AssertionError(f"/v1/models: {status} {models}")
+        seq = []
+        for p in seq_prompts:
+            r = await completion(url, dict(prompt_token_ids=p,
+                                           max_tokens=SERVE_NEW,
+                                           ignore_eos=True))
+            if r["status"] != 200 or len(r["ids"]) != SERVE_NEW:
+                raise AssertionError(f"sequential request failed: {r}")
+            seq.append(r)
+        res["sequential_ids"] = [r["ids"] for r in seq]
+        res["sequential_e2e_ms"] = [(r["t1"] - r["t0"]) * 1e3 for r in seq]
+        res["sequential_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["warmup_burst"] = await burst(url, prompts["bursts"][0])
+        res["burst"] = await burst(url, prompts["bursts"][1])
+        res["burst_s"] = time.perf_counter() - t
+        res["http_ms"] = await http_overhead(url)
+        t = time.perf_counter()
+        echo = []
+        for p in echo_prompts:
+            r = await completion(url, dict(prompt_token_ids=p, max_tokens=0,
+                                           echo=True))
+            lp = r["body"]["choices"][0]["logprobs"]["token_logprobs"]
+            if r["status"] != 200 or lp[0] is not None or \
+                    len(lp) != len(p) or not all(x <= 0 for x in lp[1:]):
+                raise AssertionError(f"echo request failed: {r['body']}")
+            echo.append(dict(logprobs=lp[1:],
+                             ms=(r["t1"] - r["t0"]) * 1e3))
+        res["echo"] = echo
+        res["echo_ms"] = [e["ms"] for e in echo]
+        res["echo_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        trace_dir = os.path.join(workdir, "trace")
+        from arcticinference_tpu_torch.serving import http
+
+        async with http.post(url + "/start_profile",
+                             json={"trace_dir": trace_dir}) as r:
+            if r.status != 200:
+                raise AssertionError(f"/start_profile: {await r.read()}")
+        await asyncio.gather(*[completion(url, dict(
+            prompt_token_ids=p, max_tokens=8, ignore_eos=True))
+            for p in prompts["profile"]])
+        async with http.post(url + "/stop_profile") as r:
+            if r.status != 200:
+                raise AssertionError(f"/stop_profile: {await r.read()}")
+        res["trace"] = trace_kernel_counts(trace_dir)
+        res["profile_s"] = time.perf_counter() - t
+        if not all(res["trace"][k] > 0 for k in SERVE_TRACE_KERNELS):
+            raise AssertionError(f"trace misses kernels: {res['trace']}")
+        res["disconnect_abort_s"] = await disconnect_after_first_chunk(url)
+        t = time.perf_counter()
+        rport = free_port()
+        rurl = f"http://127.0.0.1:{rport}"
+        router_log = os.path.join(workdir, "router.log")
+        router = start_process(
+            [sys.executable, "-m", "arcticinference_tpu_torch.serving.router",
+             "--backends", f"{url},http://127.0.0.1:{dead}", "--port",
+             str(rport), "--host", "127.0.0.1", "--health-interval", "1"],
+            router_log)
+        res["router_ready_s"] = await wait_healthy(rurl, router, router_log,
+                                                   60)
+        # Direct and routed bursts in turns (direct, router, router,
+        # direct): the bursts' spread is the host clock's.
+        res["router_burst"] = await burst(rurl, prompts["bursts"][2])
+        res["router_burst_2"] = await burst(rurl, prompts["bursts"][3])
+        res["burst_2"] = await burst(url, prompts["bursts"][4])
+        res["router_http_ms"] = await http_overhead(rurl)
+        _, reps = await get_json(rurl + "/replicas")
+        res["replicas"] = reps["replicas"]
+        health = {rep["url"]: rep["healthy"] for rep in reps["replicas"]}
+        if health != {url: True, f"http://127.0.0.1:{dead}": False}:
+            raise AssertionError(f"router replicas: {reps}")
+        res["router_s"] = time.perf_counter() - t
+        _, res["metrics"] = await get_json(url + "/metrics")
+
+    try:
+        asyncio.run(run())
+        res["router_exit_s"] = stop_process(router, 10)
+        res["server_exit_s"] = stop_process(server, 30)
+        if res["server_exit_s"] > 30:
+            raise AssertionError("the server did not exit within 30 s of "
+                                 "SIGTERM")
+    finally:
+        for proc in (router, server):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return res
+
+
+def serve_part_b(cfg, seq_prompts, echo_prompts, served) -> dict:
+    """Part (b): ``LLM.generate`` of each sequential prompt alone and
+    ``LLM.score`` of each echo prompt, in this process, against the
+    server's answers."""
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+
+    t = time.perf_counter()
+    with LLM(cfg) as llm:
+        init_s = time.perf_counter() - t
+        ids, gen_ms = [], []
+        for p in seq_prompts:
+            t0 = time.perf_counter()
+            ids.append(llm.generate(prompt_token_ids=[p], sampling_params=
+                                    SamplingParams(max_tokens=SERVE_NEW,
+                                                   ignore_eos=True))[0]
+                       .token_ids)
+            gen_ms.append((time.perf_counter() - t0) * 1e3)
+        scores = [[float(x) for x in llm.score([p])[0]]
+                  for p in echo_prompts]
+    del llm
+    free_cuda_memory()
+    res = dict(init_s=init_s, s=time.perf_counter() - t,
+               generate_ms=gen_ms,
+               server_minus_offline_ms=[
+                   a - b for a, b in zip(served["sequential_e2e_ms"],
+                                         gen_ms)],
+               tokens_equal=[a == b for a, b in
+                             zip(ids, served["sequential_ids"])],
+               score_equal=[a == e["logprobs"] for a, e in
+                            zip(scores, served["echo"])],
+               score_max_abs_diff=[float(np.max(np.abs(
+                   np.subtract(a, e["logprobs"]))))
+                   for a, e in zip(scores, served["echo"])])
+    if not (all(res["tokens_equal"]) and all(res["score_equal"])):
+        raise AssertionError(f"offline engine differs from the server: "
+                             f"{res}")
+    return res
+
+
+def serve_part_c(cfg) -> dict:
+    """Part (c): an in-process ``OpenAIServer`` over the synthetic
+    tokenizer: chat, guided choice / regex / JSON schema, ``n: 2``, echo,
+    and a streamed chat through the Dynasor proxy.  The launch counts are
+    set to 0 just before and read just after."""
+    import re
+
+    from arcticinference_tpu_torch.dynasor.proxy import DynasorProxy
+    from arcticinference_tpu_torch.serving import http
+    from arcticinference_tpu_torch.serving.openai_server import OpenAIServer
+
+    t = time.perf_counter()
+    srv = OpenAIServer(cfg)
+    tok = SyntheticTokenizer(srv.engine.engine.arch.vocab_size)
+    srv.tokenizer = srv.engine.engine.tokenizer = tok
+    res = dict(init_s=time.perf_counter() - t)
+    choices = GUIDED_SPECS[2][1]["choice"]
+    date_re = GUIDED_SPECS[1][1]["regex"]
+    schema = GUIDED_SPECS[0][1]["json"]
+
+    async def post(url, path, body):
+        async with http.post(url + path, json=body, timeout=600) as r:
+            return r.status, await r.read()
+
+    async def run():
+        port = await srv.app.start("127.0.0.1", 0)
+        url = f"http://127.0.0.1:{port}"
+        proxy = DynasorProxy(url, probe_interval=32, certainty_window=2)
+        purl = f"http://127.0.0.1:{await proxy.app.start('127.0.0.1', 0)}"
+        out = {}
+        try:
+            status, raw = await post(url, "/v1/chat/completions", dict(
+                messages=[{"role": "user",
+                           "content": "Name three colours."}],
+                max_tokens=16, ignore_eos=True))
+            data = json.loads(raw)
+            out["chat"] = dict(status=status,
+                               usage=data.get("usage"),
+                               finish=data["choices"][0]["finish_reason"])
+            if status != 200 or data["usage"]["completion_tokens"] != 16:
+                raise AssertionError(f"chat: {data}")
+            guided = {}
+            for name, body, check in (
+                    ("choice", dict(guided_choice=choices),
+                     lambda s: s in choices),
+                    ("regex", dict(guided_regex=date_re),
+                     lambda s: re.fullmatch(date_re, s) is not None),
+                    ("json_schema", dict(response_format={
+                        "type": "json_schema",
+                        "json_schema": {"schema": schema}}),
+                     lambda s: isinstance(json.loads(s), dict))):
+                t0 = time.perf_counter()
+                status, raw = await post(url, "/v1/completions", dict(
+                    prompt_token_ids=list(range(300, 364)),
+                    max_tokens=128, **body))
+                ch = json.loads(raw)["choices"][0]
+                ok = status == 200 and ch["finish_reason"] == "stop" \
+                    and check(ch["text"])
+                guided[name] = dict(ok=ok, text=ch["text"][:80],
+                                    tokens=len(ch["token_ids"]),
+                                    ms=(time.perf_counter() - t0) * 1e3)
+            out["guided"] = guided
+            if not all(g["ok"] for g in guided.values()):
+                raise AssertionError(f"guided outputs: {guided}")
+            status, raw = await post(url, "/v1/completions", dict(
+                prompt_token_ids=list(range(500, 600)), max_tokens=16,
+                ignore_eos=True, n=2, temperature=0.8, seed=7))
+            data = json.loads(raw)
+            out["n2"] = [len(c["token_ids"]) for c in data["choices"]]
+            if status != 200 or out["n2"] != [16, 16] or \
+                    data["usage"]["completion_tokens"] != 32:
+                raise AssertionError(f"n=2: {data}")
+            status, raw = await post(url, "/v1/completions", dict(
+                prompt_token_ids=list(range(700, 900)), max_tokens=0,
+                echo=True))
+            lp = json.loads(raw)["choices"][0]["logprobs"]["token_logprobs"]
+            if status != 200 or len(lp) != 200:
+                raise AssertionError(f"echo: {raw[:300]}")
+            _, m0 = await get_json(url + "/metrics")
+            status, raw = await post(purl, "/v1/chat/completions", dict(
+                messages=[{"role": "user", "content": "What is 6 x 7?"}],
+                max_tokens=96, stream=True))
+            events = [ln[6:] for ln in raw.decode().splitlines()
+                      if ln.startswith("data: ")]
+            _, m1 = await get_json(url + "/metrics")
+            deltas = [json.loads(e)["choices"][0] for e in events[:-1]]
+            out["dynasor"] = dict(
+                status=status, events=len(events),
+                text_chars=sum(len(d["delta"]["content"]) for d in deltas),
+                backend_finished=m1["num_finished"] - m0["num_finished"])
+            if status != 200 or events[-1] != "[DONE]" or \
+                    out["dynasor"]["backend_finished"] < 2:
+                raise AssertionError(f"dynasor: {out['dynasor']}")
+        finally:
+            await proxy.app.stop()
+            await srv.app.stop()
+        return out
+
+    reset_counts()
+    res.update(asyncio.run(run()))
+    res["launches"] = launch_counts()
+    res["s"] = time.perf_counter() - t
+    del srv
+    free_cuda_memory()
+    return res
+
+
+def phase_serve(rng) -> dict:
+    """Phase 8 (see the module docstring): parts (a), (b) and (c)."""
+    from arcticinference_tpu_torch.benchmarks.serve_bench import build_config
+
+    cfg = build_config("baseline", True)
+
+    def tokens(lengths):
+        return [[int(x) for x in rng.integers(0, 128000, int(k))]
+                for k in lengths]
+
+    burst_lengths = rng.integers(128, 1025, SERVE_BURST)
+    prompts = dict(sequential=tokens(rng.integers(128, 1025,
+                                                  SERVE_SEQUENTIAL)),
+                   bursts=[tokens(burst_lengths) for _ in range(5)],
+                   echo=tokens(rng.integers(128, 1025, 2)),
+                   profile=tokens((128, 128)))
+    with tempfile.TemporaryDirectory(prefix="serve_phase_") as workdir:
+        cfg_path = os.path.join(workdir, "config.json")
+        Path(cfg_path).write_text(json.dumps(cfg.to_dict()))
+        t = time.perf_counter()
+        a = serve_part_a(cfg_path, prompts, workdir)
+        a["s"] = time.perf_counter() - t
+    card = smi()
+    bursts = ("warmup_burst", "burst", "router_burst", "router_burst_2",
+              "burst_2")
+    for name in bursts:
+        log(f"  serve {name} " + json.dumps(dict(a[name], card=card)))
+    log("  serve (a) " + json.dumps({k: v for k, v in a.items()
+                                     if k not in ("sequential_ids", "echo",
+                                                  *bursts)}))
+    log(f"[serve] (a) {a['s']:.1f} s; burst TTFT p50 "
+        f"{a['burst']['ttft_p50_ms']:.1f} ms, through the router "
+        f"{a['router_burst']['ttft_p50_ms']:.1f} ms; {card}")
+    t = time.perf_counter()
+    b = serve_part_b(cfg, prompts["sequential"], prompts["echo"], a)
+    log("  serve (b) " + json.dumps(dict(b, card=smi())))
+    log(f"[serve] (b) {time.perf_counter() - t:.1f} s: tokens and scores "
+        "equal the server's")
+    c = serve_part_c(cfg)
+    log("  serve (c) " + json.dumps(dict(c, card=smi())))
+    log(f"[serve] (c) {c['s']:.1f} s")
+    missing = [k for k in SERVE_TRACE_KERNELS if c["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"part (c) launched no {missing}")
+    return dict(a=a, b=b, c=c, launches=c["launches"])
 
 
 def profile_run(quantization, rng) -> dict:
@@ -3548,6 +4110,15 @@ def main() -> int:
             kernels[key]["launches_pipeline"]["fp8 guided pipelined"] = \
                 dict(launches=r["launches"][key],
                      dispatches=r["dispatches"])
+    if "serve" in phases:
+        log("[serve] the OpenAI server (subprocess), the offline engine and "
+            "an in-process server over the synthetic tokenizer; "
+            "Llama-3.1-8B, 32 layers, fp8, serve_bench's baseline config")
+        served = phase_serve(rng)
+        # This slice's path: part (c)'s launches (the counts set to 0 just
+        # before it).
+        for key in SERVE_TRACE_KERNELS:
+            kernels[key]["launches_serve"] = served["launches"][key]
     if "generate" in phases:
         log("[profile] shorter bf16 and fp8 runs and the drafter chains "
             "under torch.profiler")

@@ -251,18 +251,30 @@ def test_cuda_default_never_falls_back_to_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("entry", ["load_model", "LLM", "LLM swiftkv"])
-def test_entry_points_run_on_the_card_by_default(entry):
+@pytest.mark.parametrize("entry", ["load_model", "LLM", "LLM swiftkv",
+                                   "OpenAIServer", "serve"])
+def test_entry_points_run_on_the_card_by_default(entry, tmp_path):
     """Without ``device`` the model goes to cuda:0; with no card that
-    raises rather than running on the CPU.  SwiftKV's engine too."""
-    conf = tcfg.EngineConfig.from_dict(
-        config_dict("llama_swiftkv", dict(TINY, num_hidden_layers=4,
-                                          num_key_value_layers=2))
-        if entry.endswith("swiftkv") else config_dict(hf=TINY))
+    raises rather than running on the CPU.  SwiftKV's engine too, and the
+    OpenAI server, in-process and through ``serve`` without
+    ``--device``."""
+    from arcticinference_tpu_torch.serving import openai_server
+
+    d = (config_dict("llama_swiftkv", dict(TINY, num_hidden_layers=4,
+                                           num_key_value_layers=2))
+         if entry.endswith("swiftkv") else config_dict(hf=TINY))
+    conf = tcfg.EngineConfig.from_dict(d)
 
     def build():
         if entry == "load_model":
             return load_model(conf.model)[2]["embed"].device
+        if entry == "OpenAIServer":
+            return openai_server.OpenAIServer(conf).engine.engine.device
+        if entry == "serve":
+            path = tmp_path / "cfg.json"
+            path.write_text(__import__("json").dumps(d))
+            server, _ = openai_server.make_server(["--config", str(path)])
+            return server.engine.engine.device
         return LLM(conf).engine.device
 
     if torch.cuda.is_available():
