@@ -2,7 +2,7 @@
 
 Commands:
   serve      OpenAI-compatible HTTP server (serving/openai_server.py)
-  embed      Embedding replica manager (not ported yet)
+  embed      Embedding replica manager (embedding/replica_manager.py)
   dynasor    CoT early-exit proxy (dynasor/proxy.py)
   simulate   Suffix-decoding offline simulator (spec/simulator.py)
 """
@@ -18,9 +18,8 @@ def main() -> None:
     if cmd == "serve":
         from arcticinference_tpu_torch.serving.openai_server import main as m
     elif cmd == "embed":
-        print("embed: the embedding fleet (embedding/: replica, manager, "
-              "gRPC client) is not ported yet", file=sys.stderr)
-        sys.exit(2)
+        from arcticinference_tpu_torch.embedding.replica_manager import (
+            main as m)
     elif cmd == "dynasor":
         from arcticinference_tpu_torch.dynasor.proxy import main as m
     elif cmd == "simulate":

@@ -351,6 +351,57 @@ class LLMEngine:
                 bm.free(req.block_ids)
         return [np.asarray(lp[a:a + n], np.float64) for a, n in spans]
 
+    def encode(self, prompt_token_ids, pooling: str = "mean",
+               normalize: bool = False) -> list[np.ndarray]:
+        """Pooled embeddings of a causal LM (the JAX package's
+        ``EmbeddingMixin`` for causal models): one prefill-shaped forward
+        per batch of prompts, each request's rows pooled on the device
+        (``mean`` or ``last``, :meth:`ModelRunner.pooled`), one float32
+        array per prompt.  Prompts are batched up to
+        ``max_num_batched_tokens`` and ``max_num_seqs``; one longer than
+        the token budget raises.  The forward writes K/V into borrowed
+        blocks of the live cache, so it must not run beside a step in
+        flight: the offline ``LLM`` calls it between ``generate`` calls,
+        a server under its engine lock."""
+        sched = self.config.scheduler
+        budget = sched.max_num_batched_tokens
+        out: list[np.ndarray] = []
+        batch: list[list[int]] = []
+        total = 0
+        for ids in prompt_token_ids:
+            if len(ids) > budget:
+                raise ValueError(
+                    f"prompt of {len(ids)} tokens exceeds "
+                    f"max_num_batched_tokens={budget}")
+            if total + len(ids) > budget or len(batch) >= sched.max_num_seqs:
+                out.extend(self._encode_batch(batch, pooling, normalize))
+                batch, total = [], 0
+            batch.append(list(ids))
+            total += len(ids)
+        if batch:
+            out.extend(self._encode_batch(batch, pooling, normalize))
+        return out
+
+    def _encode_batch(self, batch: list[list[int]], pooling: str,
+                      normalize: bool) -> list[np.ndarray]:
+        bm = self.scheduler.block_manager
+        reqs = []
+        sched = SchedulerOutput()
+        try:
+            for i, ids in enumerate(batch):
+                req = Request(req_id=f"emb-{i}", prompt_token_ids=ids,
+                              sampling=SamplingParams(max_tokens=1))
+                reqs.append(req)
+                bm.grow_to(req.block_ids, len(ids))
+                sched.scheduled.append(ScheduledRequest(req, len(ids), []))
+            pooled = self.runner.execute_encode(
+                self.runner.prepare_inputs(sched), pooling=pooling,
+                normalize=normalize)
+        finally:
+            for req in reqs:
+                bm.free(req.block_ids)
+        return [pooled[i] for i in range(len(batch))]
+
     # ------------------------------------------------------------------ #
     # Step loop
     # ------------------------------------------------------------------ #

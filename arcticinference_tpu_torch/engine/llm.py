@@ -10,6 +10,11 @@ text prompts need a checkpoint that ships a tokenizer.  ``LLM.score``
 (and ``LLMEngine.score``, the server's ``echo`` path) returns
 teacher-forced per-token logprobs; ``with LLM(...) as llm:`` closes the
 engine at the end.
+
+``LLM.encode`` returns pooled embeddings: an encoder architecture (BERT,
+``module.IS_ENCODER``) runs on the dense ``EncoderRunner`` and builds no
+``LLMEngine`` (its ``generate`` raises); a causal LM pools its prefill
+(``LLMEngine.encode``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import torch
 from arcticinference_tpu_torch.config import EngineConfig
 from arcticinference_tpu_torch.engine.engine import LLMEngine
 from arcticinference_tpu_torch.engine.request import Request, SamplingParams
+from arcticinference_tpu_torch.models import get_model_module
+from arcticinference_tpu_torch.models.loader import read_hf_config
 from arcticinference_tpu_torch.ops.fp8 import FP8_MAX
 
 
@@ -75,14 +82,38 @@ def load_tokenizer(config: EngineConfig):
     return AutoTokenizer.from_pretrained(str(path))
 
 
+def _is_encoder_arch(config: EngineConfig) -> bool:
+    """True when the configured architecture is a bidirectional encoder
+    (module attribute ``IS_ENCODER``), resolved as the loader resolves
+    it; an unknown name is not an encoder (the loader raises for it)."""
+    hf_cfg = read_hf_config(config.model.model)
+    if hf_cfg is not None:
+        arch_name = (hf_cfg.get("architectures") or ["LlamaForCausalLM"])[0]
+    else:
+        arch_name = config.model.model
+    try:
+        module = get_model_module(arch_name)
+    except (ValueError, NotImplementedError):
+        return False
+    return bool(getattr(module, "IS_ENCODER", False))
+
+
 class LLM:
 
     def __init__(self, config: EngineConfig,
                  device: Union[str, torch.device, None] = None):
         self.config = config
-        self.engine = LLMEngine(config, device=device)
+        self.engine = None
+        self.encoder = None
+        if _is_encoder_arch(config):
+            from arcticinference_tpu_torch.engine.encoder import (
+                EncoderRunner)
+
+            self.encoder = EncoderRunner(config, device=device)
+        else:
+            self.engine = LLMEngine(config, device=device)
         self.tokenizer = load_tokenizer(config)
-        if self.tokenizer is not None:
+        if self.engine is not None and self.tokenizer is not None:
             self.engine.tokenizer = self.tokenizer
             if self.engine.eos_token_id is None:
                 self.engine.eos_token_id = self.tokenizer.eos_token_id
@@ -101,6 +132,9 @@ class LLM:
                                None] = None,
         prompt_token_ids: Optional[Sequence[Sequence[int]]] = None,
     ) -> list[RequestOutput]:
+        if self.engine is None:
+            raise ValueError(
+                "encoder-only model: use .encode(), not .generate()")
         if prompts is None and prompt_token_ids is None:
             raise ValueError("provide prompts or prompt_token_ids")
         if prompt_token_ids is None:
@@ -156,7 +190,28 @@ class LLM:
     def close(self) -> None:
         """Release the engine's host resources (the suffix prompt-tree
         worker pool); idempotent."""
-        self.engine.close()
+        if self.engine is not None:
+            self.engine.close()
+
+    def encode(self, prompts: Optional[Sequence[str]] = None,
+               prompt_token_ids: Optional[Sequence[Sequence[int]]] = None,
+               pooling: str = "mean",
+               normalize: Optional[bool] = None) -> list[np.ndarray]:
+        """One pooled float32 embedding per prompt.  An encoder pools with
+        ``mean`` / ``cls`` / ``max`` / ``last`` and L2-normalizes unless
+        ``normalize=False``; a causal LM pools with ``mean`` / ``last``
+        and normalizes only with ``normalize=True``
+        (:meth:`LLMEngine.encode`)."""
+        if prompt_token_ids is None:
+            if self.tokenizer is None:
+                raise ValueError("no tokenizer; pass prompt_token_ids")
+            prompt_token_ids = [self.tokenizer.encode(p) for p in prompts]
+        if self.encoder is not None:
+            return self.encoder.encode(
+                prompt_token_ids, pooling=pooling,
+                normalize=True if normalize is None else normalize)
+        return self.engine.encode(prompt_token_ids, pooling=pooling,
+                                  normalize=bool(normalize))
 
     def score(self, prompt_token_ids) -> list[np.ndarray]:
         """Teacher-forced per-token logprobs: :meth:`LLMEngine.score`."""

@@ -621,6 +621,58 @@ class ModelRunner:
             .view(np.float32)
         return tokens[:s], tokens[s:2 * s], rows, topk, logp
 
+    @torch.inference_mode()
+    def pooled(self, inputs: dict, attn_qb: int, pooling: str = "mean",
+               normalize: bool = False) -> torch.Tensor:
+        """The pooled embeddings of a prefill over uploaded ``inputs``
+        (:meth:`upload`), float32 [rows, hidden] on the device; nothing
+        is read back.  ``mean`` sums each request's rows by ``req_idx``
+        (padding rows, ``req_idx < 0``, into one extra segment that is
+        dropped), ``last`` takes each request's sample row.  The
+        forward writes the prompts' K/V into the live cache, in the
+        blocks the caller lent them."""
+        inputs = dict(inputs, kv_scale=self.kv_scale)
+        attn = self.module.make_attn_impl(attn_qb)
+        self.kv, h = self.module.forward(self.params, self.arch, self.kv,
+                                         inputs, attn_impl=attn)
+        if pooling not in ("mean", "last"):
+            raise ValueError(f"unknown pooling {pooling!r}")
+        hf = h.float()
+        if self.returns_rows:
+            # SwiftKV's forward returns only the sample rows (each
+            # request's last prompt token): mean pooling needs every row.
+            if pooling == "mean":
+                raise NotImplementedError(
+                    "mean pooling needs every row's hidden state; a "
+                    "SwiftKV model's forward returns only the sample rows "
+                    "(use pooling='last')")
+            pooled = hf[:self.b_max]
+        elif pooling == "mean":
+            b = self.b_max
+            req_idx = inputs["req_idx"].long()
+            seg = torch.where(req_idx < 0, b, req_idx)
+            sums = torch.zeros(b + 1, hf.shape[1], dtype=torch.float32,
+                               device=hf.device).index_add_(0, seg, hf)
+            counts = torch.zeros(b + 1, dtype=torch.float32,
+                                 device=hf.device).index_add_(
+                0, seg, torch.ones_like(seg, dtype=torch.float32))
+            pooled = sums[:b] / counts[:b].clamp_min(1.0)[:, None]
+        else:
+            pooled = hf[inputs["logits_indices"][:self.b_max].long()]
+        if normalize:
+            pooled = pooled / torch.linalg.vector_norm(
+                pooled, dim=-1, keepdim=True).clamp_min(1e-12)
+        return pooled
+
+    def execute_encode(self, step_inputs: StepInputs, pooling: str = "mean",
+                       normalize: bool = False) -> np.ndarray:
+        """:meth:`pooled` over a prefill step's arrays, as a host float32
+        array; row i is the step's i-th request.  Counterpart of the JAX
+        runner's ``execute_encode``."""
+        return self.pooled(self.upload(step_inputs.arrays),
+                           step_inputs.attn_qb, pooling,
+                           normalize).cpu().numpy()
+
     #: Rows of the LM head per chunk of :meth:`execute_score`: float32
     #: logits of a whole prompt at a 128k vocabulary are GBs; 256-row
     #: chunks keep the peak flat.

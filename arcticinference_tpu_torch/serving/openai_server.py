@@ -5,11 +5,17 @@ same routes, bodies and semantics, served by the port's standard-library
 HTTP layer (``serving/http.py``) in place of ``aiohttp``:
 /v1/completions and /v1/chat/completions (SSE streaming with
 ``"stream": true``; ``n > 1`` fan-out; ``echo`` with ``max_tokens: 0``
-scores the prompt), /v1/embeddings (a causal deployment answers 400),
-/v1/models, /health, /metrics (JSON engine stats), /start_profile and
-/stop_profile (a ``torch.profiler`` Chrome trace).  Guided decoding
-rides ``response_format`` (``json_object`` / ``json_schema``) and the
+scores the prompt), /v1/embeddings, /v1/models, /health, /metrics
+(JSON engine stats), /start_profile and /stop_profile (a
+``torch.profiler`` Chrome trace).  Guided decoding rides
+``response_format`` (``json_object`` / ``json_schema``) and the
 ``guided_regex`` / ``guided_choice`` / ``guided_json`` fields.
+
+An encoder deployment (BERT: ``module.IS_ENCODER``) builds the dense
+``EncoderRunner`` and no ``AsyncLLMEngine``: it answers /v1/embeddings
+(one device batch at a time, off the event loop), and the generate and
+profile routes answer 400 as the JAX server's do; a causal deployment
+answers /v1/embeddings with 400.
 
 Run (on ``cuda:0``; ``--device cpu`` on the CPU):
 
@@ -36,23 +42,14 @@ import torch
 from arcticinference_tpu_torch.config import (EngineConfig, ParallelConfig,
                                               SpeculativeConfig)
 from arcticinference_tpu_torch.engine.async_engine import AsyncLLMEngine
-from arcticinference_tpu_torch.engine.llm import load_tokenizer
+from arcticinference_tpu_torch.engine.llm import (_is_encoder_arch,
+                                                  load_tokenizer)
 from arcticinference_tpu_torch.engine.request import SamplingParams
-from arcticinference_tpu_torch.models.loader import read_hf_config
 from arcticinference_tpu_torch.serving.http import (App, HTTPError, Request,
                                                     StreamResponse,
                                                     json_response)
 
-# Encoder architectures the JAX server answers /v1/embeddings with.
-_ENCODER_ARCHS = ("bert", "BertModel", "BertForMaskedLM",
-                  "BertForSequenceClassification")
-
-
-def _arch_name(config: EngineConfig) -> str:
-    hf_cfg = read_hf_config(config.model.model)
-    if hf_cfg is not None:
-        return (hf_cfg.get("architectures") or ["LlamaForCausalLM"])[0]
-    return config.model.model
+_ENCODER_ONLY = {"error": "encoder-only model: use /v1/embeddings"}
 
 
 class OpenAIServer:
@@ -61,14 +58,19 @@ class OpenAIServer:
                  served_model_name: Optional[str] = None,
                  device: Union[str, torch.device, None] = None):
         self.config = config
-        if _arch_name(config) in _ENCODER_ARCHS:
-            raise NotImplementedError(
-                "encoder architectures (BERT, /v1/embeddings) are not "
-                "ported yet: ROADMAP.md Queue 1, the encoders item")
-        self.engine = AsyncLLMEngine(config, device=device)
+        self.encoder = None
+        self.engine = None
+        if _is_encoder_arch(config):
+            from arcticinference_tpu_torch.engine.encoder import (
+                EncoderRunner)
+
+            self.encoder = EncoderRunner(config, device=device)
+            self._encode_lock = None  # made on the event loop
+        else:
+            self.engine = AsyncLLMEngine(config, device=device)
         self.model_name = served_model_name or config.model.model
         self.tokenizer = load_tokenizer(config)
-        if self.tokenizer is not None:
+        if self.engine is not None and self.tokenizer is not None:
             # String stop sequences are detected inside the engine loop.
             self.engine.engine.tokenizer = self.tokenizer
         self.app = App()
@@ -85,7 +87,8 @@ class OpenAIServer:
         self.app.on_cleanup.append(self._cleanup)
 
     async def _cleanup(self, app) -> None:
-        self.engine.close()
+        if self.engine is not None:
+            self.engine.close()
 
     # -- helpers ---------------------------------------------------------
 
@@ -161,6 +164,8 @@ class OpenAIServer:
     # -- endpoints -------------------------------------------------------
 
     async def health(self, request: Request):
+        if self.engine is None:
+            return json_response({"status": "ok"})
         if self.engine.dead:
             return json_response({"status": "engine_error",
                                   "reason": self.engine.dead_reason},
@@ -172,10 +177,37 @@ class OpenAIServer:
         return json_response({"status": "ok"})
 
     async def embeddings(self, request: Request):
-        return json_response(
-            {"error": "this deployment serves a causal LM; use the "
-                      "offline LLM.encode API or the gRPC embedding "
-                      "fleet for decoder pooling"}, status=400)
+        """OpenAI /v1/embeddings for encoder models: ``input`` is a
+        string, a list of strings, a list of token ids or a list of
+        such lists; mean-pooled, L2-normalized embeddings."""
+        if self.encoder is None:
+            return json_response(
+                {"error": "this deployment serves a causal LM; use the "
+                          "offline LLM.encode API or the gRPC embedding "
+                          "fleet for decoder pooling"}, status=400)
+        body = await request.json()
+        raw = body.get("input")
+        if raw is None:
+            return json_response({"error": "missing 'input'"}, status=400)
+        if isinstance(raw, str):
+            raw = [raw]
+        if raw and isinstance(raw[0], int):
+            raw = [raw]
+        token_ids = [self._encode(item) if isinstance(item, str)
+                     else [int(t) for t in item] for item in raw]
+        if self._encode_lock is None:
+            self._encode_lock = asyncio.Lock()
+        async with self._encode_lock:   # one device batch at a time
+            embs = await asyncio.to_thread(self.encoder.encode, token_ids)
+        n = sum(len(t) for t in token_ids)
+        return json_response({
+            "object": "list",
+            "model": self.model_name,
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": [float(x) for x in e]}
+                     for i, e in enumerate(embs)],
+            "usage": {"prompt_tokens": n, "total_tokens": n},
+        })
 
     async def models(self, request: Request):
         return json_response({
@@ -185,6 +217,8 @@ class OpenAIServer:
         })
 
     async def metrics(self, request: Request):
+        if self.engine is None:
+            return json_response({"mode": "encoder"})
         eng = self.engine.engine
         st = eng.engine_stats
         return json_response({
@@ -213,6 +247,8 @@ class OpenAIServer:
                 body = {}
         trace_dir = body.get("trace_dir") or os.path.join(
             tempfile.gettempdir(), "arctic_tpu_torch_trace")
+        if self.engine is None:
+            return json_response({"error": "encoder mode"}, status=400)
         try:
             await asyncio.wrap_future(self.engine.call_on_engine_thread(
                 self.engine.engine.start_profile, trace_dir))
@@ -222,11 +258,15 @@ class OpenAIServer:
                               "trace_dir": trace_dir})
 
     async def stop_profile(self, request: Request):
+        if self.engine is None:
+            return json_response({"error": "encoder mode"}, status=400)
         await asyncio.wrap_future(self.engine.call_on_engine_thread(
             self.engine.engine.stop_profile))
         return json_response({"status": "ok"})
 
     async def completions(self, request: Request):
+        if self.engine is None:
+            return json_response(_ENCODER_ONLY, status=400)
         body = await request.json()
         prompt = body.get("prompt")
         prompt_ids = body.get("prompt_token_ids")
@@ -319,6 +359,8 @@ class OpenAIServer:
         return fans
 
     async def chat_completions(self, request: Request):
+        if self.engine is None:
+            return json_response(_ENCODER_ONLY, status=400)
         body = await request.json()
         messages = body.get("messages")
         if not messages:

@@ -206,10 +206,39 @@ Phases, each reported on its own lines:
              through the port's Dynasor proxy (the stream passes through,
              the backend counts the probes); kernels 1, 2 and 5 must
              launch in this part (``launches_serve``).
-Last, a shorter bf16 and fp8 run of phase 5, the drafter chains and the
-bench's device step (its CUDA graph) under ``torch.profiler``, each on an
-engine of its own (no timed run follows a profiled one); the device step
-must launch no split-K reduction of the quantized matmuls.
+9. embed:    (a) ``LLM.encode`` on BERT at the published widths of
+             Snowflake/snowflake-arctic-embed-m-v1.5 (hidden 768, 12
+             layers, 12 heads of 64, intermediate 3072, vocab 30522, 512
+             positions) and snowflake-arctic-embed-l (hidden 1024, 24
+             layers, 16 heads, intermediate 4096), random bf16 weights
+             from the seed: 256 prompts of 16-512 tokens with cls and
+             mean pooling, each embedding held against the same weights
+             in float32 through the same plain path (cosine >=
+             EMBED_COS per row); Ktok/s (wall clock) against the flops
+             bound of the real tokens, the padding share (bucketed over
+             real tokens) and the device ms of every (batch, tokens)
+             bucket (CUDA events).  (b) ``LLM.encode`` on Llama-3.1-8B at
+             full width and depth with fp8 weights: 64 prompts of
+             128-1024 tokens, last and mean pooling, kernels 1 and 5
+             launched 32 and 128 times a device batch (no LM head), the
+             embeddings held against the route through the plain
+             versions (cosine >= CAUSAL_COS per row), and the device ms
+             of a 2048-token pooled forward beside the 2048-token prefill
+             step's CUDA graph.  (c) The embedding fleet: ``python -m
+             arcticinference_tpu_torch embed`` with 1 and with 2
+             BERT-base replica processes on the card, the port's
+             ``embedding_bench`` against each in turns (1, 2, 2, 1; batch
+             64, concurrency 8, ``uniform:64,512``), the managers' summed
+             ``GetReplicaInfo`` counters against what was sent, requests
+             without input each followed at once by a good one (the bad
+             one answered INVALID_ARGUMENT, the good one answered), and a
+             run during which one replica of the 2-replica fleet is
+             killed: every request is answered.
+Last, one BERT-base device batch of phase 9 (64 x 512 tokens), a
+shorter bf16 and fp8 run of phase 5, the drafter chains and the bench's
+device step (its CUDA graph) under ``torch.profiler``, each on an engine
+of its own (no timed run follows a profiled one); the device step must
+launch no split-K reduction of the quantized matmuls.
 
 The bench's JSON line comes before the kernels JSON; the last lines are
 the kernels JSON, the card's name and power limit, and ``{"ok": true,
@@ -231,6 +260,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -286,7 +316,7 @@ REL_TOL = 1e-3
 Q_STD = 5.0
 
 PHASES = ("device", "build", "kernels", "forward", "generate", "bench",
-          "pipeline", "serve")
+          "pipeline", "serve", "embed")
 # Corruption rates of phase 6's curve (the bench's own sweep is 0.12, 0.3,
 # 0.6, 1.0; two points keep the script within its time).
 BENCH_CURVE_RATES = (0.3, 1.0)
@@ -357,6 +387,402 @@ SWIFT_KV_ROWS = (16, 64, 2048)
 # drafter batch buckets of 16 and 64 requests.
 DRAFTER_MATMULS = (("head", 4096, 128256), ("proj", 4096, 4096))
 DRAFTER_ROWS = (16, 64)
+# ---------------------------------------------------------------------------
+# Phase 9: encoders, causal encode and the embedding fleet
+# ---------------------------------------------------------------------------
+
+# Snowflake/snowflake-arctic-embed-m-v1.5 (its config.json: BertModel) and
+# Snowflake/snowflake-arctic-embed-l (BertModel at BERT-large's widths).
+ARCTIC_EMBED_M = dict(
+    vocab_size=30522, hidden_size=768, intermediate_size=3072,
+    num_hidden_layers=12, num_attention_heads=12,
+    max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
+    hidden_act="gelu", pad_token_id=0)
+ARCTIC_EMBED_L = dict(ARCTIC_EMBED_M, hidden_size=1024,
+                      intermediate_size=4096, num_hidden_layers=24,
+                      num_attention_heads=16)
+EMBED_PROMPTS = 256
+CAUSAL_PROMPTS = 64
+# Per-row cosine of each bf16 embedding against the float32 plain path on
+# the same weights (BERT), and of the kernel route against the plain
+# route on the same bf16 weights (32-layer Llama: both round each layer's
+# output to bf16, in different summation orders).
+EMBED_COS = 0.999
+CAUSAL_COS = 0.99
+FLEET_BENCH = dict(batch=64, concurrency=8, len_dist="uniform:64,512")
+# When a replica is killed in the killed run (its seconds must exceed it).
+KILL_AFTER_S = 0.5
+
+
+def bert_config(dims, dtype="bfloat16"):
+    from arcticinference_tpu_torch.config import (EngineConfig, ModelConfig,
+                                                  SchedulerConfig)
+
+    return EngineConfig(
+        model=ModelConfig(model="bert", dtype=dtype, max_model_len=512,
+                          hf_overrides=dims),
+        scheduler=SchedulerConfig(max_num_seqs=64,
+                                  max_num_batched_tokens=16384))
+
+
+def bert_flops(dims, lengths) -> float:
+    """Flops of the real tokens' work: per layer and token the six
+    projections (2 x (4 D^2 + 2 D F)), and per prompt of n tokens the
+    two attention products (2 x 2 n^2 D)."""
+    d, f = dims["hidden_size"], dims["intermediate_size"]
+    per_layer = sum(2 * (4 * d * d + 2 * d * f) * n + 4 * n * n * d
+                    for n in lengths)
+    return float(dims["num_hidden_layers"] * per_layer)
+
+
+def cosines(a, b) -> np.ndarray:
+    a, b = np.stack(a).astype(np.float64), np.stack(b).astype(np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                              * np.linalg.norm(b, axis=-1))
+
+
+def embed_bert(rng, name, dims) -> dict:
+    """Phase 9 (a) for one width."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.utils import events_ms
+
+    lengths = [int(n) for n in rng.integers(16, 513, EMBED_PROMPTS)]
+    prompts = [[int(x) for x in rng.integers(1, dims["vocab_size"], n)]
+               for n in lengths]
+    llm = LLM(bert_config(dims), device="cuda")
+    enc = llm.encoder
+    batches = list(enc.batches(prompts))
+    shapes = [enc.bucket(b) for b in batches]
+    real = sum(lengths)
+    res = dict(model=name, prompts=len(prompts), real_tokens=real,
+               batches=len(batches),
+               padding_share=sum(b * t for b, t in shapes) / real)
+    bound_s = bert_flops(dims, lengths) / BF16_FLOP_PER_S
+    res["bound_ktok_per_s"] = real / bound_s / 1e3
+    params16 = enc.params
+    params32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+                    if isinstance(v, dict) else v.float())
+                for k, v in params16.items()}
+    for pooling in ("cls", "mean"):
+        llm.encode(prompt_token_ids=prompts[:8], pooling=pooling)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        embs = llm.encode(prompt_token_ids=prompts, pooling=pooling)
+        wall = time.perf_counter() - t
+        enc.params = params32
+        try:
+            ref = enc.encode(prompts, pooling=pooling)
+        finally:
+            enc.params = params16
+        cos = cosines(embs, ref)
+        res[pooling] = dict(ktok_per_s=real / wall / 1e3, wall_s=wall,
+                            min_cos=float(cos.min()),
+                            mean_cos=float(cos.mean()),
+                            finite=bool(np.isfinite(np.stack(embs)).all()),
+                            norm_max_dev=float(np.abs(np.linalg.norm(
+                                np.stack(embs), axis=-1) - 1).max()))
+    # Device ms of each bucket, mean pooling.
+    per_bucket = {}
+    for batch, (b, t) in zip(batches, shapes):
+        key = f"{b}x{t}"
+        if key in per_bucket:
+            continue
+        ids, mask = enc.inputs(batch)
+        per_bucket[key] = dict(ms=events_ms(
+            lambda: enc.pooled(ids, mask, "mean"), 3),
+            bound_ms=bert_flops(dims, [len(x) for x in batch])
+            / BF16_FLOP_PER_S * 1e3,
+            padded_bound_ms=bert_flops(dims, [t] * b)
+            / BF16_FLOP_PER_S * 1e3)
+    res["device_ms_per_bucket"] = per_bucket
+    res["device_ms_all_batches"] = sum(
+        per_bucket[f"{b}x{t}"]["ms"] for b, t in shapes)
+    res["device_ktok_per_s"] = real / res["device_ms_all_batches"]
+    del llm, enc, params16, params32
+    free_cuda_memory()
+    ok = all(res[p]["finite"] and res[p]["min_cos"] >= EMBED_COS
+             and res[p]["norm_max_dev"] < 1e-3 for p in ("cls", "mean"))
+    log("  embed (a) " + json.dumps(dict(res, card=smi())))
+    if not ok:
+        raise AssertionError(f"BERT {name} against float32: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def plain_route(module):
+    """The decoder's attention and matmuls through the kernels' plain
+    versions (as phase 4 holds the logits)."""
+    saved = module.make_attn_impl
+    module.make_attn_impl = lambda *a, **kw: module.plain_attn
+    try:
+        with plain_matmuls():
+            yield
+    finally:
+        module.make_attn_impl = saved
+
+
+def embed_causal(rng) -> dict:
+    """Phase 9 (b): Llama-3.1-8B fp8 at full depth."""
+    import torch
+
+    from arcticinference_tpu_torch import bench
+    from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
+                                                  ModelConfig,
+                                                  SchedulerConfig)
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.utils import events_ms
+
+    cfg = EngineConfig(
+        model=ModelConfig(model="llama", dtype="bfloat16",
+                          max_model_len=2048, hf_overrides=LLAMA_8B,
+                          quantization="fp8"),
+        cache=CacheConfig(num_blocks=512),
+        scheduler=SchedulerConfig(max_num_seqs=64,
+                                  max_num_batched_tokens=8192))
+    t = time.perf_counter()
+    llm = LLM(cfg, device="cuda")
+    res = dict(init_s=time.perf_counter() - t)
+    eng = llm.engine
+    lengths = [int(n) for n in rng.integers(128, 1025, CAUSAL_PROMPTS)]
+    prompts = [[int(x) for x in rng.integers(1, 128000, n)]
+               for n in lengths]
+    llm.encode(prompt_token_ids=prompts[:2])            # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    embs, walls = {}, {}
+    for pooling in ("last", "mean"):
+        t = time.perf_counter()
+        embs[pooling] = llm.encode(prompt_token_ids=prompts,
+                                   pooling=pooling)
+        walls[pooling] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    # Device batches of the run (the engine's split by tokens and seqs).
+    n_batches, total = 1, 0
+    for i, n in enumerate(lengths):
+        if i and total + n > 8192:
+            n_batches, total = n_batches + 1, 0
+        total += n
+    with plain_route(eng.runner.module):
+        plain = {p: llm.encode(prompt_token_ids=prompts, pooling=p)
+                 for p in ("last", "mean")}
+    torch.cuda.synchronize()
+    for p in ("last", "mean"):
+        cos = cosines(embs[p], plain[p])
+        res[p] = dict(wall_s=walls[p],
+                      ktok_per_s=sum(lengths) / walls[p] / 1e3,
+                      min_cos=float(cos.min()), mean_cos=float(cos.mean()),
+                      finite=bool(np.isfinite(np.stack(embs[p])).all()))
+    # A 2048-token pooled forward against the 2048-token prefill step.
+    si, req = prefill_step_inputs(llm, DEVICE_PREFILL_TOKENS)
+    try:
+        inputs = eng.runner.upload(si.arrays)
+        res["encode_2048_ms"] = events_ms(
+            lambda: eng.runner.pooled(inputs, si.attn_qb, "mean"), 5)
+        graph = bench.capture_step_graph(eng.runner, si, eng._generator)
+        res["prefill_2048_graph_ms"] = events_ms(graph.replay, 5)
+        del graph
+    finally:
+        eng.scheduler.block_manager.free(req.block_ids)
+    res.update(prompts=len(prompts), tokens=sum(lengths),
+               device_batches=n_batches,
+               launches={k: launches[k] for k in (
+                   "ragged_paged_attention_kernel",
+                   "grouped_decode_attention_kernel", "fp8_matmul_kernel")})
+    llm.close()
+    del llm, eng
+    free_cuda_memory()
+    log("  embed (b) " + json.dumps(dict(res, card=smi())))
+    nl = LLAMA_8B["num_hidden_layers"]
+    want = {"ragged_paged_attention_kernel": 2 * n_batches * nl,
+            "grouped_decode_attention_kernel": 0,
+            "fp8_matmul_kernel": 2 * n_batches * 4 * nl}
+    ok = (res["launches"] == want
+          and all(res[p]["finite"] and res[p]["min_cos"] >= CAUSAL_COS
+                  for p in ("last", "mean")))
+    if not ok:
+        raise AssertionError(f"causal encode: {res}, launches wanted "
+                             f"{want}")
+    res["launch_counts"] = launches
+    return res
+
+
+def start_fleet(cfg_path, replicas, workdir, tag):
+    port, base = free_port(), free_port()
+    log_path = os.path.join(workdir, f"manager_{tag}.log")
+    proc = start_process(
+        [sys.executable, "-m", "arcticinference_tpu_torch", "embed",
+         "--port", str(port), "--replica-base-port", str(base),
+         "--num-replicas", str(replicas), "--config", cfg_path,
+         "--host", "127.0.0.1"], log_path)
+    return dict(proc=proc, port=port, log=log_path, replicas=replicas,
+                target=f"127.0.0.1:{port}", started=time.perf_counter())
+
+
+def wait_fleet(fleet, timeout: float) -> float:
+    """Seconds from the manager's start to its ready line."""
+    while True:
+        text = Path(fleet["log"]).read_text()
+        if "manager ready" in text:
+            fleet["pids"] = [int(x.split(")")[0]) for x in
+                             text.split("(pid ")[1:]]
+            return time.perf_counter() - fleet["started"]
+        if fleet["proc"].poll() is not None or \
+                time.perf_counter() - fleet["started"] > timeout:
+            raise AssertionError(f"fleet {fleet['target']} not ready:\n"
+                                 + text[-4000:])
+        time.sleep(0.2)
+
+
+def fleet_bench(fleet, iters: int) -> dict:
+    """The port's embedding bench against ``fleet``, with the manager's
+    summed counters before and after."""
+    from arcticinference_tpu_torch.benchmarks import embedding_bench
+    from arcticinference_tpu_torch.embedding.client import InferenceClient
+
+    client = InferenceClient(fleet["target"])
+    before = client.info()
+    res, = embedding_bench.main([
+        "--target", fleet["target"], "--batch-sizes",
+        str(FLEET_BENCH["batch"]), "--concurrency",
+        str(FLEET_BENCH["concurrency"]), "--iters", str(iters),
+        "--len-dist", FLEET_BENCH["len_dist"]])
+    after = client.info()
+    res["info_requests"] = after.total_requests - before.total_requests
+    res["info_tokens"] = after.total_tokens - before.total_tokens
+    res["replicas"] = fleet["replicas"]
+    return res
+
+
+def embed_fleet(workdir) -> dict:
+    """Phase 9 (c)."""
+    from arcticinference_tpu_torch.embedding import wire
+    from arcticinference_tpu_torch.embedding.client import InferenceClient
+    from arcticinference_tpu_torch.embedding.transport import (RpcError,
+                                                               StatusCode)
+
+    cfg_path = os.path.join(workdir, "bert_base.json")
+    Path(cfg_path).write_text(json.dumps(bert_config(ARCTIC_EMBED_M)
+                                         .to_dict()))
+    fleets = {n: start_fleet(cfg_path, n, workdir, n) for n in (1, 2)}
+    out: dict = {"runs": []}
+    try:
+        out["ready_s"] = {n: wait_fleet(f, 300) for n, f in fleets.items()}
+        for n in (1, 2):                           # warm-up
+            fleet_bench(fleets[n], 1)
+        for n in (1, 2, 2, 1):
+            r = fleet_bench(fleets[n], 4)
+            r["card"] = smi()
+            log("  embed (c) bench " + json.dumps(r))
+            out["runs"].append(r)
+        # A request without input, then a good one at once: INVALID_ARGUMENT
+        # for the first, an answer for the second, every time.
+        client = InferenceClient(fleets[2]["target"])
+        bad = []
+        for i in range(4):
+            try:
+                client.stub.Encode(wire.EncodeRequest(request_id=f"bad{i}"),
+                                   timeout=30)
+                bad.append("answered")
+            except RpcError as e:
+                bad.append(int(e.code()))
+            t = time.perf_counter()
+            embs = client.embed(token_ids=[[1, 2, 3] * 30] * 4)
+            bad.append(round((time.perf_counter() - t) * 1e3, 3)
+                       if len(embs) == 4 else "short")
+        out["bad_then_good"] = bad
+        # Kill one replica of the 2-replica fleet during a run.
+        killer = threading.Timer(KILL_AFTER_S, os.kill,
+                                 (fleets[2]["pids"][0], signal.SIGKILL))
+        killer.start()
+        try:
+            r = fleet_bench(fleets[2], 8)
+        finally:
+            killer.join()
+        r["killed_pid"] = fleets[2]["pids"][0]
+        r["killed_after_s"] = KILL_AFTER_S
+        out["killed_run"] = r
+        log("  embed (c) killed run " + json.dumps(dict(r, card=smi())))
+        out["health_after_kill"] = client.health()
+    finally:
+        for f in fleets.values():
+            f["exit_s"] = stop_process(f["proc"], 60)
+            f["exit_code"] = f["proc"].returncode
+    out["exit"] = {n: (f["exit_s"], f["exit_code"])
+                   for n, f in fleets.items()}
+    log("  embed (c) " + json.dumps({k: v for k, v in out.items()
+                                     if k not in ("runs", "killed_run")}))
+    killed = out["killed_run"]
+    # Counters: every request of a run counted once (the killed replica's
+    # own counters leave the sum with it, so not in the killed run).
+    ok = (all(r["info_requests"] == r["requests"] == r["concurrency"] * 4
+              and r["info_tokens"] == r["tokens"] for r in out["runs"])
+          and killed["requests"] == killed["concurrency"] * 8
+          and killed["seconds"] > KILL_AFTER_S
+          and bad[0::2] == [int(StatusCode.INVALID_ARGUMENT)] * 4
+          and all(isinstance(x, float) for x in bad[1::2])
+          and out["health_after_kill"]
+          and all(f["exit_s"] < 60 for f in fleets.values()))
+    if not ok:
+        raise AssertionError(f"embedding fleet: {out}")
+    return out
+
+
+def profile_bert() -> dict:
+    """One BERT-base device batch (64 x 512 tokens, mean pooling) under
+    ``torch.profiler``: device ms per call and the heaviest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from arcticinference_tpu_torch.engine.encoder import EncoderRunner
+
+    enc = EncoderRunner(bert_config(ARCTIC_EMBED_M), device="cuda")
+    rng = np.random.default_rng(5)
+    batch = [[int(x) for x in rng.integers(1, 30000, n)]
+             for n in rng.integers(16, 513, 64)]
+    ids, mask = enc.inputs(batch)
+    enc.pooled(ids, mask, "mean")
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            enc.pooled(ids, mask, "mean")
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / calls
+    del enc
+    free_cuda_memory()
+    if busy == 0:
+        return dict(device_ms="not measured")
+    return dict(batch=list(ids.shape), device_ms_per_call=busy,
+                top=[dict(kernel=e.key[:90],
+                          ms_per_call=e.self_device_time_total / 1e3
+                          / calls) for e in events[:12]])
+
+
+def phase_embed(rng) -> dict:
+    """Phase 9 (see the module docstring): parts (a), (b) and (c)."""
+    t = time.perf_counter()
+    bert = {name: embed_bert(rng, name, dims) for name, dims in (
+        ("arctic-embed-m-v1.5", ARCTIC_EMBED_M),
+        ("arctic-embed-l", ARCTIC_EMBED_L))}
+    log(f"[embed] (a) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    causal = embed_causal(rng)
+    log(f"[embed] (b) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="embed_phase_") as workdir:
+        fleet = embed_fleet(workdir)
+    log(f"[embed] (c) {time.perf_counter() - t:.1f} s")
+    return dict(bert=bert, causal=causal, fleet=fleet,
+                launches=causal["launch_counts"])
+
+
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -4119,6 +4545,19 @@ def main() -> int:
         # before it).
         for key in SERVE_TRACE_KERNELS:
             kernels[key]["launches_serve"] = served["launches"][key]
+    if "embed" in phases:
+        log("[embed] LLM.encode on BERT (arctic-embed-m-v1.5 and -l widths) "
+            "and on Llama-3.1-8B fp8; the embedding fleet (1 and 2 "
+            "BERT-base replicas)")
+        embedded = phase_embed(rng)
+        # This slice's path: the causal encode's launches (the counts set
+        # to 0 just before it).
+        for key in ("ragged_paged_attention_kernel", "fp8_matmul_kernel"):
+            kernels[key]["launches_embed"] = embedded["launches"][key]
+    if "embed" in phases:
+        log("[profile] one BERT-base batch (64 x 512) under torch.profiler")
+        log("  profile bert " + json.dumps(dict(profile_bert(),
+                                                card=smi())))
     if "generate" in phases:
         log("[profile] shorter bf16 and fp8 runs and the drafter chains "
             "under torch.profiler")

@@ -251,19 +251,61 @@ def test_cuda_default_never_falls_back_to_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("entry", ["load_model", "LLM", "LLM swiftkv",
-                                   "OpenAIServer", "serve"])
-def test_entry_points_run_on_the_card_by_default(entry, tmp_path):
+@pytest.mark.parametrize("entry", [
+    "load_model", "LLM", "LLM swiftkv", "OpenAIServer", "serve",
+    "EncoderRunner", "LLM bert", "replica", "manager",
+    "embedding_bench --local"])
+def test_entry_points_run_on_the_card_by_default(entry, tmp_path,
+                                                  monkeypatch):
     """Without ``device`` the model goes to cuda:0; with no card that
     raises rather than running on the CPU.  SwiftKV's engine too, and the
     OpenAI server, in-process and through ``serve`` without
-    ``--device``."""
+    ``--device``; the BERT encoder runner (directly and under ``LLM``),
+    an embedding replica and the replicas a manager spawns (both without
+    ``--device``), and the embedding bench's ``--local`` run."""
+    import json
+
+    from arcticinference_tpu_torch.benchmarks import embedding_bench
+    from arcticinference_tpu_torch.embedding import (replica,
+                                                     replica_manager,
+                                                     transport)
+    from arcticinference_tpu_torch.engine.encoder import EncoderRunner
     from arcticinference_tpu_torch.serving import openai_server
 
+    embed = ("EncoderRunner", "LLM bert", "replica", "manager",
+             "embedding_bench --local")
     d = (config_dict("llama_swiftkv", dict(TINY, num_hidden_layers=4,
                                            num_key_value_layers=2))
-         if entry.endswith("swiftkv") else config_dict(hf=TINY))
+         if entry.endswith("swiftkv") else
+         config_dict("bert", dict(TINY, max_position_embeddings=64))
+         if entry in embed else config_dict(hf=TINY))
     conf = tcfg.EngineConfig.from_dict(d)
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(d))
+    # The encoders built, by device; servers return at once.
+    devices = []
+    init = EncoderRunner.__init__
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        devices.append(self.device)
+
+    monkeypatch.setattr(EncoderRunner, "__init__", recording_init)
+    monkeypatch.setattr(transport.Server, "wait_for_termination",
+                        lambda self, timeout=None: True)
+    monkeypatch.setattr(replica_manager.ReplicaManager, "wait_ready",
+                        lambda self, min_replicas=1: None)
+    for mod in (replica, replica_manager):     # keep pytest's SIGTERM
+        monkeypatch.setattr(mod, "exit_on_sigterm", lambda: None)
+
+    def spawn_in_process(cmd, *a, **kw):
+        # The replica command the manager spawns, run here.
+        assert cmd[1:3] == ["-m", "arcticinference_tpu_torch.embedding."
+                                  "replica"] and "--device" not in cmd
+        replica.main(cmd[3:])
+
+    monkeypatch.setattr(replica_manager.subprocess, "Popen",
+                        spawn_in_process)
 
     def build():
         if entry == "load_model":
@@ -271,10 +313,27 @@ def test_entry_points_run_on_the_card_by_default(entry, tmp_path):
         if entry == "OpenAIServer":
             return openai_server.OpenAIServer(conf).engine.engine.device
         if entry == "serve":
-            path = tmp_path / "cfg.json"
-            path.write_text(__import__("json").dumps(d))
             server, _ = openai_server.make_server(["--config", str(path)])
             return server.engine.engine.device
+        if entry == "LLM bert":
+            return LLM(conf).encoder.device
+        if entry in embed:
+            if entry == "EncoderRunner":
+                EncoderRunner(conf)
+            elif entry == "replica":
+                replica.main(["--port", "0", "--config", str(path)])
+            elif entry == "manager":
+                import socket
+
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    free = sock.getsockname()[1]
+                replica_manager.main(["--port", "0", "--config", str(path),
+                                      "--replica-base-port", str(free)])
+            else:
+                embedding_bench.main(["--local", "--config", str(path),
+                                      "--batch-sizes", "1", "--iters", "1"])
+            return devices[0]
         return LLM(conf).engine.device
 
     if torch.cuda.is_available():

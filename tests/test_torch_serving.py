@@ -608,10 +608,18 @@ runpy.run_module("arcticinference_tpu_torch", run_name="__main__")
 
 
 def test_encoder_architecture_is_refused():
+    """An encoder deployment builds the encoder runner and no engine; the
+    generate routes refuse it with the JAX server's 400 (its
+    /v1/embeddings bodies: ``tests/test_torch_serving_embed.py``)."""
     conf = tcfg.EngineConfig.from_dict(dict(config_dict(hf=TINY), model=dict(
         config_dict(hf=TINY)["model"], model="bert")))
-    with pytest.raises(NotImplementedError, match="encoders item"):
-        OpenAIServer(conf, device="cpu")
+    srv = OpenAIServer(conf, device="cpu")
+    assert srv.engine is None and srv.encoder is not None
+    for route in (srv.completions, srv.chat_completions):
+        resp = asyncio.run(route(None))
+        assert resp.status == 400
+        assert json.loads(resp.body) == {
+            "error": "encoder-only model: use /v1/embeddings"}
 
 
 @pytest.mark.parametrize("flag", [
