@@ -21,6 +21,11 @@ prompts, so prefill never enters them:
 - the corruption curve (each next draft token corrupted with
   probability ``rate`` through ``ARCTIC_TPU_FUSED_CORRUPT_RATE``) and a
   held-out prompt set the drafter never saw;
+- ``spec_transfer``: drafters distilled on the tiny *trained* target and
+  held out on prompts they never saw
+  (``benchmarks/transfer_drafter.py``; the checkpoint and drafters are
+  cached under ``checkpoints/``), on the card only, as the JAX bench
+  runs it on the TPU only;
 - the card's name and power limit (``nvidia-smi``).
 
     python -m arcticinference_tpu_torch.bench [--device cpu]
@@ -43,6 +48,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -229,10 +235,25 @@ def _spec_point(llm, prompts, gen_len, greedy_toks_s) -> dict:
         requests=len(outs))
 
 
-def run_bench(device="cuda", curve_rates=CURVE_RATES) -> dict:
+def spec_transfer(device, ckpt=None, drafter_out=None) -> dict:
+    """The ``spec_transfer`` block: :func:`transfer_drafter.run_transfer`
+    at the JAX script's defaults, on ``ckpt`` (trained there if it holds
+    no checkpoint) and the drafters in ``drafter_out``; by default both
+    cached under the repository's ``checkpoints/``."""
+    from arcticinference_tpu_torch.benchmarks import transfer_drafter
+
+    return transfer_drafter.run_transfer(
+        ckpt or REPO / "checkpoints" / "torch-tiny-markov", drafter_out,
+        device=device)
+
+
+def run_bench(device="cuda", curve_rates=CURVE_RATES,
+              transfer: Optional[bool] = None) -> dict:
     """Every phase; returns the bench's JSON object.  The card runs the
     JAX bench's sizes (batch 64 and 1, spec batch 32, 128-token prompts,
-    128 generated tokens), the CPU its tiny smoke sizes."""
+    128 generated tokens), the CPU its tiny smoke sizes.  ``transfer``
+    adds the ``spec_transfer`` block (:func:`spec_transfer`); None runs
+    it on the card only."""
     from arcticinference_tpu_torch.engine.llm import LLM
     from arcticinference_tpu_torch.engine.request import SamplingParams
     from arcticinference_tpu_torch.ops.cuda.hbm_probe import (
@@ -356,6 +377,10 @@ def run_bench(device="cuda", curve_rates=CURVE_RATES) -> dict:
                                        greedy_cmp)
     free_llm(sllm)
     del sllm
+    if transfer is None:
+        transfer = on_gpu
+    if transfer:
+        spec["spec_transfer"] = spec_transfer(device)
 
     device_ms = step["device_ms"]
     achieved = nbytes / device_ms / 1e6 if device_ms else None

@@ -322,34 +322,56 @@ class LLMEngine:
             out.extend(self._score_batch(batch))
         return out
 
-    def _score_batch(self, batch: list[list[int]]) -> list[np.ndarray]:
-        """One prefill-shaped forward over ``batch`` in borrowed cache
-        blocks (freed afterwards; nothing enters the scheduler)."""
-        runner = self.runner
+    def _borrowed_prefill(self, batch: list[list[int]], run):
+        """Lay ``batch`` out as one prefill step in cache blocks borrowed
+        from the block manager, call ``run`` on its step inputs and free
+        the blocks, also when ``run`` or the borrowing raises (nothing
+        enters the scheduler); returns what ``run`` returns."""
         bm = self.scheduler.block_manager
         reqs = []
         sched = SchedulerOutput()
         try:
             for i, ids in enumerate(batch):
-                req = Request(req_id=f"score-{i}", prompt_token_ids=ids,
+                req = Request(req_id=f"prefill-{i}", prompt_token_ids=ids,
                               sampling=SamplingParams(max_tokens=1))
                 reqs.append(req)
                 bm.grow_to(req.block_ids, len(ids))
                 sched.scheduled.append(ScheduledRequest(req, len(ids), []))
-            si = runner.prepare_inputs(sched)
-            targets = np.full(si.t_pad, -1, np.int32)
-            t = 0
-            spans = []
-            for ids in batch:
-                n = len(ids)
-                targets[t:t + n - 1] = ids[1:]
-                spans.append((t, n - 1))
-                t += n
-            lp = runner.execute_score(si, targets)
+            return run(self.runner.prepare_inputs(sched))
         finally:
             for req in reqs:
                 bm.free(req.block_ids)
+
+    def _score_batch(self, batch: list[list[int]]) -> list[np.ndarray]:
+        """One prefill-shaped forward over ``batch``
+        (:meth:`_borrowed_prefill`)."""
+        spans = []
+        t = 0
+        for ids in batch:
+            spans.append((t, len(ids) - 1))
+            t += len(ids)
+
+        def run(si):
+            targets = np.full(si.t_pad, -1, np.int32)
+            for (a, n), ids in zip(spans, batch):
+                targets[a:a + n] = ids[1:]
+            return self.runner.execute_score(si, targets)
+
+        lp = self._borrowed_prefill(batch, run)
         return [np.asarray(lp[a:a + n], np.float64) for a, n in spans]
+
+    def prompt_logits(self, ids) -> np.ndarray:
+        """The LM head's logits at every position of one prefill of
+        ``ids``, a host float32 array [len(ids), vocab] (the quality
+        gate's KL).  Runs in borrowed blocks as :meth:`score`; ``ids``
+        must fit ``max_num_batched_tokens``."""
+        ids = [int(t) for t in ids]
+        budget = self.config.scheduler.max_num_batched_tokens
+        if len(ids) > budget:
+            raise ValueError(f"prompt of {len(ids)} tokens exceeds "
+                             f"max_num_batched_tokens={budget}")
+        return self._borrowed_prefill(
+            [ids], lambda si: self.runner.execute_logits(si, len(ids)))
 
     def encode(self, prompt_token_ids, pooling: str = "mean",
                normalize: bool = False) -> list[np.ndarray]:
@@ -384,22 +406,9 @@ class LLMEngine:
 
     def _encode_batch(self, batch: list[list[int]], pooling: str,
                       normalize: bool) -> list[np.ndarray]:
-        bm = self.scheduler.block_manager
-        reqs = []
-        sched = SchedulerOutput()
-        try:
-            for i, ids in enumerate(batch):
-                req = Request(req_id=f"emb-{i}", prompt_token_ids=ids,
-                              sampling=SamplingParams(max_tokens=1))
-                reqs.append(req)
-                bm.grow_to(req.block_ids, len(ids))
-                sched.scheduled.append(ScheduledRequest(req, len(ids), []))
-            pooled = self.runner.execute_encode(
-                self.runner.prepare_inputs(sched), pooling=pooling,
-                normalize=normalize)
-        finally:
-            for req in reqs:
-                bm.free(req.block_ids)
+        pooled = self._borrowed_prefill(
+            batch, lambda si: self.runner.execute_encode(
+                si, pooling=pooling, normalize=normalize))
         return [pooled[i] for i in range(len(batch))]
 
     # ------------------------------------------------------------------ #

@@ -20,6 +20,7 @@ engine at the end.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Sequence, Union
@@ -27,6 +28,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from arcticinference_tpu_torch.byte_tokenizer import (ByteLevelTokenizer,
+                                                      is_byte_level)
 from arcticinference_tpu_torch.config import EngineConfig
 from arcticinference_tpu_torch.engine.engine import LLMEngine
 from arcticinference_tpu_torch.engine.request import Request, SamplingParams
@@ -62,15 +65,27 @@ def fp8_kv_scales(kv: torch.Tensor, old_scale: torch.Tensor,
 
 
 def load_tokenizer(config: EngineConfig):
-    """The checkpoint's Hugging Face tokenizer, or None when the model
-    directory ships no tokenizer files (requests then carry token ids).
-    Tokenizer files without ``transformers`` installed raise: the port has
-    no tokenizer of its own, and silently serving without one would turn
-    every text request into an error later."""
+    """The checkpoint's tokenizer, or None when the model directory ships
+    no tokenizer files (requests then carry token ids).
+
+    A ``tokenizer.json`` of the byte-level form (``byte_tokenizer.
+    is_byte_level``: the tiny trained checkpoint's) is read by the port's
+    :class:`ByteLevelTokenizer`, whether ``transformers`` is installed or
+    not.  Any other tokenizer file is Hugging Face's to read; without
+    ``transformers`` installed it raises, since silently serving without
+    a tokenizer would turn every text request into an error later."""
     path = Path(config.model.tokenizer or config.model.model)
+    tok_json = path / "tokenizer.json"
     if not (path / "tokenizer_config.json").exists() and \
-            not (path / "tokenizer.json").exists():
+            not tok_json.exists():
         return None
+    if tok_json.exists():
+        try:
+            doc = json.loads(tok_json.read_text(encoding="utf-8"))
+        except (json.JSONDecodeError, UnicodeDecodeError):
+            doc = None
+        if is_byte_level(doc):
+            return ByteLevelTokenizer()
     try:
         from transformers import AutoTokenizer
     except ImportError as e:

@@ -621,6 +621,23 @@ class ModelRunner:
             .view(np.float32)
         return tokens[:s], tokens[s:2 * s], rows, topk, logp
 
+    def prefill_hidden(self, inputs: dict, attn_qb: int) -> torch.Tensor:
+        """The forward over uploaded prefill ``inputs`` (:meth:`upload`):
+        writes the prompts' K/V into the live cache, in the blocks the
+        caller lent them, and returns the hidden rows (after the final
+        norm) on the device."""
+        inputs = dict(inputs, kv_scale=self.kv_scale)
+        attn = self.module.make_attn_impl(attn_qb)
+        self.kv, h = self.module.forward(self.params, self.arch, self.kv,
+                                         inputs, attn_impl=attn)
+        return h
+
+    def _every_row(self, what: str) -> None:
+        if self.returns_rows:
+            raise NotImplementedError(
+                f"{what} needs every row's hidden state; a SwiftKV model's "
+                "forward returns only the sample rows")
+
     @torch.inference_mode()
     def pooled(self, inputs: dict, attn_qb: int, pooling: str = "mean",
                normalize: bool = False) -> torch.Tensor:
@@ -629,12 +646,8 @@ class ModelRunner:
         is read back.  ``mean`` sums each request's rows by ``req_idx``
         (padding rows, ``req_idx < 0``, into one extra segment that is
         dropped), ``last`` takes each request's sample row.  The
-        forward writes the prompts' K/V into the live cache, in the
-        blocks the caller lent them."""
-        inputs = dict(inputs, kv_scale=self.kv_scale)
-        attn = self.module.make_attn_impl(attn_qb)
-        self.kv, h = self.module.forward(self.params, self.arch, self.kv,
-                                         inputs, attn_impl=attn)
+        forward is :meth:`prefill_hidden`."""
+        h = self.prefill_hidden(inputs, attn_qb)
         if pooling not in ("mean", "last"):
             raise ValueError(f"unknown pooling {pooling!r}")
         hf = h.float()
@@ -686,15 +699,9 @@ class ModelRunner:
         float32 array [t_pad]; rows with target < 0 hold values the
         caller ignores.  Counterpart of the JAX runner's
         ``execute_score``."""
-        if self.returns_rows:
-            raise NotImplementedError(
-                "scoring needs every row's hidden state; a SwiftKV model's "
-                "forward returns only the sample rows")
-        inputs = dict(self.upload(step_inputs.arrays),
-                      kv_scale=self.kv_scale)
-        attn = self.module.make_attn_impl(step_inputs.attn_qb)
-        self.kv, h = self.module.forward(self.params, self.arch, self.kv,
-                                         inputs, attn_impl=attn)
+        self._every_row("scoring")
+        h = self.prefill_hidden(self.upload(step_inputs.arrays),
+                                step_inputs.attn_qb)
         tgt = torch.from_numpy(np.asarray(targets, np.int64)).to(h.device)
         out = torch.empty(h.shape[0], dtype=torch.float32, device=h.device)
         for a in range(0, h.shape[0], self.SCORE_CHUNK):
@@ -704,3 +711,14 @@ class ModelRunner:
             out[a:b] = (logits.gather(1, t[:, None])[:, 0]
                         - torch.logsumexp(logits, dim=-1))
         return out.cpu().numpy()
+
+    @torch.inference_mode()
+    def execute_logits(self, step_inputs: StepInputs,
+                       rows: int) -> np.ndarray:
+        """The LM head's logits of a prefill step's first ``rows`` rows,
+        as a host float32 array [rows, vocab]."""
+        self._every_row("full logits")
+        h = self.prefill_hidden(self.upload(step_inputs.arrays),
+                                step_inputs.attn_qb)
+        return self.module.compute_logits(
+            self.params, h[:rows]).float().cpu().numpy()

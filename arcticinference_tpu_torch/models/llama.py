@@ -520,7 +520,7 @@ def load_hf_state(arch: LlamaArch, tensors: dict[str, torch.Tensor],
         elif name == "model.norm.weight":
             params["final_norm"] = put(arr)
         elif name == "lm_head.weight":
-            params["lm_head"] = put(arr.t())
+            params["lm_head"] = put(arr.t().contiguous())
         elif name.startswith("model.layers."):
             idx_s, _, leaf = name[len("model.layers."):].partition(".")
             layer = int(idx_s)

@@ -234,6 +234,40 @@ Phases, each reported on its own lines:
              one answered INVALID_ARGUMENT, the good one answered), and a
              run during which one replica of the 2-replica fleet is
              killed: every request is answered.
+10. quality: the tiny trained checkpoint (``benchmarks/tiny_markov.py``:
+             2 layers, hidden 128, 2 q heads of 64 over 1 kv head, a
+             256-byte vocabulary), trained here for QUALITY_TRAIN_STEPS
+             (300, the JAX gate's) Adam steps on the Markov corpus
+             (seconds and losses logged).  (b) The quality
+             gate (``benchmarks/quality_gate.py``): held-out perplexity
+             through ``LLM.score`` (6 x 256 tokens, 32-token pages) in
+             bf16, fp8, int8, int4 and fp8 weights over an fp8 KV cache,
+             each also through the plain versions on the same engine
+             (within PLAIN_PPL_TOL), with the JAX gate's bounds (bf16 <
+             2.5; fp8, int8 < 1.02x; int4 < 1.06x; fp8 KV < 1.03x) and
+             the logit KL of fp8 / int8 / int4 against bf16 over a
+             256-token prefill (< 0.05, 0.05, 0.20); kernel 1 must launch
+             in every run, kernel 5 in the fp8 / int8 / fp8-KV runs,
+             kernel 6 in the int4 run, no quantized kernel in bf16, and
+             the fp8-KV run's pages must be fp8.  (c) The accuracy matrix
+             (``benchmarks/accuracy_harness.py``): the JAX accuracy
+             test's tasks over bf16, fp8 and int8 ``LocalClient``s with
+             its bars (kernels 1 and 2, and 5 when quantized, launched in
+             each), and ``HTTPClient`` against ``python -m
+             arcticinference_tpu_torch serve`` on bf16 (echo logprob
+             within 5e-2 of local, 4 generated tokens).  (d) The bench's
+             ``spec_transfer`` block (``bench.spec_transfer``, the
+             transfer drafter at the JAX script's defaults) on this
+             checkpoint: MLP and LSTM held-out acceptance > 0.3, MLP
+             tokens per step > 1.5, held-out tokens equal to the greedy
+             comparator's.  (f) Kernels 1 and 2 at the checkpoint's
+             attention (bf16 and fp8 pages: the gate's 2 x 256 score
+             batch and the transfer's 16 x 64 prefill at qb 32; decode
+             B=16 at qlen 1 and 4, B=1; the qlen-4 rows bit for bit
+             against qlen-1 launches) and kernels 5 and 6 at its weights
+             (fp8, int8, int4 at 16 and 256 rows) against their plain
+             versions.  Phase 6's bench skips ``spec_transfer``: this
+             phase runs it.
 Last, one BERT-base device batch of phase 9 (64 x 512 tokens), a
 shorter bf16 and fp8 run of phase 5, the drafter chains and the bench's
 device step (its CUDA graph) under ``torch.profiler``, each on an engine
@@ -316,7 +350,7 @@ REL_TOL = 1e-3
 Q_STD = 5.0
 
 PHASES = ("device", "build", "kernels", "forward", "generate", "bench",
-          "pipeline", "serve", "embed")
+          "pipeline", "serve", "embed", "quality")
 # Corruption rates of phase 6's curve (the bench's own sweep is 0.12, 0.3,
 # 0.6, 1.0; two points keep the script within its time).
 BENCH_CURVE_RATES = (0.3, 1.0)
@@ -846,14 +880,16 @@ def host_time_us(fn, calls: int = 20) -> float:
 class Case:
     """One attention call: requests (ctx, qlen) on a random cache of
     ``layers`` layers (32 by default) and at least ``n_blocks`` pages,
-    with scattered page ids; everything on the card."""
+    with scattered page ids, ``hq`` q heads over ``hkv`` kv heads of
+    ``d``; everything on the card."""
 
     def __init__(self, name, reqs, kv_dtype, rng, t_pad=None, slot_rows=0,
-                 layer=17, layers=None, n_blocks=None, hq=HQ, hkv=HKV):
+                 layer=17, layers=None, n_blocks=None, hq=HQ, hkv=HKV,
+                 d=D):
         import torch
 
         self.name, self.reqs, self.layer = name, reqs, layer
-        self.hq, self.hkv = hq, hkv
+        self.hq, self.hkv, self.d = hq, hkv, d
         b = len(reqs)
         pages = [-(-(c + q) // BS) if q > 0 else 0 for c, q in reqs]
         n_blocks = max(n_blocks or 0, sum(pages) + 1)
@@ -866,7 +902,7 @@ class Case:
             off += n
         dev = "cuda"
         layers = layers or LAYERS
-        kv = torch.randn((layers, n_blocks, 2, BS, hkv * D), device=dev,
+        kv = torch.randn((layers, n_blocks, 2, BS, hkv * d), device=dev,
                          dtype=torch.bfloat16) * 0.5
         self.kv = kv.to(kv_dtype)
         del kv
@@ -894,7 +930,7 @@ class Case:
         self.req_idx = torch.from_numpy(req).to(dev)
         self.block_tables = torch.from_numpy(bt).to(dev)
         self.seq_lens = torch.from_numpy(seq).to(dev)
-        self.q = torch.randn((t, hq, D), device=dev,
+        self.q = torch.randn((t, hq, d), device=dev,
                              dtype=torch.bfloat16) * Q_STD
 
     def schedule_np(self, qb):
@@ -927,9 +963,9 @@ class Case:
         slots each row attends."""
         kv_elem = self.kv.element_size()
         live = self.req_np >= 0
-        kv_bytes = int(self.seq_np.sum()) * 2 * self.hkv * D * kv_elem
-        io_bytes = (int(live.sum()) + self.t) * self.hq * D * 2
-        flops = 4.0 * D * self.hq * float(self.attended(live).sum())
+        kv_bytes = int(self.seq_np.sum()) * 2 * self.hkv * self.d * kv_elem
+        io_bytes = (int(live.sum()) + self.t) * self.hq * self.d * 2
+        flops = 4.0 * self.d * self.hq * float(self.attended(live).sum())
         t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S
         t_flops = flops / BF16_FLOP_PER_S
         by = "bytes" if t_bytes >= t_flops else "operations"
@@ -962,9 +998,9 @@ class Case:
         for ql, rs in groups.items():
             n = len(rs)
             s_max = max(self.reqs[r][0] + ql for r in rs)
-            qd = torch.empty((n, hkv, ql * g, D), device="cuda",
+            qd = torch.empty((n, hkv, ql * g, self.d), device="cuda",
                              dtype=torch.bfloat16)
-            kd = torch.zeros((n, hkv, s_max, D), device="cuda",
+            kd = torch.zeros((n, hkv, s_max, self.d), device="cuda",
                              dtype=torch.bfloat16)
             vd = torch.zeros_like(kd)
             mask = torch.zeros((n, 1, ql * g, s_max), device="cuda",
@@ -973,15 +1009,16 @@ class Case:
                 c = self.reqs[r][0]
                 s = c + ql
                 pg = self.block_tables[r, :-(-s // BS)].long()
-                kd[i, :, :s] = (kv_l[pg, 0].reshape(-1, hkv, D)[:s]
+                kd[i, :, :s] = (kv_l[pg, 0].reshape(-1, hkv, self.d)[:s]
                                 * ks[0]).transpose(0, 1)
-                vd[i, :, :s] = (kv_l[pg, 1].reshape(-1, hkv, D)[:s]
+                vd[i, :, :s] = (kv_l[pg, 1].reshape(-1, hkv, self.d)[:s]
                                 * ks[1]).transpose(0, 1)
                 rows_np = np.nonzero(self.req_np == r)[0]
                 rows = torch.from_numpy(rows_np)
                 # [ql, Hq, D] -> [Hkv, ql * g, D]: row = token * g + head.
-                qd[i] = self.q[rows.cuda()].view(ql, hkv, g, D).transpose(
-                    0, 1).reshape(hkv, ql * g, D)
+                qd[i] = self.q[rows.cuda()].view(
+                    ql, hkv, g, self.d).transpose(0, 1).reshape(
+                    hkv, ql * g, self.d)
                 mask[i, 0] = torch.from_numpy(self.allowed(
                     rows_np, s_max)).cuda().repeat_interleave(g, dim=0)
             calls.append((qd, kd, vd, mask))
@@ -2647,7 +2684,10 @@ def phase_bench() -> dict:
 
     reset_counts()
     t0 = time.perf_counter()
-    out = bench.run_bench("cuda", curve_rates=BENCH_CURVE_RATES)
+    # The bench's spec_transfer block runs in phase 10, through the same
+    # function (bench.spec_transfer), on the checkpoint trained there.
+    out = bench.run_bench("cuda", curve_rates=BENCH_CURVE_RATES,
+                          transfer=False)
     wall = time.perf_counter() - t0
     bench_launches = launch_counts()
     # The bench's JSON object, on a line of its own.
@@ -4256,6 +4296,334 @@ def profile_generate(llm, rng, vocab) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# --------------------------------------------------------------------- #
+# Phase 10: the tiny trained checkpoint, the quality gate, the accuracy
+# matrix and the drafter transfer
+# --------------------------------------------------------------------- #
+
+# The checkpoint's training steps: the JAX gate's 300 (its transfer script
+# trains 500; held-out perplexity rises past ~300 on this small corpus).
+QUALITY_TRAIN_STEPS = 300
+# Its attention (benchmarks/tiny_markov.py): 2 q heads of 64 over 1 kv
+# head, 2 layers.
+TINY_HQ, TINY_HKV, TINY_D, TINY_LAYERS = 2, 1, 64, 2
+# Its weights as the port fuses them (name, K, N, parts, float32 out).
+TINY_MATMUL_SHAPES = (("wqkv", 128, 256, (128, 64, 64), False),
+                      ("wo", 128, 128, None, False),
+                      ("w_gateup", 128, 512, (256, 256), False),
+                      ("w_down", 256, 128, None, False),
+                      ("lm_head", 128, 256, None, True))
+# Rows: a decode step of the 16-sequence batch, a 256-token score chunk.
+TINY_MATMUL_ROWS = (16, 256)
+# Each precision's perplexity through the kernels against the plain
+# versions on the same engine (relative): the card read at most 3.8e-5,
+# and the least effect of a quantization on it is fp8's 3.2e-4.
+PLAIN_PPL_TOL = 2e-4
+# The JAX slow test's transfer bars (tests/test_bench_smoke.py).
+TRANSFER_ACCEPTANCE = 0.3
+TRANSFER_TOKENS_PER_STEP = 1.5
+# |HTTP echo logprob - local| (tests/benchmarks/test_accuracy.py).
+ECHO_TOL = 5e-2
+
+
+def phase_quality_kernels(rng, seed):
+    """Kernels 1 and 2 at the checkpoint's attention (Hq=2, Hkv=1, D=64,
+    a 2-layer cache, bf16 and fp8 pages) and kernels 5 and 6 at its
+    weights (fp8, int8, int4; 16 and 256 rows) against their plain
+    versions.  Kernel 1: the gate's score batch (2 x 256 tokens) and the
+    transfer's prefill (16 x 64) at qb 32; kernel 2: the transfer's
+    decode (B=16, qlen 1) and verify (qlen 4) steps at contexts 64-200,
+    the matrix's one-sequence decode, and the qlen-4 rows bit for bit
+    against qlen-1 launches.  Returns (ragged, grouped, invariance,
+    fp8 and int8, int4) cases."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.attention import (
+        ragged_paged_attention_reference)
+    from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import int4_matmul as im
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+
+    dims = dict(hq=TINY_HQ, hkv=TINY_HKV, d=TINY_D, layers=TINY_LAYERS,
+                layer=1)
+    ragged, grouped, invariance = [], [], []
+    for kv_dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        dt = "bf16" if kv_dtype == torch.bfloat16 else "fp8"
+        for name, reqs, t_pad in (
+                (f"tiny score 2x256 {dt} qb=32", [(0, 256)] * 2, 512),
+                (f"tiny prefill 16x64 {dt} qb=32", [(0, 64)] * 16, 1024)):
+            case = Case(name, reqs, kv_dtype, rng, t_pad=t_pad, **dims)
+            sched = case.schedule(32)
+
+            def kern(case=case, sched=sched):
+                return ra.ragged_paged_attention_kernel(
+                    case.q, case.kv, case.positions, case.req_idx,
+                    case.block_tables, case.seq_lens, qb=32,
+                    schedule=sched, kv_scale=case.kv_scale,
+                    layer=case.layer)
+
+            def plain(case=case):
+                return ragged_paged_attention_reference(
+                    case.q, case.kv[case.layer], case.positions,
+                    case.req_idx, case.block_tables, case.seq_lens,
+                    kv_scale=case.kv_scale[case.layer])
+
+            ragged.append(run_case(case, kern, plain))
+        for name, b, qlen in ((f"tiny decode B=16 qlen=1 {dt}", 16, 1),
+                              (f"tiny decode B=16 qlen=4 {dt}", 16, 4),
+                              (f"tiny decode B=1 qlen=1 {dt}", 1, 1)):
+            ctx = rng.integers(64, 200, b) if b > 1 else [12]
+            reqs = [(int(c), qlen) for c in ctx]
+            case = Case(name, reqs, kv_dtype, rng, t_pad=b * qlen,
+                        slot_rows=qlen, **dims)
+            pos_base, kern, plain = decode_step(case, qlen)
+            grouped.append(run_case(case, kern, plain))
+            if qlen > 1:
+                invariance.append(row_invariance(case, qlen, pos_base))
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fp8_cases, int4_cases = [], []
+    for mode, kernel, plain, cases in (
+            ("fp8", fm.fp8_matmul_kernel, fm.fp8_matmul_reference,
+             fp8_cases),
+            ("int8", fm.fp8_matmul_kernel, fm.fp8_matmul_reference,
+             fp8_cases),
+            ("int4", im.int4_matmul_kernel, im.int4_matmul_reference,
+             int4_cases)):
+        for name, k, n, parts, f32 in TINY_MATMUL_SHAPES:
+            q = quantized_weight(mode, k, n, parts, gen)
+            for m in TINY_MATMUL_ROWS:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                cases.append(run_matmul_case(
+                    f"{mode} tiny {name} [{k},{n}] M={m}", q, x,
+                    torch.float32 if f32 else torch.bfloat16, kernel,
+                    plain))
+    failed = [c["case"] for c in ragged + grouped + invariance + fp8_cases
+              + int4_cases if not c["ok"]]
+    if failed:
+        raise AssertionError(f"kernel disagrees with plain version at the "
+                             f"tiny checkpoint's shapes: {failed}")
+    return ragged, grouped, invariance, fp8_cases, int4_cases
+
+
+def quality_gate(ckpt, heldout) -> dict:
+    """Phase 10 (b): held-out perplexity of each precision through
+    ``LLM.score`` (the launch counts set to 0 just before it and read
+    just after), then through the plain versions on the same engine, and
+    the KL of each quantized precision's prefill logits against bf16."""
+    import torch
+
+    from arcticinference_tpu_torch.benchmarks import quality_gate as qg
+    from arcticinference_tpu_torch.benchmarks.distill_drafter import (
+        free_llm)
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.models import llama
+
+    seqs = qg.heldout_sequences(heldout)
+    kl_ids = heldout[:qg.KL_TOKENS]
+    ppls, plain, launches, logits, kv_dtypes = {}, {}, {}, {}, {}
+    for name, quant, kv in qg.PRECISIONS:
+        llm = LLM(qg.engine_config(str(ckpt), quant, kv), device="cuda")
+        reset_counts()
+        ppls[name] = qg.perplexity(llm, seqs)
+        if kv == "auto":
+            logits[name] = llm.engine.prompt_logits(kl_ids)
+        torch.cuda.synchronize()
+        launches[name] = launch_counts()
+        kv_dtypes[name] = str(llm.engine.runner.kv.dtype)
+        with plain_route(llama):
+            plain[name] = qg.perplexity(llm, seqs)
+        free_llm(llm)
+        log(f"  gate {name}: perplexity {ppls[name]:.6f} (plain versions "
+            f"{plain[name]:.6f}), kv {kv_dtypes[name]}, launches "
+            f"{json.dumps(launches[name])}")
+    kls = {name: qg.kl(logits["bf16"], logits[name])
+           for name in qg.KL_BOUNDS}
+    res = dict(ppl=ppls, ppl_plain=plain,
+               ratio={n: ppls[n] / ppls["bf16"] for n in ppls},
+               kl=kls, kv_dtype=kv_dtypes, launches=launches)
+    problems = qg.failures(ppls, kls)
+    for name in ppls:
+        if not abs(ppls[name] / plain[name] - 1) < PLAIN_PPL_TOL:
+            problems.append(f"{name} perplexity {ppls[name]} against "
+                            f"{plain[name]} through the plain versions")
+    for name, quant, kv in qg.PRECISIONS:
+        n = launches[name]
+        if n["ragged_paged_attention_kernel"] == 0:
+            problems.append(f"{name}: kernel 1 never launched")
+        want = {None: None, "fp8": "fp8_matmul_kernel",
+                "int8": "fp8_matmul_kernel",
+                "int4": "int4_matmul_kernel"}[quant]
+        if want and n[want] == 0:
+            problems.append(f"{name}: {want} never launched")
+        if quant is None and (n["fp8_matmul_kernel"]
+                              or n["int4_matmul_kernel"]):
+            problems.append(f"{name}: a quantized matmul launched")
+        if (kv == "fp8") != (kv_dtypes[name] == str(torch.float8_e4m3fn)):
+            problems.append(f"{name}: kv cache in {kv_dtypes[name]}")
+    log("  gate " + json.dumps(dict(res, card=smi())))
+    if problems:
+        raise AssertionError(f"quality gate failed: {problems}")
+    return res
+
+
+def accuracy_matrix(ckpt, heldout, workdir) -> dict:
+    """Phase 10 (c): the JAX accuracy test's tasks (rng 5) over bf16, fp8
+    and int8 ``LocalClient``s, each client's launches counted around its
+    suite; then ``HTTPClient`` against the port's server (a subprocess on
+    the bf16 config): echo scoring against the local client's, and a
+    4-token generation."""
+    import urllib.request
+
+    from arcticinference_tpu_torch.benchmarks import accuracy_harness as ah
+    from arcticinference_tpu_torch.benchmarks import quality_gate as qg
+    from arcticinference_tpu_torch.benchmarks.distill_drafter import (
+        free_llm)
+    from arcticinference_tpu_torch.engine.llm import LLM
+
+    tasks = ah.markov_tasks(heldout, np.random.default_rng(5))
+    rows, launches, seconds = [], {}, {}
+    for name, quant in (("bf16", None), ("fp8", "fp8"), ("int8", "int8")):
+        llm = LLM(qg.engine_config(str(ckpt), quant), device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        rows += ah.run_suite({name: ah.LocalClient(llm)}, tasks)
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = launch_counts()
+        if name == "bf16":
+            local = ah.LocalClient(llm)
+            prompt = [int(t) for t in heldout[:12]]
+            cont = [int(t) for t in heldout[12:16]]
+            local_lp = local.continuation_logprob(prompt, cont)
+            local_toks, _ = local.generate(prompt, 4)
+        free_llm(llm)
+    rows.sort(key=lambda r: (r["config"], r["task"]))
+    problems = ah.matrix_failures(rows)
+    for name, n in launches.items():
+        for key in ("ragged_paged_attention_kernel",
+                    "grouped_decode_attention_kernel") + (
+                        ("fp8_matmul_kernel",) if name != "bf16" else ()):
+            if n[key] == 0:
+                problems.append(f"matrix {name}: {key} never launched")
+
+    cfg_path = Path(workdir) / "bf16.json"
+    cfg = qg.engine_config(str(ckpt))
+    cfg_path.write_text(json.dumps(dict(
+        model=dict(model=cfg.model.model, max_model_len=2048),
+        cache=dict(block_size=cfg.cache.block_size, num_blocks=256),
+        scheduler=dict(max_num_seqs=8, max_num_batched_tokens=512))))
+    port = free_port()
+    log_path = Path(workdir) / "server.log"
+    proc = start_process([sys.executable, "-m", "arcticinference_tpu_torch",
+                          "serve", "--config", str(cfg_path), "--port",
+                          str(port), "--host", "127.0.0.1"], log_path)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"server exited: "
+                                     f"{log_path.read_text()[-3000:]}")
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=2):
+                    break
+            except OSError:
+                if time.perf_counter() - t0 > 120:
+                    raise
+                time.sleep(0.5)
+        http = ah.HTTPClient(url)
+        http_lp = http.continuation_logprob(prompt, cont)
+        http_toks, http_text = http.generate(prompt, 4)
+    finally:
+        stop_process(proc, 30)
+    echo = dict(http=http_lp, local=local_lp, diff=abs(http_lp - local_lp),
+                http_tokens=http_toks, local_tokens=local_toks,
+                http_text=http_text)
+    if not echo["diff"] < ECHO_TOL:
+        problems.append(f"HTTP echo logprob {http_lp} against local "
+                        f"{local_lp}")
+    if len(http_toks) != 4:
+        problems.append(f"HTTP generated {len(http_toks)} tokens, not 4")
+    res = dict(rows=rows, launches=launches, seconds=seconds, http=echo)
+    log("  matrix " + json.dumps(dict(res, card=smi())))
+    if problems:
+        raise AssertionError(f"accuracy matrix failed: {problems}")
+    return res
+
+
+def transfer(ckpt, workdir) -> dict:
+    """Phase 10 (d): the bench's ``spec_transfer`` block
+    (``bench.spec_transfer``: ``benchmarks/transfer_drafter.py`` at the
+    JAX script's defaults) on the phase's checkpoint, the launch counts
+    set to 0 just before it and read just after, gated on the JAX slow
+    test's bars and on the held-out tokens equalling greedy."""
+    from arcticinference_tpu_torch import bench
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = bench.spec_transfer("cuda", ckpt=ckpt,
+                              drafter_out=Path(workdir) / "drafter")
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    log("  spec_transfer " + json.dumps(dict(out, seconds=seconds,
+                                             card=smi())))
+    problems = []
+    for kind, block in (("mlp", out), ("lstm", out["lstm"])):
+        if block["drafter_kind"] != kind:
+            problems.append(f"{kind}: drafter kind {block['drafter_kind']}")
+        if not block["transfer_acceptance"] > TRANSFER_ACCEPTANCE:
+            problems.append(f"{kind} held-out acceptance "
+                            f"{block['transfer_acceptance']}")
+        if block["tokens_match_greedy"] is not True:
+            problems.append(f"{kind}: held-out tokens differ from greedy")
+    if not out["transfer_tokens_per_step"] > TRANSFER_TOKENS_PER_STEP:
+        problems.append(f"mlp tokens per step "
+                        f"{out['transfer_tokens_per_step']}")
+    for key in ("ragged_paged_attention_kernel",
+                "grouped_decode_attention_kernel"):
+        if launches[key] == 0:
+            problems.append(f"the transfer never launched {key}")
+    if problems:
+        raise AssertionError(f"drafter transfer failed: {problems}")
+    return dict(out, seconds=seconds, launches=launches)
+
+
+def phase_quality(rng, seed) -> dict:
+    """Phase 10: train the tiny checkpoint on the card, then the gate,
+    the matrix and the transfer on it (each run's launches counted), then
+    kernels 1, 2, 5 and 6 at its shapes against their plain versions."""
+    import torch
+
+    from arcticinference_tpu_torch.benchmarks import tiny_markov as tm
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="quality_phase_") as workdir:
+        ckpt = Path(workdir) / "tiny-markov"
+        t0 = time.perf_counter()
+        _, heldout = tm.train_tiny_checkpoint(
+            ckpt, steps=QUALITY_TRAIN_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        train = dict(tm.read_train_metrics(ckpt),
+                     wall_s=time.perf_counter() - t0)
+        log(f"[quality] (a) trained the tiny checkpoint: "
+            f"{json.dumps(train)}")
+        log("[quality] (b) the perplexity gate and logit KL")
+        gate = quality_gate(ckpt, heldout)
+        log("[quality] (c) the accuracy matrix (bf16, fp8, int8) and the "
+            "server's echo")
+        matrix = accuracy_matrix(ckpt, heldout, workdir)
+        log("[quality] (d) the drafter transfer (spec_transfer)")
+        xfer = transfer(ckpt, workdir)
+        free_cuda_memory()
+    log("[quality] (f) kernels 1, 2, 5 and 6 at the checkpoint's shapes")
+    cases = phase_quality_kernels(rng, seed)
+    seconds = time.perf_counter() - t_phase
+    log(f"[quality] phase took {seconds:.1f} s")
+    return dict(train=train, gate=gate, matrix=matrix, transfer=xfer,
+                cases=cases, seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4554,6 +4922,44 @@ def main() -> int:
         # to 0 just before it).
         for key in ("ragged_paged_attention_kernel", "fp8_matmul_kernel"):
             kernels[key]["launches_embed"] = embedded["launches"][key]
+    if "quality" in phases:
+        log("[quality] the tiny trained checkpoint (2 layers, hidden 128, 2 "
+            "q heads of 64 over 1): trained here, the quality gate, the "
+            "accuracy matrix, the drafter transfer; kernels 1, 2, 5 and 6 "
+            "at its shapes")
+        quality = phase_quality(rng, args.seed)
+        ragged_q, grouped_q, invariance_q, fp8_q, int4_q = quality["cases"]
+        runs = dict(quality["gate"]["launches"])
+        runs.update({f"matrix {k}": v
+                     for k, v in quality["matrix"]["launches"].items()})
+        runs["transfer"] = quality["transfer"]["launches"]
+        for key, cases, rep_name in (
+                ("ragged_paged_attention_kernel", ragged_q,
+                 "tiny score 2x256 bf16 qb=32"),
+                ("grouped_decode_attention_kernel", grouped_q,
+                 "tiny decode B=16 qlen=1 bf16"),
+                ("fp8_matmul_kernel", fp8_q,
+                 "fp8 tiny w_gateup [128,512] M=16"),
+                ("int4_matmul_kernel", int4_q,
+                 "int4 tiny w_gateup [128,512] M=16")):
+            entry = kernels[key]
+            rep = next(c for c in cases if c["case"] == rep_name)
+            # Without the kernels phase, this phase's case is the row's.
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms"):
+                entry.setdefault(k, rep[k])
+            entry["max_abs_err"] = max(
+                [entry.get("max_abs_err", 0.0)]
+                + [c["max_abs_err"] for c in cases])
+            entry.setdefault("launches", sum(r[key] for r in runs.values()))
+            entry["launches_quality"] = {run: n[key]
+                                         for run, n in runs.items()}
+            entry["cases_quality"] = [{k: c[k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "rel_err", "host_us")
+                if k in c} for c in cases]
+        kernels["grouped_decode_attention_kernel"][
+            "row_invariance_quality"] = invariance_q
     if "embed" in phases:
         log("[profile] one BERT-base batch (64 x 512) under torch.profiler")
         log("  profile bert " + json.dumps(dict(profile_bert(),

@@ -104,3 +104,29 @@ def test_tokenizer_files_without_transformers_raise(tmp_path, monkeypatch):
     monkeypatch.setitem(__import__("sys").modules, "transformers", None)
     with pytest.raises(RuntimeError, match="transformers package"):
         tllm.load_tokenizer(cfg)
+
+
+@pytest.mark.parametrize("call", ["score", "encode"])
+def test_failed_batch_returns_every_borrowed_block(call):
+    """Two 24-token prompts in one batch against 5 free 8-token blocks:
+    the first borrows 3, the second finds 2 and raises.  The port
+    borrows inside its ``try`` / ``finally``, so the first prompt's
+    blocks come back and the free count is what it was (the JAX engine
+    borrows before its ``try`` and keeps them)."""
+    from arcticinference_tpu_torch.engine.block_manager import (
+        NoFreeBlocksError)
+
+    d = config_dict(hf=TINY)
+    d["cache"] = dict(block_size=8, num_blocks=6)
+    d["scheduler"] = dict(max_num_seqs=4, max_num_batched_tokens=64)
+    with LLM(tcfg.EngineConfig.from_dict(d), device="cpu") as llm:
+        bm = llm.engine.scheduler.block_manager
+        assert bm.num_free_blocks == 5
+        prompts = [list(range(1, 25)), list(range(30, 54))]
+        run = (llm.score if call == "score" else
+               lambda p: llm.encode(prompt_token_ids=p, pooling="last"))
+        with pytest.raises(NoFreeBlocksError):
+            run(prompts)
+        assert bm.num_free_blocks == 5
+        assert len(run(prompts[:1])) == 1      # the engine still serves
+        assert bm.num_free_blocks == 5
