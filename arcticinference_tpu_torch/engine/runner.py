@@ -138,7 +138,10 @@ class ModelRunner:
         # Per-layer [k_scale, v_scale] fp8-KV dequant pairs ride the
         # checkpoint's parameters; they are runner state, not weights.
         loaded_kv_scales = params.pop("kv_scales", None)
-        self.params = module.fuse_params(params)
+        # As the JAX runner: a module without fuse_params (Mixtral) runs
+        # its weights as they are.
+        fuse = getattr(module, "fuse_params", None)
+        self.params = fuse(params) if fuse is not None else params
         # SwiftKV: the second schedule over the sample rows, and forward
         # hands back those rows itself.
         self.swift = bool(getattr(module, "NEEDS_SWIFT_SCHEDULE", False))

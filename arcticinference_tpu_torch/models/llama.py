@@ -330,6 +330,11 @@ def _mlp(x, lp):
     return matmul(h, lp["w_down"])
 
 
+def _dense_mlp_fn(x, lp, arch):
+    """The dense SwiGLU block, :func:`scan_layers`'s default ``mlp_fn``."""
+    return _mlp(x, lp)
+
+
 def forward(params: dict, arch: LlamaArch, kv: torch.Tensor,
             inputs: dict[str, torch.Tensor],
             attn_impl=None,
@@ -352,15 +357,19 @@ def forward(params: dict, arch: LlamaArch, kv: torch.Tensor,
 
 def scan_layers(layers: dict, arch: LlamaArch, kv: torch.Tensor,
                 h: torch.Tensor, inputs: dict, attn_impl=None,
-                allow_deferral: bool = True
+                allow_deferral: bool = True, mlp_fn=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the stacked decoder layers over hidden states ``h``.
 
     On a deferred-write step (:func:`_defer_kv_writes`) each layer's
     attention injects the layer's new K/V rows and the cache is written
-    once after the stack (:func:`_bulk_write_kv`)."""
+    once after the stack (:func:`_bulk_write_kv`).
+    ``mlp_fn(x, lp, arch) -> y`` replaces the dense SwiGLU block (the
+    MoE models put their expert-routed block here)."""
     if attn_impl is None:
         attn_impl = _default_attn
+    if mlp_fn is None:
+        mlp_fn = _dense_mlp_fn
     num_layers = next(iter(layers.values())).shape[0]
     positions = inputs["positions"]
     inv_freq = compute_rope_freqs(arch.head_dim, arch.rope_theta,
@@ -385,7 +394,7 @@ def scan_layers(layers: dict, arch: LlamaArch, kv: torch.Tensor,
             o = attn_impl(q, kv, layer, inputs)
         h = h + matmul(o.reshape(o.shape[0], -1), lp["wo"])
         x = rms_norm(h, lp["post_norm"], arch.rms_norm_eps)
-        h = h + _mlp(x, lp)
+        h = h + mlp_fn(x, lp, arch)
     if defer:
         _bulk_write_kv(kv, torch.stack(new_k), torch.stack(new_v),
                        inputs["slot_mapping"])

@@ -9,14 +9,17 @@ Phases, each reported on its own lines:
 1. device:   card name and power limit (nvidia-smi), torch's device name.
 2. build:    nvcc builds every kernel source of ``arcticinference_tpu_torch/
              csrc`` (the attention kernels, the two quantized matmuls,
-             the HBM read probe and the weight-stream matmul variants)
-             at once, one process each (printing ``-Xptxas -v``:
+             the HBM read probe, the weight-stream matmul variants and
+             the grouped MoE matmul) at once, one process each (printing
+             ``-Xptxas -v``:
              registers, shared memory, spills); ``cuobjdump -sass`` must
              find HMMA (tensor-core) instructions in every instance of
              the ragged kernel, the grouped decode kernel and the
              page-range decode kernel (kernel 4), and HGMMA (wgmma)
              instructions in every instance of the quantized matmul
-             pipeline (kernels 5 and 6, and kernel 8's variants on it).
+             pipeline (kernels 5 and 6, and kernel 8's variants on it),
+             and HMMA in every instance of the grouped MoE matmul (its
+             shared-memory instruction counts beside them).
 3. kernels:  each CUDA kernel against its plain PyTorch version at the
              main path's shapes, with its time, the plain version's, the
              bound and a library yardstick: the two attention kernels
@@ -268,6 +271,39 @@ Phases, each reported on its own lines:
              (fp8, int8, int4 at 16 and 256 rows) against their plain
              versions.  Phase 6's bench skips ``spec_transfer``: this
              phase runs it.
+11. moe:     (a) the grouped MoE matmul (``csrc/grouped_matmul.cu``,
+             the counterpart of ``jax.lax.ragged_dot``) against its plain
+             version at Mixtral-8x7B's expert stacks (w_gate / w_up
+             [8, 4096, 14336], w_down [8, 14336, 4096]) in bf16, fp8,
+             int8 and int4, at 128, 512 and 4096 rows routed uniformly,
+             skewed (~70% on one expert), with one expert empty and all
+             on one expert (atol = rtol = 2e-2 plus a 1e-3 relative
+             norm); the uniform cases timed beside the plain version,
+             the bound (the bytes of the experts with rows or the bf16
+             products) and ``torch._grouped_mm`` on the bf16 stack (a
+             per-expert ``torch.mm`` loop where the card's torch lacks
+             it); rows bit for bit beside fresh rows and at other
+             indices of their group, two launches alike, a CUDA graph
+             replayed twice alike, rows past the last group exactly 0.
+             (b) Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's config) at
+             full width and depth in fp8, random weights:
+             ``LLM.generate`` of 16 prompts of 128-1024 tokens x 32 on
+             the pipelined step (every pure-decode dispatch under the
+             sync check) and on the synchronous step of the same engine
+             (tokens may differ only where the two runs' step shapes
+             did), 96 grouped and 129 kernel-5 launches a dispatch; a
+             2000-token prefill through ``forward`` with the kernels
+             and through the plain route, which takes the kernel run's
+             experts layer by layer (the tokens whose own choice differs
+             counted per layer), at 2 layers with phase 4's tolerance and
+             at full depth with phase 9's (cosine >= CAUSAL_COS per row),
+             argmax equal or a near tie in both; init
+             seconds and peak memory; the B=64, ctx-512 decode step as a
+             CUDA graph against its byte bound; then the fused suffix
+             loop (the suffix cache seeded from the pipelined run) with
+             every fused dispatch under the sync check.  (c) Mixtral-8x7B
+             in bf16 at 8 layers (its 32 would take ~93 GB): the same
+             generate runs and prefill check.
 Last, one BERT-base device batch of phase 9 (64 x 512 tokens), a
 shorter bf16 and fp8 run of phase 5, the drafter chains and the bench's
 device step (its CUDA graph) under ``torch.profiler``, each on an engine
@@ -327,11 +363,20 @@ QWEN3_8B = dict(
 # Snowflake/Llama-3.1-SwiftKV-8B-Instruct (its config.json): Llama-3.1-8B
 # with the later 16 of its 32 layers on the projected KV.
 LLAMA_SWIFTKV_8B = dict(LLAMA_8B, num_key_value_layers=16)
+# mistralai/Mixtral-8x7B-v0.1 (its config.json): 8 experts, top-2 (its
+# 4096-token sliding window is not applied, as in the JAX package).
+MIXTRAL_8X7B = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=128, rope_theta=1000000.0, rms_norm_eps=1e-5,
+    max_position_embeddings=32768, tie_word_embeddings=False,
+    num_local_experts=8, num_experts_per_tok=2)
 # Architecture (registry name) and dims of each model the script drives.
 MODELS = {"llama-3.1-8b": ("llama", LLAMA_8B),
           "llama-3.1-swiftkv-8b": ("llama_swiftkv", LLAMA_SWIFTKV_8B),
           "qwen2.5-7b": ("qwen2", QWEN25_7B),
-          "qwen3-8b": ("qwen3", QWEN3_8B)}
+          "qwen3-8b": ("qwen3", QWEN3_8B),
+          "mixtral-8x7b": ("mixtral", MIXTRAL_8X7B)}
 # Qwen2.5-7B's attention: GQA group 7 (28 q heads over 4 kv heads).
 G7_HQ, G7_HKV = 28, 4
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -350,7 +395,7 @@ REL_TOL = 1e-3
 Q_STD = 5.0
 
 PHASES = ("device", "build", "kernels", "forward", "generate", "bench",
-          "pipeline", "serve", "embed", "quality")
+          "pipeline", "serve", "embed", "quality", "moe")
 # Corruption rates of phase 6's curve (the bench's own sweep is 0.12, 0.3,
 # 0.6, 1.0; two points keep the script within its time).
 BENCH_CURVE_RATES = (0.3, 1.0)
@@ -1325,6 +1370,31 @@ def hmma_counts(lib) -> dict:
     return counts
 
 
+def grouped_matmul_sass(lib) -> dict:
+    """HMMA (tensor-core) and shared-memory (LDS / STS / LDSM) instruction
+    counts of each instance of the grouped MoE matmul (weight format,
+    rows per tile), read from the library's SASS."""
+    import re
+
+    counts, fn = {}, None
+    for line in sass_text(lib).splitlines():
+        if "Function :" in line:
+            m = re.search(r"grouped_matmul_kernelINS_\d+(\w+?)WELi(\d+)E",
+                          line)
+            fn = f"{m.group(1)} BM={m.group(2)}" if m else None
+            if fn:
+                counts[fn] = dict(HMMA=0, LDSM=0, LDS=0, STS=0, LDGSTS=0)
+        elif fn:
+            for op in ("HMMA", "LDSM", "LDGSTS"):
+                if f" {op}" in line:
+                    counts[fn][op] += 1
+            if re.search(r"\bLDS(\.|\s)", line):
+                counts[fn]["LDS"] += 1
+            if re.search(r"\bSTS(\.|\s)", line):
+                counts[fn]["STS"] += 1
+    return counts
+
+
 def run_case(case, fn_kernel, fn_plain, iters_kernel=20, iters_plain=3):
     """Kernel against plain version on one case; returns the case's line
     with ``ok`` False where a check failed."""
@@ -2066,21 +2136,23 @@ def phase_stream_kernels(seed):
 @contextlib.contextmanager
 def plain_matmuls():
     """Run the decoder's matmuls (``models/llama.py``, whose layers the
-    Qwen and SwiftKV modules share) through the kernels' plain
-    versions."""
-    from arcticinference_tpu_torch.models import llama
-    from arcticinference_tpu_torch.ops import fp8
+    Qwen, SwiftKV and Mixtral modules share) and Mixtral's expert
+    products through the kernels' plain versions."""
+    from arcticinference_tpu_torch.models import llama, mixtral
+    from arcticinference_tpu_torch.ops import fp8, moe
 
-    saved = llama.matmul
+    saved = llama.matmul, mixtral.grouped_matmul
     llama.matmul = fp8.matmul_reference
+    mixtral.grouped_matmul = moe.grouped_matmul_plain
     try:
         yield
     finally:
-        llama.matmul = saved
+        llama.matmul, mixtral.grouped_matmul = saved
 
 
 def reset_counts() -> None:
     from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import grouped_matmul as gm
     from arcticinference_tpu_torch.ops.cuda import hbm_probe as hp
     from arcticinference_tpu_torch.ops.cuda import int4_matmul as im
     from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
@@ -2091,10 +2163,12 @@ def reset_counts() -> None:
     im.reset_launch_counts()
     hp.reset_launch_counts()
     sm.reset_launch_counts()
+    gm.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import grouped_matmul as gm
     from arcticinference_tpu_torch.ops.cuda import hbm_probe as hp
     from arcticinference_tpu_torch.ops.cuda import int4_matmul as im
     from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
@@ -2110,7 +2184,8 @@ def launch_counts() -> dict:
             "fp8_matmul_kernel": fm.fp8_matmul_launches,
             "int4_matmul_kernel": im.int4_matmul_launches,
             "hbm_read_probe": hp.hbm_probe_launches,
-            "stream_matmul_kernel": sm.stream_matmul_launches}
+            "stream_matmul_kernel": sm.stream_matmul_launches,
+            "grouped_matmul_kernel": gm.grouped_matmul_launches}
 
 
 def matmul_launches_per_step(arch) -> int:
@@ -4624,6 +4699,541 @@ def phase_quality(rng, seed) -> dict:
                 cases=cases, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: Mixtral (sparse MoE) and the grouped matmul
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's expert weights (mistralai/Mixtral-8x7B-v0.1 config.json):
+# w_gate / w_up [8, 4096, 14336], w_down [8, 14336, 4096].
+MOE_SHAPES = (("w_gate", 4096, 14336), ("w_down", 14336, 4096))
+# Rows: a batch-64 decode step (64 x top-2), 512, a 2048-token chunk x 2.
+MOE_ROWS = (128, 512, 4096)
+MOE_ROUTINGS = ("uniform", "skewed", "one empty", "one expert")
+MOE_FORMATS = ("bf16", "fp8", "int8", "int4")
+# Phase 11's generate traffic: 16 prompts of 128-1024 tokens x 32 tokens.
+MOE_PROMPTS, MOE_NEW = 16, 32
+# Layers of the bf16 Mixtral run (its 32 layers of bf16 experts take ~93
+# GB, more than the card's 80).
+MOE_BF16_LAYERS = 8
+
+
+def moe_counts(rng, routing, r, e=8) -> np.ndarray:
+    """Rows per expert of a routing: uniform, skewed (~70% of the rows on
+    one expert), one expert empty, every row on one expert."""
+    if routing == "one expert":
+        c = np.zeros(e, np.int64)
+        c[0] = r
+        return c
+    p = np.ones(e) / e
+    if routing == "skewed":
+        p = np.full(e, 0.3 / (e - 1))
+        p[3] = 0.7
+    elif routing == "one empty":
+        p[5] = 0
+        p /= p.sum()
+    return rng.multinomial(r, p)
+
+
+def moe_weight(fmt, k, n, gen):
+    """An [8, k, n] expert stack drawn from N(0, 1) in bf16 on the card,
+    quantized as the Mixtral module quantizes one layer."""
+    import torch
+
+    from arcticinference_tpu_torch.models.mixtral import quantize_experts
+
+    w = torch.randn((8, k, n), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return w if fmt == "bf16" else quantize_experts(w, fmt)
+
+
+def grouped_call(fn, xs, q, offsets):
+    from arcticinference_tpu_torch.ops.fp8 import QuantizedLinear
+
+    if isinstance(q, QuantizedLinear):
+        return fn(xs, q.weight, q.scale, offsets)
+    return fn(xs, q, None, offsets)
+
+
+def grouped_library_ms(xs, q, offsets, counts) -> tuple:
+    """The yardstick: one ``torch._grouped_mm`` over the bf16 stack (the
+    quantized one dequantized ahead of time; bf16 out), or, where this
+    torch lacks it, a per-expert ``torch.mm`` loop over the counts read on
+    the host beforehand.  Returns (ms, what was timed)."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.cuda.grouped_matmul import dequantized
+    from arcticinference_tpu_torch.ops.fp8 import QuantizedLinear
+
+    wd = (dequantized(q.weight, q.scale) if isinstance(q, QuantizedLinear)
+          else q)
+    dense = rotating(wd, wd.nbytes)
+    ends = offsets[1:].contiguous()
+    try:
+        torch._grouped_mm(xs, wd, offs=ends)
+        torch.cuda.synchronize()
+
+        def lib():
+            torch._grouped_mm(xs, next(dense), offs=ends)
+        what = "torch._grouped_mm (bf16 out)"
+    except (AttributeError, RuntimeError) as err:
+        bounds = np.concatenate([[0], np.cumsum(counts)])
+
+        def lib():
+            w = next(dense)
+            for e in range(len(counts)):
+                a, b = int(bounds[e]), int(bounds[e + 1])
+                if b > a:
+                    torch.mm(xs[a:b], w[e], out_dtype=torch.float32)
+        what = f"torch.mm per expert ({type(err).__name__}: {err})"[:200]
+    ms = cuda_time_ms(lib, iters=10)
+    del dense, wd
+    return ms, what
+
+
+def moe_kernel_case(name, xs, q, offsets, counts, timed) -> dict:
+    """The grouped kernel against its plain version on one case; with
+    ``timed`` its time, the plain version's, the bound and the library
+    yardstick too."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.cuda import grouped_matmul as gm
+    from arcticinference_tpu_torch.ops.fp8 import QuantizedLinear
+
+    out = grouped_call(gm.grouped_matmul_kernel, xs, q, offsets)
+    ref = grouped_call(gm.grouped_matmul_reference, xs, q, offsets)
+    torch.cuda.synchronize()
+    diff = (out - ref).abs()
+    bad = int((diff > ATOL + RTOL * ref.abs()).sum())
+    rel = float((out - ref).norm() / ref.norm())
+    res = dict(case=name, rows=int(xs.shape[0]), counts=[int(c) for c in
+                                                          counts],
+               max_abs_err=float(diff.max()), n_out_of_tol=bad, rel_err=rel,
+               ref_max_abs=float(ref.abs().max()),
+               finite=bool(torch.isfinite(out).all()))
+    res["ok"] = bad == 0 and rel <= REL_TOL and res["finite"]
+    if timed:
+        w = q.weight if isinstance(q, QuantizedLinear) else q
+        e, k, n = w.shape[0], xs.shape[1], w.shape[2]
+        per_expert = w.nbytes // e + (
+            q.scale.nbytes // e if isinstance(q, QuantizedLinear)
+            and q.scale.numel() > 1 else 0)
+        live = int((np.asarray(counts) > 0).sum())
+        nbytes = xs.nbytes + live * per_expert + out.nbytes
+        flops = 2.0 * int(np.sum(counts)) * k * n
+        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+        nb = w.nbytes + (q.scale.nbytes if isinstance(q, QuantizedLinear)
+                         else 0)
+        copies = rotating(q, nb)
+        res["ms"] = cuda_time_ms(lambda: grouped_call(
+            gm.grouped_matmul_kernel, xs, next(copies), offsets), iters=10)
+        del copies
+        res["plain_ms"] = cuda_time_ms(lambda: grouped_call(
+            gm.grouped_matmul_reference, xs, q, offsets), iters=1, warmup=1)
+        res["library_ms"], res["library"] = grouped_library_ms(
+            xs, q, offsets, counts)
+        res.update(bound_ms=max(t_bytes, t_flops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_flops else "operations",
+                   bytes=nbytes, flops=flops,
+                   plan=list(gm.launch_plan(xs.shape[0], e, n)))
+    log("  moe case " + json.dumps(res))
+    return res
+
+
+def moe_replay(fmt, wname, k, n, r, gen, rng) -> dict:
+    """The grouped kernel bit for bit: rows moved within their expert's
+    group to other indices, beside fresh rows, give the same bits; two
+    launches alike; a CUDA graph of one launch replayed twice alike the
+    eager launch; the rows past ``offsets[E]`` (a routing 7 rows short)
+    exactly 0."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    q = moe_weight(fmt, k, n, gen)
+    counts = moe_counts(rng, "skewed", r - 7)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int32, device="cuda")
+    bounds = offsets.tolist()
+
+    def launch(x):
+        return grouped_call(gm.grouped_matmul_kernel, x, q, offsets)
+
+    xs = torch.randn((r, k), generator=gen, device="cuda").to(torch.bfloat16)
+    xs2 = torch.randn((r, k), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    moves = {}
+    for e in range(8):
+        a, b = bounds[e], bounds[e + 1]
+        for j in range(a, b, max(1, (b - a) // 4)):
+            moves[j] = a + (j - a + (b - a) // 2 + 1) % (b - a)
+    for j, j2 in moves.items():
+        xs2[j2] = xs[j]
+    out, out2, again = launch(xs), launch(xs2), launch(xs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(xs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = launch(xs)
+    replays = []
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(bool(torch.equal(captured, out)))
+    res = dict(case=f"{fmt} {wname} [8,{k},{n}] R={r}",
+               plan=list(gm.launch_plan(r, 8, n)), rows_moved=len(moves),
+               rows_not_bitwise_equal=sum(not torch.equal(out2[j2], out[j])
+                                          for j, j2 in moves.items()),
+               launches_equal=bool(torch.equal(again, out)),
+               graph_replays_equal=replays,
+               tail_rows_zero=bool((out[bounds[-1]:] == 0).all()))
+    res["ok"] = (res["rows_not_bitwise_equal"] == 0 and res["launches_equal"]
+                 and all(replays) and res["tail_rows_zero"])
+    log("  moe replay " + json.dumps(res))
+    del graph, q
+    return res
+
+
+def phase_moe_kernels(seed) -> tuple:
+    """The grouped kernel against its plain version at Mixtral-8x7B's
+    expert shapes: every weight format x rows x routing (timed at the
+    uniform routing), then :func:`moe_replay`; returns (cases,
+    replays)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    rng = np.random.default_rng(seed + 11)
+    cases, replays = [], []
+    for fmt in MOE_FORMATS:
+        for wname, k, n in MOE_SHAPES:
+            q = moe_weight(fmt, k, n, gen)
+            for r in MOE_ROWS:
+                xs = torch.randn((r, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                for routing in MOE_ROUTINGS:
+                    counts = moe_counts(rng, routing, r)
+                    offsets = torch.tensor(
+                        np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device="cuda")
+                    cases.append(moe_kernel_case(
+                        f"{fmt} {wname} [8,{k},{n}] R={r} {routing}", xs, q,
+                        offsets, counts, timed=routing == "uniform"))
+            del q
+            free_cuda_memory()
+    for fmt in MOE_FORMATS:
+        replays.append(moe_replay(fmt, "w_gate", 4096, 14336, 128, gen, rng))
+    replays.append(moe_replay("fp8", "w_down", 14336, 4096, 4096, gen, rng))
+    bad = [c["case"] for c in cases + replays if not c["ok"]]
+    if bad:
+        raise AssertionError(f"grouped kernel vs plain failed: {bad}")
+    return cases, replays
+
+
+def moe_engine_config(quantization, layers=None, spec=None):
+    """Mixtral-8x7B at full width (``layers``: cut depth), 2048 cache
+    blocks (8 GiB of KV), prefix caching off; the pipelined step on
+    unless ``spec`` is set."""
+    import dataclasses
+
+    from arcticinference_tpu_torch.config import EngineConfig, ModelConfig
+
+    cfg = engine_config(quantization, spec, model="mixtral-8x7b")
+    dims = dict(MIXTRAL_8X7B)
+    if layers:
+        dims["num_hidden_layers"] = layers
+    return EngineConfig(
+        model=dataclasses.replace(cfg.model, hf_overrides=dims),
+        cache=dataclasses.replace(cfg.cache, enable_prefix_caching=False),
+        scheduler=dataclasses.replace(cfg.scheduler,
+                                      async_scheduling=spec is None),
+        speculative=cfg.speculative)
+
+
+@contextlib.contextmanager
+def recorded_routing(forced=None):
+    """Record every MoE layer's chosen experts (``moe.route``'s top-k).
+    With ``forced`` (a list of each layer's top-k from another run) each
+    layer takes those experts instead, their gate weights a softmax over
+    this run's logits at them, and the record is this run's own top-k."""
+    import torch
+
+    from arcticinference_tpu_torch.ops import moe
+
+    orig = moe.route
+    calls = []
+
+    def route(x, w_router, k):
+        gate, top_i = orig(x, w_router, k)
+        calls.append(top_i)
+        if forced is None:
+            return gate, top_i
+        top_i = forced[len(calls) - 1]
+        logits = torch.matmul(x.float(), w_router.float())
+        return torch.softmax(logits.gather(1, top_i), dim=-1), top_i
+
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = orig
+
+
+def moe_forward_pair(runner, si, inputs, num_layers) -> dict:
+    """The first ``num_layers`` layers of the runner's Mixtral on one
+    prefill step through ``forward`` with the kernels and through the
+    plain route (on caches of their own), the plain run taking the kernel
+    run's experts layer by layer; returns both runs' logits, launches and
+    own expert choices."""
+    import dataclasses
+
+    import torch
+
+    module, arch = runner.module, runner.arch
+    arch = dataclasses.replace(arch, num_layers=num_layers)
+    params = dict(runner.params, layers={
+        k: v[:num_layers] for k, v in runner.params["layers"].items()})
+    inputs = dict(inputs, kv_scale=runner.kv_scale[:num_layers])
+    n_rows = sum(si.sample_row_count)
+    blocks = max(int(inputs["block_tables"].max()) + 1, 2)
+    out = {}
+    with torch.inference_mode():
+        for name in ("kernel", "plain"):
+            kv = torch.zeros((num_layers, blocks)
+                             + tuple(runner.kv.shape[2:]),
+                             dtype=runner.kv.dtype, device=runner.kv.device)
+            reset_counts()
+            forced = out["kernel"]["routes"] if name == "plain" else None
+            with (contextlib.nullcontext() if name == "kernel"
+                  else plain_route(module)), \
+                    recorded_routing(forced) as calls:
+                attn = module.make_attn_impl(si.attn_qb)
+                _, h = module.forward(params, arch, kv, dict(inputs),
+                                      attn_impl=attn)
+                rows = h[inputs["logits_indices"].long()[:n_rows]]
+                logits = module.compute_logits(params, rows)
+            torch.cuda.synchronize()
+            out[name] = dict(logits=logits, launches=launch_counts(),
+                             routes=calls)
+            del kv
+    return out
+
+
+def moe_forward_check(llm, rng) -> dict:
+    """One prefill step (prompts of 200, 500, 1000 and 300 tokens) of the
+    engine's model with the kernels and through the plain route, at 2
+    layers and at the model's depth (:func:`moe_forward_pair`).  A router
+    near-tie turns a one-ulp difference into another expert, and on
+    random weights such tokens spread through the later layers'
+    attention (PERF.md, PR 17), so the plain run takes the kernel run's
+    experts; the tokens whose own choice differs are counted per layer.
+    At 2 layers the logits are held as phase 4 holds them (max |diff| <=
+    5% of the largest logit, argmax equal or a near tie); at full depth,
+    where one-ulp flips compound over the layers, as phase 9 holds a
+    full-depth model's outputs (cosine >= CAUSAL_COS per row) with the
+    argmax equal or a near tie."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.request import (Request,
+                                                          SamplingParams)
+    from arcticinference_tpu_torch.engine.scheduler import Scheduler
+
+    runner = llm.engine.runner
+    arch, cfg = runner.arch, llm.engine.config
+    sched = Scheduler(cfg.scheduler, cfg.cache, 80)
+    for i, n in enumerate((200, 500, 1000, 300)):
+        sched.add_request(Request(
+            f"m{i}", [int(x) for x in rng.integers(0, arch.vocab_size, n)],
+            SamplingParams(max_tokens=4)))
+    si = runner.prepare_inputs(sched.schedule())
+    inputs = runner.upload(si.arrays)
+    live = si.total_tokens
+    res = dict(step="prefill", tokens=live, ok=True)
+    for depth in sorted({min(2, arch.num_layers), arch.num_layers}):
+        pair = moe_forward_pair(runner, si, inputs, depth)
+        a, b = pair["kernel"]["logits"], pair["plain"]["logits"]
+        diff = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        agree = a.argmax(-1) == b.argmax(-1)
+        top2 = b.topk(2, dim=-1).values
+        near_tie = (top2[:, 0] - top2[:, 1]) <= 2 * diff
+        cos = torch.nn.functional.cosine_similarity(a.float(), b.float(),
+                                                    dim=-1)
+        own = [int((x[:live].sort(-1).values != y[:live].sort(-1).values)
+                   .any(-1).sum())
+               for x, y in zip(pair["kernel"]["routes"],
+                               pair["plain"]["routes"])]
+        kl, pl = pair["kernel"]["launches"], pair["plain"]["launches"]
+        r = dict(layers=depth, rows=a.shape[0], max_abs_diff=diff,
+                 max_abs_logit=scale, min_cosine=float(cos.min()),
+                 argmax_agree=float(agree.float().mean()),
+                 near_tie_rows=int(near_tie.sum()),
+                 finite=bool(torch.isfinite(a).all()),
+                 plain_own_choice_differs_per_layer=own,
+                 kernel_launches={k: v for k, v in kl.items() if v},
+                 plain_launches=sum(pl.values()))
+        close = (diff <= 0.05 * scale if depth == 2
+                 else float(cos.min()) >= CAUSAL_COS)
+        r["ok"] = (r["finite"] and close and bool((agree | near_tie).all())
+                   and not any(pl.values())
+                   and kl["grouped_matmul_kernel"] == 3 * depth
+                   and kl["ragged_paged_attention_kernel"] == depth)
+        res[f"{depth} layers"] = r
+        res["ok"] = res["ok"] and r["ok"]
+    return res
+
+
+def moe_device_step(llm, batch=64, ctx=512) -> dict:
+    """The decode step at (``batch``, ``ctx``) as a CUDA graph
+    (``bench.measure_device_step``) against its byte bound: every weight
+    but the embedding (at batch 64, 128 assignments leave an expert
+    without rows with probability ~8 x (7/8)^128 < 1e-6) and the KV."""
+    from arcticinference_tpu_torch import bench
+
+    step = bench.measure_device_step(llm, batch, ctx, iters=10)
+    nbytes = bench.step_bytes(llm, batch, ctx)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(batch=batch, ctx=ctx, device_ms=step["device_ms"],
+                dispatch_ms=step["dispatch_ms"], bytes=nbytes,
+                bound_ms=bound, bound_share=bound / step["device_ms"])
+
+
+def moe_generate(quantization, prompts, layers=None) -> dict:
+    """``LLM.generate`` of Mixtral at full width: the pipelined step, then
+    the synchronous one on the same engine (every pipelined decode
+    dispatch under the sync check), the launches per dispatch, the
+    prefill logits against the plain route and, at full depth, the
+    decode step's device time against its bound."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+
+    name = f"mixtral {quantization or 'bf16'}" + (
+        f" {layers} layers" if layers else "")
+    free_cuda_memory()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    llm = LLM(moe_engine_config(quantization, layers))       # cuda:0
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    arch = llm.engine.arch
+    greedy = SamplingParams(max_tokens=MOE_NEW)
+    pipe, outs_p, rec_p = pipeline_run(llm, prompts, greedy, True)
+    sync, outs_s, rec_s = pipeline_run(llm, prompts, greedy, False)
+    div = divergence(outs_p, outs_s, rec_p, rec_s)
+    check = moe_forward_check(llm, np.random.default_rng(12))
+    res = dict(model=name, layers=arch.num_layers,
+               experts=arch.num_experts, top_k=arch.num_experts_per_tok,
+               init_s=init_s, init_peak_mem_gib=init_peak,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               pipelined=pipe, sync=sync, agreement=div, forward=check,
+               card=smi())
+    per_dispatch = {}
+    ok = check["ok"]
+    for run in (pipe, sync):
+        lc, d = run["launches"], run["dispatches"]
+        per_dispatch["pipelined" if run["pipelined"] else "sync"] = {
+            k: lc[k] / d for k in ("ragged_paged_attention_kernel",
+                                   "grouped_decode_attention_kernel",
+                                   "fp8_matmul_kernel",
+                                   "grouped_matmul_kernel")}
+        ok = ok and run["tokens"] == MOE_PROMPTS * MOE_NEW
+        ok = ok and lc["grouped_matmul_kernel"] == 3 * arch.num_layers * d
+        ok = ok and lc["ragged_paged_attention_kernel"] > 0 \
+            and lc["grouped_decode_attention_kernel"] > 0
+        # q, k, v and o unfused (no fuse_params, as in JAX) and the head.
+        ok = ok and lc["fp8_matmul_kernel"] == (
+            (4 * arch.num_layers + 1) * d if quantization == "fp8" else 0)
+    res["launches_per_dispatch"] = per_dispatch
+    # The router's float32 product is cuBLAS's, whose algorithm follows
+    # the shape: a divergence is allowed only where some step up to it
+    # ran at another shape in the two runs.
+    ok = ok and all(f["shape_differs"] for f in div["divergences"])
+    if not layers:
+        res["device_step"] = moe_device_step(llm)
+    log(f"  moe generate " + json.dumps(res))
+    if not ok:
+        raise AssertionError(f"Mixtral generate check failed: {res}")
+    llm.close()
+    del llm
+    free_cuda_memory()
+    return dict(res, outputs=[o.token_ids for o in outs_p])
+
+
+def moe_fused_run(prompts, reference) -> dict:
+    """Mixtral-8x7B fp8 with suffix speculation on the fused decode loop,
+    the suffix cache seeded from ``reference`` (the pipelined run's
+    tokens): every fused dispatch under the sync check, drafts verified,
+    the grouped kernel launched."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+
+    llm = LLM(moe_engine_config("fp8", spec="suffix fused"))
+    eng = llm.engine
+    seed_suffix_cache(eng._suffix_cache, prompts, reference,
+                      eng.arch.vocab_size)
+    reset_counts()
+    t0 = time.perf_counter()
+    with sync_checked_fused_dispatch() as checked:
+        outs = llm.generate(prompt_token_ids=prompts,
+                            sampling_params=SamplingParams(
+                                max_tokens=MOE_NEW))
+    torch.cuda.synchronize()
+    st, ws = eng.spec_stats, eng.width_stats
+    res = dict(model="mixtral fp8", spec="suffix fused",
+               wall_s=time.perf_counter() - t0,
+               tokens=sum(len(o.token_ids) for o in outs),
+               fused_steps=eng.step_times.summary().get("fused", {}).get(
+                   "count", 0),
+               width_stats=ws, sync_checked_dispatches=checked["dispatches"],
+               drafts=st.num_drafts, accepted_tokens=st.num_accepted_tokens,
+               agreement_with_pipelined=token_agreement(outs, reference),
+               launches=launch_counts(), card=smi())
+    log("  moe fused " + json.dumps(res))
+    ok = (res["tokens"] == MOE_PROMPTS * MOE_NEW and res["fused_steps"] > 0
+          and res["drafts"] > 0
+          and checked["dispatches"] == sum(
+              v for k, v in ws.items() if k != "entries")
+          and res["launches"]["grouped_matmul_kernel"] > 0)
+    if not ok:
+        raise AssertionError(f"Mixtral fused-loop check failed: {res}")
+    llm.close()
+    del llm, eng
+    free_cuda_memory()
+    return res
+
+
+def phase_moe(rng, seed) -> dict:
+    """Phase 11: the grouped kernel at Mixtral-8x7B's expert shapes, then
+    ``LLM.generate`` on Mixtral-8x7B in fp8 at full depth (pipelined,
+    synchronous, the fused suffix loop under the sync check) and in bf16
+    at :data:`MOE_BF16_LAYERS` layers."""
+    t_phase = time.perf_counter()
+    log("[moe] (a) the grouped kernel vs plain, Mixtral-8x7B's experts")
+    cases, replays = phase_moe_kernels(seed)
+    prompts = [[int(x) for x in rng.integers(0, MIXTRAL_8X7B["vocab_size"],
+                                             int(n))]
+               for n in rng.integers(128, 1025, MOE_PROMPTS)]
+    log("[moe] (b) Mixtral-8x7B fp8, 32 layers: LLM.generate pipelined and "
+        "synchronous, prefill logits vs the plain route, decode device "
+        "step; then the fused suffix loop")
+    fp8 = moe_generate("fp8", prompts)
+    fused = moe_fused_run(prompts, fp8.pop("outputs"))
+    log(f"[moe] (c) Mixtral-8x7B bf16, {MOE_BF16_LAYERS} layers")
+    bf16 = moe_generate(None, prompts, layers=MOE_BF16_LAYERS)
+    bf16.pop("outputs")
+    seconds = time.perf_counter() - t_phase
+    log(f"[moe] phase took {seconds:.1f} s")
+    return dict(cases=cases, replays=replays, fp8=fp8, fused=fused,
+                bf16=bf16, seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4639,6 +5249,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from arcticinference_tpu_torch.ops.cuda import build
     from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import grouped_matmul as gm
     from arcticinference_tpu_torch.ops.cuda import hbm_probe as hp
     from arcticinference_tpu_torch.ops.cuda import int4_matmul as im
     from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
@@ -4652,7 +5263,8 @@ def main() -> int:
     log(f"[device] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
 
-    sources = (ra.SOURCE, fm.SOURCE, im.SOURCE, hp.SOURCE, sm.SOURCE)
+    sources = (ra.SOURCE, fm.SOURCE, im.SOURCE, hp.SOURCE, sm.SOURCE,
+               gm.SOURCE)
     t0 = time.perf_counter()
     libs = build.build_all(sources)
     log(f"[build] {', '.join(sources)} in {time.perf_counter() - t0:.1f} s "
@@ -4686,6 +5298,15 @@ def main() -> int:
             or min(min(c.values()) for c in hgmma.values()) == 0):
         raise AssertionError(
             f"quantized matmul instances missing or without HGMMA: {hgmma}")
+    # The grouped MoE matmul runs mma.sync: its 16 instances (4 weight
+    # formats x 4 row tiles) must hold HMMA.
+    grouped_sass = grouped_matmul_sass(libs[sources.index(gm.SOURCE)])
+    log(f"[build] grouped matmul SASS per instance: "
+        f"{json.dumps(grouped_sass)}")
+    if len(grouped_sass) != 16 or min(
+            c["HMMA"] for c in grouped_sass.values()) == 0:
+        raise AssertionError(f"grouped matmul instances missing or without "
+                             f"HMMA: {grouped_sass}")
 
     csrc = "arcticinference_tpu_torch/csrc/"
     kernels = {
@@ -4725,6 +5346,12 @@ def main() -> int:
             source=csrc + sm.SOURCE,
             replaces="benchmarks/stream_microbench.py:167 "
                      "(make_pallas_body)"),
+        "grouped_matmul_kernel": dict(
+            name="grouped_matmul_kernel", route="cuda",
+            source=csrc + gm.SOURCE,
+            replaces="arcticinference_tpu/models/mixtral.py:234 "
+                     "(jax.lax.ragged_dot, an XLA op: no pallas_call)",
+            sass=grouped_sass),
     }
     if "kernels" in phases:
         log(f"[kernels] kernel vs plain, Hq={HQ} Hkv={HKV} D={D}, "
@@ -4960,6 +5587,40 @@ def main() -> int:
                 if k in c} for c in cases]
         kernels["grouped_decode_attention_kernel"][
             "row_invariance_quality"] = invariance_q
+    if "moe" in phases:
+        log("[moe] Mixtral-8x7B: the grouped matmul at its expert shapes; "
+            "LLM.generate in fp8 (32 layers) and bf16 "
+            f"({MOE_BF16_LAYERS} layers)")
+        moe_res = phase_moe(rng, args.seed)
+        cases = moe_res["cases"]
+        rep = next(c for c in cases
+                   if c["case"] == "fp8 w_gate [8,4096,14336] R=128 uniform")
+        entry = kernels["grouped_matmul_kernel"]
+        entry.update(
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            ms=rep["ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+            library_ms=rep["library_ms"], library=rep["library"],
+            case=rep["case"],
+            tolerance=f"atol={ATOL} rtol={RTOL}, "
+                      f"||out-plain||/||plain|| <= {REL_TOL}",
+            # The main path's run: Mixtral-8x7B fp8, pipelined.
+            launches=moe_res["fp8"]["pipelined"]["launches"][
+                "grouped_matmul_kernel"],
+            launches_per_dispatch=moe_res["fp8"]["launches_per_dispatch"],
+            cases=[{k: c[k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "rel_err") if k in c}
+                   for c in cases if "ms" in c],
+            cases_checked=len(cases), replay=moe_res["replays"])
+        for key in ("ragged_paged_attention_kernel",
+                    "grouped_decode_attention_kernel", "fp8_matmul_kernel"):
+            kernels[key]["launches_moe"] = {
+                f"{name} {run}": dict(
+                    launches=moe_res[name][run]["launches"][key],
+                    dispatches=moe_res[name][run]["dispatches"])
+                for name in ("fp8", "bf16") for run in ("pipelined",
+                                                        "sync")}
     if "embed" in phases:
         log("[profile] one BERT-base batch (64 x 512) under torch.profiler")
         log("  profile bert " + json.dumps(dict(profile_bert(),

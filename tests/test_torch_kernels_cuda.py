@@ -16,6 +16,8 @@ The quantized matmuls draw x and the weights (before quantization) from
 N(0, 1), so outputs are O(sqrt(K)); kernel and plain version multiply
 the same bf16 values and differ only in the order of the float32 sums,
 and so by rare one-ulp flips of the bf16 output: the same bounds hold.
+The grouped MoE matmul multiplies bf16 rows by the bf16 weights its plain
+version dequantizes, float32 out: the same bounds hold.
 The weight-stream variants (kernel 8) draw weights as the JAX
 microbench's ``gen_ws`` does and are held to the same bounds; the HBM
 read probe (kernel 7) sums float32 values in another order than its
@@ -30,6 +32,7 @@ from arcticinference_tpu_torch.ops.attention import (
     ragged_paged_attention_reference)
 from arcticinference_tpu_torch.ops import fp8 as tfp8
 from arcticinference_tpu_torch.ops.cuda import fp8_matmul as tfm
+from arcticinference_tpu_torch.ops.cuda import grouped_matmul as tgm
 from arcticinference_tpu_torch.ops.cuda import hbm_probe as thp
 from arcticinference_tpu_torch.ops.cuda import int4_matmul as tim
 from arcticinference_tpu_torch.ops.cuda import ragged_attention as tra
@@ -1409,3 +1412,83 @@ def test_guided_ops_on_the_card_match_cpu(cuda_device, v):
         torch.cuda.set_sync_debug_mode(0)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, atol=0, rtol=0)
+
+
+def grouped_case(mode, counts, k, n, device, seed=0):
+    """Expert-sorted bf16 rows, an [E, K, N] expert stack quantized as the
+    Mixtral module quantizes a layer (``quantize_experts``) and the int32
+    offsets of ``counts`` (summing to at most the rows) on the card."""
+    from arcticinference_tpu_torch.models.mixtral import quantize_experts
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = max(sum(counts), 1) + 3
+    xs = torch.randn((r, k), generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn((len(counts), k, n), generator=gen, device=device)
+    w = w.to(torch.bfloat16)
+    q = w if mode == "bf16" else quantize_experts(w, mode)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int32, device=device)
+    return xs, q, offsets
+
+
+def grouped_launch(xs, q, offsets, fn=tgm.grouped_matmul_kernel):
+    if isinstance(q, tfp8.QuantizedLinear):
+        return fn(xs, q.weight, q.scale, offsets)
+    return fn(xs, q, None, offsets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [(16, 16, 16, 16), (90, 10, 0, 28),
+                                    (0, 0, 200, 0), (1, 0, 0, 2),
+                                    (40, 40, 40, 0)])
+@pytest.mark.parametrize("mode", ["bf16", "fp8", "int8", "int4"])
+def test_grouped_matmul_kernel_matches_plain(cuda_device, mode, counts):
+    """Uniform, skewed, one expert, tiny and empty groups at the 16- to
+    128-row tiles; rows past the last group are exactly 0."""
+    xs, q, offsets = grouped_case(mode, counts, 512, 256, cuda_device)
+    tgm.reset_launch_counts()
+    out = grouped_launch(xs, q, offsets)
+    ref = grouped_launch(xs, q, offsets, tgm.grouped_matmul_reference)
+    torch.cuda.synchronize()
+    assert tgm.grouped_matmul_launches == 1
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert_matches(out, ref)
+    assert not out[sum(counts):].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "fp8", "int4"])
+def test_grouped_matmul_rows_are_bitwise_independent(cuda_device, mode):
+    """A row's output is the same bits beside other rows and at another
+    index of its group, and under a CUDA graph's replay."""
+    counts = (24, 8, 40, 0)
+    xs, q, offsets = grouped_case(mode, counts, 1024, 128, cuda_device)
+    out = grouped_launch(xs, q, offsets)
+    xs2 = torch.randn_like(xs.float()).to(torch.bfloat16)
+    moves = {0: 17, 5: 23, 30: 24, 70: 41}     # within each row's group
+    for j, j2 in moves.items():
+        xs2[j2] = xs[j]
+    out2 = grouped_launch(xs2, q, offsets)
+    graph = torch.cuda.CUDAGraph()
+    grouped_launch(xs, q, offsets)
+    with torch.cuda.graph(graph):
+        captured = grouped_launch(xs, q, offsets)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for j, j2 in moves.items():
+        assert torch.equal(out2[j2], out[j])
+    assert torch.equal(captured, out)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_refuses_what_it_does_not_take(cuda_device):
+    xs, q, offsets = grouped_case("bf16", (8, 8), 128, 128, cuda_device)
+    with pytest.raises(TypeError):
+        tgm.grouped_matmul_kernel(xs.float(), q, None, offsets)
+    with pytest.raises(ValueError):
+        tgm.grouped_matmul_kernel(xs, q, None, offsets.long())
+    with pytest.raises(ValueError):
+        tgm.grouped_matmul_kernel(xs, q[:, :, :64], None, offsets)
+    with pytest.raises(TypeError):
+        tgm.grouped_matmul_kernel(xs, q.float(), None, offsets)

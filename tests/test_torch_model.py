@@ -61,8 +61,9 @@ def step_inputs(reqs, block_tables, t_pad, attn_qb):
 
 
 def run_both(arch, jparams, tparams, steps, rng, kv_dtype="bfloat16",
-             caches=None):
-    """Run each step through both models; return per-step logits.  The
+             caches=None, jmod=jllama, tmod=tllama):
+    """Run each step through both models (the JAX module ``jmod`` and the
+    port's ``tmod``, Llama by default); return per-step logits.  The
     paged cache is bf16 by default, as both runners allocate it.  Each
     step's caches are held together unless ``caches`` is a list, which
     then receives each step's (port, JAX) caches as numpy arrays."""
@@ -74,24 +75,28 @@ def run_both(arch, jparams, tparams, steps, rng, kv_dtype="bfloat16",
     bt[0, :2] = [3, 7]
     bt[1, :1] = [5]
     out = []
-    tarch = tllama.LlamaArch(**{f: getattr(arch, f) for f in (
+    # The MoE fields where the module has them (Mixtral).
+    moe_fields = tuple(f for f in ("num_experts", "num_experts_per_tok")
+                       if hasattr(arch, f))
+    tarch = tmod.Arch(**{f: getattr(arch, f) for f in (
         "vocab_size", "hidden_size", "intermediate_size", "num_layers",
         "num_heads", "num_kv_heads", "head_dim", "rope_theta",
-        "rope_scaling", "rms_norm_eps", "tie_word_embeddings")})
+        "rope_scaling", "rms_norm_eps", "tie_word_embeddings")
+        + moe_fields})
     for reqs, t_pad, attn_qb in steps:
         arrays, rows = step_inputs(reqs, bt, t_pad, attn_qb)
         ids = rng.integers(0, arch.vocab_size, t_pad).astype(np.int32)
         arrays["input_ids"] = ids
         jin = {k: jnp.asarray(v) for k, v in arrays.items()}
         jin["kv_scale"] = jnp.asarray(ks)
-        jkv, h = jllama.forward(jparams, arch, jkv, jin,
-                                attn_impl=jllama.make_attn_impl(attn_qb))
-        jl = np.asarray(jllama.compute_logits(jparams, h[rows]))
+        jkv, h = jmod.forward(jparams, arch, jkv, jin,
+                              attn_impl=jmod.make_attn_impl(attn_qb))
+        jl = np.asarray(jmod.compute_logits(jparams, h[rows]))
         tin = {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
         tin["kv_scale"] = torch.from_numpy(ks)
-        tkv, th = tllama.forward(tparams, tarch, tkv, tin,
-                                 attn_impl=tllama.make_attn_impl(attn_qb))
-        tl = tllama.compute_logits(tparams, th[torch.from_numpy(rows).long()])
+        tkv, th = tmod.forward(tparams, tarch, tkv, tin,
+                               attn_impl=tmod.make_attn_impl(attn_qb))
+        tl = tmod.compute_logits(tparams, th[torch.from_numpy(rows).long()])
         jcache = np.asarray(jkv.astype(jnp.float32))
         if caches is not None:
             caches.append((tkv.float().numpy(), jcache))
