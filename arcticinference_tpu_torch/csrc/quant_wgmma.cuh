@@ -1,6 +1,8 @@
 // Weight-only quantized matmul for Hopper (sm_90a) on wgmma: the tile
 // pipeline of fp8_matmul.cu (e4m3 / int8 weights, kernel 5) and
-// int4_matmul.cu (split-half packed int4 weights, kernel 6).
+// int4_matmul.cu (split-half packed int4 weights, kernel 6), which
+// stream_matmul.cu (kernel 8) launches too and grouped_matmul.cu (the
+// grouped MoE matmul) builds its own kernel from.
 //
 //   out[M, N] = (x[M, K] bf16 @ bf16(w)[K, N]) * scale     fp32 sums
 //
@@ -143,8 +145,12 @@ constexpr int kWTileBytes = kWK * kWGCols;  // one warpgroup's weight tile
 constexpr int kMaxSplits = 3;    // CTAs of a split-K cluster (launch_plan)
 constexpr int kGroup = 128;      // int4 scale group along K
 
+// A weight format: kPacked (split-half int4 nibbles), kElem (bytes per
+// stored element) and, for the unscaled byte formats, pair() (a byte
+// pair to bf16x2).
 struct E4M3 {
   static constexpr bool kPacked = false;
+  static constexpr int kElem = 1;
   static __device__ __forceinline__ uint32_t pair(uint32_t lo, uint32_t hi,
                                                   int j) {
     return e4m3_pair(lo, hi, j);
@@ -153,6 +159,7 @@ struct E4M3 {
 
 struct Int8 {
   static constexpr bool kPacked = false;
+  static constexpr int kElem = 1;
   static __device__ __forceinline__ uint32_t pair(uint32_t lo, uint32_t hi,
                                                   int j) {
     return int8_pair(lo, hi, j);
@@ -165,6 +172,7 @@ struct Int8 {
 // with the high ones; each range lies inside one scale group.
 struct Int4 {
   static constexpr bool kPacked = true;
+  static constexpr int kElem = 1;
 };
 
 struct WArgs {
@@ -179,8 +187,9 @@ struct WArgs {
 
 // A CTA: WGS consumer warpgroups side by side along N (128 weight
 // columns each) or KW of them along K (warpgroup w takes the CTA's
-// stages w, w + KW, ...), and one producer warpgroup.
-template <class P, int BM, int WGS, int KW>
+// stages w, w + KW, ...), and one producer warpgroup.  A stage holds the
+// warpgroups' weight tiles, then the x tile(s), then int4's scales.
+template <class P, int BM, int WGS, int KW = 1>
 struct Shape {
   static_assert(WGS * KW <= 2, "two consumer warpgroups at most");
   static constexpr int kBN = WGS * kWGCols;
@@ -188,7 +197,8 @@ struct Shape {
   static constexpr int kThreads = kConsumers + 128;
   // Two one-warpgroup CTAs share an SM up to 64 rows.
   static constexpr int kCtasPerSm = BM <= 64 && WGS * KW == 1 ? 2 : 1;
-  static constexpr int kWBytes = WGS * kWTileBytes;
+  static constexpr int kWGBytes = kWTileBytes * P::kElem;  // a warpgroup's
+  static constexpr int kWBytes = WGS * kWGBytes;
   static constexpr int kXBytes = (P::kPacked ? 2 : 1) * BM * 128;
   static constexpr int kSBytes = P::kPacked ? 2 * kBN * 4 : 0;
   static constexpr int kTxBytes = kWBytes + kXBytes + kSBytes;
@@ -526,38 +536,136 @@ __device__ __forceinline__ void stage_scales(const float* ss, int bcol,
   }
 }
 
-template <class P, int BM, int WGS, int KW>
-__device__ __forceinline__ void produce(const CUtensorMap* tm_x,
-                                        const CUtensorMap* tm_w,
-                                        const WArgs& a, uint8_t* ring,
-                                        uint64_t* full, uint64_t* empty,
-                                        int t0, int nt, int m0, int n0) {
-  using S = Shape<P, BM, WGS, KW>;
+// The ring's mbarriers ("full": the producer's one arrival with its
+// bytes; "empty": one arrival per consumer warp of the stage's column
+// group) and, on the producer thread, the TMA maps fetched early.  The
+// caller's __syncthreads() publishes them.
+template <class S>
+__device__ __forceinline__ void ring_init(const CUtensorMap* tm_x,
+                                          const CUtensorMap* tm_w,
+                                          uint64_t* full, uint64_t* empty,
+                                          int tid) {
+  if (tid == S::kConsumers) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(tm_x) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(tm_w) : "memory");
+  }
+  if (tid == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * (S::kBN / kWGCols));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// The producer thread: stage it of nt waits for its ring slot to be
+// released, arms the slot's "full" mbarrier with the stage's bytes, and
+// load(slot's bytes, it, full) issues its copies.
+template <class S, class Load>
+__device__ __forceinline__ void produce_ring(uint8_t* ring, uint64_t* full,
+                                             uint64_t* empty, int nt,
+                                             const Load& load) {
   int s = 0, phase = 0;
   for (int it = 0; it < nt; ++it) {
     mbar_wait(&empty[s], phase ^ 1);
-    uint8_t* st = ring + s * S::kStageBytes;
     mbar_expect_tx(&full[s], S::kTxBytes);
-    const int t = t0 + it;
-#pragma unroll
-    for (int w = 0; w < WGS; ++w)
-      tma_load(st + w * kWTileBytes, tm_w, n0 + w * kWGCols, t * kWK,
-               &full[s]);
-    tma_load(st + S::kWBytes, tm_x, t * kWK, m0, &full[s]);
-    if constexpr (P::kPacked) {
-      tma_load(st + S::kWBytes + BM * 128, tm_x, a.k / 2 + t * kWK, m0,
-               &full[s]);
-      float* ss = reinterpret_cast<float*>(st + S::kWBytes + S::kXBytes);
-      const int glo = t * kWK / kGroup, ghi = (a.k / 2 + t * kWK) / kGroup;
-      bulk_load(ss, a.scale + static_cast<size_t>(glo) * a.n + n0,
-                S::kBN * 4, &full[s]);
-      bulk_load(ss + S::kBN, a.scale + static_cast<size_t>(ghi) * a.n + n0,
-                S::kBN * 4, &full[s]);
-    }
+    load(ring + s * S::kStageBytes, it, &full[s]);
     if (++s == S::kStages) {
       s = 0;
       phase ^= 1;
     }
+  }
+}
+
+// A stage's copies after its weight tiles: the x tile [BM, 64] at (64 t,
+// m0); int4 also the high half's at K/2 + 64 t and the two rows of group
+// scales (of `scale`, [K/128, N]) over the CTA's columns from n0.
+template <class P, int BM, class S>
+__device__ __forceinline__ void load_x(uint8_t* st, const CUtensorMap* tm_x,
+                                       const float* scale, int k, int n,
+                                       int t, int m0, int n0,
+                                       uint64_t* bar) {
+  tma_load(st + S::kWBytes, tm_x, t * kWK, m0, bar);
+  if constexpr (P::kPacked) {
+    tma_load(st + S::kWBytes + BM * 128, tm_x, k / 2 + t * kWK, m0, bar);
+    float* ss = reinterpret_cast<float*>(st + S::kWBytes + S::kXBytes);
+    const int glo = t * kWK / kGroup, ghi = (k / 2 + t * kWK) / kGroup;
+    bulk_load(ss, scale + static_cast<size_t>(glo) * n + n0, S::kBN * 4,
+              bar);
+    bulk_load(ss + S::kBN, scale + static_cast<size_t>(ghi) * n + n0,
+              S::kBN * 4, bar);
+  }
+}
+
+// One consumer thread's conversion of its warpgroup's weight tile (column
+// group cw, the thread's columns bcol .., lane c): batch b of the stage
+// in ring slot `slot` into f; batch 0 first reads int4's group scales.
+template <class P, class S>
+struct StageConvert {
+  const uint8_t* ring;
+  int cw, bcol, c;
+  float sl[4] = {0.f, 0.f, 0.f, 0.f}, sh[4] = {0.f, 0.f, 0.f, 0.f};
+
+  __device__ __forceinline__ void operator()(int slot, int b,
+                                             typename Batch<P>::Regs& f) {
+    const uint8_t* st = ring + slot * S::kStageBytes;
+    if (b == 0)
+      stage_scales<P>(reinterpret_cast<const float*>(st + S::kWBytes +
+                                                     S::kXBytes) +
+                          cw * kWGCols,
+                      bcol, sl, sh, S::kBN);
+    convert_batch<P>(st + cw * S::kWGBytes, b, sl, sh, f, bcol, c);
+  }
+};
+
+// A consumer warpgroup's main loop: its stages it = kw, kw + KW, ... < nt
+// (ring slot it % kStages) multiplied into acc.  Two fragment register
+// sets: convert(slot, b, f) fills set j % 2 with batch j while batch
+// j - 1's products run from the other; each warp releases a stage on its
+// "empty" mbarrier once the stage's last products are done.
+template <class P, int BM, int KW, class S, class Convert>
+__device__ __forceinline__ void consume(float (&acc)[2][BM / 2],
+                                        const uint8_t* ring, uint64_t* full,
+                                        uint64_t* empty, int kw, int nt,
+                                        int lane, Convert& convert) {
+  using B = Batch<P>;
+  typename B::Regs f[2];
+  int s = kw, phase = 0, prev = kw;
+  if (kw < nt) {
+    mbar_wait(&full[s], 0);
+    convert(s, 0, f[0]);
+  }
+  for (int it = kw; it < nt; it += KW) {
+    const uint8_t* xs = ring + s * S::kStageBytes + S::kWBytes;
+    const uint64_t dlo = sw128_desc(xs), dhi = sw128_desc(xs + BM * 128);
+    int ns = s + KW, nphase = phase;
+    if (ns >= S::kStages) {
+      ns -= S::kStages;
+      nphase ^= 1;
+    }
+#pragma unroll
+    for (int b = 0; b < B::kPerStage; ++b) {
+      issue_batch<P, BM>(acc, f[b & 1], b, dlo, dhi);
+      wgmma_wait<1>();  // batch j - 1 is done: its registers are free
+      if (b == 0 && it > kw) {  // ... and with it the previous stage
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      if (b + 1 < B::kPerStage) {
+        convert(s, b + 1, f[(b + 1) & 1]);
+      } else if (it + KW < nt) {
+        mbar_wait(&full[ns], nphase);
+        convert(ns, 0, f[0]);
+      }
+    }
+    prev = s;
+    s = ns;
+    phase = nphase;
+  }
+  wgmma_wait<0>();
+  if (kw < nt) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[prev]);
   }
 }
 
@@ -703,25 +811,23 @@ __global__ void __launch_bounds__(Shape<P, BM, WGS, KW>::kThreads,
   const int t0 = rank * a.tiles_per_split;
   const int nt = min(a.tiles_per_split, a.k_tiles - t0);
   constexpr int kProducer = S::kConsumers;  // the producer thread
-  if (tid == kProducer) {  // it fetches the TMA maps first
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tm_x) : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tm_w) : "memory");
-  }
-  if (tid == 0) {
-    for (int s = 0; s < S::kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4 * WGS);  // each consumer warp of the stage
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  ring_init<S>(&tm_x, &tm_w, full, empty, tid);
   __syncthreads();
 
   if (tid >= kProducer) {  // producer warpgroup: one thread copies
     if constexpr (S::kConsumerRegs > 0)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == kProducer)
-      produce<P, BM, WGS, KW>(&tm_x, &tm_w, a, ring, full, empty, t0, nt,
-                              m0, n0);
+    if (tid == kProducer) {
+      const auto load = [&](uint8_t* st, int it, uint64_t* bar) {
+        const int t = t0 + it;
+#pragma unroll
+        for (int w = 0; w < WGS; ++w)
+          tma_load(st + w * S::kWGBytes, &tm_w, n0 + w * kWGCols, t * kWK,
+                   bar);
+        load_x<P, BM, S>(st, &tm_x, a.scale, a.k, a.n, t, m0, n0, bar);
+      };
+      produce_ring<S>(ring, full, empty, nt, load);
+    }
     __syncwarp();
     if (splits > 1) {
       cluster_sync();  // every rank is done with its ring
@@ -732,7 +838,6 @@ __global__ void __launch_bounds__(Shape<P, BM, WGS, KW>::kThreads,
   if constexpr (S::kConsumerRegs > 0)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         S::kConsumerRegs));
-  using B = Batch<P>;
   const int cw = wg % WGS, kw = wg / WGS;  // column group, K group
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
@@ -748,58 +853,8 @@ __global__ void __launch_bounds__(Shape<P, BM, WGS, KW>::kThreads,
   for (int t = 0; t < 2; ++t)
 #pragma unroll
     for (int i = 0; i < BM / 2; ++i) acc[t][i] = 0.f;
-  // Two fragment register sets: batch j converts into set j % 2 while
-  // batch j - 1's products run from the other.
-  typename B::Regs f[2];
-  float sl[4] = {0.f, 0.f, 0.f, 0.f}, sh[4] = {0.f, 0.f, 0.f, 0.f};
-  const auto wtile = [&](int stage) {
-    return ring + stage * S::kStageBytes + cw * kWTileBytes;
-  };
-  const auto scales = [&](int stage) {
-    return reinterpret_cast<const float*>(ring + stage * S::kStageBytes +
-                                          S::kWBytes + S::kXBytes) +
-           cw * kWGCols;
-  };
-  // This warpgroup's stages: it = kw, kw + KW, ... in ring slot s.
-  int s = kw, phase = 0, prev = kw;
-  if (kw < nt) {
-    mbar_wait(&full[s], 0);
-    stage_scales<P>(scales(s), bcol, sl, sh, S::kBN);
-    convert_batch<P>(wtile(s), 0, sl, sh, f[0], bcol, c);
-  }
-  for (int it = kw; it < nt; it += KW) {
-    const uint8_t* xs = ring + s * S::kStageBytes + S::kWBytes;
-    const uint64_t dlo = sw128_desc(xs), dhi = sw128_desc(xs + BM * 128);
-    int ns = s + KW, nphase = phase;
-    if (ns >= S::kStages) {
-      ns -= S::kStages;
-      nphase ^= 1;
-    }
-#pragma unroll
-    for (int b = 0; b < B::kPerStage; ++b) {
-      issue_batch<P, BM>(acc, f[b & 1], b, dlo, dhi);
-      wgmma_wait<1>();  // batch j - 1 is done: its registers are free
-      if (b == 0 && it > kw) {  // ... and with it the previous stage
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[prev]);
-      }
-      if (b + 1 < B::kPerStage) {
-        convert_batch<P>(wtile(s), b + 1, sl, sh, f[(b + 1) & 1], bcol, c);
-      } else if (it + KW < nt) {
-        mbar_wait(&full[ns], nphase);
-        stage_scales<P>(scales(ns), bcol, sl, sh, S::kBN);
-        convert_batch<P>(wtile(ns), 0, sl, sh, f[0], bcol, c);
-      }
-    }
-    prev = s;
-    s = ns;
-    phase = nphase;
-  }
-  wgmma_wait<0>();
-  if (kw < nt) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[prev]);
-  }
+  StageConvert<P, S> convert{ring, cw, bcol, c};
+  consume<P, BM, KW, S>(acc, ring, full, empty, kw, nt, lane, convert);
 
   if constexpr (KW == 2) {
     // K warpgroup 1 hands its sums to K warpgroup 0 through the (drained)

@@ -43,6 +43,7 @@ namespace {
 // times 2^8.
 struct F16TrickE4M3 {
   static constexpr bool kPacked = false;
+  static constexpr int kElem = 1;
   static __device__ __forceinline__ uint32_t pair(uint32_t lo, uint32_t hi,
                                                   int j) {
     const uint32_t x = __byte_perm(lo, hi, j | ((j + 4) << 8));
@@ -55,6 +56,7 @@ struct F16TrickE4M3 {
 // e4m3 byte j of w through the i32 bit surgery.
 struct BitTrickE4M3 {
   static constexpr bool kPacked = false;
+  static constexpr int kElem = 1;
   static __device__ __forceinline__ float value(uint32_t w, int j) {
     const uint32_t u = (w >> (8 * j)) & 0xffu;
     const uint32_t mag = u & 0x7fu;

@@ -18,9 +18,12 @@ element is dequantized to bf16 (``bf16(float(w) * scale)``) before the
 product, as the JAX function does; the sums are float32.
 
 The launch plan (:func:`launch_plan`) is a pure function of ``(R, E, N)``:
-``ceil(R / BM) + E`` row tiles by ``N / 128`` column tiles.  Each CTA
+the rows per CTA (wgmma's N), one or two consumer warpgroups, and
+``ceil(R / BM) + E`` row tiles by ``N / BN`` column tiles.  Each CTA
 finds its expert and rows from ``offsets`` (:func:`tile_map` is the same
-walk on the host, for the tests).
+walk on the host, for the tests).  The kernel runs on ``wgmma`` with TMA
+loads (``csrc/grouped_matmul.cu`` over ``csrc/quant_wgmma.cuh``); K is
+never split, so each row's sums run in one order whatever the plan.
 
 Given CPU tensors the wrapper computes the plain version
 (:func:`grouped_matmul_reference`); given CUDA tensors it launches the
@@ -40,15 +43,15 @@ SOURCE = "grouped_matmul.cu"
 #: Kernel launches since the last :func:`reset_launch_counts`.
 grouped_matmul_launches = 0
 
-BN = 128            # output columns per CTA (N must be a multiple)
+BN = 128            # weight columns per consumer warpgroup (N a multiple)
 KS = 64             # weight rows per pipeline stage (K must be a multiple)
-GROUP = 128         # int4 group (packed int4 needs K a multiple of 2 x 128)
+GROUP = 128         # int4 group (packed int4 needs K a multiple of 128)
 ROW_TILES = (16, 32, 64, 128)
 MAX_EXPERTS = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P]
 
 _BF16, _E4M3, _INT8, _INT4 = 0, 1, 2, 3
 
@@ -58,17 +61,20 @@ def reset_launch_counts() -> None:
     grouped_matmul_launches = 0
 
 
-def launch_plan(r: int, e: int, n: int) -> tuple[int, int, int]:
-    """(rows per tile, row tiles, column tiles) of an ``[r, n]`` output
-    over ``e`` experts.  The row tile is the smallest of
+def launch_plan(r: int, e: int, n: int) -> tuple[int, int, int, int]:
+    """(rows per tile, consumer warpgroups, row tiles, column tiles) of an
+    ``[r, n]`` output over ``e`` experts.  The row tile is the smallest of
     :data:`ROW_TILES` that holds twice the mean group (``r / e``), so a
     decode step's groups take one tile each and a prefill chunk's few
     large ones; ``ceil(r / bm) + e`` tiles cover any split of ``r`` rows
-    into ``e`` groups plus the zeroed rest.  Nothing but the three sizes
-    enters."""
+    into ``e`` groups plus the zeroed rest.  At 128 rows two warpgroups
+    side by side share each x tile (256 columns a CTA) where ``n``
+    allows it; else one warpgroup takes 128 columns.  Nothing but the
+    three sizes enters: no routing, and no K split."""
     mean = -(-r // e)
     bm = next((b for b in ROW_TILES if b >= 2 * mean), ROW_TILES[-1])
-    return bm, -(-r // bm) + e, n // BN
+    wgs = 2 if bm == ROW_TILES[-1] and n % (2 * BN) == 0 else 1
+    return bm, wgs, -(-r // bm) + e, n // (wgs * BN)
 
 
 def clamped_offsets(offsets: list[int], r: int) -> list[int]:
@@ -182,7 +188,7 @@ def grouped_matmul_kernel(xs: torch.Tensor, w: torch.Tensor,
     xs: [R, K] bf16 rows sorted by expert; w: [E, K, N] (see the module
     note); offsets: int32 [E + 1] on the same device.  Returns [R, N]
     float32; rows past ``offsets[E]`` are 0.  On the card N must be a
-    multiple of 128 and K of 64 (packed int4: of 256).
+    multiple of 128 and K of 64 (packed int4: of 128).
     """
     global grouped_matmul_launches
     if not xs.is_cuda:
@@ -204,9 +210,9 @@ def grouped_matmul_kernel(xs: torch.Tensor, w: torch.Tensor,
     if not 1 <= e <= MAX_EXPERTS:
         raise ValueError(f"{e} experts; the kernel takes 1 to "
                          f"{MAX_EXPERTS}")
-    if n % BN or k % KS or (fmt == _INT4 and k % (2 * GROUP)):
+    if n % BN or k % (GROUP if fmt == _INT4 else KS):
         raise ValueError(f"N={n} must be a multiple of {BN} and K={k} of "
-                         f"{2 * GROUP if fmt == _INT4 else KS}")
+                         f"{GROUP if fmt == _INT4 else KS}")
     if not (xs.is_contiguous() and w.is_contiguous()
             and offsets.is_contiguous()
             and (scale is None or scale.is_contiguous())):
@@ -219,11 +225,11 @@ def grouped_matmul_kernel(xs: torch.Tensor, w: torch.Tensor,
     out = torch.empty((r, n), dtype=torch.float32, device=xs.device)
     if r == 0:
         return out
-    bm, row_tiles, _ = launch_plan(r, e, n)
+    bm, wgs, row_tiles, _ = launch_plan(r, e, n)
     rc = _lib().grouped_matmul_launch(
         xs.data_ptr(), w.data_ptr(),
         None if scale is None else scale.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), r, e, n, k, fmt, bm, row_tiles,
+        out.data_ptr(), r, e, n, k, fmt, bm, wgs, row_tiles,
         torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"grouped_matmul_launch failed: CUDA error {rc}")

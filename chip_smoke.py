@@ -17,9 +17,9 @@ Phases, each reported on its own lines:
              the ragged kernel, the grouped decode kernel and the
              page-range decode kernel (kernel 4), and HGMMA (wgmma)
              instructions in every instance of the quantized matmul
-             pipeline (kernels 5 and 6, and kernel 8's variants on it),
-             and HMMA in every instance of the grouped MoE matmul (its
-             shared-memory instruction counts beside them).
+             pipeline (kernels 5 and 6, and kernel 8's variants on it)
+             and in every instance of the grouped MoE matmul (which must
+             hold no HMMA: no mma.sync path is left).
 3. kernels:  each CUDA kernel against its plain PyTorch version at the
              main path's shapes, with its time, the plain version's, the
              bound and a library yardstick: the two attention kernels
@@ -278,13 +278,15 @@ Phases, each reported on its own lines:
              int8 and int4, at 128, 512 and 4096 rows routed uniformly,
              skewed (~70% on one expert), with one expert empty and all
              on one expert (atol = rtol = 2e-2 plus a 1e-3 relative
-             norm); the uniform cases timed beside the plain version,
-             the bound (the bytes of the experts with rows or the bf16
-             products) and ``torch._grouped_mm`` on the bf16 stack (a
-             per-expert ``torch.mm`` loop where the card's torch lacks
-             it); rows bit for bit beside fresh rows and at other
-             indices of their group, two launches alike, a CUDA graph
-             replayed twice alike, rows past the last group exactly 0.
+             norm); the uniform cases and fp8's skewed 128 and 4096 rows
+             timed beside the plain version, the bound (the bytes of the
+             experts with rows or the bf16 products),
+             ``torch._grouped_mm`` on the bf16 stack (a per-expert
+             ``torch.mm`` loop where the card's torch lacks it);
+             rows bit for bit beside fresh rows and at other indices of
+             their group, two launches alike, a CUDA graph replayed
+             twice alike, rows past the last group exactly 0, rows
+             one-hot at a column equal to the dequantized weight row.
              (b) Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's config) at
              full width and depth in fp8, random weights:
              ``LLM.generate`` of 16 prompts of 128-1024 tokens x 32 on
@@ -1371,27 +1373,24 @@ def hmma_counts(lib) -> dict:
 
 
 def grouped_matmul_sass(lib) -> dict:
-    """HMMA (tensor-core) and shared-memory (LDS / STS / LDSM) instruction
-    counts of each instance of the grouped MoE matmul (weight format,
-    rows per tile), read from the library's SASS."""
+    """HGMMA (wgmma) and HMMA (mma.sync) instruction counts of each
+    instance of the grouped MoE matmul (weight format, rows per tile,
+    consumer warpgroups), read from the library's SASS."""
     import re
 
     counts, fn = {}, None
     for line in sass_text(lib).splitlines():
         if "Function :" in line:
-            m = re.search(r"grouped_matmul_kernelINS_\d+(\w+?)WELi(\d+)E",
-                          line)
-            fn = f"{m.group(1)} BM={m.group(2)}" if m else None
+            m = re.search(r"grouped_matmul_kernelI\w*?(Bf16|E4M3|Int8|Int4)"
+                          r"ELi(\d+)ELi(\d+)E", line)
+            fn = (f"{m.group(1)} BM={m.group(2)} WGS={m.group(3)}" if m
+                  else None)
             if fn:
-                counts[fn] = dict(HMMA=0, LDSM=0, LDS=0, STS=0, LDGSTS=0)
+                counts[fn] = dict(HGMMA=0, HMMA=0)
         elif fn:
-            for op in ("HMMA", "LDSM", "LDGSTS"):
-                if f" {op}" in line:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
                     counts[fn][op] += 1
-            if re.search(r"\bLDS(\.|\s)", line):
-                counts[fn]["LDS"] += 1
-            if re.search(r"\bSTS(\.|\s)", line):
-                counts[fn]["STS"] += 1
     return counts
 
 
@@ -2689,23 +2688,16 @@ def phase_profile(rng) -> None:
     log("  profile device step " + json.dumps(profile_device_step()))
 
 
-def profile_device_step(batch: int = 64, ctx: int = 192,
-                        replays: int = 10) -> dict:
-    """Device time by kernel of the bench's decode step (fp8 Llama-3.1-8B
-    at (``batch``, ``ctx``), the CUDA graph the bench times) over
-    ``replays`` replays under ``torch.profiler``: where the device step's
-    time goes.  A measurement, not a check: an empty trace reads "not
-    measured"."""
+def graph_profile(llm, batch: int, ctx: int, replays: int) -> tuple:
+    """The decode step of ``llm`` at (``batch``, ``ctx``) as a CUDA graph,
+    replayed ``replays`` times under ``torch.profiler``: (device events by
+    self time, busy ms per step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from arcticinference_tpu_torch import bench
-    from arcticinference_tpu_torch.benchmarks.distill_drafter import (
-        LLAMA_8B as BENCH_8B, engine_config, free_llm)
-    from arcticinference_tpu_torch.engine.llm import LLM
 
-    llm = LLM(engine_config(BENCH_8B, True, batch))
     si, reqs = bench.decode_step_inputs(llm, batch, ctx)
     graph = bench.capture_step_graph(llm.engine.runner, si,
                                      llm.engine._generator)
@@ -2718,11 +2710,27 @@ def profile_device_step(batch: int = 64, ctx: int = 192,
     del graph
     for req in reqs:
         llm.engine.scheduler.block_manager.free(req.block_ids)
-    free_llm(llm)
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / replays
+    return events, sum(e.self_device_time_total
+                       for e in events) / 1e3 / replays
+
+
+def profile_device_step(batch: int = 64, ctx: int = 192,
+                        replays: int = 10) -> dict:
+    """Device time by kernel of the bench's decode step (fp8 Llama-3.1-8B
+    at (``batch``, ``ctx``), the CUDA graph the bench times) over
+    ``replays`` replays under ``torch.profiler``: where the device step's
+    time goes.  A measurement, not a check: an empty trace reads "not
+    measured"."""
+    from arcticinference_tpu_torch.benchmarks.distill_drafter import (
+        LLAMA_8B as BENCH_8B, engine_config, free_llm)
+    from arcticinference_tpu_torch.engine.llm import LLM
+
+    llm = LLM(engine_config(BENCH_8B, True, batch))
+    events, busy_ms = graph_profile(llm, batch, ctx, replays)
+    free_llm(llm)
     if busy_ms == 0:
         return dict(device_step="not measured")
     qmm = sum(e.self_device_time_total for e in events
@@ -4844,10 +4852,13 @@ def moe_replay(fmt, wname, k, n, r, gen, rng) -> dict:
     group to other indices, beside fresh rows, give the same bits; two
     launches alike; a CUDA graph of one launch replayed twice alike the
     eager launch; the rows past ``offsets[E]`` (a routing 7 rows short)
-    exactly 0."""
+    exactly 0; rows one-hot at column k give the dequantized weight row
+    ``float(bf16(W[e][k] * scale))`` exactly (a kernel that scaled the
+    float32 sums instead would miss it by each weight's bf16 rounding)."""
     import torch
 
     from arcticinference_tpu_torch.ops.cuda import grouped_matmul as gm
+    from arcticinference_tpu_torch.ops.fp8 import QuantizedLinear
 
     q = moe_weight(fmt, k, n, gen)
     counts = moe_counts(rng, "skewed", r - 7)
@@ -4883,25 +4894,38 @@ def moe_replay(fmt, wname, k, n, r, gen, rng) -> dict:
         graph.replay()
         torch.cuda.synchronize()
         replays.append(bool(torch.equal(captured, out)))
+    cols = torch.randint(0, k, (r,), generator=gen, device="cuda")
+    hot = torch.zeros((r, k), dtype=torch.bfloat16, device="cuda")
+    hot[torch.arange(r, device="cuda"), cols] = 1
+    expert = torch.repeat_interleave(
+        torch.arange(8, device="cuda"), offsets.diff().long())
+    wd = (gm.dequantized(q.weight, q.scale) if isinstance(q, QuantizedLinear)
+          else q)
+    one_hot = launch(hot)
+    want = wd[expert, cols[:expert.numel()]].float()
     res = dict(case=f"{fmt} {wname} [8,{k},{n}] R={r}",
                plan=list(gm.launch_plan(r, 8, n)), rows_moved=len(moves),
                rows_not_bitwise_equal=sum(not torch.equal(out2[j2], out[j])
                                           for j, j2 in moves.items()),
                launches_equal=bool(torch.equal(again, out)),
                graph_replays_equal=replays,
-               tail_rows_zero=bool((out[bounds[-1]:] == 0).all()))
+               tail_rows_zero=bool((out[bounds[-1]:] == 0).all()),
+               one_hot_rows_not_exact=int(
+                   (one_hot[:expert.numel()] != want).any(1).sum()))
     res["ok"] = (res["rows_not_bitwise_equal"] == 0 and res["launches_equal"]
-                 and all(replays) and res["tail_rows_zero"])
+                 and all(replays) and res["tail_rows_zero"]
+                 and res["one_hot_rows_not_exact"] == 0)
     log("  moe replay " + json.dumps(res))
-    del graph, q
+    del graph, q, wd
     return res
 
 
 def phase_moe_kernels(seed) -> tuple:
     """The grouped kernel against its plain version at Mixtral-8x7B's
     expert shapes: every weight format x rows x routing (timed at the
-    uniform routing), then :func:`moe_replay`; returns (cases,
-    replays)."""
+    uniform routing, and fp8's skewed 128 and 4096 rows, where one
+    expert's rows take several row tiles that each read its weight),
+    then :func:`moe_replay`; returns (cases, replays)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
@@ -4918,9 +4942,12 @@ def phase_moe_kernels(seed) -> tuple:
                     offsets = torch.tensor(
                         np.concatenate([[0], np.cumsum(counts)]),
                         dtype=torch.int32, device="cuda")
+                    timed = routing == "uniform" or (
+                        fmt == "fp8" and routing == "skewed"
+                        and r in (128, 4096))
                     cases.append(moe_kernel_case(
                         f"{fmt} {wname} [8,{k},{n}] R={r} {routing}", xs, q,
-                        offsets, counts, timed=routing == "uniform"))
+                        offsets, counts, timed=timed))
             del q
             free_cuda_memory()
     for fmt in MOE_FORMATS:
@@ -5085,19 +5112,33 @@ def moe_forward_check(llm, rng) -> dict:
     return res
 
 
-def moe_device_step(llm, batch=64, ctx=512) -> dict:
+def moe_device_step(llm, batch=64, ctx=512, replays=5) -> dict:
     """The decode step at (``batch``, ``ctx``) as a CUDA graph
     (``bench.measure_device_step``) against its byte bound: every weight
     but the embedding (at batch 64, 128 assignments leave an expert
-    without rows with probability ~8 x (7/8)^128 < 1e-6) and the KV."""
+    without rows with probability ~8 x (7/8)^128 < 1e-6) and the KV;
+    then, after the timing, the same graph's device time by kernel under
+    ``torch.profiler`` (an empty trace reads "not measured")."""
     from arcticinference_tpu_torch import bench
 
     step = bench.measure_device_step(llm, batch, ctx, iters=10)
     nbytes = bench.step_bytes(llm, batch, ctx)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    events, busy_ms = graph_profile(llm, batch, ctx, replays)
+
+    def ms(*names):
+        return sum(e.self_device_time_total for e in events
+                   if any(n in e.key for n in names)) / 1e3 / replays
+    profiled = dict(
+        busy_ms=busy_ms, grouped_matmul_ms=ms("grouped_matmul_kernel"),
+        fp8_matmul_ms=ms("qmm::"), attention_ms=ms("grouped_decode_kernel"),
+        top=[dict(kernel=e.key[:90], ms_per_step=e.self_device_time_total
+                  / 1e3 / replays, calls_per_step=e.count / replays)
+             for e in events[:10]]) if busy_ms else "not measured"
     return dict(batch=batch, ctx=ctx, device_ms=step["device_ms"],
                 dispatch_ms=step["dispatch_ms"], bytes=nbytes,
-                bound_ms=bound, bound_share=bound / step["device_ms"])
+                bound_ms=bound, bound_share=bound / step["device_ms"],
+                profile=profiled)
 
 
 def moe_generate(quantization, prompts, layers=None) -> dict:
@@ -5298,15 +5339,16 @@ def main() -> int:
             or min(min(c.values()) for c in hgmma.values()) == 0):
         raise AssertionError(
             f"quantized matmul instances missing or without HGMMA: {hgmma}")
-    # The grouped MoE matmul runs mma.sync: its 16 instances (4 weight
-    # formats x 4 row tiles) must hold HMMA.
+    # The grouped MoE matmul runs wgmma: its 20 instances (4 weight
+    # formats x 5 plans) must hold HGMMA and no HMMA.
     grouped_sass = grouped_matmul_sass(libs[sources.index(gm.SOURCE)])
     log(f"[build] grouped matmul SASS per instance: "
         f"{json.dumps(grouped_sass)}")
-    if len(grouped_sass) != 16 or min(
-            c["HMMA"] for c in grouped_sass.values()) == 0:
-        raise AssertionError(f"grouped matmul instances missing or without "
-                             f"HMMA: {grouped_sass}")
+    if len(grouped_sass) != 20 or min(
+            c["HGMMA"] for c in grouped_sass.values()) == 0 or max(
+            c["HMMA"] for c in grouped_sass.values()) > 0:
+        raise AssertionError(f"grouped matmul instances missing, without "
+                             f"HGMMA or with HMMA: {grouped_sass}")
 
     csrc = "arcticinference_tpu_torch/csrc/"
     kernels = {
@@ -5609,9 +5651,9 @@ def main() -> int:
                 "grouped_matmul_kernel"],
             launches_per_dispatch=moe_res["fp8"]["launches_per_dispatch"],
             cases=[{k: c[k] for k in (
-                "case", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "max_abs_err", "rel_err") if k in c}
-                   for c in cases if "ms" in c],
+                "case", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "max_abs_err", "rel_err") if k in c}
+                   for c in cases],
             cases_checked=len(cases), replay=moe_res["replays"])
         for key in ("ragged_paged_attention_kernel",
                     "grouped_decode_attention_kernel", "fp8_matmul_kernel"):

@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
 """Time the quantized matmul kernels of the checkout in the current
-directory at chip_smoke.py's phase-3 shapes:
+directory at chip_smoke.py's phase-3 shapes, and the grouped MoE matmul
+at phase 11's:
 
     cd <checkout> && python3 <path>/scripts/time_matmul_kernels.py
+    cd <checkout> && python3 <path>/scripts/time_matmul_kernels.py \
+        --kernels grouped      # the grouped MoE matmul alone
+                               # (for an A/B run of that kernel only)
 
 Cases (seed 0): kernel 5 (``fp8_matmul_kernel``) on Llama-3.1-8B's wqkv,
 wo, w_gateup and w_down at 16, 64, 128, 256 and 2048 rows and its LM head
@@ -11,7 +15,12 @@ drafter's projection and head at 64 rows (float32 out); kernel 6
 (``int4_matmul_kernel``) on the same layer shapes at 16, 64, 256 and
 2048 rows; kernel 8 (``stream_matmul_kernel``, its four dequant variants)
 at the stream microbench's five shapes, 64 rows, beside kernel 5 with a
-unit scale on the same bytes.  Each is timed with CUDA
+unit scale on the same bytes; the grouped MoE matmul
+(``grouped_matmul_kernel``) on Mixtral-8x7B's w_gate [8, 4096, 14336]
+and w_down [8, 14336, 4096] stacks in bf16, fp8, int8 and int4 at 128,
+512 and 4096 rows routed uniformly, and fp8 at 128 and 4096 rows skewed
+(``chip_smoke.moe_counts``), through the wrapper only, so that any tree
+with that wrapper can be timed.  Each is timed with CUDA
 events over 20 launches behind a spinning kernel, on weight copies that
 cycle past the 50 MB L2 (``chip_smoke.cuda_time_ms``, ``rotating``),
 with its wrapper's host microseconds per call (``host_time_us``) and one
@@ -21,6 +30,7 @@ the card's name and power limit, then one JSON line ``{case: {"ms",
 turns (A, B, B, A), in one call on the card.  Needs a CUDA device.
 """
 
+import argparse
 import json
 import sys
 
@@ -38,7 +48,45 @@ HEAD = ("lm_head", 4096, 128256)
 DRAFTER = (("drafter proj", 4096, 4096), ("drafter head", 4096, 128256))
 
 
+def time_grouped(cs, gen, out) -> None:
+    """The grouped MoE matmul at phase 11's shapes, rows and routings."""
+    import numpy as np
+
+    from arcticinference_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    rng = np.random.default_rng(0)
+    for fmt in cs.MOE_FORMATS:
+        for wname, k, n in cs.MOE_SHAPES:
+            q = cs.moe_weight(fmt, k, n, gen)
+            nb = q.nbytes if isinstance(q, torch.Tensor) else (
+                q.weight.nbytes + q.scale.nbytes)
+            copies = cs.rotating(q, nb)
+            for r in cs.MOE_ROWS:
+                xs = torch.randn((r, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                for routing in ("uniform", "skewed"):
+                    if routing == "skewed" and (fmt != "fp8"
+                                                or r not in (128, 4096)):
+                        continue
+                    counts = cs.moe_counts(rng, routing, r)
+                    offsets = torch.tensor(
+                        np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device="cuda")
+                    out[f"grouped {fmt} {wname} [8,{k},{n}] R={r} "
+                        f"{routing}"] = dict(
+                        ms=cs.cuda_time_ms(lambda: cs.grouped_call(
+                            gm.grouped_matmul_kernel, xs, next(copies),
+                            offsets), 20),
+                        host_us=cs.host_time_us(lambda: cs.grouped_call(
+                            gm.grouped_matmul_kernel, xs, q, offsets)))
+            del q, copies
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", choices=("all", "grouped"), default="all")
+    args = ap.parse_args()
     sys.path.insert(0, ".")  # the checkout being timed
     import chip_smoke as cs
     from arcticinference_tpu_torch.benchmarks import stream_microbench as smb
@@ -53,6 +101,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     unit = torch.ones(1, dtype=torch.float32, device="cuda")
     out = {}
+    if args.kernels == "grouped":
+        time_grouped(cs, gen, out)
+        print(cs.smi(), flush=True)
+        print(json.dumps(out), flush=True)
+        return 0
 
     def time_case(label, kernel, q, k, m, out_dtype=torch.bfloat16):
         x = torch.randn((m, k), generator=gen, device="cuda").to(
@@ -120,6 +173,7 @@ def main() -> int:
             del copies, dense, k5
         del ws, x
         torch.cuda.empty_cache()
+    time_grouped(cs, gen, out)
     print(cs.smi(), flush=True)
     print(json.dumps(out), flush=True)
     return 0

@@ -12,11 +12,13 @@ the JAX package on the CPU.
 - ``ops/moe.py``: ``group_offsets`` equals the prefix sum of
   ``jnp.bincount``, ``sort_assignments`` the order of ``jnp.argsort``
   (stable, on assignments full of ties), ``route`` the JAX router.
-- The launch plan: a pure function of ``(R, E, N)``, at most
-  ``ceil(R / BM) + E`` row tiles, and its walk (``tile_map``, the
-  kernel's on the host) covers every row once, with the right expert,
-  for every count vector of a seeded sweep; the plain product computed
-  tile by tile along that walk equals the plain version exactly.
+- The launch plan: a pure function of ``(R, E, N)`` (no routing enters,
+  and K is never split), at most ``ceil(R / BM) + E`` row tiles whose
+  column tiles cover N once, and its walk (``tile_map``, the kernel's on
+  the host) covers every row once, with the right expert, for every count
+  vector of a seeded sweep; the plain product computed tile by tile along
+  that walk equals the plain version exactly, also stage by stage as the
+  kernel's producer addresses the weight, x and int4 group scales.
 - ``weight_format`` takes what the kernel takes and refuses the rest.
 
 The kernel itself runs only on the card
@@ -196,19 +198,33 @@ def test_combine_sums_each_tokens_rows():
 
 # The plan at the shapes the card runs (Mixtral-8x7B's experts, decode and
 # prefill rows) and odd ones.
-PLAN_SHAPES = [(128, 8, 14336), (512, 8, 14336), (4096, 8, 4096),
-               (1, 8, 128), (7, 3, 256), (300, 16, 128), (64, 1, 128)]
+PLAN_SHAPES = [(128, 8, 14336), (128, 8, 4096), (512, 8, 14336),
+               (4096, 8, 4096), (1, 8, 128), (7, 3, 256), (300, 16, 128),
+               (64, 1, 128), (2000, 8, 384)]
 
 
-def test_launch_plan_is_a_function_of_the_sizes():
-    for r, e, n in PLAN_SHAPES:
-        bm, row_tiles, col_tiles = gm.launch_plan(r, e, n)
-        assert (bm, row_tiles, col_tiles) == gm.launch_plan(r, e, n)
-        assert bm in gm.ROW_TILES
-        assert row_tiles == -(-r // bm) + e
-        assert col_tiles * gm.BN == n
-    assert gm.launch_plan(128, 8, 14336)[0] == 32   # 16 rows an expert
-    assert gm.launch_plan(4096, 8, 4096)[0] == 128  # a 2048-token chunk
+@pytest.mark.parametrize("r,e,n", PLAN_SHAPES)
+def test_launch_plan_is_a_function_of_the_sizes(r, e, n):
+    """The plan takes the three sizes and nothing else (no offsets, no K
+    split); its row tiles cover any routing, its column tiles N once."""
+    import inspect
+
+    assert list(inspect.signature(gm.launch_plan).parameters) == [
+        "r", "e", "n"]
+    bm, wgs, row_tiles, col_tiles = gm.launch_plan(r, e, n)
+    assert (bm, wgs, row_tiles, col_tiles) == gm.launch_plan(r, e, n)
+    assert bm in gm.ROW_TILES
+    assert row_tiles == -(-r // bm) + e
+    assert wgs in (1, 2) and (wgs == 1 or bm == 128)
+    assert col_tiles * wgs * gm.BN == n
+
+
+def test_launch_plan_at_mixtral_shapes():
+    assert gm.launch_plan(128, 8, 14336) == (32, 1, 12, 112)  # decode
+    assert gm.launch_plan(128, 8, 4096) == (32, 1, 12, 32)
+    assert gm.launch_plan(4096, 8, 4096) == (128, 2, 40, 16)  # a chunk
+    assert gm.launch_plan(4096, 8, 14336) == (128, 2, 40, 56)
+    assert gm.launch_plan(256, 1, 384) == (128, 1, 3, 3)
 
 
 def random_counts(rng, r, e):
@@ -229,48 +245,133 @@ def random_counts(rng, r, e):
     return rng.multinomial(int(rng.integers(0, r + 1)), np.ones(e) / e)
 
 
-def test_launch_plan_covers_every_row():
+@pytest.mark.parametrize("r,e,n", PLAN_SHAPES)
+def test_launch_plan_covers_every_row(r, e, n):
     """For every count vector of the sweep the walk gives each row to one
     tile: a group's rows to its expert, the rest to a zeroing tile."""
-    rng = np.random.default_rng(17)
-    for r, e, n in PLAN_SHAPES:
-        bm, row_tiles, _ = gm.launch_plan(r, e, n)
-        for _ in range(40):
-            counts = random_counts(rng, r, e)
-            offs = offsets_of(counts)
-            owner = np.full(r, -2)
-            for kind, expert, row0, rows in gm.tile_map(
-                    offs.tolist(), r, bm, row_tiles):
-                if kind == "exit":
-                    continue
-                assert 0 < rows <= bm
-                assert (owner[row0:row0 + rows] == -2).all()
-                owner[row0:row0 + rows] = expert
-            want = np.repeat(np.arange(e), counts)
-            np.testing.assert_array_equal(owner[:len(want)], want)
-            assert (owner[len(want):] == -1).all()
+    rng = np.random.default_rng(17 + r + e)
+    bm, _, row_tiles, _ = gm.launch_plan(r, e, n)
+    for _ in range(40):
+        counts = random_counts(rng, r, e)
+        offs = offsets_of(counts)
+        owner = np.full(r, -2)
+        for kind, expert, row0, rows in gm.tile_map(
+                offs.tolist(), r, bm, row_tiles):
+            if kind == "exit":
+                continue
+            assert 0 < rows <= bm
+            assert (owner[row0:row0 + rows] == -2).all()
+            owner[row0:row0 + rows] = expert
+        want = np.repeat(np.arange(e), counts)
+        np.testing.assert_array_equal(owner[:len(want)], want)
+        assert (owner[len(want):] == -1).all()
 
 
-def test_tile_walk_computes_the_plain_product():
+@pytest.mark.parametrize("counts", [(8, 0, 20, 2, 7), (40, 0, 0, 0, 0),
+                                    (1, 2, 3, 4, 5)])
+def test_tile_walk_computes_the_plain_product(counts):
     """The product computed tile by tile along the kernel's walk, each
     tile on its own rows, equals the plain version exactly."""
     rng = np.random.default_rng(4)
     r, e, k, n = 40, 5, 32, 16
     xs = torch.from_numpy(rng.standard_normal((r, k)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((e, k, n)).astype(np.float32))
-    bm, row_tiles, _ = gm.launch_plan(r, e, n)
-    for counts in ((8, 0, 20, 2, 7), (40, 0, 0, 0, 0), (1, 2, 3, 4, 5)):
-        offs = offsets_of(counts)
-        want = gm.grouped_matmul_reference(xs, w, None,
-                                           torch.from_numpy(offs))
-        got = torch.full((r, n), float("nan"))
-        for kind, expert, row0, rows in gm.tile_map(
-                offs.tolist(), r, bm, row_tiles):
-            if kind == "mma":
-                got[row0:row0 + rows] = xs[row0:row0 + rows] @ w[expert]
-            elif kind == "zero":
-                got[row0:row0 + rows] = 0
-        assert torch.equal(got, want)
+    bm, _, row_tiles, _ = gm.launch_plan(r, e, n)
+    offs = offsets_of(counts)
+    want = gm.grouped_matmul_reference(xs, w, None, torch.from_numpy(offs))
+    got = torch.full((r, n), float("nan"))
+    for kind, expert, row0, rows in gm.tile_map(
+            offs.tolist(), r, bm, row_tiles):
+        if kind == "mma":
+            got[row0:row0 + rows] = xs[row0:row0 + rows] @ w[expert]
+        elif kind == "zero":
+            got[row0:row0 + rows] = 0
+    assert torch.equal(got, want)
+
+
+def stage_walk(xs, q, offsets, mode, r, e, n):
+    """The kernel's tiles stage by stage, on the host: each CTA's weight
+    tile [64 (packed) rows, BN columns] of its expert at (n0, 64 t, e),
+    its x tile [BM, 64] at (64 t, row0) (rows past R zero), int4's high
+    half at K/2 + 64 t with the group-scale rows 64 t / 128 and (K/2 +
+    64 t) / 128, every element bf16(float(w) * scale) before the product;
+    only the tile's own rows stored."""
+    from arcticinference_tpu_torch.ops.fp8 import QuantizedLinear
+
+    bm, wgs, row_tiles, col_tiles = gm.launch_plan(r, e, n)
+    bn = wgs * gm.BN
+    w, scale = (q.weight, q.scale) if isinstance(q, QuantizedLinear) \
+        else (q, None)
+    k = xs.shape[1]
+    packed = mode == "int4"
+    xpad = torch.cat([xs.float(), torch.zeros((bm, k))])
+    out = torch.full((r, n), float("nan"))
+    for kind, expert, row0, rows in gm.tile_map(
+            offsets.tolist(), r, bm, row_tiles):
+        for ct in range(col_tiles):
+            cols = slice(ct * bn, ct * bn + bn)
+            if kind == "zero":
+                out[row0:row0 + rows, cols] = 0
+            if kind != "mma":
+                continue
+            acc = torch.zeros((bm, bn))
+            for t in range((k // 2 if packed else k) // gm.KS):
+                raw = w[expert, t * gm.KS:(t + 1) * gm.KS, cols]
+                if packed:
+                    b = raw.to(torch.int32) & 0xFF
+                    lo = ((b << 28).to(torch.int32) >> 28).float()
+                    hi = ((b << 24).to(torch.int32) >> 28).float()
+                    glo = t * gm.KS // gm.GROUP
+                    ghi = (k // 2 + t * gm.KS) // gm.GROUP
+                    parts = ((lo * scale[expert, glo, cols], t * gm.KS),
+                             (hi * scale[expert, ghi, cols],
+                              k // 2 + t * gm.KS))
+                elif mode == "int8":
+                    parts = ((raw.float() * scale[expert, cols], t * gm.KS),)
+                elif mode == "fp8":
+                    parts = ((raw.float() * scale.reshape(()), t * gm.KS),)
+                else:
+                    parts = ((raw.float(), t * gm.KS),)
+                for wd, c0 in parts:
+                    wd = wd.to(torch.bfloat16).float()
+                    acc += xpad[row0:row0 + bm, c0:c0 + gm.KS] @ wd
+            out[row0:row0 + rows, cols] = acc[:rows]
+    return out
+
+
+@pytest.mark.parametrize("mode", ["bf16", "fp8", "int8", "int4"])
+def test_stage_walk_computes_the_plain_product(mode):
+    """A host model of the kernel's addressing, stage by stage
+    (:func:`stage_walk`), equals the plain version exactly on
+    integer-valued rows and weights quantized with power-of-two scales
+    (every sum exact in any order): the 3-D weight tile, the x tile at the
+    tile's row0, int4's halves and group-scale rows, the scale folded in
+    before the product.  It documents the addressing; the kernel itself
+    is held to the plain version by the card tests."""
+    # An empty group, a group over two 32-row tiles, a row past offsets[E].
+    counts = (9, 0, 35, 2)
+    from arcticinference_tpu_torch.models.mixtral import quantize_experts
+    from arcticinference_tpu_torch.ops.fp8 import QuantizedLinear
+
+    rng = np.random.default_rng(len(mode) + sum(counts))
+    r, e, k, n = 47, 4, 512, 256
+    xs = torch.from_numpy(rng.integers(-2, 3, (r, k)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.integers(-7, 8, (e, k, n)).astype(np.float32))
+    if mode == "bf16":
+        q = w.to(torch.bfloat16)
+    else:
+        q = quantize_experts(w, mode)
+        q = QuantizedLinear(q.weight, torch.exp2(torch.round(
+            torch.log2(q.scale))))
+    offs = torch.from_numpy(offsets_of(counts))
+    want = gm.grouped_matmul_reference(xs, q.weight if mode != "bf16"
+                                       else q, None if mode == "bf16"
+                                       else q.scale, offs)
+    got = stage_walk(xs, q, offs, mode, r, e, n)
+    assert torch.equal(got, want)
+    assert want[:sum(counts)].abs().max() > 0
+    assert not got[sum(counts):].any()
 
 
 def test_clamped_offsets():

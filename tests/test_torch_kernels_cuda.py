@@ -17,7 +17,8 @@ N(0, 1), so outputs are O(sqrt(K)); kernel and plain version multiply
 the same bf16 values and differ only in the order of the float32 sums,
 and so by rare one-ulp flips of the bf16 output: the same bounds hold.
 The grouped MoE matmul multiplies bf16 rows by the bf16 weights its plain
-version dequantizes, float32 out: the same bounds hold.
+version dequantizes, float32 out: the same bounds hold, and rows one-hot
+at a column must read the dequantized weight back bit for bit.
 The weight-stream variants (kernel 8) draw weights as the JAX
 microbench's ``gen_ws`` does and are held to the same bounds; the HBM
 read probe (kernel 7) sums float32 values in another order than its
@@ -1414,21 +1415,25 @@ def test_guided_ops_on_the_card_match_cpu(cuda_device, v):
         torch.testing.assert_close(a.cpu(), b, atol=0, rtol=0)
 
 
-def grouped_case(mode, counts, k, n, device, seed=0):
-    """Expert-sorted bf16 rows, an [E, K, N] expert stack quantized as the
-    Mixtral module quantizes a layer (``quantize_experts``) and the int32
-    offsets of ``counts`` (summing to at most the rows) on the card."""
+def grouped_case(mode, counts, k, n, device, seed=0, r=None):
+    """Expert-sorted bf16 rows (``r``, by default 3 past the counts' sum),
+    an [E, K, N] expert stack quantized as the Mixtral module quantizes a
+    layer (``quantize_experts``) and the int32 offsets of ``counts``
+    (summing to at most the rows) on the card."""
     from arcticinference_tpu_torch.models.mixtral import quantize_experts
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    r = max(sum(counts), 1) + 3
+    r = max(sum(counts), 1) + 3 if r is None else r
     xs = torch.randn((r, k), generator=gen, device=device).to(torch.bfloat16)
     w = torch.randn((len(counts), k, n), generator=gen, device=device)
     w = w.to(torch.bfloat16)
     q = w if mode == "bf16" else quantize_experts(w, mode)
-    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
-                           dtype=torch.int32, device=device)
-    return xs, q, offsets
+    return xs, q, grouped_offsets(counts, device)
+
+
+def grouped_offsets(counts, device):
+    return torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device=device)
 
 
 def grouped_launch(xs, q, offsets, fn=tgm.grouped_matmul_kernel):
@@ -1437,15 +1442,36 @@ def grouped_launch(xs, q, offsets, fn=tgm.grouped_matmul_kernel):
     return fn(xs, q, None, offsets)
 
 
+def routing_counts(routing, r, e=8, seed=0):
+    """Rows per expert of ``r`` rows (chip_smoke.py phase 11's routings):
+    uniform, skewed (~70% on one expert), one expert empty, every row on
+    one expert."""
+    if routing == "one expert":
+        return (r,) + (0,) * (e - 1)
+    p = np.ones(e) / e
+    if routing == "skewed":
+        p = np.full(e, 0.3 / (e - 1))
+        p[3] = 0.7
+    elif routing == "one empty":
+        p[5] = 0
+        p /= p.sum()
+    return tuple(int(c) for c in np.random.default_rng(seed).multinomial(
+        r, p))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("counts", [(16, 16, 16, 16), (90, 10, 0, 28),
-                                    (0, 0, 200, 0), (1, 0, 0, 2),
-                                    (40, 40, 40, 0)])
+@pytest.mark.parametrize("routing", ["uniform", "skewed", "one empty",
+                                     "one expert"])
+@pytest.mark.parametrize("rows", [128, 512, 4096])
 @pytest.mark.parametrize("mode", ["bf16", "fp8", "int8", "int4"])
-def test_grouped_matmul_kernel_matches_plain(cuda_device, mode, counts):
-    """Uniform, skewed, one expert, tiny and empty groups at the 16- to
-    128-row tiles; rows past the last group are exactly 0."""
-    xs, q, offsets = grouped_case(mode, counts, 512, 256, cuda_device)
+def test_grouped_matmul_kernel_matches_plain(cuda_device, mode, rows,
+                                             routing):
+    """Decode (128 = 64 x top-2), 512 and a 2048-token chunk x 2 over 8
+    experts (the 32-, 128-row and two-warpgroup 128-row tiles); 5 rows
+    past the last group are exactly 0."""
+    counts = routing_counts(routing, rows - 5, seed=rows)
+    xs, q, offsets = grouped_case(mode, counts, 1024, 768, cuda_device,
+                                  r=rows)
     tgm.reset_launch_counts()
     out = grouped_launch(xs, q, offsets)
     ref = grouped_launch(xs, q, offsets, tgm.grouped_matmul_reference)
@@ -1457,28 +1483,88 @@ def test_grouped_matmul_kernel_matches_plain(cuda_device, mode, counts):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["bf16", "fp8", "int4"])
+@pytest.mark.parametrize("counts", [(16, 16, 16, 16), (90, 10, 0, 28),
+                                    (0, 0, 200, 0), (1, 0, 0, 2),
+                                    (40, 40, 40, 0)])
+@pytest.mark.parametrize("mode", ["bf16", "fp8", "int8", "int4"])
+def test_grouped_matmul_kernel_at_odd_counts(cuda_device, mode, counts):
+    """Tiny and empty groups over 4 experts at the 16-, 64- and 128-row
+    tiles, N = 384 (one warpgroup at 128 rows); rows past the last group
+    are exactly 0."""
+    xs, q, offsets = grouped_case(mode, counts, 512, 384, cuda_device)
+    out = grouped_launch(xs, q, offsets)
+    ref = grouped_launch(xs, q, offsets, tgm.grouped_matmul_reference)
+    torch.cuda.synchronize()
+    assert_matches(out, ref)
+    assert not out[sum(counts):].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [128, 4096])
+@pytest.mark.parametrize("mode", ["bf16", "fp8", "int8", "int4"])
+def test_grouped_matmul_one_hot_rows_are_exact(cuda_device, mode, rows):
+    """x rows one-hot at column k give float(bf16(W[e][k] * scale)): the
+    dequantized weight row, bit for bit, and the plain version's.  A
+    kernel that scaled the float32 sums instead of the weights would
+    differ here by the bf16 rounding of each weight."""
+    counts = routing_counts("skewed", rows - 3, seed=rows + 1)
+    _, q, offsets = grouped_case(mode, counts, 1024, 768, cuda_device,
+                                 r=rows)
+    cols = torch.randint(0, 1024, (rows,), generator=torch.Generator(
+        ).manual_seed(rows)).to(cuda_device)
+    xs = torch.zeros((rows, 1024), dtype=torch.bfloat16, device=cuda_device)
+    xs[torch.arange(rows, device=cuda_device), cols] = 1
+    out = grouped_launch(xs, q, offsets)
+    ref = grouped_launch(xs, q, offsets, tgm.grouped_matmul_reference)
+    wd = (tgm.dequantized(q.weight, q.scale)
+          if isinstance(q, tfp8.QuantizedLinear) else q).float()
+    expert = torch.repeat_interleave(
+        torch.arange(8, device=cuda_device),
+        torch.tensor(counts, device=cuda_device))
+    live = expert.numel()
+    want = wd[expert, cols[:live]]
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(out[:live], want)
+    assert not out[live:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "fp8", "int8", "int4"])
 def test_grouped_matmul_rows_are_bitwise_independent(cuda_device, mode):
     """A row's output is the same bits beside other rows and at another
-    index of its group, and under a CUDA graph's replay."""
+    index of its group; two launches are alike; a CUDA graph captured at
+    one routing and replayed at another equals a fresh launch there."""
     counts = (24, 8, 40, 0)
-    xs, q, offsets = grouped_case(mode, counts, 1024, 128, cuda_device)
+    xs, q, offsets = grouped_case(mode, counts, 1024, 256, cuda_device)
     out = grouped_launch(xs, q, offsets)
     xs2 = torch.randn_like(xs.float()).to(torch.bfloat16)
     moves = {0: 17, 5: 23, 30: 24, 70: 41}     # within each row's group
     for j, j2 in moves.items():
         xs2[j2] = xs[j]
     out2 = grouped_launch(xs2, q, offsets)
+    again = grouped_launch(xs, q, offsets)
+    routed = offsets.clone()
     graph = torch.cuda.CUDAGraph()
-    grouped_launch(xs, q, offsets)
+    grouped_launch(xs, q, routed)
+    torch.cuda.synchronize()
     with torch.cuda.graph(graph):
-        captured = grouped_launch(xs, q, offsets)
+        captured = grouped_launch(xs, q, routed)
     captured.zero_()
     graph.replay()
     torch.cuda.synchronize()
+    assert torch.equal(captured, out)
+    other = grouped_offsets((5, 50, 0, 18), cuda_device)
+    routed.copy_(other)
+    graph.replay()
+    fresh = grouped_launch(xs, q, other)
+    torch.cuda.synchronize()
     for j, j2 in moves.items():
         assert torch.equal(out2[j2], out[j])
-    assert torch.equal(captured, out)
+    assert torch.equal(again, out)
+    assert torch.equal(captured, fresh)
+    assert_matches(fresh, grouped_launch(xs, q, other,
+                                         tgm.grouped_matmul_reference))
 
 
 @pytest.mark.cuda
@@ -1492,3 +1578,6 @@ def test_grouped_matmul_refuses_what_it_does_not_take(cuda_device):
         tgm.grouped_matmul_kernel(xs, q[:, :, :64], None, offsets)
     with pytest.raises(TypeError):
         tgm.grouped_matmul_kernel(xs, q.float(), None, offsets)
+    with pytest.raises(ValueError):
+        tgm.grouped_matmul_kernel(xs[:, :96].contiguous(), q[:, :96]
+                                  .contiguous(), None, offsets)
