@@ -33,6 +33,12 @@ class EncoderRunner:
 
     def __init__(self, config: EngineConfig,
                  device: Union[str, torch.device, None] = None):
+        if config.parallel.world_size > 1:
+            # The JAX EncoderRunner runs one device whatever the config
+            # says; the port refuses rather than run a mesh config there.
+            raise NotImplementedError(
+                "encoder models run on one device; a parallel config of "
+                f"world size {config.parallel.world_size} does not apply")
         self.config = config
         self.device = resolve_device(device)
         self.module, self.arch, self.params = load_model(config.model,

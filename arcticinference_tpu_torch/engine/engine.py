@@ -37,7 +37,9 @@ distillation.  Requests with repetition / presence / frequency penalties
 ride the synchronous step (also beside the fused loop, which does not
 mirror them), as do requests with ``logprobs`` beside the fused loop;
 each committed token gets a ``{token: logprob}`` dict of the step's
-ranked candidates.  A SwiftKV model (``llama_swiftkv``) composes with
+ranked candidates.  On a mesh (``ParallelConfig``, ``parallel/``) each
+rank runs this same loop in lockstep, the pipelined step, the
+synchronous step and the fused loop alike.  A SwiftKV model (``llama_swiftkv``) composes with
 suffix decoding, the drafters (their hidden rows are its sample rows)
 and hidden capture, on the synchronous step and the fused loop; token
 trees with it raise, as in the JAX package.
@@ -65,12 +67,13 @@ from arcticinference_tpu_torch.config import EngineConfig
 from arcticinference_tpu_torch.engine.fused_decode import FusedDecodeLoop
 from arcticinference_tpu_torch.engine.request import (Request, RequestStatus,
                                                       SamplingParams)
-from arcticinference_tpu_torch.engine.runner import ModelRunner
+from arcticinference_tpu_torch.engine.runner import ModelRunner, check_mesh
 from arcticinference_tpu_torch.engine.scheduler import (ScheduledRequest,
                                                         Scheduler,
                                                         SchedulerOutput)
-from arcticinference_tpu_torch.models.loader import load_model
+from arcticinference_tpu_torch.models.loader import load_model, resolve_model
 from arcticinference_tpu_torch.ops.cuda.ragged_attention import MAX_TREE_NODES
+from arcticinference_tpu_torch.parallel.mesh import build_mesh
 from arcticinference_tpu_torch.spec.proposer import ArcticProposer
 from arcticinference_tpu_torch.spec.suffix_cache import SuffixCache
 from arcticinference_tpu_torch.stats import (EngineStats, SpecDecodingStats,
@@ -120,16 +123,29 @@ class _InflightStep:
 class LLMEngine:
 
     def __init__(self, config: EngineConfig,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 group=None):
+        """``device``: ``cuda:<LOCAL_RANK>`` by default.  A parallel
+        config of world size > 1 runs this engine as one rank of a mesh
+        over ``group`` (default: the default process group, which the
+        caller initializes); every rank builds the same engine and feeds
+        it the same requests, in the same order."""
         spec = config.speculative
         self.config = config
         self.device = resolve_device(device)
-        module, arch, params = load_model(config.model, self.device)
+        self.mesh = None
+        if config.parallel.world_size > 1:
+            module, arch = resolve_model(config.model)
+            check_mesh(config, module, arch)
+            self.mesh = build_mesh(config.parallel, group)
+        module, arch, params = load_model(config.model, self.device,
+                                          mesh=self.mesh)
         self.arch = arch
         self.eos_token_id: Optional[int] = arch.eos_token_id
         # Detokenizer for string stop sequences (set by LLM).
         self.tokenizer = None
-        self.runner = ModelRunner(config, module, arch, params, self.device)
+        self.runner = ModelRunner(config, module, arch, params, self.device,
+                                  mesh=self.mesh)
         if spec is not None and spec.use_tree_spec and self.runner.swift:
             raise NotImplementedError(
                 "use_tree_spec does not compose with SwiftKV (the "

@@ -45,7 +45,11 @@ decode frontier every row is a sample row, so each program's forward
 keeps all of them (``logits_indices`` = every row) and both of its
 halves run the grouped decode kernel.
 
-Not ported (they raise or are not offered): meshes, multihost, dp and pp.
+On a tp / sp / shift mesh every rank runs this loop in lockstep: the
+forwards go through the runner's sharded forward at the mode of the
+step's ``B * rows`` tokens (B a multiple of sp), the logits are the
+gathered, whole-vocabulary ones, and the per-slot program is off, as in
+the JAX loop.  Not ported: multihost, dp and pp.
 """
 
 from __future__ import annotations
@@ -97,8 +101,7 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
     the forward is shared by the three.  A drafter chains from the wide
     program's hidden rows, so it takes the wide program only.
     """
-    module, arch = runner.module, runner.arch
-    params = runner.params
+    arch = runner.arch
     bs = runner.block_size
     maxblk = runner.max_blocks_per_req
     k = num_spec
@@ -110,8 +113,6 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
     plen = path_len_max
     w = ring_w
     run_r = r if wide else 1
-    attn_wide = module.make_attn_impl(1, decode_qlen=run_r)
-    attn_row = module.make_attn_impl(1, decode_qlen=1)
     if drafter is not None and (not wide or rows_total is not None):
         raise ValueError("a drafter chains from the wide program's hidden "
                          "rows; the narrow and per-slot programs keep none")
@@ -175,9 +176,10 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
                 # SwiftKV: every verify row is a sample row.
                 inputs["logits_indices"] = torch.arange(
                     b * rr, dtype=torch.int32, device=dev)
-            runner.kv, h = module.forward(params, arch, runner.kv, inputs,
-                                          attn_impl=attn_wide)
-            logits = module.compute_logits(params, h)      # [B*rr, V]
+            # On a mesh the step's mode follows its B*rr rows.
+            h = runner.forward(inputs, 1, decode_qlen=rr,
+                               total_tokens=b * rr)
+            logits = runner.logits(h)                      # [B*rr, V]
             rep = lambda x: x[:, None].expand(b, rr).reshape(-1)  # noqa
             rv = rowvals_of(logits, rep(state["temperature"]),
                             rep(state["top_k"]), rep(state["top_p"]), gen)
@@ -219,10 +221,8 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
             # neither in the cache (pos_base = pos) nor among the row's
             # injected rows (new_len = 1), and the row would attend
             # stale slots.
-            runner.kv, h = module.forward(params, arch, runner.kv, inputs,
-                                          attn_impl=attn_row,
-                                          allow_deferral=False)
-            logits = module.compute_logits(params, h)      # [R, V]
+            h = runner.forward(inputs, 1, allow_deferral=False)
+            logits = runner.logits(h)                      # [R, V]
             flat = rowvals_of(logits, state["temperature"][s],
                               state["top_k"][s], state["top_p"][s], gen)
             jj = torch.arange(r, dtype=torch.int32, device=dev)[None, :]
@@ -494,6 +494,11 @@ class FusedDecodeLoop:
         self._slot_arrays_ready = False
         running = [r for r in self._frontier_requests() if self._fusable(r)]
         b = _bucket(len(running), eng.config.scheduler.max_num_seqs)
+        if self.runner.mesh is not None:
+            # SP mode cuts the B*(K+1) token rows into sp chunks: B is a
+            # multiple of sp (the extra slots stay dead).
+            sp = eng.config.parallel.ulysses_sequence_parallel_size
+            b = -(-b // sp) * sp
         slot_of = list(running) + [None] * (b - len(running))
         sc = eng.config.speculative
         if eng._drafter is not None:
@@ -632,7 +637,9 @@ class FusedDecodeLoop:
         # is wide (the drafter chains from the wide program's rows).
         suffix_only = (self._suffix is not None and eng._drafter is None
                        and k_eff > 0)
+        # The per-slot program is single-device, as in the JAX loop.
         slotted = (suffix_only and not force
+                   and self.runner.mesh is None
                    and not envs.ARCTIC_TPU_DISABLE_SLOTTED)
         if force and suffix_only:
             wide = force == "wide"

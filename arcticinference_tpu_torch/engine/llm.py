@@ -5,7 +5,9 @@
     outs = llm.generate(prompt_token_ids=[[1, 2, 3]],
                         sampling_params=SamplingParams(max_tokens=32))
 
-``LLM(config, device="cpu")`` runs on the CPU.  Prompts are token ids;
+``LLM(config, device="cpu")`` runs on the CPU.  A config with
+``tensor_parallel_size`` / ``ulysses_sequence_parallel_size`` > 1 runs
+one rank of a mesh per process (``parallel/``).  Prompts are token ids;
 text prompts need a checkpoint that ships a tokenizer.  ``LLM.score``
 (and ``LLMEngine.score``, the server's ``echo`` path) returns
 teacher-forced per-token logprobs; ``with LLM(...) as llm:`` closes the
@@ -116,7 +118,13 @@ def _is_encoder_arch(config: EngineConfig) -> bool:
 class LLM:
 
     def __init__(self, config: EngineConfig,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 group=None):
+        """``device``: ``cuda:<LOCAL_RANK>`` unless given.  With a
+        parallel config of world size > 1 this is one rank of the mesh
+        over ``group`` (default: the default process group, initialized
+        by the caller, as ``torchrun`` or ``parallel.world.spawn`` do);
+        every rank builds the same ``LLM`` and makes the same calls."""
         self.config = config
         self.engine = None
         self.encoder = None
@@ -126,7 +134,7 @@ class LLM:
 
             self.encoder = EncoderRunner(config, device=device)
         else:
-            self.engine = LLMEngine(config, device=device)
+            self.engine = LLMEngine(config, device=device, group=group)
         self.tokenizer = load_tokenizer(config)
         if self.engine is not None and self.tokenizer is not None:
             self.engine.tokenizer = self.tokenizer

@@ -1,7 +1,7 @@
 """Model runner: lowers a SchedulerOutput to padded step arrays, runs the
 forward on the device, returns per-request sample rows.
 
-Counterpart of ``arcticinference_tpu/engine/runner.py`` for one device.
+Counterpart of ``arcticinference_tpu/engine/runner.py``.
 :meth:`ModelRunner.prepare_inputs` builds the same host arrays as the JAX
 runner (same keys, same bucketed shapes ``t_pad`` / ``s_pad``, same
 attention work-item schedule), so the two compare element for element.
@@ -38,9 +38,20 @@ their log-softmax values (logprobs, and the candidates of guided
 decoders without masks).  A SwiftKV model (``NEEDS_SWIFT_SCHEDULE``)
 gets a second attention schedule over the sample rows (the ``swift_*``
 arrays, :func:`swift_schedule`) and returns the sample rows' hidden
-states itself (``RETURNS_SAMPLE_ROWS``).  Not ported yet (they raise
-``NotImplementedError``): meshes (tp / sp / dp / pp, and with them the
-dp-stacked swift schedules).
+states itself (``RETURNS_SAMPLE_ROWS``).
+
+On a mesh (``tensor_parallel_size`` / ``ulysses_sequence_parallel_size``
+> 1; ``parallel/``) every rank builds the same step arrays and runs its
+part of the forward: :meth:`ModelRunner._choose_mode` picks the Ulysses
+program (``"sp"``) or, at or under ``shift_parallel_threshold`` tokens
+with ``enable_shift_parallel``, the full-TP shift program (``"shift"``)
+for each step; both read and write the same cache pages.  The rank holds
+its tp piece of the weights (fused with the interleave the shift re-slice
+needs), its ``Hkv/(sp*tp)`` cache heads and its column piece of the LM
+head, whose logits are gathered over tp, so every rank samples the same
+tokens from the same logits.  Not ported (they raise
+``NotImplementedError``, :func:`check_mesh`): dp, pp, int4, SwiftKV,
+MoE, token trees and draft models on a mesh.
 """
 
 from __future__ import annotations
@@ -61,6 +72,10 @@ from arcticinference_tpu_torch.ops.guided import (guided_advance,
                                                  guided_mask_rows)
 from arcticinference_tpu_torch.ops.sampling import (apply_penalties,
                                                     apply_vocab_mask, sample)
+from arcticinference_tpu_torch.parallel import mesh as mesh_lib
+from arcticinference_tpu_torch.parallel.ulysses import (all_gather_cat,
+                                                        check_supported,
+                                                        make_sharded_forward)
 from arcticinference_tpu_torch.utils import (cdiv, default_token_buckets,
                                              device_memory_bytes,
                                              pad_to_bucket)
@@ -83,6 +98,44 @@ def swift_schedule(row_count, last_pos: np.ndarray, s_pad: int,
     return {f"swift_{k}": a for k, a in zip(
         ("item_req", "item_qstart", "item_qlen", "item_pages",
          "item_pos_base", "token_item", "token_off"), sched)}
+
+
+DRAFTER_METHODS = ("arctic", "mlp_speculator", "lstm_speculator")
+
+
+def check_mesh(config: EngineConfig, module, arch) -> None:
+    """Refuse what the port does not run on a mesh yet, before any weight
+    is loaded; each refusal names the ROADMAP item that brings it."""
+    pcfg = config.parallel
+    if pcfg.data_parallel_size > 1:
+        raise NotImplementedError(
+            "in-engine data parallelism (data_parallel_size > 1) is not "
+            "ported yet (ROADMAP Queue 1 item 2b)")
+    if pcfg.pipeline_parallel_size > 1:
+        raise NotImplementedError(
+            "pipeline parallelism (pipeline_parallel_size > 1) is not "
+            "ported yet (ROADMAP Queue 1 item 2b)")
+    if config.model.quantization == "int4":
+        # Split-half packing couples row u with row u + K/2 in one byte,
+        # so the packed in axis cannot be cut or re-sliced (as in JAX).
+        raise NotImplementedError(
+            "int4 weight quantization is single-chip; use fp8/int8 on "
+            "meshes")
+    if getattr(module, "NEEDS_SWIFT_SCHEDULE", False) or \
+            getattr(module, "RETURNS_SAMPLE_ROWS", False):
+        raise NotImplementedError(
+            "SwiftKV on a mesh (the sharded swift half) is not ported yet "
+            "(ROADMAP Queue 1 item 2d)")
+    spec = config.speculative
+    if spec is not None and spec.use_tree_spec:
+        raise NotImplementedError(
+            "token-tree speculation on a mesh is not ported yet (ROADMAP "
+            "Queue 1 item 2d)")
+    if spec is not None and spec.method in DRAFTER_METHODS:
+        raise NotImplementedError(
+            "draft models on a mesh are not ported yet (ROADMAP Queue 1 "
+            "item 2d); suffix speculation runs on meshes")
+    check_supported(arch, pcfg)
 
 
 def _nbytes(tree) -> int:
@@ -125,12 +178,16 @@ class ModelRunner:
     GUIDED_POOL_TRANS = 16384
 
     def __init__(self, config: EngineConfig, module, arch, params: dict,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
+        """A parallel config of world size > 1 needs ``mesh``
+        (``parallel.mesh.build_mesh``; :class:`LLMEngine` makes it after
+        :func:`check_mesh`) and this rank's cut of the params
+        (``load_model(..., mesh=)``)."""
         pcfg = config.parallel
-        if pcfg.world_size > 1:
-            raise NotImplementedError(
-                "tensor / sequence / data / pipeline parallelism is not "
-                "ported; the port runs on one device")
+        if pcfg.world_size > 1 and mesh is None:
+            raise ValueError(
+                f"a parallel config of world size {pcfg.world_size} needs "
+                "its mesh (parallel.mesh.build_mesh) and this rank's params")
         self.config = config
         self.module = module
         self.arch = arch
@@ -138,10 +195,24 @@ class ModelRunner:
         # Per-layer [k_scale, v_scale] fp8-KV dequant pairs ride the
         # checkpoint's parameters; they are runner state, not weights.
         loaded_kv_scales = params.pop("kv_scales", None)
-        # As the JAX runner: a module without fuse_params (Mixtral) runs
-        # its weights as they are.
+        self.mesh = mesh
+        # Fused q|k|v and gate|up, as the JAX runner: on a mesh the
+        # segments interleave per fused piece (tp * sp when shift is on),
+        # so the tp cut and the shift re-slice each hold whole
+        # [q_f|k_f|v_f] groups; a rank fuses its tp piece with the
+        # interleave left over.  Gated to whole heads and columns per
+        # piece, which keeps the kv-replication case unfused.  A module
+        # without fuse_params (Mixtral) runs its weights as they are.
         fuse = getattr(module, "fuse_params", None)
-        self.params = fuse(params) if fuse is not None else params
+        if fuse is not None:
+            tp = pcfg.tensor_parallel_size
+            fuse_w = tp * (pcfg.ulysses_sequence_parallel_size
+                           if pcfg.enable_shift_parallel else 1)
+            if (arch.num_heads % fuse_w == 0
+                    and arch.num_kv_heads % fuse_w == 0
+                    and arch.intermediate_size % fuse_w == 0):
+                params = fuse(params, interleave=fuse_w // tp)
+        self.params = params
         # SwiftKV: the second schedule over the sample rows, and forward
         # hands back those rows itself.
         self.swift = bool(getattr(module, "NEEDS_SWIFT_SCHEDULE", False))
@@ -154,11 +225,16 @@ class ModelRunner:
                                        self.block_size)
         kv_dtype = (torch.float8_e4m3fn
                     if cache_cfg.kv_cache_dtype == "fp8" else torch.bfloat16)
+        # A rank's cache holds its heads of the fused (tp, sp) cut.
+        self.cache_kv_heads = arch.num_kv_heads
+        if self.mesh is not None:
+            self.cache_kv_heads = mesh_lib.kv_cache_heads(
+                arch.num_kv_heads, self.mesh)[0]
         self.num_blocks = cache_cfg.num_blocks or self._auto_num_blocks(
             kv_dtype)
         self.kv_spec = KVCacheSpec(
             num_layers=arch.num_layers, num_blocks=self.num_blocks,
-            num_kv_heads=arch.num_kv_heads, block_size=self.block_size,
+            num_kv_heads=self.cache_kv_heads, block_size=self.block_size,
             head_dim=arch.head_dim, dtype=kv_dtype)
         self.kv = allocate_kv_cache(self.kv_spec, device)
         if loaded_kv_scales is not None and kv_dtype == torch.float8_e4m3fn:
@@ -172,25 +248,114 @@ class ModelRunner:
             config.scheduler.max_num_batched_tokens)
         self.sample_buckets = default_token_buckets(
             max(16, config.scheduler.max_num_batched_tokens))
+        sp = pcfg.ulysses_sequence_parallel_size
+        if self.mesh is not None and any(b % sp for b in self.token_buckets):
+            raise ValueError(
+                f"token buckets {self.token_buckets} must divide by sp={sp} "
+                "(SP mode cuts a step's tokens into sp chunks); use a "
+                "power-of-two max_num_batched_tokens")
         # Allocated at the first guided request on the pipelined step
         # (131 MB of masks at a 128k vocabulary).
         self._guided_pool: Optional[dict] = None
+        # The forward of each (attn_qb, decode_qlen, allow_deferral,
+        # mode), and the forwards run by mode.
+        self._step_fns: dict = {}
+        self.mode_steps: dict[str, int] = {}
+        # The shift program's re-sliced layer weights, one copy shared by
+        # its forwards.
+        self._resliced: dict = {}
+        # The LM head is cut over tp (its column piece) unless its vocab
+        # does not divide, or it is the tied, whole embedding.
+        head = self.params.get("lm_head")
+        self._gather_logits = (
+            self.mesh is not None and head is not None
+            and head.shape[-1] != arch.vocab_size)
 
     def _auto_num_blocks(self, kv_dtype: torch.dtype) -> int:
         """Size the cache from the device's memory, less the weights (a
         quantized weight's values and scales) and a 1 GiB reserve for
-        activations."""
+        activations.  On a mesh this is one rank a device (ranks sharing
+        a card set ``num_blocks``), and every rank takes the smallest
+        count of the mesh, so the block managers stay in lockstep."""
         param_bytes = _nbytes(self.params)
         budget = (int(device_memory_bytes(self.device)
                       * self.config.cache.hbm_utilization)
                   - param_bytes - (1 << 30))
         spec = KVCacheSpec(
             num_layers=self.arch.num_layers, num_blocks=1,
-            num_kv_heads=self.arch.num_kv_heads,
+            num_kv_heads=self.cache_kv_heads,
             block_size=self.block_size, head_dim=self.arch.head_dim,
             dtype=kv_dtype)
-        n = max(budget // spec.bytes_per_block, 16)
-        return int(min(n, 1 << 17))
+        n = int(min(max(budget // spec.bytes_per_block, 16), 1 << 17))
+        if self.mesh is not None:
+            t = torch.tensor([n], dtype=torch.int64, device=self.device)
+            torch.distributed.all_reduce(
+                t, op=torch.distributed.ReduceOp.MIN, group=self.mesh.group)
+            n = int(t.item())
+        return n
+
+    # ------------------------------------------------------------------ #
+    # The forward on one device or one rank of a mesh
+    # ------------------------------------------------------------------ #
+
+    def _choose_mode(self, total_tokens: int) -> str:
+        """Shift parallelism: the full-TP program for steps of at most
+        ``shift_parallel_threshold`` tokens, the Ulysses program for
+        larger ones (the JAX runner's rule); ``"single"`` off a mesh, and
+        a mesh without sp runs the SP program, which with sp = 1 is plain
+        TP."""
+        if self.mesh is None:
+            return "single"
+        pcfg = self.config.parallel
+        if pcfg.ulysses_sequence_parallel_size <= 1:
+            return "sp"
+        if pcfg.enable_shift_parallel and \
+                total_tokens <= pcfg.shift_parallel_threshold:
+            return "shift"
+        return "sp"
+
+    def _forward_fn(self, attn_qb: int, mode: str, decode_qlen: int = 1,
+                    allow_deferral: bool = True):
+        attn = self.module.make_attn_impl(attn_qb, decode_qlen=decode_qlen)
+        if mode == "single":
+            module, arch = self.module, self.arch
+
+            def fwd(params, kv, inputs):
+                return module.forward(params, arch, kv, inputs,
+                                      attn_impl=attn,
+                                      allow_deferral=allow_deferral)
+            return fwd
+        return make_sharded_forward(self.module, self.arch, self.mesh, mode,
+                                    attn_impl=attn,
+                                    reslice_cache=self._resliced)
+
+    def forward(self, inputs: dict, attn_qb: int, decode_qlen: int = 1,
+                total_tokens: Optional[int] = None,
+                allow_deferral: bool = True) -> torch.Tensor:
+        """The model over uploaded ``inputs``, in place on the cache;
+        returns the hidden rows [T, hidden] (after the final norm), the
+        same on every rank of a mesh.  ``total_tokens`` (default: the
+        rows) picks the mesh's mode."""
+        if total_tokens is None:
+            total_tokens = int(inputs["input_ids"].shape[0])
+        mode = self._choose_mode(total_tokens)
+        key = (attn_qb, decode_qlen, allow_deferral, mode)
+        fn = self._step_fns.get(key)
+        if fn is None:
+            fn = self._step_fns[key] = self._forward_fn(
+                attn_qb, mode, decode_qlen, allow_deferral)
+        self.mode_steps[mode] = self.mode_steps.get(mode, 0) + 1
+        self.kv, h = fn(self.params, self.kv, inputs)
+        return h
+
+    def logits(self, rows: torch.Tensor) -> torch.Tensor:
+        """float32 logits of hidden ``rows``; on a mesh the LM head's
+        column pieces are gathered over tp, so every rank holds the whole
+        vocabulary, bit for bit the same."""
+        logits = self.module.compute_logits(self.params, rows)
+        if self._gather_logits:
+            logits = all_gather_cat(logits, self.mesh.tp_group, dim=-1)
+        return logits
 
     # ------------------------------------------------------------------ #
     # Input preparation (host)
@@ -511,17 +676,19 @@ class ModelRunner:
     def launch(self, inputs: dict, attn_qb: int, need_sampling: bool,
                generator: torch.Generator, need_topk: bool = False,
                prev_tokens: Optional[torch.Tensor] = None, seeds=None,
-               counters=None):
+               counters=None, total_tokens: Optional[int] = None):
         """The step's device work on uploaded ``inputs`` (see
         :meth:`upload`): passthrough tokens (and grammar states) from
         ``prev_tokens``, the previous step's output vector; forward,
         logits of the sample rows, penalties (when the step carries token
         histories), guided masks, argmax and, with ``need_sampling``,
         sampling (``seeds`` / ``counters``: the host's arrays, by default
-        the uploaded ones, which only a CPU step can read).  Returns the
-        packed int32 output vector (module docstring) and the sample
-        rows' hidden states [s_pad, hidden]; nothing here reads the
-        device back, so a timing loop or a CUDA graph can replay it."""
+        the uploaded ones, which only a CPU step can read;
+        ``total_tokens``: the step's real tokens, which pick a mesh's
+        mode).  Returns the packed int32 output vector (module docstring)
+        and the sample rows' hidden states [s_pad, hidden]; nothing here
+        reads the device back, so a timing loop or a CUDA graph can
+        replay it."""
         inputs = dict(inputs, kv_scale=self.kv_scale)
         if prev_tokens is not None:
             src = inputs["input_src"]
@@ -529,12 +696,10 @@ class ModelRunner:
                 src >= 0,
                 prev_tokens[src.clamp(0, prev_tokens.shape[0] - 1).long()],
                 inputs["input_ids"])
-        attn = self.module.make_attn_impl(attn_qb)
-        self.kv, h = self.module.forward(self.params, self.arch, self.kv,
-                                         inputs, attn_impl=attn)
+        h = self.forward(inputs, attn_qb, total_tokens=total_tokens)
         rows = (h if self.returns_rows
                 else h[inputs["logits_indices"].long()])
-        logits = self.module.compute_logits(self.params, rows)
+        logits = self.logits(rows)
         if "pen_out_tokens" in inputs:
             logits = apply_penalties(
                 logits, inputs["pen_out_tokens"], inputs["pen_all_tokens"],
@@ -603,7 +768,8 @@ class ModelRunner:
         return self.launch(
             self.upload(arrays), step_inputs.attn_qb,
             bool(arrays["temperature"].max() > 0), generator, need_topk,
-            prev_tokens, arrays["seeds"], arrays["counters"])
+            prev_tokens, arrays["seeds"], arrays["counters"],
+            step_inputs.total_tokens)
 
     def execute(self, step_inputs: StepInputs,
                 generator: torch.Generator, need_topk: bool = False):
@@ -629,11 +795,7 @@ class ModelRunner:
         writes the prompts' K/V into the live cache, in the blocks the
         caller lent them, and returns the hidden rows (after the final
         norm) on the device."""
-        inputs = dict(inputs, kv_scale=self.kv_scale)
-        attn = self.module.make_attn_impl(attn_qb)
-        self.kv, h = self.module.forward(self.params, self.arch, self.kv,
-                                         inputs, attn_impl=attn)
-        return h
+        return self.forward(dict(inputs, kv_scale=self.kv_scale), attn_qb)
 
     def _every_row(self, what: str) -> None:
         if self.returns_rows:
@@ -709,7 +871,7 @@ class ModelRunner:
         out = torch.empty(h.shape[0], dtype=torch.float32, device=h.device)
         for a in range(0, h.shape[0], self.SCORE_CHUNK):
             b = min(a + self.SCORE_CHUNK, h.shape[0])
-            logits = self.module.compute_logits(self.params, h[a:b])
+            logits = self.logits(h[a:b])
             t = tgt[a:b].clamp(0, logits.shape[-1] - 1)
             out[a:b] = (logits.gather(1, t[:, None])[:, 0]
                         - torch.logsumexp(logits, dim=-1))
@@ -723,5 +885,4 @@ class ModelRunner:
         self._every_row("full logits")
         h = self.prefill_hidden(self.upload(step_inputs.arrays),
                                 step_inputs.attn_qb)
-        return self.module.compute_logits(
-            self.params, h[:rows]).float().cpu().numpy()
+        return self.logits(h[:rows]).float().cpu().numpy()

@@ -32,7 +32,7 @@ outside its Pallas kernel.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -70,6 +70,9 @@ class LlamaArch:  # registry alias: Arch (see bottom of module)
     # Family variants sharing the Llama decoder body:
     attention_bias: bool = False   # Qwen2/2.5: biases on q/k/v projections
     qk_norm: bool = False          # Qwen3: per-head RMSNorm on q and k
+    # Interleaved [q|k|v] / [gate|up] groups in a rank's fused weights
+    # (fuse_params' interleave; set by ParallelContext.arch_view).
+    fused_seg: int = 1
 
     @classmethod
     def from_hf_config(cls, cfg: dict[str, Any]) -> "LlamaArch":
@@ -109,16 +112,23 @@ def _first_eos(eos):
 def init_params(arch: LlamaArch, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 quantization: Optional[str] = None,
-                device: torch.device | str | None = None) -> dict:
+                device: torch.device | str | None = None,
+                keep: Optional[Callable] = None) -> dict:
     """Randomly initialised parameters (benchmarks / tests).
 
     Drawn on ``device`` (by default the generator's) from ``generator``
     (which must live on that device), so the weights of a full-size model
     never pass through the host.  Normal(0, 0.02) like the JAX package,
-    not the same numbers.  With ``quantization`` each matmul weight is
-    quantized as soon as it is drawn (one layer's float32 copy at a
-    time), so the full bf16 model never exists; the untied embedding is
-    fp8 in every mode, as in the JAX package.
+    not the same numbers.  Stacked layer weights are drawn one layer at a
+    time, and with ``quantization`` each layer is quantized as soon as it
+    is drawn, so the full bf16 model never exists; the untied embedding
+    is fp8 in every mode, as in the JAX package.
+
+    ``keep(path, leaf)`` (a rank of a mesh: its cut, ``parallel/mesh.py``)
+    takes each leaf as soon as it is drawn, a layer weight one layer at a
+    time (``path`` ``("layers", key)``, the leaf without its layer axis),
+    so one layer of the global weights is alive at a time; the draws are
+    the same with and without it.
     """
     if device is None:
         device = generator.device
@@ -132,44 +142,56 @@ def init_params(arch: LlamaArch, generator: torch.Generator,
                         device=device)
         return x.mul_(0.02)
 
-    def qw(*shape):
-        if not quant:
-            return w(*shape)
-        return quantize_layers(w(*shape), quantization)
-
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
+
+    if keep is None:
+        keep = lambda path, leaf: leaf  # noqa: E731
+
+    def layer(key, draw, *shape, quantize=False):
+        """A stacked ``[nl, *shape]`` layer weight, one layer at a time."""
+        parts = []
+        for _ in range(nl):
+            x = draw(*shape)
+            if quantize and quant:
+                x = weight_quantize(x, quantization)
+            parts.append(keep(("layers", key), x))
+        if isinstance(parts[0], QuantizedLinear):
+            return QuantizedLinear(torch.stack([p.weight for p in parts]),
+                                   torch.stack([p.scale for p in parts]))
+        return torch.stack(parts)
 
     embed = w(arch.vocab_size, d)
     if quant and not arch.tie_word_embeddings:
         # A row gather dequantizes with a scalar scale: fp8 in every mode.
         embed = fp8_quantize(embed)
     params = {
-        "embed": embed,
+        "embed": keep(("embed",), embed),
         "layers": {
-            "input_norm": ones(nl, d),
-            "post_norm": ones(nl, d),
-            "wq": qw(nl, d, hq * dh),
-            "wk": qw(nl, d, hkv * dh),
-            "wv": qw(nl, d, hkv * dh),
-            "wo": qw(nl, hq * dh, d),
-            "w_gate": qw(nl, d, li),
-            "w_up": qw(nl, d, li),
-            "w_down": qw(nl, li, d),
+            "input_norm": layer("input_norm", ones, d),
+            "post_norm": layer("post_norm", ones, d),
+            "wq": layer("wq", w, d, hq * dh, quantize=True),
+            "wk": layer("wk", w, d, hkv * dh, quantize=True),
+            "wv": layer("wv", w, d, hkv * dh, quantize=True),
+            "wo": layer("wo", w, hq * dh, d, quantize=True),
+            "w_gate": layer("w_gate", w, d, li, quantize=True),
+            "w_up": layer("w_up", w, d, li, quantize=True),
+            "w_down": layer("w_down", w, li, d, quantize=True),
         },
-        "final_norm": ones(d),
+        "final_norm": keep(("final_norm",), ones(d)),
     }
     if arch.attention_bias:
-        params["layers"]["bq"] = w(nl, hq * dh)
-        params["layers"]["bk"] = w(nl, hkv * dh)
-        params["layers"]["bv"] = w(nl, hkv * dh)
+        params["layers"]["bq"] = layer("bq", w, hq * dh)
+        params["layers"]["bk"] = layer("bk", w, hkv * dh)
+        params["layers"]["bv"] = layer("bv", w, hkv * dh)
     if arch.qk_norm:
-        params["layers"]["q_norm"] = ones(nl, dh)
-        params["layers"]["k_norm"] = ones(nl, dh)
+        params["layers"]["q_norm"] = layer("q_norm", ones, dh)
+        params["layers"]["k_norm"] = layer("k_norm", ones, dh)
     if not arch.tie_word_embeddings:
         head = w(d, arch.vocab_size)
-        params["lm_head"] = (weight_quantize(head, quantization)
-                             if quant else head)
+        params["lm_head"] = keep(("lm_head",),
+                                 weight_quantize(head, quantization)
+                                 if quant else head)
     return params
 
 
@@ -215,16 +237,28 @@ def fuse_params(params: dict, interleave: int = 1) -> dict:
     :func:`fuse_quantized` (per-part scales kept exactly, as per-column
     scales).  The unfused tensors are dropped as soon as their fused one
     exists, so at most one extra group is alive at a time.
-    ``interleave > 1`` (sharded fusion) raises."""
+
+    ``interleave=W`` fuses per-shard segments (column order
+    ``[q_0|k_0|v_0|q_1|k_1|v_1|..]`` over W shards), so the order
+    survives a contiguous W-way split of the out axis: the tp cut and
+    the shift re-slice (``parallel/ulysses.py``).  Fusing a tp piece
+    with ``W / tp`` gives that piece of the global fusion with ``W``."""
+    def bias_fuse(parts):
+        segs = []
+        for f in range(interleave):
+            for p in parts:
+                nf = p.shape[-1] // interleave
+                segs.append(p[..., f * nf:(f + 1) * nf])
+        return torch.cat(segs, dim=-1)
+
     layers = dict(params["layers"])
     if "wq" in layers:
         layers["wqkv"] = fuse_quantized(
             [layers.pop("wq"), layers.pop("wk"), layers.pop("wv")],
             interleave)
         if "bq" in layers:
-            layers["bqkv"] = torch.cat(
-                [layers.pop("bq"), layers.pop("bk"), layers.pop("bv")],
-                dim=-1)
+            layers["bqkv"] = bias_fuse(
+                [layers.pop("bq"), layers.pop("bk"), layers.pop("bv")])
     if "w_gate" in layers:
         layers["w_gateup"] = fuse_quantized(
             [layers.pop("w_gate"), layers.pop("w_up")], interleave)
@@ -241,7 +275,17 @@ def _qkv(h, lp, arch):
             y = y + lp["bqkv"].to(y.dtype)
         nq = arch.num_heads * arch.head_dim
         nkv = arch.num_kv_heads * arch.head_dim
-        q, k, v = y[:, :nq], y[:, nq:nq + nkv], y[:, nq + nkv:]
+        g = arch.fused_seg
+        if g > 1:
+            # g interleaved [q_f|k_f|v_f] groups (an SP-mode tp piece of
+            # shift-enabled fused weights): group-major regrouping gives
+            # the heads in order.
+            y3 = y.reshape(t, g, (nq + 2 * nkv) // g)
+            q = y3[:, :, :nq // g].reshape(t, nq)
+            k = y3[:, :, nq // g:(nq + nkv) // g].reshape(t, nkv)
+            v = y3[:, :, (nq + nkv) // g:].reshape(t, nkv)
+        else:
+            q, k, v = y[:, :nq], y[:, nq:nq + nkv], y[:, nq + nkv:]
     else:
         q = matmul(h, lp["wq"])
         k = matmul(h, lp["wk"])
@@ -316,13 +360,21 @@ def _defer_kv_writes(attn_impl, arch) -> bool:
             and arch.head_dim in (64, 128))
 
 
-def _mlp(x, lp):
+def _mlp(x, lp, groups: int = 1):
     # As the JAX model's _mlp: gate/up come out in x.dtype, and the
     # SwiGLU product is taken in float32.
     if "w_gateup" in lp:
         y = matmul(x, lp["w_gateup"])
         li = y.shape[-1] // 2
-        g, u = y[:, :li], y[:, li:]
+        if groups > 1:
+            # Interleaved [gate_f|up_f] groups (see _qkv), regrouped so
+            # the columns meet w_down's rows in order.
+            t = y.shape[0]
+            y3 = y.reshape(t, groups, 2 * li // groups)
+            g = y3[:, :, :li // groups].reshape(t, li)
+            u = y3[:, :, li // groups:].reshape(t, li)
+        else:
+            g, u = y[:, :li], y[:, li:]
     else:
         g = matmul(x, lp["w_gate"])
         u = matmul(x, lp["w_up"])
@@ -331,14 +383,16 @@ def _mlp(x, lp):
 
 
 def _dense_mlp_fn(x, lp, arch):
-    """The dense SwiGLU block, :func:`scan_layers`'s default ``mlp_fn``."""
-    return _mlp(x, lp)
+    """The dense SwiGLU block, :func:`scan_layers`'s default ``mlp_fn``
+    (``arch`` as the rank sees it under a parallel context)."""
+    return _mlp(x, lp, arch.fused_seg)
 
 
 def forward(params: dict, arch: LlamaArch, kv: torch.Tensor,
             inputs: dict[str, torch.Tensor],
             attn_impl=None,
-            allow_deferral: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+            allow_deferral: bool = True,
+            pctx=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the decoder stack over a flat ragged token batch.
 
     inputs: input_ids [T], positions [T], req_idx [T], slot_mapping [T],
@@ -347,42 +401,58 @@ def forward(params: dict, arch: LlamaArch, kv: torch.Tensor,
     Returns (kv, hidden[T, D]); ``kv`` is updated in place.
     ``allow_deferral=False`` keeps the per-layer cache writes even where
     :func:`_defer_kv_writes` would defer them.
+
+    ``pctx`` (``parallel/ulysses.py``: ``ParallelContext``) runs one
+    rank's part of a mesh: its weight re-slice, the Ulysses all-to-all
+    around attention and the row-parallel sums; in SP mode ``input_ids``
+    and ``positions_local`` are the rank's chunk of the tokens and the
+    hidden rows returned are that chunk's.  Without it every hook is the
+    identity.
     """
     h = embed_lookup(params, inputs["input_ids"])
     kv, h = scan_layers(params["layers"], arch, kv, h, inputs,
-                        attn_impl=attn_impl, allow_deferral=allow_deferral)
+                        attn_impl=attn_impl, allow_deferral=allow_deferral,
+                        pctx=pctx)
     h = rms_norm(h, params["final_norm"], arch.rms_norm_eps)
     return kv, h
 
 
 def scan_layers(layers: dict, arch: LlamaArch, kv: torch.Tensor,
                 h: torch.Tensor, inputs: dict, attn_impl=None,
-                allow_deferral: bool = True, mlp_fn=None
+                allow_deferral: bool = True, mlp_fn=None, pctx=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the stacked decoder layers over hidden states ``h``.
 
     On a deferred-write step (:func:`_defer_kv_writes`) each layer's
     attention injects the layer's new K/V rows and the cache is written
-    once after the stack (:func:`_bulk_write_kv`).
+    once after the stack (:func:`_bulk_write_kv`); never under a parallel
+    context ``pctx`` (see :func:`forward`), as in the JAX package.
     ``mlp_fn(x, lp, arch) -> y`` replaces the dense SwiGLU block (the
-    MoE models put their expert-routed block here)."""
+    MoE models put their expert-routed block here); its result is summed
+    over the context's group like the dense block's."""
     if attn_impl is None:
         attn_impl = _default_attn
     if mlp_fn is None:
         mlp_fn = _dense_mlp_fn
     num_layers = next(iter(layers.values())).shape[0]
-    positions = inputs["positions"]
+    arch_q = pctx.arch_view(arch) if pctx is not None else arch
+    psum = pctx.psum if pctx is not None else (lambda x: x)
+    # Positions of the tokens this rank holds (its chunk in SP mode).
+    rope_positions = inputs.get("positions_local", inputs["positions"])
     inv_freq = compute_rope_freqs(arch.head_dim, arch.rope_theta,
                                   arch.rope_scaling, device=h.device)
     ks = inputs.get("kv_scale")
-    defer = allow_deferral and _defer_kv_writes(attn_impl, arch)
+    defer = (allow_deferral and pctx is None
+             and _defer_kv_writes(attn_impl, arch))
     new_k, new_v = [], []
     for layer in range(num_layers):
         lp = {k: v[layer] for k, v in layers.items()}
         x = rms_norm(h, lp["input_norm"], arch.rms_norm_eps)
-        q, k, v = _qkv(x, lp, arch)
-        q = apply_rope(q, positions, inv_freq)
-        k = apply_rope(k, positions, inv_freq)
+        q, k, v = _qkv(x, lp, arch_q)
+        q = apply_rope(q, rope_positions, inv_freq)
+        k = apply_rope(k, rope_positions, inv_freq)
+        if pctx is not None:
+            q, k, v = pctx.dispatch(q, k, v)
         scale = None if ks is None else ks[layer]
         if defer:
             kq, vq = _quantize_kv_rows(k, v, kv.dtype, scale)
@@ -392,9 +462,11 @@ def scan_layers(layers: dict, arch: LlamaArch, kv: torch.Tensor,
         else:
             _write_kv_layer(kv, layer, k, v, inputs["slot_mapping"], scale)
             o = attn_impl(q, kv, layer, inputs)
-        h = h + matmul(o.reshape(o.shape[0], -1), lp["wo"])
+        if pctx is not None:
+            o = pctx.combine(o)
+        h = h + psum(matmul(o.reshape(o.shape[0], -1), lp["wo"]))
         x = rms_norm(h, lp["post_norm"], arch.rms_norm_eps)
-        h = h + mlp_fn(x, lp, arch)
+        h = h + psum(mlp_fn(x, lp, arch_q))
     if defer:
         _bulk_write_kv(kv, torch.stack(new_k), torch.stack(new_v),
                        inputs["slot_mapping"])

@@ -44,15 +44,8 @@ def _iter_safetensors(model_dir: Path):
         yield from st_io.load_file(f).items()
 
 
-def load_model(cfg: ModelConfig, device: torch.device | str | None = None):
-    """Returns (module, arch, params) with the weights on ``device``
-    (``cuda:0`` by default; raises without CUDA unless the caller passes
-    ``device="cpu"``).
-
-    Random weights are drawn from a ``torch.Generator`` on ``device``
-    seeded with ``cfg.seed``.
-    """
-    device = resolve_device(device)
+def resolve_model(cfg: ModelConfig):
+    """(module, arch) of a model config, without its weights."""
     hf_cfg = read_hf_config(cfg.model)
     if hf_cfg is not None:
         arch_name = (hf_cfg.get("architectures") or ["LlamaForCausalLM"])[0]
@@ -61,17 +54,53 @@ def load_model(cfg: ModelConfig, device: torch.device | str | None = None):
         arch_name = cfg.model
         merged = dict(cfg.hf_overrides)
     module = get_model_module(arch_name)
-    arch = module.Arch.from_hf_config(merged)
+    return module, module.Arch.from_hf_config(merged)
 
+
+def load_model(cfg: ModelConfig, device: torch.device | str | None = None,
+               mesh=None):
+    """Returns (module, arch, params) with the weights on ``device``
+    (``cuda:0`` by default; raises without CUDA unless the caller passes
+    ``device="cpu"``).
+
+    Random weights are drawn from a ``torch.Generator`` on ``device``
+    seeded with ``cfg.seed``.  With ``mesh`` (``parallel/mesh.py``) the
+    params are this rank's cut of the global ones (``shard_params``);
+    random weights are cut as they are drawn, one global weight alive at
+    a time.
+    """
+    device = resolve_device(device)
+    module, arch = resolve_model(cfg)
     dtype = resolve_dtype(cfg.dtype)
     model_dir = Path(cfg.model)
-    if hf_cfg is not None and any(model_dir.glob("*.safetensors")):
+    if read_hf_config(cfg.model) is not None and \
+            any(model_dir.glob("*.safetensors")):
         params = module.load_hf_state(
             arch, dict(_iter_safetensors(model_dir)), dtype,
             quantization=cfg.quantization, device=device)
+        if mesh is not None:
+            from arcticinference_tpu_torch.parallel import mesh as mesh_lib
+
+            kv_scales = params.pop("kv_scales", None)
+            params = mesh_lib.shard_params(params, mesh)
+            if kv_scales is not None:
+                params["kv_scales"] = kv_scales
     else:
         gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        kw = {}
+        if mesh is not None:
+            from arcticinference_tpu_torch.parallel import mesh as mesh_lib
+
+            def keep(path, leaf):
+                # A layer weight arrives one layer at a time: its rule
+                # without the layer axis.
+                spec = mesh_lib.leaf_spec(path)
+                if path[0] == "layers":
+                    spec = spec[1:]
+                return mesh_lib.shard_leaf(leaf, spec, mesh)
+
+            kw["keep"] = keep
         params = module.init_params(arch, gen, dtype,
                                     quantization=cfg.quantization,
-                                    device=device)
+                                    device=device, **kw)
     return module, arch, params

@@ -1,8 +1,7 @@
 """Weight-only quantized linear layers (fp8 e4m3, int8, int4) and the
 matmul that takes them.
 
-Counterpart of ``arcticinference_tpu/ops/fp8.py`` on one device (the
-sharded ``interleave`` fusion is not ported).  The quantizers give the
+Counterpart of ``arcticinference_tpu/ops/fp8.py``.  The quantizers give the
 JAX package's bytes and scales exactly: the same float32 division, clamp
 and round-to-nearest-even.  The scale granularity is encoded in the
 scale's rank relative to the weight's, as there:
@@ -167,16 +166,34 @@ def fuse_quantized(parts: list, interleave: int = 1):
     Quantized parts keep their scales exactly: a per-tensor / per-layer
     scale is broadcast to per-out-channel over its part's columns, so
     ``dequant(fused)[..., span]`` equals ``dequant(part)`` bit for bit.
-    The shard-interleaved order (``interleave > 1``) is not ported.
+
+    ``interleave=W`` gives the W-shard-interleaved column order
+    ``[p0_0|p1_0|..|p0_1|p1_1|..]`` (chunk f of each part is its f-th
+    1/W slice of out columns): a contiguous W-way split of the fused out
+    axis then hands shard f exactly ``[q_f|k_f|v_f]``, and the columns of
+    one part stay in order inside any run of consecutive shards, so no
+    row of ``wo`` / ``w_down`` needs moving.
     """
-    if interleave != 1:
-        raise NotImplementedError("interleaved (sharded) fusion is not "
-                                  "ported; the port runs on one device")
+    def chunks(arrs):
+        """Per-shard chunks of each part, shard-major."""
+        if interleave == 1:
+            return list(arrs)
+        out = []
+        for f in range(interleave):
+            for a in arrs:
+                n = a.shape[-1]
+                if n % interleave:
+                    raise ValueError(f"out dim {n} does not divide by "
+                                     f"interleave={interleave}")
+                nf = n // interleave
+                out.append(a[..., f * nf:(f + 1) * nf])
+        return out
+
     if not any(isinstance(p, QuantizedLinear) for p in parts):
-        return torch.cat(parts, dim=-1)
+        return torch.cat(chunks(parts), dim=-1)
     if not all(isinstance(p, QuantizedLinear) for p in parts):
         raise ValueError("cannot fuse quantized with unquantized weights")
-    w = torch.cat([p.weight for p in parts], dim=-1)
+    w = torch.cat(chunks([p.weight for p in parts]), dim=-1)
     group = parts[0].scale.dim() == parts[0].weight.dim()
     scales = []
     for p in parts:
@@ -190,7 +207,7 @@ def fuse_quantized(parts: list, interleave: int = 1):
             tgt = wq.shape[:-2] + (n,)
             s = s.reshape(s.shape + (1,) * (len(tgt) - s.dim()))
             scales.append(s.float().expand(tgt))
-    return QuantizedLinear(w, torch.cat(scales, dim=-1))
+    return QuantizedLinear(w, torch.cat(chunks(scales), dim=-1))
 
 
 def fp8_dequantize(q: QuantizedLinear,

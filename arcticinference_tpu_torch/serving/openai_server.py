@@ -57,6 +57,15 @@ class OpenAIServer:
     def __init__(self, config: EngineConfig,
                  served_model_name: Optional[str] = None,
                  device: Union[str, torch.device, None] = None):
+        if config.parallel.world_size > 1:
+            # Requests arrive on one process; a mesh's ranks must run
+            # every step in lockstep, which needs the leader's broadcast
+            # of the step inputs (JAX parallel/multihost.py).
+            raise NotImplementedError(
+                "serving on a mesh (tensor / sequence parallel flags) "
+                "needs the leader's broadcast of step inputs, which is "
+                "not ported yet (ROADMAP Queue 1 item 2c: multihost.py "
+                "and the server on meshes); LLM.generate runs meshes")
         self.config = config
         self.encoder = None
         self.engine = None
@@ -521,8 +530,9 @@ def build_config(args: argparse.Namespace) -> EngineConfig:
         cfg.cache.kv_cache_dtype = args.kv_cache_dtype
     if args.block_size:
         cfg.cache.block_size = args.block_size
-    # The mesh flags build the JAX CLI's ParallelConfig; the runner
-    # refuses any world size above 1.
+    # The mesh flags build the JAX CLI's ParallelConfig; OpenAIServer
+    # refuses a world size above 1 (the server on meshes waits for the
+    # multihost slice).
     if (args.tensor_parallel_size or args.ulysses_sequence_parallel_size
             or args.enable_shift_parallel):
         cfg.parallel = ParallelConfig(

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Sequence, Union
 
 import torch
@@ -40,10 +41,13 @@ def default_token_buckets(max_tokens: int) -> list[int]:
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """The device an entry point runs on: ``cuda:0`` unless the caller
-    names another one.  A CUDA device that is not there raises; nothing
-    falls back to the CPU unless the caller asked for it."""
-    dev = torch.device("cuda:0" if device is None else device)
+    """The device an entry point runs on: ``cuda:<LOCAL_RANK>`` (the
+    rank's card under ``torchrun``; ``cuda:0`` without it) unless the
+    caller names another one.  A CUDA device that is not there raises;
+    nothing falls back to the CPU unless the caller asked for it."""
+    if device is None:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} requested but CUDA is not available; pass "

@@ -306,6 +306,32 @@ Phases, each reported on its own lines:
              every fused dispatch under the sync check.  (c) Mixtral-8x7B
              in bf16 at 8 layers (its 32 would take ~93 GB): the same
              generate runs and prefill check.
+12. parallel: tensor, Ulysses sequence and shift parallelism
+             (``arcticinference_tpu_torch/parallel/``) on one card: the
+             ranks of a world share cuda:0 over gloo, whose collectives
+             stage through host memory (NCCL refuses two ranks on one
+             device), so no time here says anything about NCCL across
+             cards.  (a) Kernels 1, 2 and 5 at a rank's shapes
+             (:data:`SHARD_ATTN_HEADS`, :data:`SHARD_MATMUL_SHAPES`)
+             against their plain versions, timed beside the bound and
+             SDPA / ``torch.mm`` (in the kernels phase when it runs).
+             (b) Llama-3.1-8B fp8 (random weights from the seed) on one
+             device, then on world (i) tp 2 and world (ii) sp 2 x tp 2
+             with shift (prefill steps on the Ulysses program, decode
+             steps on the shift program): at 2 layers and at full
+             depth, 8 prompts of 128-1024 tokens each prefilled (SP)
+             and then decoded one token (shift) in borrowed blocks, the
+             sample rows' logits and the first and last layers' pages
+             (a rank's head slice) against the single device's, as
+             are the single device's own through the plain matmuls
+             (its noise floor: another summation order) (2 layers:
+             phase 4's bound; full depth: the bounds above
+             :func:`logits_ok`, set from both readings);
+             then at full depth ``LLM.generate``'s step loop, pipelined
+             and synchronous, 8 prompts x 16 tokens: every rank's tokens
+             equal, both modes counted in world (ii), kernels 1, 2 and 5
+             launched on every rank; step wall ms by mode beside the
+             single device's and each collective's ms.
 Last, one BERT-base device batch of phase 9 (64 x 512 tokens), a
 shorter bf16 and fp8 run of phase 5, the drafter chains and the bench's
 device step (its CUDA graph) under ``torch.profiler``, each on an engine
@@ -397,7 +423,7 @@ REL_TOL = 1e-3
 Q_STD = 5.0
 
 PHASES = ("device", "build", "kernels", "forward", "generate", "bench",
-          "pipeline", "serve", "embed", "quality", "moe")
+          "pipeline", "serve", "embed", "quality", "moe", "parallel")
 # Corruption rates of phase 6's curve (the bench's own sweep is 0.12, 0.3,
 # 0.6, 1.0; two points keep the script within its time).
 BENCH_CURVE_RATES = (0.3, 1.0)
@@ -5275,6 +5301,525 @@ def phase_moe(rng, seed) -> dict:
                 bf16=bf16, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: tensor, Ulysses sequence and shift parallelism on one card
+# ---------------------------------------------------------------------------
+
+# The worlds of phase 12: ranks share cuda:0 over gloo (collectives staged
+# through host memory; NCCL refuses two ranks on one device).  The shift
+# threshold sends the prefill steps (>= 128 tokens) to the Ulysses
+# program and the decode steps (8 tokens) to the shift program.
+PARALLEL_WORLDS = (
+    ("tp2", dict(tensor_parallel_size=2)),
+    ("sp2 x tp2 shift", dict(tensor_parallel_size=2,
+                             ulysses_sequence_parallel_size=2,
+                             enable_shift_parallel=True,
+                             shift_parallel_threshold=64)),
+)
+PARALLEL_LAYERS = 32          # Llama-3.1-8B's full depth
+PARALLEL_PROMPTS = 8          # of 128-1024 tokens
+PARALLEL_NEW_TOKENS = 16
+PARALLEL_BLOCKS = 320         # 8 x 1040 tokens in 32-token pages, and room
+# The prompts whose pages are compared with the single device's.
+PARALLEL_PAGE_PROMPTS = 2
+# Intra-op threads of each rank (4 ranks share the 8 host cores).
+PARALLEL_THREADS = 2
+# Kernel 5 on Llama-3.1-8B's weights as the mesh ranks hold them: (name,
+# K, N, fused part widths, float32 out).  tp2: the tp pieces; sp2 x tp2
+# with shift on: the SP-mode tp pieces (two interleaved groups) and the
+# shift-mode fused pieces.
+SHARD_MATMUL_SHAPES = (
+    ("tp2 wqkv", 4096, 3072, (2048, 512, 512), False),
+    ("sp2tp2 wqkv", 4096, 3072, (1024, 256, 256, 1024, 256, 256), False),
+    ("sp2tp2 shift wqkv", 4096, 1536, (1024, 256, 256), False),
+    ("tp2 w_gateup", 4096, 14336, (7168, 7168), False),
+    ("sp2tp2 shift w_gateup", 4096, 7168, (3584, 3584), False),
+    ("tp2 wo", 2048, 4096, None, False),
+    ("sp2tp2 shift wo", 1024, 4096, None, False),
+    ("tp2 w_down", 7168, 4096, None, False),
+    ("sp2tp2 shift w_down", 3584, 4096, None, False),
+    ("tp2 lm_head", 4096, 64128, None, True),
+)
+# Decode and shift steps (8 sequences: the 16-row bucket) and an SP
+# prefill chunk (a 2048-token step over sp 2); the LM head at the sample
+# rows only.
+SHARD_MATMUL_ROWS = (16, 1024)
+# Attention heads per rank: (Hq, Hkv) of tp2 and of sp2 x tp2.
+SHARD_ATTN_HEADS = ((16, 4), (8, 2))
+
+
+def phase_shard_kernels(rng, seed):
+    """Kernels 1, 2 and 5 against their plain versions at the shapes a
+    mesh rank runs (timed, with the bound and SDPA / ``torch.mm``
+    beside): kernel 1 on a 2048-token prefill chunk at qb 32 and kernel 2
+    on a B=64 decode step at qlen 1, each at 16 / 4 and 8 / 2 heads, bf16
+    KV; kernel 5 (fp8) on :data:`SHARD_MATMUL_SHAPES`.  Returns (ragged,
+    grouped, fp8) cases."""
+    import torch
+
+    from arcticinference_tpu_torch.ops.attention import (
+        ragged_paged_attention_reference)
+    from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+
+    ragged, grouped, fp8_cases = [], [], []
+    for hq, hkv in SHARD_ATTN_HEADS:
+        tag = f"rank Hq={hq} Hkv={hkv}"
+        case = Case(f"{tag} prefill 2048@ctx2048 bf16 qb=32",
+                    [(2048, 2048)], torch.bfloat16, rng, t_pad=2048, hq=hq,
+                    hkv=hkv)
+        sched = case.schedule(32)
+
+        def kern(case=case, sched=sched):
+            return ra.ragged_paged_attention_kernel(
+                case.q, case.kv, case.positions, case.req_idx,
+                case.block_tables, case.seq_lens, qb=32, schedule=sched,
+                kv_scale=case.kv_scale, layer=case.layer)
+
+        def plain(case=case):
+            return ragged_paged_attention_reference(
+                case.q, case.kv[case.layer], case.positions, case.req_idx,
+                case.block_tables, case.seq_lens,
+                kv_scale=case.kv_scale[case.layer])
+
+        ragged.append(run_case(case, kern, plain))
+        del case
+        ctx = rng.integers(128, 4096, 64)
+        case = Case(f"{tag} decode B=64 qlen=1 bf16",
+                    [(int(c), 1) for c in ctx], torch.bfloat16, rng,
+                    t_pad=64, slot_rows=1, hq=hq, hkv=hkv)
+        _, kern, plain = decode_step(case, 1)
+        grouped.append(run_case(case, kern, plain))
+        del case, kern, plain
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    for name, k, n, parts, f32 in SHARD_MATMUL_SHAPES:
+        q = quantized_weight("fp8", k, n, parts, gen)
+        out_dtype = torch.float32 if f32 else torch.bfloat16
+        for m in (16,) if f32 else SHARD_MATMUL_ROWS:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            fp8_cases.append(run_matmul_case(
+                f"fp8 {name} [{k},{n}] M={m}", q, x, out_dtype,
+                fm.fp8_matmul_kernel, fm.fp8_matmul_reference))
+        del q
+        torch.cuda.empty_cache()
+    failed = [c["case"] for c in ragged + grouped + fp8_cases
+              if not c["ok"]]
+    if failed:
+        raise AssertionError(f"kernel disagrees with plain version: {failed}")
+    return ragged, grouped, fp8_cases
+
+
+def parallel_config(par, dims):
+    from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
+                                                  ModelConfig,
+                                                  ParallelConfig,
+                                                  SchedulerConfig)
+
+    return EngineConfig(
+        model=ModelConfig(model="llama", dtype="bfloat16",
+                          max_model_len=2048, quantization="fp8",
+                          hf_overrides=dims),
+        cache=CacheConfig(num_blocks=PARALLEL_BLOCKS,
+                          enable_prefix_caching=False),
+        scheduler=SchedulerConfig(max_num_seqs=PARALLEL_PROMPTS,
+                                  max_num_batched_tokens=2048),
+        parallel=ParallelConfig(**(par or {})))
+
+
+def sp_then_shift(eng, ids) -> dict:
+    """A prefill of ``ids[:-1]`` in blocks borrowed from the engine's
+    cache (the SP program on the shift world: >= 128 tokens), then one
+    decode step of ``ids[-1]`` reading its pages (the shift program: one
+    token); the sample row's float32 logits of each and the request's
+    pages of the first and last layer after each (float32, on the
+    host)."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.request import (Request,
+                                                          SamplingParams)
+    from arcticinference_tpu_torch.engine.scheduler import (ScheduledRequest,
+                                                            SchedulerOutput)
+
+    runner = eng.runner
+    bm = eng.scheduler.block_manager
+    req = Request(req_id="pages", prompt_token_ids=list(ids),
+                  sampling=SamplingParams(max_tokens=1))
+    bm.grow_to(req.block_ids, len(ids))
+    layers = [0, runner.arch.num_layers - 1]
+    out = {}
+    try:
+        with torch.inference_mode():
+            for stage, ctx, n in (("prefill", 0, len(ids) - 1),
+                                  ("decode", len(ids) - 1, 1)):
+                req.num_computed_tokens = ctx
+                sched = SchedulerOutput()
+                sched.scheduled.append(ScheduledRequest(req, n, []))
+                si = runner.prepare_inputs(sched)
+                inputs = runner.upload(si.arrays)
+                h = runner.prefill_hidden(inputs, si.attn_qb)
+                row = h[inputs["logits_indices"][:1].long()]
+                out[f"{stage}_logits"] = runner.logits(row)[0].cpu().numpy()
+                blocks = torch.tensor(req.block_ids, device=runner.kv.device)
+                out[f"{stage}_pages"] = runner.kv[layers][:, blocks].float() \
+                    .cpu().numpy()
+    finally:
+        bm.free(req.block_ids)
+    return out
+
+
+def timed_generate(eng, prompts, max_tokens) -> tuple:
+    """``LLMEngine``'s step loop over ``prompts`` (the loop ``LLM.
+    generate`` runs); returns (tokens per prompt, wall ms of each step by
+    the mesh mode its forwards ran: ``sp``, ``shift`` or ``single``)."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+
+    runner = eng.runner
+    for i, p in enumerate(prompts):
+        eng.add_request(f"p{i}", p, SamplingParams(max_tokens=max_tokens,
+                                                   ignore_eos=True))
+    done, step_ms = {}, {}
+    while eng.has_unfinished:
+        before = dict(runner.mode_steps)
+        t = time.perf_counter()
+        finished = eng.step()
+        if runner.device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        ran = [m for m, c in runner.mode_steps.items()
+               if c > before.get(m, 0)]
+        if len(ran) == 1:
+            step_ms.setdefault(ran[0], []).append(ms)
+        for r in finished:
+            done[r.req_id] = list(r.output_token_ids)
+    return [done[f"p{i}"] for i in range(len(prompts))], step_ms
+
+
+def engine_checks(eng, prompts, ref: Path, write: bool) -> dict:
+    """:func:`sp_then_shift` over ``prompts``: the single device's
+    kernel run (``write``) saves its logits and pages into ``ref``; any
+    other run (a rank, or the single device through the plain matmuls)
+    holds its own against them (a rank: its head slice of the pages)."""
+    from arcticinference_tpu_torch.parallel import mesh as mesh_lib
+
+    ref.mkdir(exist_ok=True)
+    checks = {}
+    for i, ids in enumerate(prompts):
+        got = sp_then_shift(eng, ids)
+        for stage in ("prefill", "decode"):
+            key = f"{stage}_logits_{i}"
+            if write:
+                np.save(ref / f"{key}.npy", got[f"{stage}_logits"])
+            else:
+                checks[key] = logits_check(got[f"{stage}_logits"],
+                                           np.load(ref / f"{key}.npy"))
+            if i >= PARALLEL_PAGE_PROMPTS:
+                continue
+            key = f"{stage}_pages_{i}"
+            pages = got[f"{stage}_pages"]
+            if write:
+                np.save(ref / f"{key}.npy", pages)
+                continue
+            count, first = eng.arch.num_kv_heads, 0
+            if eng.mesh is not None:
+                count, first = mesh_lib.kv_cache_heads(
+                    eng.arch.num_kv_heads, eng.mesh)
+            d = eng.arch.head_dim
+            want = np.load(ref / f"{key}.npy")[..., first * d:
+                                               (first + count) * d]
+            checks[key] = [dict(
+                layer=layer,
+                rel_diff=float(np.linalg.norm(pages[j] - want[j])
+                               / np.linalg.norm(want[j])),
+                max_abs_diff=float(np.abs(pages[j] - want[j]).max()))
+                for j, layer in enumerate((0, eng.arch.num_layers - 1))]
+    return checks
+
+
+def collective_ms(eng, rows: int = 1024) -> dict:
+    """ms per call of the mesh's collectives on this rank, at the shapes
+    a Llama-3.1-8B step gives them (gloo, staged through host memory):
+    the tp sum of an SP step's ``rows / sp`` hidden rows and of a decode
+    step's 8, the sp all-to-all of their q chunk, the fused group's sum
+    of 8 rows (a shift step), the LM head's gather of 16 sample rows."""
+    import torch
+    import torch.distributed as dist
+
+    from arcticinference_tpu_torch.parallel.ulysses import all_gather_cat
+
+    mesh, arch = eng.mesh, eng.arch
+    dev = eng.runner.device
+    d = arch.hidden_size
+    hq = arch.num_heads // mesh.tp
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def timed(fn, iters=10):
+        fn()
+        sync()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        return (time.perf_counter() - t) / iters * 1e3
+
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    big = torch.zeros((rows // mesh.sp, d), **bf16)
+    small = torch.zeros((8, d), **bf16)
+    out = {}
+    if mesh.tp_group is not None:
+        out[f"tp all_reduce [{rows // mesh.sp}, {d}] bf16"] = timed(
+            lambda: dist.all_reduce(big, group=mesh.tp_group))
+        out[f"tp all_reduce [8, {d}] bf16"] = timed(
+            lambda: dist.all_reduce(small, group=mesh.tp_group))
+        head = eng.runner.params["lm_head"].shape[-1]
+        logits = torch.zeros((16, head), dtype=torch.float32, device=dev)
+        out[f"tp all_gather [16, {head}] f32"] = timed(
+            lambda: all_gather_cat(logits, mesh.tp_group, dim=-1))
+    if mesh.sp_group is not None:
+        q = torch.zeros((mesh.sp, rows // mesh.sp, hq // mesh.sp,
+                         arch.head_dim), **bf16)
+        q_out = torch.empty_like(q)
+        out[f"sp all_to_all {list(q.shape)} bf16"] = timed(
+            lambda: dist.all_to_all_single(q_out, q, group=mesh.sp_group))
+    if mesh.sp_tp_group is not None and mesh.sp > 1:
+        out[f"sp_tp all_reduce [8, {d}] bf16"] = timed(
+            lambda: dist.all_reduce(small, group=mesh.sp_tp_group))
+    return out
+
+
+def parallel_run(par, prompts, ref_dir, device, dims) -> dict:
+    """Phase 12's engines on ``device`` (``cuda:0``; every rank of a world
+    shares it): the single device (``par`` None; it writes the references
+    into ``ref_dir``) or one rank of a world (it holds its logits and
+    pages against them; then it runs the same checks through the plain
+    matmuls, the one device's own noise floor: another summation order).
+    First at ``dims``' width with 2 layers (phase 4's depth), then at
+    full depth: the checks, the collectives' ms, and the pipelined and
+    the synchronous generate runs, with the kernels' launches counted
+    over both."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.llm import LLM
+
+    cuda = device.startswith("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = Path(ref_dir)
+    res = {}
+    for depth in (2, dims["num_hidden_layers"]):
+        t0 = time.perf_counter()
+        llm = LLM(parallel_config(par, dict(dims, num_hidden_layers=depth)),
+                  device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        eng = llm.engine
+        res["init_s"] = time.perf_counter() - t0
+        res[f"checks_{depth}l"] = engine_checks(
+            eng, prompts, ref / f"{depth}l", write=eng.mesh is None)
+        if eng.mesh is None:
+            # A fresh cache, as the kernel run had (a page's tail past
+            # the prompt is compared too).
+            eng.runner.kv.zero_()
+            with plain_matmuls():
+                res[f"noise_{depth}l"] = engine_checks(
+                    eng, prompts, ref / f"{depth}l", write=False)
+        if depth == 2:
+            llm.close()
+            del llm, eng
+            continue
+        if eng.mesh is not None:
+            res["collective_ms"] = collective_ms(eng)
+        reset_counts()
+        runs = {}
+        for name, pipelined in (("pipelined", True), ("sync", False)):
+            eng._pipeline = pipelined
+            toks, step_ms = timed_generate(eng, prompts, PARALLEL_NEW_TOKENS)
+            runs[name] = dict(tokens=toks, step_ms={
+                m: dict(steps=len(v), p50_ms=float(np.median(v)),
+                        mean_ms=float(np.mean(v)))
+                for m, v in step_ms.items()})
+        res["launches"] = launch_counts()
+        res["runs"] = runs
+        res["mode_steps"] = dict(eng.runner.mode_steps)
+        res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if cuda else None)
+        res["kv_shape"] = list(eng.runner.kv.shape)
+        llm.close()
+        del llm, eng
+    if cuda:
+        free_cuda_memory()
+    return res
+
+
+def logits_check(got, want) -> dict:
+    """One row of float32 logits against the single device's: max |diff|
+    against max |logit|, the argmax equal or a near tie (top two within
+    twice the largest difference), and the cosine."""
+    diff = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    top2 = np.sort(want)[-2:]
+    cos = float(np.dot(got, want) / (np.linalg.norm(got)
+                                     * np.linalg.norm(want)))
+    return dict(max_abs_diff=diff, max_abs_logit=scale, cosine=cos,
+                argmax_agree=int(np.argmax(got)) == int(np.argmax(want)),
+                near_tie=bool(top2[1] - top2[0] <= 2 * diff),
+                finite=bool(np.isfinite(got).all()))
+
+
+# Phase 12's bounds.  Two layers: phase 4's (logits max |diff| <= 0.05 x
+# max |logit|, the argmax equal or a near tie; the last layer's pages
+# within its cache bound, 2e-2 relative).  Full depth: on random weights
+# 32 layers carry bf16 roundings far, so the bounds stand on the one
+# device's own noise floor, which each run measures (the single device
+# through the plain matmuls against its kernels: another summation
+# order, no mesh): the logits' max |diff| and cosine, and the last
+# layer's pages, set just above that reading and the meshes' (Llama-3.1-
+# 8B fp8 at 32 layers on an H100: one device 5.2% of max |logit|, cosine
+# >= 0.99885, layer 31's pages 4.7%; the meshes 6.6%, >= 0.99812, 5.4%;
+# PERF.md, Findings).  Layer 0's pages at either depth: within 2^-8
+# relative (bf16 roundings of the projections only).
+PAGES_LAYER0_TOL = 2 ** -8
+PAGES_LAST_TOL = 2e-2
+FULL_LOGITS_TOL = 0.08
+FULL_COS = 0.997
+FULL_PAGES_LAST_TOL = 0.07
+
+
+def logits_ok(c, depth: int) -> bool:
+    if not c["finite"]:
+        return False
+    if depth == 2:
+        return (c["max_abs_diff"] <= 0.05 * c["max_abs_logit"]
+                and (c["argmax_agree"] or c["near_tie"]))
+    return (c["max_abs_diff"] <= FULL_LOGITS_TOL * c["max_abs_logit"]
+            and c["cosine"] >= FULL_COS)
+
+
+def pages_ok(c, depth: int) -> bool:
+    return (c[0]["rel_diff"] <= PAGES_LAYER0_TOL
+            and c[1]["rel_diff"] <= (PAGES_LAST_TOL if depth == 2
+                                     else FULL_PAGES_LAST_TOL))
+
+
+def worst_of(runs: list, depth: int) -> dict:
+    """The worst logits and pages of ``runs`` (each a run's
+    ``checks_<depth>l`` or ``noise_<depth>l``) against the single
+    device's kernel run."""
+    worst = {}
+    for key in ("prefill_logits", "decode_logits"):
+        cs = [c for r in runs for k, c in r.items() if k.startswith(key)]
+        worst[f"{depth} layers {key}"] = dict(
+            max_abs_diff=max(c["max_abs_diff"] for c in cs),
+            max_abs_logit=max(c["max_abs_logit"] for c in cs),
+            max_rel_diff=max(c["max_abs_diff"] / c["max_abs_logit"]
+                             for c in cs),
+            min_cosine=min(c["cosine"] for c in cs),
+            argmax_agree=sum(c["argmax_agree"] for c in cs),
+            rows=len(cs))
+    for key in ("prefill_pages", "decode_pages"):
+        cs = [c for r in runs for k, c in r.items() if k.startswith(key)]
+        worst[f"{depth} layers {key}"] = {
+            f"layer {cs[0][j]['layer']}": max(c[j]["rel_diff"] for c in cs)
+            for j in (0, 1)}
+    return worst
+
+
+def phase_parallel(rng, device="cuda:0", dims=None, card=None) -> dict:
+    """Phase 12 (see the module docstring): the single device, then each
+    world of :data:`PARALLEL_WORLDS` on the same weights and prompts
+    (Llama-3.1-8B at :data:`PARALLEL_LAYERS` layers unless ``dims``)."""
+    from arcticinference_tpu_torch.parallel.world import World
+
+    if dims is None:
+        dims = dict(LLAMA_8B, num_hidden_layers=PARALLEL_LAYERS)
+    prompts = [[int(x) for x in rng.integers(0, dims["vocab_size"], int(n))]
+               for n in rng.integers(128, 1025, PARALLEL_PROMPTS)]
+    card = card or smi()
+    out = {}
+    with tempfile.TemporaryDirectory() as ref_dir:
+        t0 = time.perf_counter()
+        single = parallel_run(None, prompts, ref_dir, device, dims)
+        single["wall_s"] = time.perf_counter() - t0
+        out["single"] = single
+        log("  parallel single " + json.dumps(dict(
+            {k: v for k, v in single.items() if k != "runs"},
+            step_ms={n: r["step_ms"] for n, r in single["runs"].items()})))
+        for name, par in PARALLEL_WORLDS:
+            n = (par.get("tensor_parallel_size", 1)
+                 * par.get("ulysses_sequence_parallel_size", 1))
+            t0 = time.perf_counter()
+            with World(n, backend="gloo", timeout_s=600,
+                       threads=PARALLEL_THREADS) as world:
+                ranks = world.run(parallel_run, par, prompts, ref_dir,
+                                  device, dims)
+            wall = time.perf_counter() - t0
+            out[name] = check_world(name, par, ranks, single, wall, card)
+    if any(not w["ok"] for k, w in out.items() if k != "single"):
+        raise AssertionError("phase 12: a world failed its checks: "
+                             + json.dumps({k: w["failed"] for k, w in
+                                           out.items() if k != "single"}))
+    return out
+
+
+def check_world(name, par, ranks, single, wall_s, card) -> dict:
+    """A world's checks against the single device (see the bounds above
+    :func:`logits_ok`); logs them."""
+    keys = ("ragged_paged_attention_kernel",
+            "grouped_decode_attention_kernel", "fp8_matmul_kernel")
+    depth = max(int(k[7:-1]) for k in ranks[0] if k.startswith("checks_"))
+    failed = []
+    r0 = ranks[0]
+    for run in ("pipelined", "sync"):
+        if any(r["runs"][run]["tokens"] != r0["runs"][run]["tokens"]
+               for r in ranks):
+            failed.append(f"{run}: ranks returned different tokens")
+    prompts = r0["runs"]["pipelined"]["tokens"]
+    agree = sum(a == b for a, b in zip(prompts,
+                                       single["runs"]["pipelined"]["tokens"]))
+    worst, noise = {}, {}
+    for d in (2, depth):
+        runs = [(f"rank {r_i}", r[f"checks_{d}l"])
+                for r_i, r in enumerate(ranks)]
+        for who, run in runs + [("plain matmuls", single[f"noise_{d}l"])]:
+            for key, c in run.items():
+                if ("logits" in key and not logits_ok(c, d)) or (
+                        "pages" in key and not pages_ok(c, d)):
+                    failed.append(f"{d} layers, {who} {key}: {c}")
+        worst.update(worst_of([r[f"checks_{d}l"] for r in ranks], d))
+        noise.update(worst_of([single[f"noise_{d}l"]], d))
+    for r_i, r in enumerate(ranks):
+        if not all(r["launches"][k] > 0 for k in keys):
+            failed.append(f"rank {r_i} launches {r['launches']}")
+    if par.get("enable_shift_parallel") and not (
+            r0["mode_steps"].get("sp", 0) > 0
+            and r0["mode_steps"].get("shift", 0) > 0):
+        failed.append(f"modes {r0['mode_steps']}")
+    res = dict(
+        world=name, parallel=par, ranks=len(ranks), wall_s=wall_s,
+        bound=f"2 layers: logits max|diff| <= 0.05 x max|logit| with the "
+              f"argmax equal or a near tie, pages rel diff <= "
+              f"{PAGES_LAYER0_TOL} (layer 0) / {PAGES_LAST_TOL} (last); "
+              f"{depth} layers: logits max|diff| <= {FULL_LOGITS_TOL} x "
+              f"max|logit| and cosine >= {FULL_COS}, pages rel diff <= "
+              f"{PAGES_LAYER0_TOL} (layer 0) / {FULL_PAGES_LAST_TOL} (last)",
+        worst=worst, noise_floor=noise, prompts_with_single_tokens=f"{agree}/{len(prompts)}",
+        mode_steps=r0["mode_steps"],
+        launches=[{k: r["launches"][k] for k in keys} for r in ranks],
+        init_s=[r["init_s"] for r in ranks],
+        peak_gib=[r["peak_gib"] for r in ranks],
+        kv_shape=r0["kv_shape"], collective_ms=r0["collective_ms"],
+        step_ms={run: r0["runs"][run]["step_ms"]
+                 for run in ("pipelined", "sync")},
+        single_step_ms={run: single["runs"][run]["step_ms"]
+                        for run in ("pipelined", "sync")},
+        timing=f"gloo, host-staged, one card: {card}",
+        failed=failed, ok=not failed)
+    log("  parallel " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5395,6 +5940,7 @@ def main() -> int:
                      "(jax.lax.ragged_dot, an XLA op: no pallas_call)",
             sass=grouped_sass),
     }
+    shard_cases = None
     if "kernels" in phases:
         log(f"[kernels] kernel vs plain, Hq={HQ} Hkv={HKV} D={D}, "
             f"{LAYERS}-layer cache")
@@ -5424,6 +5970,9 @@ def main() -> int:
         log("[kernels] weight-stream matmul variants vs plain, "
             "Llama-3.1-8B decode shapes, 64 rows")
         stream_cases = phase_stream_kernels(args.seed)
+        log("[kernels] kernels 1, 2 and 5 at a mesh rank's shapes "
+            "(Llama-3.1-8B over tp 2 and sp 2 x tp 2)")
+        shard_cases = phase_shard_kernels(rng, args.seed)
         # The summary line reports, for each kernel, the case of its
         # heaviest main-path step (a 2048-token prefill chunk; a batch-64
         # decode step) or, for the matmuls, the decode weight stream they
@@ -5663,6 +6212,47 @@ def main() -> int:
                     dispatches=moe_res[name][run]["dispatches"])
                 for name in ("fp8", "bf16") for run in ("pipelined",
                                                         "sync")}
+    if "parallel" in phases:
+        if shard_cases is None:
+            log("[parallel] kernels 1, 2 and 5 at a mesh rank's shapes "
+                "(Llama-3.1-8B over tp 2 and sp 2 x tp 2)")
+            shard_cases = phase_shard_kernels(rng, args.seed)
+        log(f"[parallel] LLM.generate, Llama-3.1-8B fp8, {PARALLEL_LAYERS} "
+            "layers, on one device, then on worlds of ranks sharing cuda:0 "
+            "over gloo: " + ", ".join(n for n, _ in PARALLEL_WORLDS))
+        t0 = time.perf_counter()
+        worlds = phase_parallel(rng)
+        log(f"[parallel] {time.perf_counter() - t0:.1f} s")
+        for key in ("ragged_paged_attention_kernel",
+                    "grouped_decode_attention_kernel", "fp8_matmul_kernel"):
+            entry = kernels[key]
+            entry["launches_parallel"] = {
+                name: [r[key] for r in worlds[name]["launches"]]
+                for name, _ in PARALLEL_WORLDS}
+            entry.setdefault("launches", worlds[PARALLEL_WORLDS[-1][0]][
+                "launches"][0][key])
+    if shard_cases is not None:
+        # The cases at a mesh rank's shapes beside every earlier one; a
+        # run without the kernels phase reports them as the row's.
+        for key, cases, rep_name in (
+                ("ragged_paged_attention_kernel", shard_cases[0],
+                 "rank Hq=8 Hkv=2 prefill 2048@ctx2048 bf16 qb=32"),
+                ("grouped_decode_attention_kernel", shard_cases[1],
+                 "rank Hq=8 Hkv=2 decode B=64 qlen=1 bf16"),
+                ("fp8_matmul_kernel", shard_cases[2],
+                 "fp8 tp2 w_gateup [4096,14336] M=16")):
+            entry = kernels[key]
+            rep = next(c for c in cases if c["case"] == rep_name)
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms"):
+                entry.setdefault(k, rep[k])
+            entry["max_abs_err"] = max(
+                [entry.get("max_abs_err", 0.0)]
+                + [c["max_abs_err"] for c in cases])
+            entry["cases_parallel"] = [{k: c[k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "rel_err", "host_us")
+                if k in c} for c in cases]
     if "embed" in phases:
         log("[profile] one BERT-base batch (64 x 512) under torch.profiler")
         log("  profile bert " + json.dumps(dict(profile_bert(),

@@ -54,9 +54,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def paged_case(reqs, kv_dtype, device, t_pad, layers=2, seed=0, d=D):
-    """Requests [(ctx, qlen)] on a stacked cache with scattered pages;
-    layer 1 carries fp8 scales (2.0, 0.5)."""
+def paged_case(reqs, kv_dtype, device, t_pad, layers=2, seed=0, d=D,
+               hq=HQ, hkv=HKV):
+    """Requests [(ctx, qlen)] on a stacked cache with scattered pages of
+    ``hkv`` heads, ``hq`` q heads; layer 1 carries fp8 scales (2.0,
+    0.5)."""
     rng = np.random.default_rng(seed)
     pages = [-(-(c + q) // BS) if q else 0 for c, q in reqs]
     n_blocks = sum(pages) + 1
@@ -67,11 +69,11 @@ def paged_case(reqs, kv_dtype, device, t_pad, layers=2, seed=0, d=D):
         bt[r, :n] = perm[k:k + n]
         k += n
     kv = torch.from_numpy(rng.standard_normal(
-        (layers, n_blocks, 2, BS, HKV * d)).astype(np.float32) * 0.5)
+        (layers, n_blocks, 2, BS, hkv * d)).astype(np.float32) * 0.5)
     scale = torch.ones((layers, 2))
     if kv_dtype == torch.float8_e4m3fn:
         scale[1] = torch.tensor([2.0, 0.5])
-    q = torch.from_numpy(rng.standard_normal((t_pad, HQ, d)).astype(
+    q = torch.from_numpy(rng.standard_normal((t_pad, hq, d)).astype(
         np.float32) * Q_STD)
     seq = np.array([c + q_ if q_ else 0 for c, q_ in reqs], np.int32)
     return (q.to(device, torch.bfloat16), kv.to(device, kv_dtype),
@@ -364,13 +366,15 @@ def test_deferred_wrapper_refuses_what_the_kernel_does_not_take(
     assert tra.deferred_decode_launches == 0
 
 
-def uniform_step(ctx, qlen, kv_dtype, device, d=D, hq=HQ, seed=0):
+def uniform_step(ctx, qlen, kv_dtype, device, d=D, hq=HQ, seed=0,
+                 hkv=HKV):
     """A grouped decode step: sequence s at ``ctx[s]`` cached tokens (0 =
     dead) with ``qlen`` rows at positions ctx + j; returns q, the cache,
     scales, block tables, seq_lens and pos_base."""
     reqs = [(c, qlen if c else 0) for c in ctx]
     q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, device,
-                                      len(ctx) * qlen, d=d, seed=seed)
+                                      len(ctx) * qlen, d=d, seed=seed,
+                                      hkv=hkv)
     if hq != HQ:
         q = torch.cat([q, q.flip(0)], dim=1)[:, :hq].contiguous()
     return q, kv, scale, bt, sl, torch.tensor(ctx, dtype=torch.int32,
@@ -1581,3 +1585,114 @@ def test_grouped_matmul_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         tgm.grouped_matmul_kernel(xs[:, :96].contiguous(), q[:, :96]
                                   .contiguous(), None, offsets)
+
+
+# A mesh rank's shapes (``arcticinference_tpu_torch/parallel/``):
+# Llama-3.1-8B's attention heads per rank (Hq, Hkv) over tp 2 and over
+# sp 2 x tp 2, and its weights as the ranks hold them (K, N): the tp 2
+# pieces of wqkv, w_gateup, wo, w_down and the LM head, then the fused
+# sp 2 x tp 2 pieces of the shift program.
+SHARD_HEADS = [(16, 4), (8, 2)]
+SHARD_SHAPES = [(4096, 3072), (4096, 14336), (2048, 4096), (7168, 4096),
+                (4096, 64128), (4096, 1536), (4096, 7168), (1024, 4096),
+                (3584, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("hq,hkv", SHARD_HEADS)
+def test_attention_kernels_at_shard_heads(cuda_device, hq, hkv, kv_dtype):
+    """Kernel 1 on prefill chunks beside decode rows (an SP step: the
+    whole token batch at a rank's heads) and kernel 2 on a decode step
+    (a shift step), against the plain version."""
+    reqs = [(0, 100), (300, 40), (1000, 1), (77, 1)]
+    t_pad = 256
+    q, kv, scale, bt, sl = paged_case(reqs, kv_dtype, cuda_device, t_pad,
+                                      hq=hq, hkv=hkv)
+    pos, req = ragged_rows(reqs, t_pad, cuda_device)
+    ref = ragged_paged_attention_reference(q, kv[1], pos, req, bt, sl,
+                                           kv_scale=scale[1])
+    live = req >= 0
+    for qb in (8, 32):
+        out = tra.ragged_paged_attention_kernel(
+            q, kv, pos, req, bt, sl, qb=qb, kv_scale=scale, layer=1)
+        torch.cuda.synchronize()
+        assert_matches(out[live], ref[live])
+    q, kv, scale, bt, sl, _ = uniform_step(
+        [30, 1000, 4093, 509, 0, 62, 2000, 7], 1, kv_dtype, cuda_device,
+        hq=hq, hkv=hkv)
+    pb = torch.clamp(sl - 1, min=0)
+    ref = tra.grouped_decode_attention_kernel(
+        q.cpu(), kv.cpu(), pb.cpu(), bt.cpu(), sl.cpu(), qlen=1,
+        kv_scale=scale.cpu(), layer=1)
+    out = tra.grouped_decode_attention_kernel(q, kv, pb, bt, sl, qlen=1,
+                                              kv_scale=scale, layer=1)
+    torch.cuda.synchronize()
+    assert_matches(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 1024])
+@pytest.mark.parametrize("k,n", SHARD_SHAPES)
+def test_fp8_matmul_kernel_at_shard_shapes(cuda_device, k, n, m):
+    if m > 16 and n > 60000:
+        pytest.skip("the LM head sees only the sample rows")
+    x, q = quantized_case("fp8", m, k, n, cuda_device, per_column=n < 60000)
+    out_dtype = torch.float32 if n > 60000 else torch.bfloat16
+    out = tfm.fp8_matmul_kernel(x, q.weight, q.scale, out_dtype)
+    ref = tfm.fp8_matmul_reference(x, q.weight, q.scale, out_dtype)
+    torch.cuda.synchronize()
+    assert_matches(out, ref)
+
+
+def _mesh_prompt_logits(prompt):
+    """A rank of a tp 2 world on cuda:0 (or the single device, outside a
+    world): the prompt's logits through the port's engine, fp8 weights,
+    with the attention and matmul kernels' launches."""
+    from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
+                                                  ModelConfig,
+                                                  ParallelConfig)
+    from arcticinference_tpu_torch.engine.llm import LLM
+
+    import torch.distributed as dist
+
+    par = (dict(tensor_parallel_size=dist.get_world_size())
+           if dist.is_initialized() else {})
+    cfg = EngineConfig(
+        model=ModelConfig(model="llama", dtype="bfloat16",
+                          max_model_len=512, quantization="fp8",
+                          hf_overrides=dict(
+                              vocab_size=4096, hidden_size=1024,
+                              intermediate_size=2048, num_hidden_layers=2,
+                              num_attention_heads=8, num_key_value_heads=4,
+                              head_dim=128)),
+        cache=CacheConfig(num_blocks=64),
+        parallel=ParallelConfig(**par))
+    llm = LLM(cfg, device="cuda:0")
+    tra.reset_launch_counts()
+    tfm.reset_launch_counts()
+    logits = llm.engine.prompt_logits(prompt)
+    torch.cuda.synchronize()
+    return logits, tra.ragged_attention_launches, tfm.fp8_matmul_launches
+
+
+@pytest.mark.cuda
+def test_tp2_world_on_one_card_matches_single(cuda_device):
+    """Two ranks sharing cuda:0 over gloo (``parallel.world``): each
+    rank's prompt logits equal the other's bit for bit and the single
+    device's within the bf16 forward's tolerance, through kernels 1 and
+    5 on every rank."""
+    from arcticinference_tpu_torch.parallel.world import spawn
+
+    prompt = [int(t) for t in np.random.default_rng(7).integers(
+        0, 4096, 200)]
+    want, _, _ = _mesh_prompt_logits(prompt)
+    ranks = spawn(_mesh_prompt_logits, 2, args=(prompt,), backend="gloo",
+                  timeout_s=300)
+    for got, attn, mm in ranks:
+        assert np.array_equal(got, ranks[0][0])
+        assert attn > 0 and mm > 0
+        diff = np.abs(got - want).max()
+        assert diff <= 0.05 * np.abs(want).max(), diff
+        agree = (got.argmax(-1) == want.argmax(-1)).mean()
+        assert agree >= 0.95, agree

@@ -219,7 +219,8 @@ def test_params_from_jax_keeps_keys_and_layout():
 def test_init_params_refuses_unported_variants():
     """The Qwen variants are ported: attention biases and qk-norm weights
     are drawn (they raised before); weight-only quantization leaves them
-    unquantized.  Interleaved (sharded) fusion is still refused."""
+    unquantized.  Interleaved (sharded) fusion is ported too (it raised
+    before): the first half of the fused columns is [q_0|k_0|v_0]."""
     gen = torch.Generator().manual_seed(0)
     small = dict(vocab_size=64, hidden_size=128, intermediate_size=256,
                  num_layers=1, num_heads=4, num_kv_heads=2, head_dim=32)
@@ -233,5 +234,9 @@ def test_init_params_refuses_unported_variants():
     assert isinstance(params["layers"]["wq"], tfp8.QuantizedLinear)
     assert params["layers"]["wq"].weight.dtype == torch.float8_e4m3fn
     assert "bq" not in params["layers"]
-    with pytest.raises(NotImplementedError):
-        tllama.fuse_params(params, interleave=2)
+    lay = params["layers"]
+    fused = tllama.fuse_params(params, interleave=2)["layers"]["wqkv"]
+    first = torch.cat([lay[k].weight[..., :lay[k].shape[-1] // 2]
+                       for k in ("wq", "wk", "wv")], dim=-1)
+    assert torch.equal(fused.weight[..., :first.shape[-1]].view(torch.uint8),
+                       first.view(torch.uint8))

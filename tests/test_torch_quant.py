@@ -148,8 +148,9 @@ def test_fuse_and_dequantize_are_exact(mode):
     np.testing.assert_array_equal(
         full[..., 128:192].numpy(),
         tfp8.fp8_dequantize(tq[1], torch.float32).numpy())
-    with pytest.raises(NotImplementedError):
-        tfp8.fuse_quantized(tq, interleave=2)
+    # The shard-interleaved order (ported; it raised before) is JAX's.
+    assert_same_quantized(tfp8.fuse_quantized(tq, interleave=2),
+                          jfp8.fuse_quantized(jq, interleave=2))
     with pytest.raises(ValueError):
         tfp8.fuse_quantized([tq[0], torch.from_numpy(parts[1])])
 

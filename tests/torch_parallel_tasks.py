@@ -1,0 +1,220 @@
+"""Rank functions of the port's mesh tests (``test_torch_parallel.py``,
+``test_torch_engine_parallel.py``).
+
+They run inside the ranks of a ``parallel.world.World`` (CPU, gloo), so
+this module imports neither jax nor the JAX package: arguments and
+results cross the process boundary as numpy arrays and plain data.  A
+task given ``members`` runs on that subgroup of the world.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import torch
+
+from arcticinference_tpu_torch import st_io
+from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
+                                              ModelConfig, ParallelConfig,
+                                              SchedulerConfig,
+                                              SpeculativeConfig)
+from arcticinference_tpu_torch.engine.llm import LLM
+from arcticinference_tpu_torch.engine.request import SamplingParams
+from arcticinference_tpu_torch.models.loader import resolve_model
+from arcticinference_tpu_torch.ops.fp8 import QuantizedLinear
+from arcticinference_tpu_torch.ops.kv_cache import (KVCacheSpec,
+                                                    allocate_kv_cache)
+from arcticinference_tpu_torch.parallel import mesh as mesh_lib
+from arcticinference_tpu_torch.parallel.ulysses import make_sharded_forward
+from arcticinference_tpu_torch.parallel.world import subgroup
+
+
+def _group(members):
+    return None if members is None else subgroup(members)
+
+
+# --------------------------------------------------------------------- #
+# Sharded forward
+# --------------------------------------------------------------------- #
+
+def sharded_forward(module_name: str, arch_kw: dict, params: dict,
+                    par_kw: dict, mode, steps: list, kv_kw: dict,
+                    members=None):
+    """The port's sharded forward on this rank over the steps' inputs
+    (numpy dicts) in turn, on one cache, from the global port ``params``;
+    ``mode`` is one mode or one per step.  Returns, per step, the hidden
+    rows and this rank's cache."""
+    import importlib
+
+    module = importlib.import_module(
+        f"arcticinference_tpu_torch.models.{module_name}")
+    arch = module.Arch(**arch_kw)
+    cfg = ParallelConfig(**par_kw)
+    mesh = mesh_lib.build_mesh(cfg, _group(members))
+    params = mesh_lib.shard_params(params, mesh)
+    heads = mesh_lib.kv_cache_heads(arch.num_kv_heads, mesh)[0]
+    kv = allocate_kv_cache(KVCacheSpec(
+        num_layers=arch.num_layers, num_kv_heads=heads,
+        head_dim=arch.head_dim, dtype=torch.float32, **kv_kw), "cpu")
+    modes = [mode] if isinstance(mode, str) else mode
+    out = []
+    for step, m in zip(steps, modes * len(steps)):
+        fn = make_sharded_forward(module, arch, mesh, m,
+                                  attn_impl=module.plain_attn)
+        inputs = {k: torch.from_numpy(np.asarray(v)) for k, v in
+                  step.items()}
+        kv, h = fn(params, kv, inputs)
+        out.append((h.numpy().copy(), kv.numpy().copy()))
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Engines
+# --------------------------------------------------------------------- #
+
+def write_checkpoint(path: str, hf: dict, seed: int = 0) -> None:
+    """A random float32 HF Llama checkpoint (``config.json`` and
+    ``model.safetensors``) from the port's ``init_params``, which both
+    packages' loaders read."""
+    from arcticinference_tpu_torch.models import llama
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    arch = llama.LlamaArch.from_hf_config(hf)
+    gen = torch.Generator().manual_seed(seed)
+    p = llama.init_params(arch, gen, torch.float32, device="cpu")
+    t = {"model.embed_tokens.weight": p["embed"],
+         "model.norm.weight": p["final_norm"]}
+    if "lm_head" in p:                        # untied
+        t["lm_head.weight"] = p["lm_head"].t()
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    lay = p["layers"]
+    for i in range(arch.num_layers):
+        pre = f"model.layers.{i}."
+        t[pre + "input_layernorm.weight"] = lay["input_norm"][i]
+        t[pre + "post_attention_layernorm.weight"] = lay["post_norm"][i]
+        for key, name in names.items():
+            t[pre + name + ".weight"] = lay[key][i].t()
+        for key, name in (("bq", "q_proj"), ("bk", "k_proj"),
+                          ("bv", "v_proj")):
+            if key in lay:
+                t[pre + f"self_attn.{name}.bias"] = lay[key][i]
+    st_io.save_file({k: v.contiguous() for k, v in t.items()},
+                    path / "model.safetensors")
+    (path / "config.json").write_text(json.dumps(hf))
+
+
+def engine_config(model: str, par: dict | None = None,
+                  quantization=None, spec: dict | None = None,
+                  num_blocks=128) -> EngineConfig:
+    return EngineConfig(
+        model=ModelConfig(model=model, dtype="float32", max_model_len=256,
+                          quantization=quantization),
+        cache=CacheConfig(block_size=8, num_blocks=num_blocks),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_num_batched_tokens=64),
+        parallel=ParallelConfig(**(par or {})),
+        speculative=None if spec is None else SpeculativeConfig(**spec))
+
+
+def run_engine(model: str, par: dict | None, prompts, max_tokens: int = 10,
+               quantization=None, spec: dict | None = None,
+               unfused: bool = False, members=None, logits: bool = True,
+               warm=None, sampling: dict | None = None,
+               pipeline=None) -> dict:
+    """``LLM.generate`` on this rank (``sampling``: more
+    ``SamplingParams``; ``pipeline`` False: the synchronous step;
+    ``unfused``: the model module without ``fuse_params``, so the runner
+    keeps q/k/v and gate/up apart); returns its tokens (and logprobs),
+    the modes its forwards ran, the step kinds, the fused loop's counts,
+    the layer keys and leaf shapes it holds, its cache's shape, and
+    (``logits``) the prompt logits of each prompt followed by its
+    tokens."""
+    with contextlib.ExitStack() as stack:
+        if unfused:
+            stack.enter_context(mock.patch.object(
+                resolve_model(ModelConfig(model=model))[0], "fuse_params",
+                None))
+        llm = LLM(engine_config(model, par, quantization, spec),
+                  device="cpu", group=_group(members))
+        eng = llm.engine
+        if warm:
+            eng._suffix_cache.update_response("warm", warm)
+        if pipeline is not None:
+            eng._pipeline = pipeline
+        outs = llm.generate(prompt_token_ids=prompts,
+                            sampling_params=SamplingParams(
+                                max_tokens=max_tokens, **(sampling or {})))
+        tokens = [o.token_ids for o in outs]
+        res = {
+            "tokens": tokens,
+            "logprobs": [o.logprobs for o in outs],
+            "mode_steps": dict(eng.runner.mode_steps),
+            "fn_modes": sorted({k[3] for k in eng.runner._step_fns}),
+            "width_stats": eng.width_stats,
+            "step_kinds": sorted(eng.step_times.summary()),
+            "layers": {k: tuple(v.shape) for k, v in
+                       eng.runner.params["layers"].items()},
+            "scales": {k: tuple(v.scale.shape) for k, v in
+                       eng.runner.params["layers"].items()
+                       if isinstance(v, QuantizedLinear)},
+            "kv_shape": tuple(eng.runner.kv.shape),
+            "spec": eng.spec_stats.summary(),
+        }
+        if logits:
+            res["logits"] = [eng.prompt_logits(list(p) + t[:-1])
+                             for p, t in zip(prompts, tokens)]
+        llm.close()
+        return res
+
+
+def build_error(model: str, par: dict, members=None, **kw) -> str:
+    """The error ``LLM`` raises on this rank (type: message), or ''."""
+    try:
+        LLM(engine_config(model, par, **kw), device="cpu",
+            group=_group(members))
+    except Exception as e:  # noqa: BLE001 (the test reads the error)
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def random_config(par: dict | None, quantization=None) -> EngineConfig:
+    """A random-weight Llama (the loader's ``init_params``), GQA 8 / 4."""
+    cfg = engine_config("llama", par, quantization)
+    cfg.model.hf_overrides = dict(vocab_size=96, hidden_size=64,
+                                  intermediate_size=128, num_hidden_layers=2,
+                                  num_attention_heads=8,
+                                  num_key_value_heads=4, head_dim=8)
+    return cfg
+
+
+def rank_params(par: dict, quantization=None, members=None) -> dict:
+    """This rank's runner parameters from random weights cut as drawn,
+    as numpy (a quantized leaf as (weight, scale), fp8 through
+    float32)."""
+    llm = LLM(random_config(par, quantization), device="cpu",
+              group=_group(members))
+
+    def leaf(x):
+        if isinstance(x, QuantizedLinear):
+            return (leaf(x.weight), leaf(x.scale))
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        return x.float().numpy() if x.dtype.itemsize < 4 else x.numpy()
+
+    return leaf(llm.engine.runner.params)
+
+
+def rank_num_blocks(model: str, par: dict, members=None) -> int:
+    """The cache blocks this rank sized from its memory."""
+    llm = LLM(engine_config(model, par, num_blocks=None), device="cpu",
+              group=_group(members))
+    return llm.engine.runner.num_blocks
+
+
