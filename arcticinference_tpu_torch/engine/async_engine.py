@@ -13,6 +13,12 @@ events (``engine/engine.py``) are recorded on that stream too.
 :meth:`AsyncLLMEngine.call_on_engine_thread` runs a function on the step
 thread between steps: the server starts and stops ``torch.profiler``
 there, so a trace holds the steps' host ops beside every kernel.
+
+On a served mesh (``parallel/multihost.py``) the engine is the leader's:
+the runner's channel broadcasts every device step to the followers,
+:meth:`AsyncLLMEngine.close` closes it (the followers get ``stop``), and
+the channel's watchdog calls :meth:`AsyncLLMEngine.mark_dead` when a
+follower is lost.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ class StreamChunk:
 class AsyncLLMEngine:
 
     def __init__(self, config: EngineConfig,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 group=None):
         self.dead = False
         self.dead_reason: Optional[str] = None
         # Engine-loop liveness stamp: a wedged device step stops
@@ -57,7 +64,7 @@ class AsyncLLMEngine:
         # pull the replica.
         self.last_progress = time.time()
         self.stall_timeout_s = 60.0
-        self.engine = LLMEngine(config, device=device)
+        self.engine = LLMEngine(config, device=device, group=group)
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._queues: dict[str, asyncio.Queue] = {}
         self._sent_len: dict[str, int] = {}
@@ -76,6 +83,18 @@ class AsyncLLMEngine:
         self._wake.set()
         self._thread.join(timeout=5)
         self.engine.close()
+        ch = self.engine.runner.mh_channel
+        if ch is not None:
+            ch.close()          # broadcasts stop: the followers return
+
+    def attach_channel(self, channel) -> None:
+        """Serve a mesh: broadcast every step over the leader's
+        ``channel`` (its followers connected) and mark the engine dead
+        when its watchdog loses a follower."""
+        with self._engine_lock:
+            self.engine.runner.mh_channel = channel
+        channel.start_watchdog(
+            lambda idx, reason: self.mark_dead(f"follower {idx} {reason}"))
 
     # -- background loop (engine thread) --------------------------------
 

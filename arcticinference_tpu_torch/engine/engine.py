@@ -39,7 +39,9 @@ mirror them), as do requests with ``logprobs`` beside the fused loop;
 each committed token gets a ``{token: logprob}`` dict of the step's
 ranked candidates.  On a mesh (``ParallelConfig``, ``parallel/``) each
 rank runs this same loop in lockstep, the pipelined step, the
-synchronous step and the fused loop alike.  A SwiftKV model (``llama_swiftkv``) composes with
+synchronous step, the fused loop and the drafters alike; on a served
+mesh the leader alone runs it and the followers replay its device steps
+(``parallel/multihost.py``).  A SwiftKV model (``llama_swiftkv``) composes with
 suffix decoding, the drafters (their hidden rows are its sample rows)
 and hidden capture, on the synchronous step and the fused loop; token
 trees with it raise, as in the JAX package.
@@ -195,8 +197,12 @@ class LLMEngine:
             self._prompt_tree_bound = 2 * config.scheduler.max_num_seqs
         if spec is not None and spec.method in ("arctic", "mlp_speculator",
                                                 "lstm_speculator"):
-            self._drafter = ArcticProposer(spec, arch, self.device,
-                                           target_params=self.runner.params)
+            # On a mesh every rank holds the drafter whole; a tied one
+            # reads the target's tp-cut LM head and gathers its logits.
+            self._drafter = ArcticProposer(
+                spec, arch, self.device, target_params=self.runner.params,
+                gather_logits=(self.runner.gather_logits
+                               if self.runner._gather_logits else None))
         if spec is not None and spec.enable_fused_decode:
             fused = FusedDecodeLoop(self)
             # Installed only where it can engage; otherwise the sync path
@@ -475,8 +481,10 @@ class LLMEngine:
         Guided requests ride the pipeline when every grammar is
         DFA-compiled and the device pool holds them all (masks and
         state advance then run on the device); other decoders need the
-        host's pick each step.  Logprobs ride the pipeline (their ranked
-        candidates are read when the step drains)."""
+        host's pick each step, and so does every guided request on a
+        served mesh (no follower holds the pool).  Logprobs ride the
+        pipeline (their ranked candidates are read when the step
+        drains)."""
         if self.hidden_capture is not None:
             return True
         reqs = (*self.scheduler.running, *self.scheduler.waiting)
@@ -487,6 +495,8 @@ class LLMEngine:
             g = r.sampling.guided
             if g is None:
                 continue
+            if not self.runner.guided_device_ok:
+                return True
             idx = getattr(g, "index", None)
             if idx is None or not self.runner.guided_fits_pool(idx):
                 return True
@@ -1021,7 +1031,8 @@ class LLMEngine:
                 drafter_reqs.append(s)
         if drafter_reqs:
             self._drafter.propose(drafter_reqs, hidden_rows, accepted_row,
-                                  self.config.model.max_model_len)
+                                  self.config.model.max_model_len,
+                                  channel=self.runner.mh_channel)
 
     def _update_suffix_cache(self, req: Request,
                              new_tokens: list[int]) -> None:

@@ -49,7 +49,13 @@ On a tp / sp / shift mesh every rank runs this loop in lockstep: the
 forwards go through the runner's sharded forward at the mode of the
 step's ``B * rows`` tokens (B a multiple of sp), the logits are the
 gathered, whole-vocabulary ones, and the per-slot program is off, as in
-the JAX loop.  Not ported: multihost, dp and pp.
+the JAX loop.  On a served mesh (``parallel/multihost.py``) the leader
+alone runs this controller: it announces the loop's initial state and
+its generator's seed at entry, broadcasts each step's program key and
+uploads (and the block table when it changed) before it dispatches, and
+``fused_exit`` when it leaves; each follower replays the steps.  The
+drafter's parameters are a copy that every rank holds.  Not ported: dp
+and pp.
 """
 
 from __future__ import annotations
@@ -409,6 +415,10 @@ class FusedDecodeLoop:
         self._state: Optional[dict] = None  # device tensors
         self._bt_np = None                  # host block-table mirror
         self._bt_dev = None
+        # A served mesh: the state the next broadcast announces (set at
+        # entry), and whether the block table changed since the last.
+        self._announce: Optional[dict] = None
+        self._bt_dirty = False
         self._k = 0
         self._need_sampling = False
         self.depth = max(1, engine.config.scheduler.pipeline_depth)
@@ -564,10 +574,16 @@ class FusedDecodeLoop:
         dev = self.runner.device
         self._state = {key: torch.from_numpy(v).to(dev)
                        for key, v in state.items()}
+        seed = int(self._seeds.integers(1 << 62))
         gen = torch.Generator(device=dev)
-        gen.manual_seed(int(self._seeds.integers(1 << 62)))
+        gen.manual_seed(seed)
         self._state["generator"] = gen
         self._bt_dev = self.runner.upload_array(self._bt_np)
+        # A served mesh's followers start from the same state and seed,
+        # announced with the first step's broadcast.
+        self._announce = (dict(state=state, gen_seed=seed)
+                          if self.runner.mh_channel is not None else None)
+        self._bt_dirty = True
         self._inflight = []
         self.active = True
         # Admission steps may preempt on block pressure; loop-owned
@@ -695,6 +711,21 @@ class FusedDecodeLoop:
                 eng.eos_token_id, use_suffix=self._suffix is not None,
                 path_len_max=self._plen, ring_w=self._ring_w, wide=wide,
                 rows_total=r_bucket)
+        ch = self.runner.mh_channel
+        if ch is not None:
+            # Mirror the step on every follower (as runner.dispatch:
+            # broadcast first, then run it).  The per-slot program is off
+            # on a mesh, so no row plan goes out.
+            announce = self._announce or dict(state=None, gen_seed=None)
+            ch.broadcast(dict(
+                announce, kind="fused", b=b, k=k_eff, wide=wide,
+                need_sampling=self._need_sampling,
+                use_suffix=self._suffix is not None, plen=self._plen,
+                ring_w=self._ring_w, eos=eng.eos_token_id,
+                bt=self._bt_np if self._bt_dirty else None,
+                paths=paths_np))
+            self._announce = None
+            self._bt_dirty = False
         self._inflight.append(self._dispatch(fn, paths_np, rplan_np, k_eff))
         eng.engine_stats.num_steps += 1
         while len(self._inflight) > self.depth:
@@ -720,6 +751,7 @@ class FusedDecodeLoop:
         self._state, telem, hidden = fn(
             None if drafter is None else drafter.params, self._state,
             self._bt_dev, h_pack, *args)
+        self.runner.fold_digest(telem)
         if self.engine.hidden_capture is None:
             hidden = None
         if not telem.is_cuda:
@@ -919,6 +951,7 @@ class FusedDecodeLoop:
                 changed = True
         if changed:
             self._bt_dev = self.runner.upload_array(self._bt_np)
+            self._bt_dirty = True
         return True
 
     def _drain_one(self) -> list:
@@ -996,10 +1029,13 @@ class FusedDecodeLoop:
         if self.active:
             # A fully dry entry resets the history: the next entry probes.
             self._hot_history = self._consumed_this_entry
+            if self.runner.mh_channel is not None:
+                self.runner.mh_channel.broadcast({"kind": "fused_exit"})
         self.engine.scheduler.protected_ids = set()
         self.active = False
         self._state = None
         self._bt_dev = None
+        self._announce = None
         logger.debug("fused decode: exited")
         return finished
 

@@ -51,7 +51,16 @@ needs), its ``Hkv/(sp*tp)`` cache heads and its column piece of the LM
 head, whose logits are gathered over tp, so every rank samples the same
 tokens from the same logits.  Not ported (they raise
 ``NotImplementedError``, :func:`check_mesh`): dp, pp, int4, SwiftKV,
-MoE, token trees and draft models on a mesh.
+MoE and token trees on a mesh.
+
+A served mesh (``parallel/multihost.py``) runs the engine on the leader
+alone: with ``mh_channel`` attached, :meth:`ModelRunner.dispatch`
+broadcasts each step's host inputs before it uploads them, and each
+follower replays it (``_mirror=True``).  The grammar pool is per-process
+device state that no follower uploads, so guided rows take the host-mask
+route there (:attr:`ModelRunner.guided_device_ok`), and the entries no
+follower mirrors (scoring, full logits, causal encode) refuse
+(:meth:`ModelRunner.check_unmirrored`).
 """
 
 from __future__ import annotations
@@ -100,9 +109,6 @@ def swift_schedule(row_count, last_pos: np.ndarray, s_pad: int,
          "item_pos_base", "token_item", "token_off"), sched)}
 
 
-DRAFTER_METHODS = ("arctic", "mlp_speculator", "lstm_speculator")
-
-
 def check_mesh(config: EngineConfig, module, arch) -> None:
     """Refuse what the port does not run on a mesh yet, before any weight
     is loaded; each refusal names the ROADMAP item that brings it."""
@@ -131,10 +137,6 @@ def check_mesh(config: EngineConfig, module, arch) -> None:
         raise NotImplementedError(
             "token-tree speculation on a mesh is not ported yet (ROADMAP "
             "Queue 1 item 2d)")
-    if spec is not None and spec.method in DRAFTER_METHODS:
-        raise NotImplementedError(
-            "draft models on a mesh are not ported yet (ROADMAP Queue 1 "
-            "item 2d); suffix speculation runs on meshes")
     check_supported(arch, pcfg)
 
 
@@ -270,6 +272,48 @@ class ModelRunner:
         self._gather_logits = (
             self.mesh is not None and head is not None
             and head.shape[-1] != arch.vocab_size)
+        # A served mesh's leader broadcasts each step over this channel
+        # (parallel/multihost.py LeaderChannel) before it runs it.
+        self.mh_channel = None
+        #: steps dispatched (the leader's and a follower's replays alike).
+        self.dispatches = 0
+        #: a running digest of every output vector and fused telemetry
+        #: block, on the device (None: off; set a zero int64 tensor to
+        #: start one); ranks that ran the same steps hold the same value.
+        self.digest: Optional[torch.Tensor] = None
+
+    @property
+    def is_multihost(self) -> bool:
+        """Whether followers mirror this runner's steps (a served mesh's
+        leader, its channel attached)."""
+        return self.mh_channel is not None
+
+    @property
+    def guided_device_ok(self) -> bool:
+        """Whether guided rows may use the device grammar pool: not on a
+        served mesh, whose followers hold no pool (the host-mask route's
+        masks ride the broadcast arrays), as the JAX runner keeps it."""
+        return not self.is_multihost
+
+    def check_unmirrored(self, what: str) -> None:
+        """Refuse device work that no follower mirrors on a served mesh
+        (its collectives would wait for ranks that never join them)."""
+        if self.is_multihost:
+            raise NotImplementedError(
+                f"{what} on a served mesh: the followers mirror only the "
+                "engine's steps (dispatch, the fused loop, the drafter), "
+                "so this device work would wait on them for ever; run it "
+                "through LLM on every rank of the mesh")
+
+    def fold_digest(self, x: torch.Tensor) -> None:
+        """Fold the int32 tensor ``x`` into :attr:`digest` (when on),
+        on the device: a polynomial hash mod 2^31 - 1, no host read."""
+        if self.digest is None:
+            return
+        v = x.reshape(-1).long() % 65521
+        w = torch.arange(1, v.numel() + 1, dtype=torch.int64,
+                         device=v.device)
+        self.digest = (self.digest * 1000003 + (v * w).sum()) % 2147483647
 
     def _auto_num_blocks(self, kv_dtype: torch.dtype) -> int:
         """Size the cache from the device's memory, less the weights (a
@@ -348,13 +392,18 @@ class ModelRunner:
         self.kv, h = fn(self.params, self.kv, inputs)
         return h
 
+    def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole vocabulary's logits from this rank's column piece of
+        the tp-cut LM head (gathered over tp)."""
+        return all_gather_cat(logits, self.mesh.tp_group, dim=-1)
+
     def logits(self, rows: torch.Tensor) -> torch.Tensor:
         """float32 logits of hidden ``rows``; on a mesh the LM head's
         column pieces are gathered over tp, so every rank holds the whole
         vocabulary, bit for bit the same."""
         logits = self.module.compute_logits(self.params, rows)
         if self._gather_logits:
-            logits = all_gather_cat(logits, self.mesh.tp_group, dim=-1)
+            logits = self.gather_logits(logits)
         return logits
 
     # ------------------------------------------------------------------ #
@@ -758,18 +807,37 @@ class ModelRunner:
 
     def dispatch(self, step_inputs: StepInputs,
                  generator: torch.Generator, need_topk: bool = False,
-                 prev_tokens: Optional[torch.Tensor] = None):
+                 prev_tokens: Optional[torch.Tensor] = None,
+                 _mirror: bool = False):
         """Enqueue one step (upload and :meth:`launch`) without reading
         anything back; returns (the packed output vector, the sample
         rows' hidden states), both on the device.  ``prev_tokens`` is the
         previous step's vector when the step passes tokens through.
-        Counterpart of the JAX runner's ``dispatch``."""
+        Counterpart of the JAX runner's ``dispatch``.
+
+        On a served mesh the leader broadcasts the step first, so every
+        rank issues the same collectives; a sampled step carries the
+        generator's state, which the follower loads before its launch.
+        ``_mirror`` marks a follower's replay (no broadcast)."""
         arrays = step_inputs.arrays
-        return self.launch(
-            self.upload(arrays), step_inputs.attn_qb,
-            bool(arrays["temperature"].max() > 0), generator, need_topk,
-            prev_tokens, arrays["seeds"], arrays["counters"],
-            step_inputs.total_tokens)
+        need_sampling = bool(arrays["temperature"].max() > 0)
+        if self.mh_channel is not None and not _mirror:
+            self.mh_channel.broadcast({
+                "kind": "dispatch", "arrays": arrays,
+                "t_pad": step_inputs.t_pad, "s_pad": step_inputs.s_pad,
+                "attn_qb": step_inputs.attn_qb,
+                "total_tokens": step_inputs.total_tokens,
+                "use_prev": prev_tokens is not None,
+                "need_topk": need_topk,
+                "gen_state": (generator.get_state().numpy()
+                              if need_sampling else None)})
+        tokens, rows = self.launch(
+            self.upload(arrays), step_inputs.attn_qb, need_sampling,
+            generator, need_topk, prev_tokens, arrays["seeds"],
+            arrays["counters"], step_inputs.total_tokens)
+        self.dispatches += 1
+        self.fold_digest(tokens)
+        return tokens, rows
 
     def execute(self, step_inputs: StepInputs,
                 generator: torch.Generator, need_topk: bool = False):
@@ -812,6 +880,7 @@ class ModelRunner:
         (padding rows, ``req_idx < 0``, into one extra segment that is
         dropped), ``last`` takes each request's sample row.  The
         forward is :meth:`prefill_hidden`."""
+        self.check_unmirrored("causal encode")
         h = self.prefill_hidden(inputs, attn_qb)
         if pooling not in ("mean", "last"):
             raise ValueError(f"unknown pooling {pooling!r}")
@@ -865,6 +934,7 @@ class ModelRunner:
         caller ignores.  Counterpart of the JAX runner's
         ``execute_score``."""
         self._every_row("scoring")
+        self.check_unmirrored("scoring (echo)")
         h = self.prefill_hidden(self.upload(step_inputs.arrays),
                                 step_inputs.attn_qb)
         tgt = torch.from_numpy(np.asarray(targets, np.int64)).to(h.device)
@@ -883,6 +953,7 @@ class ModelRunner:
         """The LM head's logits of a prefill step's first ``rows`` rows,
         as a host float32 array [rows, vocab]."""
         self._every_row("full logits")
+        self.check_unmirrored("full prompt logits")
         h = self.prefill_hidden(self.upload(step_inputs.arrays),
                                 step_inputs.attn_qb)
         return self.logits(h[:rows]).float().cpu().numpy()

@@ -160,10 +160,12 @@ def _mlp_head_params(params: dict, arch: MLPSpecArch, i: int):
 
 
 def mlp_chain(params: dict, arch: MLPSpecArch, last_tokens: torch.Tensor,
-              hidden: torch.Tensor, num_predict: int
+              hidden: torch.Tensor, num_predict: int, gather=None
               ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """The greedy chain: [B] last tokens and [B, emb_dim] hidden rows ->
-    ([B, num_predict] int32 drafts, each head's float32 logits)."""
+    ([B, num_predict] int32 drafts, each head's float32 logits).
+    ``gather``: the whole vocabulary's logits from a head that holds a
+    column piece of it (a tied head on a tp mesh)."""
     state = hidden.float()
     if arch.scale_input:
         state = l2_norm_scaled(state, None, None) / SQRT2
@@ -174,7 +176,8 @@ def mlp_chain(params: dict, arch: MLPSpecArch, last_tokens: torch.Tensor,
         e, p, h, lw, lb = _mlp_head_params(params, arch, i)
         states = _mm(state, p) + alpha * _embed(e, tok)
         states = F.gelu(l2_norm_scaled(states, lw, lb).float())
-        logits.append(_mm(states, h))
+        lg = _mm(states, h)
+        logits.append(lg if gather is None else gather(lg))
         tok = torch.argmax(logits[-1], dim=-1).to(torch.int32)
         drafts.append(tok)
         state = states
@@ -183,10 +186,11 @@ def mlp_chain(params: dict, arch: MLPSpecArch, last_tokens: torch.Tensor,
 
 def mlp_generate_proposals(params: dict, arch: MLPSpecArch,
                            last_tokens: torch.Tensor, hidden: torch.Tensor,
-                           num_predict: int) -> torch.Tensor:
+                           num_predict: int, gather=None) -> torch.Tensor:
     """Greedy draft chain: [B] last tokens and [B, emb_dim] hidden rows
     -> [B, num_predict] int32 draft tokens, on the device."""
-    return mlp_chain(params, arch, last_tokens, hidden, num_predict)[0]
+    return mlp_chain(params, arch, last_tokens, hidden, num_predict,
+                     gather)[0]
 
 
 # ---------------------------------------------------------------------------

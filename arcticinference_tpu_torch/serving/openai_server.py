@@ -21,6 +21,18 @@ Run (on ``cuda:0``; ``--device cpu`` on the CPU):
 
     python -m arcticinference_tpu_torch serve --config config.json \\
         --port 8000 [--model DIR]
+
+A mesh (``--tensor-parallel-size``, ``--ulysses-sequence-parallel-size``,
+``--enable-shift-parallel``) is served by one process per rank, each
+started with the same command and ``--multihost-num-processes N
+--multihost-process-id I --multihost-coordinator HOST:PORT`` (the
+process group's rendezvous at process 0) and, for the step channel,
+``--multihost-leader HOST --multihost-channel-port P`` (default 8550).
+Process 0 serves HTTP: it builds the server, waits for its followers,
+attaches the channel to the runner and starts the watchdog.  Every other
+process builds an ``LLMEngine`` and replays the leader's steps
+(``parallel/multihost.py``); it exits 3 when it loses the leader.  On a
+served mesh ``echo`` scoring answers 400 (no follower mirrors it).
 """
 
 from __future__ import annotations
@@ -56,16 +68,12 @@ class OpenAIServer:
 
     def __init__(self, config: EngineConfig,
                  served_model_name: Optional[str] = None,
-                 device: Union[str, torch.device, None] = None):
-        if config.parallel.world_size > 1:
-            # Requests arrive on one process; a mesh's ranks must run
-            # every step in lockstep, which needs the leader's broadcast
-            # of the step inputs (JAX parallel/multihost.py).
-            raise NotImplementedError(
-                "serving on a mesh (tensor / sequence parallel flags) "
-                "needs the leader's broadcast of step inputs, which is "
-                "not ported yet (ROADMAP Queue 1 item 2c: multihost.py "
-                "and the server on meshes); LLM.generate runs meshes")
+                 device: Union[str, torch.device, None] = None,
+                 group=None):
+        """A mesh config makes this the leader rank of a served mesh over
+        ``group`` (default: the default process group): its steps run
+        on the followers too once a channel is attached
+        (``AsyncLLMEngine.attach_channel``)."""
         self.config = config
         self.encoder = None
         self.engine = None
@@ -76,7 +84,7 @@ class OpenAIServer:
             self.encoder = EncoderRunner(config, device=device)
             self._encode_lock = None  # made on the event loop
         else:
-            self.engine = AsyncLLMEngine(config, device=device)
+            self.engine = AsyncLLMEngine(config, device=device, group=group)
         self.model_name = served_model_name or config.model.model
         self.tokenizer = load_tokenizer(config)
         if self.engine is not None and self.tokenizer is not None:
@@ -289,7 +297,10 @@ class OpenAIServer:
         if body.get("echo") and int(body.get("max_tokens", 128)) == 0:
             # Prompt-logprob scoring (lm_eval loglikelihood): no
             # generation, teacher-forced per-token logprobs.
-            lp = await asyncio.to_thread(self._score_sync, prompt_ids)
+            try:
+                lp = await asyncio.to_thread(self._score_sync, prompt_ids)
+            except NotImplementedError as e:   # a served mesh
+                return json_response({"error": str(e)}, status=400)
             return json_response({
                 "id": rid, "object": "text_completion",
                 "created": int(time.time()), "model": self.model_name,
@@ -530,9 +541,8 @@ def build_config(args: argparse.Namespace) -> EngineConfig:
         cfg.cache.kv_cache_dtype = args.kv_cache_dtype
     if args.block_size:
         cfg.cache.block_size = args.block_size
-    # The mesh flags build the JAX CLI's ParallelConfig; OpenAIServer
-    # refuses a world size above 1 (the server on meshes waits for the
-    # multihost slice).
+    # The mesh flags build the JAX CLI's ParallelConfig (served with the
+    # --multihost-* flags, one process per rank).
     if (args.tensor_parallel_size or args.ulysses_sequence_parallel_size
             or args.enable_shift_parallel):
         cfg.parallel = ParallelConfig(
@@ -547,16 +557,15 @@ def build_config(args: argparse.Namespace) -> EngineConfig:
     return cfg
 
 
-def make_server(argv=None) -> tuple[OpenAIServer, argparse.Namespace]:
-    """The server the command line asks for (not yet listening) and the
-    parsed arguments."""
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         description="OpenAI-compatible server of the PyTorch port")
     parser.add_argument("--model", default=None)
     parser.add_argument("--config", default=None,
                         help="EngineConfig JSON file")
-    parser.add_argument("--device", default="cuda:0",
-                        help="cuda:0 (default) or cpu")
+    parser.add_argument("--device", default=None,
+                        help="cuda:0 by default (with --multihost-*: the "
+                        "rank's own card, or cuda:0 shared), or cpu")
     parser.add_argument("--quantization", default=None)
     parser.add_argument("--speculative-config", default=None,
                         help='JSON, e.g. {"method": "suffix"}')
@@ -574,19 +583,68 @@ def make_server(argv=None) -> tuple[OpenAIServer, argparse.Namespace]:
     parser.add_argument("--enable-shift-parallel", action="store_true")
     parser.add_argument("--shift-parallel-threshold", type=int,
                         default=512)
+    # A served mesh: the same command on every rank, with its own
+    # --multihost-process-id; process 0 serves HTTP, the rest replay its
+    # device steps.
+    parser.add_argument("--multihost-coordinator", default=None,
+                        help="host:port of the process group's rendezvous "
+                        "(process 0)")
+    parser.add_argument("--multihost-num-processes", type=int, default=0)
+    parser.add_argument("--multihost-process-id", type=int, default=0)
+    parser.add_argument("--multihost-leader", default="127.0.0.1",
+                        help="the leader's host, for the step channel")
+    parser.add_argument("--multihost-channel-port", type=int, default=8550)
     argv = sys.argv[1:] if argv is None else list(argv)
-    multihost = [a.split("=")[0] for a in argv
-                 if a.startswith("--multihost-")]
-    if multihost:
-        raise NotImplementedError(
-            f"{', '.join(multihost)}: multi-host serving is not ported; "
-            "the port serves one device")
     args = parser.parse_args(argv)
-    return OpenAIServer(build_config(args), device=args.device), args
+    given = [a.split("=")[0] for a in argv if a.startswith("--multihost-")]
+    if args.multihost_num_processes > 1:
+        if not args.multihost_coordinator:
+            raise ValueError(
+                "--multihost-num-processes: multi-host serving needs "
+                "--multihost-coordinator HOST:PORT")
+    elif given:
+        raise ValueError(
+            f"{given[0]}: multi-host serving needs "
+            "--multihost-num-processes > 1")
+    return args
+
+
+def make_server(argv=None) -> tuple[OpenAIServer, argparse.Namespace]:
+    """The server the command line asks for (not yet listening) and the
+    parsed arguments; one process (a mesh is served by :func:`main`)."""
+    args = parse_args(argv)
+    device = args.device or "cuda:0"
+    return OpenAIServer(build_config(args), device=device), args
 
 
 def main(argv=None) -> None:
-    server, args = make_server(argv)
+    args = parse_args(argv)
+    n = args.multihost_num_processes
+    if n <= 1:
+        server = OpenAIServer(build_config(args),
+                              device=args.device or "cuda:0")
+        server.app.run(args.host, args.port)
+        return
+    from arcticinference_tpu_torch.parallel import multihost
+
+    config = build_config(args)
+    device = multihost.initialize(args.multihost_coordinator, n,
+                                  args.multihost_process_id, args.device)
+    if args.multihost_process_id != 0:
+        from arcticinference_tpu_torch.engine.engine import LLMEngine
+
+        engine = LLMEngine(config, device=device)
+        channel = multihost.FollowerChannel(args.multihost_leader,
+                                            args.multihost_channel_port)
+        try:
+            multihost.follower_serve(engine, channel)
+        except ConnectionError:
+            sys.exit(3)       # the leader is gone: exit, never deadlock
+        return
+    server = OpenAIServer(config, device=device)
+    channel = multihost.LeaderChannel(n - 1, args.multihost_channel_port)
+    channel.wait_connected()
+    server.engine.attach_channel(channel)
     server.app.run(args.host, args.port)
 
 

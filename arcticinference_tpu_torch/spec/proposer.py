@@ -15,10 +15,18 @@ fused decode loop runs the same chain inside its step
 generator.  A ``distilled_tied`` checkpoint (``spec/distill.py``) holds
 only the projections and norms: its embedding and LM head are the
 target's own tables, taken live from ``target_params``.
+
+On a mesh every rank holds the drafter whole and runs its chain on the
+same gathered hidden rows; a tied drafter's LM head is the rank's
+tp-cut piece of the target's, whose logits ``gather_logits`` gathers
+over tp.  On a served mesh the leader broadcasts each synchronous
+step's drafter rows (:meth:`ArcticProposer.propose`'s ``channel``), so
+the followers run the chain beside it.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 from pathlib import Path
 from typing import Optional
@@ -40,7 +48,8 @@ class ArcticProposer:
     def __init__(self, spec_config: SpeculativeConfig, base_arch,
                  device: torch.device,
                  generator: Optional[torch.Generator] = None,
-                 target_params: Optional[dict] = None):
+                 target_params: Optional[dict] = None,
+                 gather_logits=None):
         self.config = spec_config
         self.device = device
         cfg_dict = self._load_config(spec_config.model) or {}
@@ -53,7 +62,10 @@ class ArcticProposer:
             from arcticinference_tpu_torch.spec.distill import load_distilled
 
             self.kind = "mlp"
-            self._gen = spec_mod.mlp_generate_proposals
+            # A tied head is the target's, tp-cut on a mesh (the
+            # drafter's own heads are whole).
+            self._gen = functools.partial(spec_mod.mlp_generate_proposals,
+                                          gather=gather_logits)
             self.params, self.arch = load_distilled(
                 spec_config.model, cfg_dict, target_params, device)
             self.n_predict = min(self.arch.n_predict,
@@ -119,14 +131,17 @@ class ArcticProposer:
 
     @torch.inference_mode()
     def propose(self, drafter_reqs, rows: torch.Tensor,
-                accepted_row: dict[str, int], max_len_cap: int) -> None:
+                accepted_row: dict[str, int], max_len_cap: int,
+                channel=None) -> None:
         """Fill ``req.spec_token_ids`` of each scheduled request in
         ``drafter_reqs`` that committed this step.
 
         rows: [S_pad, hidden] sample-row hidden states of the step, on the
         device; ``accepted_row[req_id]`` is the row of the request's last
         accepted token.  Drafts are cut so that a request never runs past
-        ``max_len_cap`` tokens.
+        ``max_len_cap`` tokens.  ``channel``: a served mesh's leader
+        channel, which gets the rows and last tokens first (the followers
+        replay the chain on their own copy of the step's rows).
         """
         items = [(s.request, accepted_row[s.request.req_id])
                  for s in drafter_reqs
@@ -138,6 +153,8 @@ class ArcticProposer:
         for i, (req, row) in enumerate(items):
             idx_tok[0, i] = row
             idx_tok[1, i] = req.all_token_ids[-1]
+        if channel is not None:
+            channel.broadcast({"kind": "propose", "idx_tok": idx_tok})
         dev = torch.from_numpy(idx_tok).to(rows.device)
         hidden = rows[dev[0].long()]
         drafts = self.generate(self.params, dev[1], hidden).cpu().numpy()

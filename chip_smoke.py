@@ -332,6 +332,24 @@ Phases, each reported on its own lines:
              equal, both modes counted in world (ii), kernels 1, 2 and 5
              launched on every rank; step wall ms by mode beside the
              single device's and each collective's ms.
+13. serve_mesh: the OpenAI server on a mesh (``parallel/multihost.py``):
+             Llama-3.1-8B fp8 at full width and depth (random weights
+             drawn one layer at a time, as phase 12's), ranks sharing
+             cuda:0 over gloo (kernels built here first), world (i) tp 2
+             on the pipelined step and world (ii) sp 2 x tp 2 with shift
+             and suffix speculation on the fused loop.  Rank 0 serves
+             HTTP and broadcasts every device step; the others replay
+             them.  (a) A 128- and a 1024-token prompt, each sent alone
+             (16 greedy tokens): the served tokens equal ``LLM.
+             generate``'s step loop on the same engines, exactly (the
+             same program).  (b) 8 prompts of 128-1024 tokens x 16 sent
+             at once: every request completes, each follower replayed as
+             many dispatches as the leader ran, every rank's digest of
+             its output vectors is equal; TTFT / TPOT p50 and tok/s
+             (gloo, host-staged, one card).  (c) World (ii): the last
+             (a) prompt again, its continuation in the suffix cache: fused
+             steps and drafts, each fused step replayed on every
+             follower.  (d) Kernels 1, 2 and 5 launched on every rank.
 Last, one BERT-base device batch of phase 9 (64 x 512 tokens), a
 shorter bf16 and fp8 run of phase 5, the drafter chains and the bench's
 device step (its CUDA graph) under ``torch.profiler``, each on an engine
@@ -423,7 +441,8 @@ REL_TOL = 1e-3
 Q_STD = 5.0
 
 PHASES = ("device", "build", "kernels", "forward", "generate", "bench",
-          "pipeline", "serve", "embed", "quality", "moe", "parallel")
+          "pipeline", "serve", "embed", "quality", "moe", "parallel",
+          "serve_mesh")
 # Corruption rates of phase 6's curve (the bench's own sweep is 0.12, 0.3,
 # 0.6, 1.0; two points keep the script within its time).
 BENCH_CURVE_RATES = (0.3, 1.0)
@@ -5820,6 +5839,257 @@ def check_world(name, par, ranks, single, wall_s, card) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the OpenAI server on a mesh (parallel/multihost.py)
+# ---------------------------------------------------------------------------
+
+# The served worlds of phase 13, ranks sharing cuda:0 over gloo as phase
+# 12's: (i) tp 2 on the pipelined step; (ii) sp 2 x tp 2 with shift and
+# suffix speculation, on the fused loop.
+SERVE_MESH_WORLDS = (
+    ("tp2", dict(tensor_parallel_size=2), None),
+    ("sp2 x tp2 shift suffix", PARALLEL_WORLDS[1][1],
+     dict(method="suffix")),
+)
+SERVE_MESH_ALONE = (128, 1024)   # (a): prompt lengths, each sent alone
+SERVE_MESH_BURST = 8             # (b): prompts of 128-1024 tokens at once
+SERVE_MESH_NEW = 16
+
+
+async def serve_mesh_burst(url: str, prompts) -> dict:
+    """(b): every prompt streamed at once; each must finish with
+    ``length`` after SERVE_MESH_NEW tokens.  TTFT / TPOT p50 and output
+    tok/s on the client's clock."""
+    results = await asyncio.gather(*[completion(url, dict(
+        prompt_token_ids=p, max_tokens=SERVE_MESH_NEW, ignore_eos=True),
+        stream=True) for p in prompts])
+    bad = [r for r in results
+           if r["status"] != 200 or r["finish"] != "length"
+           or len(r["ids"]) != SERVE_MESH_NEW or not r["done"]]
+    wall = max(r["t1"] for r in results) - min(r["t0"] for r in results)
+    return dict(
+        requests=len(results), failed=len(bad),
+        ttft_p50_ms=float(np.median([r["ttft_s"] * 1e3 for r in results
+                                     if r["ttft_s"] is not None])),
+        tpot_p50_ms=float(np.median(
+            [r["decode_s"] / (len(r["ids"]) - 1) * 1e3 for r in results
+             if len(r["ids"]) > 1])),
+        output_tokens_per_s=sum(len(r["ids"]) for r in results) / wall,
+        wall_s=wall)
+
+
+def serve_mesh_rank(par, spec, alone, burst_prompts, channel_port, device,
+                    dims) -> dict:
+    """One rank of a served world (phase 13).  Rank 0 builds the OpenAI
+    server, waits for its followers, attaches the channel and sends over
+    HTTP (a) each of ``alone`` by itself, (b) ``burst_prompts`` at once,
+    (c) with speculation, ``alone[-1]`` again (its continuation still in
+    the suffix cache); every other rank replays its steps
+    (``follower_serve``).  Then every rank runs ``LLM.generate``'s step
+    loop over each of ``alone`` by itself on the same engine, in
+    lockstep, its steps timed by the engine as the served (a) steps
+    were.  Before each (a) request and each offline prompt the
+    engine's speculation state is made new on every rank (as a fresh
+    engine's), so the two runs of a prompt start from the same state and
+    run the same program."""
+    import torch
+    import torch.distributed as dist
+
+    from arcticinference_tpu_torch.config import SpeculativeConfig
+    from arcticinference_tpu_torch.engine.engine import LLMEngine
+    from arcticinference_tpu_torch.engine.fused_decode import (
+        FusedDecodeLoop)
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+    from arcticinference_tpu_torch.parallel import multihost
+    from arcticinference_tpu_torch.serving.openai_server import OpenAIServer
+    from arcticinference_tpu_torch.spec.suffix_cache import SuffixCache
+    from arcticinference_tpu_torch.stats import StepTimeStats
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sync = (torch.cuda.synchronize if device.startswith("cuda")
+            else (lambda: None))
+    cfg = parallel_config(par, dims)
+    if spec is not None:
+        cfg.speculative = SpeculativeConfig(**spec)
+    leader = dist.get_rank() == 0
+    t0 = time.perf_counter()
+    server = OpenAIServer(cfg, device=device) if leader else None
+    eng = server.engine.engine if leader else LLMEngine(cfg, device=device)
+    runner = eng.runner
+    sync()
+    res = dict(init_s=time.perf_counter() - t0)
+    runner.digest = torch.zeros((), dtype=torch.int64, device=runner.device)
+
+    def fresh_spec_state():
+        if eng._suffix_cache is not None:
+            eng._suffix_cache = SuffixCache(
+                cfg.speculative.suffix_cache_max_depth)
+            eng._fused = FusedDecodeLoop(eng)
+
+    reset_counts()
+    if leader:
+        channel = multihost.LeaderChannel(
+            dist.get_world_size() - 1, channel_port, bind_host="127.0.0.1",
+            accept_timeout=600)
+        channel.wait_connected()
+        server.engine.attach_channel(channel)
+        loop = asyncio.new_event_loop()
+        try:
+            url = "http://127.0.0.1:" + str(loop.run_until_complete(
+                server.app.start("127.0.0.1", 0)))
+            served = []
+            for p in alone:
+                fresh_spec_state()
+                r = loop.run_until_complete(completion(url, dict(
+                    prompt_token_ids=p, max_tokens=SERVE_MESH_NEW,
+                    ignore_eos=True), stream=True))
+                served.append(r)
+            res["alone"] = [dict(ids=r["ids"], ttft_ms=r["ttft_s"] * 1e3,
+                                 tpot_ms=r["decode_s"] / (len(r["ids"]) - 1)
+                                 * 1e3) for r in served]
+            res["alone_step_times"] = eng.step_times.summary()
+            res["burst"] = loop.run_until_complete(
+                serve_mesh_burst(url, burst_prompts))
+            if spec is not None:
+                fused = dict(eng.width_stats)
+                drafts = eng.spec_stats.num_drafts
+                r = loop.run_until_complete(completion(url, dict(
+                    prompt_token_ids=alone[-1], max_tokens=SERVE_MESH_NEW,
+                    ignore_eos=True)))
+                res["warm"] = dict(
+                    ids=r["ids"],
+                    fused_steps=sum(eng.width_stats[k] - fused[k]
+                                    for k in ("wide", "narrow")),
+                    drafts=eng.spec_stats.num_drafts - drafts,
+                    spec=eng.spec_stats.summary())
+            res.update(sent=dict(channel.sent),
+                       message_bytes=dict(channel.last_bytes),
+                       dead=server.engine.dead)
+            res["launches"] = launch_counts()
+            # Stopping the app closes the engine and the channel: the
+            # followers get ``stop``.
+            loop.run_until_complete(server.app.stop())
+        finally:
+            server.engine.close()
+            loop.close()
+        runner.mh_channel = None
+    else:
+        channel = multihost.FollowerChannel("127.0.0.1", channel_port,
+                                            connect_timeout=600)
+        try:
+            res["replayed"] = multihost.follower_serve(eng, channel)
+        finally:
+            channel.close()
+        res["launches"] = launch_counts()
+    sync()
+    res.update(dispatches=runner.dispatches, digest=int(runner.digest),
+               mode_steps=dict(runner.mode_steps))
+    # The offline runs on the same engines, in lockstep: LLM.generate's
+    # loop, its steps timed by the engine as the served ones were.
+    eng.step_times = StepTimeStats()
+    offline = []
+    for i, p in enumerate(alone):
+        fresh_spec_state()
+        req = eng.add_request(f"offline-{i}", p, SamplingParams(
+            max_tokens=SERVE_MESH_NEW, ignore_eos=True))
+        while eng.has_unfinished:
+            eng.step()
+        offline.append(list(req.output_token_ids))
+    res.update(offline=offline, offline_step_times=eng.step_times.summary())
+    eng.close()
+    return res
+
+
+def phase_serve_mesh(rng, device="cuda:0", dims=None, card=None) -> dict:
+    """Phase 13 (see the module docstring): each world of
+    :data:`SERVE_MESH_WORLDS` served from its leader over HTTP, its
+    checks (a)-(d)."""
+    from arcticinference_tpu_torch.parallel.world import World
+
+    if dims is None:
+        dims = dict(LLAMA_8B, num_hidden_layers=PARALLEL_LAYERS)
+    vocab = dims["vocab_size"]
+    alone = [[int(x) for x in rng.integers(0, vocab, n)]
+             for n in SERVE_MESH_ALONE]
+    burst_prompts = [[int(x) for x in rng.integers(0, vocab, int(n))]
+                     for n in rng.integers(128, 1025, SERVE_MESH_BURST)]
+    card = card or smi()
+    keys = ("ragged_paged_attention_kernel",
+            "grouped_decode_attention_kernel", "fp8_matmul_kernel")
+    out = {}
+    for name, par, spec in SERVE_MESH_WORLDS:
+        n = (par.get("tensor_parallel_size", 1)
+             * par.get("ulysses_sequence_parallel_size", 1))
+        t0 = time.perf_counter()
+        with World(n, backend="gloo", timeout_s=600,
+                   threads=PARALLEL_THREADS) as world:
+            ranks = world.run(serve_mesh_rank, par, spec, alone,
+                              burst_prompts, free_port(), device, dims)
+        lead, followers = ranks[0], ranks[1:]
+        failed = []
+        # (a) each prompt alone: the served tokens are LLM.generate's.
+        for i, (a, want) in enumerate(zip(lead["alone"], lead["offline"])):
+            if a["ids"] != want or len(want) != SERVE_MESH_NEW:
+                failed.append(f"(a) prompt {i}: served {a['ids']} offline "
+                              f"{want}")
+        if any(r["offline"] != lead["offline"] for r in followers):
+            failed.append("(a) ranks' offline tokens differ")
+        # (b) the burst, the mirror's counts and every rank's digest.
+        if lead["burst"]["failed"] or lead["dead"]:
+            failed.append(f"(b) burst {lead['burst']}")
+        fused = lead["sent"].get("fused", 0)
+        for r_i, r in enumerate(followers, 1):
+            if r["dispatches"] != lead["dispatches"] or \
+                    r["replayed"].get("dispatch") != lead["dispatches"]:
+                failed.append(f"(b) rank {r_i} replayed {r['replayed']}, "
+                              f"leader dispatched {lead['dispatches']}")
+            if r["digest"] != lead["digest"]:
+                failed.append(f"(b) rank {r_i} digest {r['digest']} != "
+                              f"{lead['digest']}")
+            if r["replayed"].get("fused", 0) != fused:
+                failed.append(f"(c) rank {r_i} replayed "
+                              f"{r['replayed'].get('fused', 0)} fused "
+                              f"steps of {fused}")
+        # (c) suffix speculation through the served world.
+        if spec is not None and not (lead["warm"]["fused_steps"] > 0
+                                     and lead["warm"]["drafts"] > 0):
+            failed.append(f"(c) warm request {lead['warm']}")
+        # (d) kernels 1, 2 and 5 on every rank.
+        for r_i, r in enumerate(ranks):
+            if not all(r["launches"][k] > 0 for k in keys):
+                failed.append(f"(d) rank {r_i} launches {r['launches']}")
+        res = dict(
+            world=name, parallel=par, speculative=spec, ranks=n,
+            wall_s=time.perf_counter() - t0,
+            init_s=[r["init_s"] for r in ranks],
+            alone=[dict(prompt_tokens=len(p), ttft_ms=a["ttft_ms"],
+                        tpot_ms=a["tpot_ms"])
+                   for p, a in zip(alone, lead["alone"])],
+            served_step_times=lead["alone_step_times"],
+            offline_step_times=lead["offline_step_times"],
+            burst=lead["burst"], warm=lead.get("warm"),
+            dispatches=[r["dispatches"] for r in ranks],
+            replayed=[r["replayed"] for r in followers],
+            digests=[r["digest"] for r in ranks],
+            sent=lead["sent"], message_bytes=lead["message_bytes"],
+            mode_steps=lead["mode_steps"],
+            launches=[{k: r["launches"][k] for k in keys} for r in ranks],
+            timing=f"gloo, host-staged, one card: {card}",
+            failed=failed, ok=not failed)
+        log("  serve_mesh " + json.dumps(res))
+        b = res["burst"]
+        log(f"  serve_mesh {name} burst of {b['requests']} (gloo, "
+            f"host-staged, one card: {card}): TTFT p50 "
+            f"{b['ttft_p50_ms']:.1f} ms, TPOT p50 {b['tpot_p50_ms']:.1f} "
+            f"ms, {b['output_tokens_per_s']:.2f} tok/s")
+        out[name] = res
+    if any(not w["ok"] for w in out.values()):
+        raise AssertionError("phase 13: a served world failed its checks: "
+                             + json.dumps({k: w["failed"]
+                                           for k, w in out.items()}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -6231,6 +6501,21 @@ def main() -> int:
                 for name, _ in PARALLEL_WORLDS}
             entry.setdefault("launches", worlds[PARALLEL_WORLDS[-1][0]][
                 "launches"][0][key])
+    if "serve_mesh" in phases:
+        log(f"[serve_mesh] the OpenAI server on a mesh: Llama-3.1-8B fp8, "
+            f"{PARALLEL_LAYERS} layers, ranks sharing cuda:0 over gloo: "
+            + ", ".join(n for n, _, _ in SERVE_MESH_WORLDS))
+        t0 = time.perf_counter()
+        served_worlds = phase_serve_mesh(rng)
+        log(f"[serve_mesh] {time.perf_counter() - t0:.1f} s")
+        for key in ("ragged_paged_attention_kernel",
+                    "grouped_decode_attention_kernel", "fp8_matmul_kernel"):
+            entry = kernels[key]
+            entry["launches_serve_mesh"] = {
+                name: [r[key] for r in served_worlds[name]["launches"]]
+                for name, _, _ in SERVE_MESH_WORLDS}
+            entry.setdefault("launches", served_worlds[
+                SERVE_MESH_WORLDS[0][0]]["launches"][0][key])
     if shard_cases is not None:
         # The cases at a mesh rank's shapes beside every earlier one; a
         # run without the kernels phase reports them as the row's.

@@ -16,8 +16,9 @@ the LM head is cut over tp and its logits gathered):
 - on the tiny trained checkpoint (the JAX harness's 4 heads of 32 over
   2): the JAX single-chip engine's tokens at tp 2, sp 2 and sp 2 x tp 2
   with shift;
-- dp, pp, SwiftKV, Mixtral, token trees and draft models on a mesh, a
-  world-size mismatch and an uninitialized default group each raise.
+- dp, pp, SwiftKV, Mixtral and token trees on a mesh, a world-size
+  mismatch and an uninitialized default group each raise (draft models
+  and the server on meshes: ``tests/test_torch_multihost.py``).
 """
 
 import jax
@@ -352,8 +353,7 @@ def _cfg(model="llama", par=None, spec=None, **hf):
     _cfg("llama_swiftkv", num_key_value_layers=1),
     _cfg("mixtral", num_local_experts=4, num_experts_per_tok=2),
     _cfg(spec=SpeculativeConfig(method="suffix", use_tree_spec=True)),
-    _cfg(spec=SpeculativeConfig(method="arctic")),
-], ids=["dp", "pp", "swiftkv", "mixtral", "tree", "drafter"])
+], ids=["dp", "pp", "swiftkv", "mixtral", "tree"])
 def test_unported_mesh_configs_raise(cfg):
     """Refused before any weight is loaded or any group is joined, with
     the ROADMAP item that brings each."""
@@ -370,16 +370,6 @@ def test_encoder_on_a_mesh_is_refused():
                             hf_overrides=dict(num_hidden_layers=1))
     with pytest.raises(NotImplementedError, match="one device"):
         LLM(cfg, device="cpu")
-
-
-def test_server_on_a_mesh_is_refused():
-    """Requests reach one process: the server on a mesh waits for the
-    leader's broadcast of step inputs (the multihost slice)."""
-    from arcticinference_tpu_torch.serving import openai_server
-
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        openai_server.make_server(["--device", "cpu",
-                                   "--tensor-parallel-size", "2"])
 
 
 def test_uninitialized_group_raises():

@@ -627,7 +627,10 @@ def test_encoder_architecture_is_refused():
     ["--multihost-num-processes=2"], ["--multihost-process-id", "1"],
     ["--multihost-leader", "10.0.0.1"], ["--multihost-channel-port", "1"]])
 def test_multihost_flags_are_refused_by_name(flag):
-    with pytest.raises(NotImplementedError,
+    """A ``--multihost-*`` flag without the rest of a served mesh (more
+    than one process and a coordinator) is refused by name; the served
+    mesh itself: ``tests/test_torch_multihost.py``."""
+    with pytest.raises(ValueError,
                        match=flag[0].split("=")[0] + ": multi-host"):
         openai_server.make_server(["--device", "cpu"] + flag)
 

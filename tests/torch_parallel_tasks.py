@@ -218,3 +218,130 @@ def rank_num_blocks(model: str, par: dict, members=None) -> int:
     return llm.engine.runner.num_blocks
 
 
+
+
+# --------------------------------------------------------------------- #
+# A served mesh (parallel/multihost.py)
+# --------------------------------------------------------------------- #
+
+async def _post(url: str, body: dict, timeout: float = 60.0):
+    """(status, JSON body) of one POST through the port's HTTP client."""
+    from arcticinference_tpu_torch.serving import http
+
+    async with http.post(url, json=body, timeout=timeout) as r:
+        return r.status, json.loads(await r.read())
+
+
+def _refusals(eng) -> dict:
+    """The error of each engine entry a served mesh refuses."""
+    out = {}
+    for name, call in (("score", lambda: eng.score([[1, 2, 3]])),
+                       ("prompt_logits", lambda: eng.prompt_logits([1, 2])),
+                       ("encode", lambda: eng.encode([[1, 2, 3]]))):
+        try:
+            call()
+            out[name] = ""
+        except Exception as e:  # noqa: BLE001 (the test reads the error)
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def _offline(cfg, group, offline: list, drafter_rows=None) -> dict:
+    """``LLM.generate`` of each (prompts, sampling) of ``offline`` on this
+    rank of the world, with a digest of its output vectors; with
+    ``drafter_rows`` ((last tokens, hidden rows) as numpy) also the
+    drafter's chain on them."""
+    llm = LLM(cfg, device="cpu", group=group)
+    eng = llm.engine
+    eng.runner.digest = torch.zeros((), dtype=torch.int64)
+    res = {"tokens": [], "spec": []}
+    for prompts, sampling in offline:
+        outs = llm.generate(prompt_token_ids=prompts,
+                            sampling_params=SamplingParams(**sampling))
+        res["tokens"].append([o.token_ids for o in outs])
+        res["spec"].append(eng.spec_stats.summary())
+    res["digest"] = int(eng.runner.digest)
+    if drafter_rows is not None:
+        tok, hid = (torch.from_numpy(np.asarray(x)) for x in drafter_rows)
+        res["drafts"] = eng._drafter.generate(eng._drafter.params, tok,
+                                              hid).numpy().tolist()
+    llm.close()
+    return res
+
+
+def serve_session(model: str, par: dict, channel_port: int,
+                  requests: list, offline: list, members=None,
+                  spec: dict | None = None, warm=None,
+                  refusals: bool = False, drafter_rows=None) -> dict:
+    """One served mesh on this rank, then ``LLM.generate`` on the same
+    world.  Rank 0 builds the server, waits for its followers, attaches
+    the channel and sends ``requests`` ((path, body), each alone, in
+    order) through HTTP; the other ranks replay its steps
+    (``follower_serve``).  Each rank returns what it saw: the leader its
+    answers, step counts, the channel's message counts and bytes and (with
+    ``refusals``) the errors of the refused engine entries; a follower
+    its replayed message counts; both their runner's dispatches and
+    output digest; then :func:`_offline` of ``offline``."""
+    import asyncio
+    import time
+
+    import torch.distributed as dist
+
+    from arcticinference_tpu_torch.engine.engine import LLMEngine
+    from arcticinference_tpu_torch.parallel import multihost
+    from arcticinference_tpu_torch.serving.openai_server import OpenAIServer
+
+    group = _group(members)
+    n = dist.get_world_size(group)
+    cfg = engine_config(model, par, spec=spec)
+    res = {}
+    if dist.get_rank(group) == 0:
+        server = OpenAIServer(cfg, device="cpu", group=group)
+        eng = server.engine.engine
+        eng.runner.digest = torch.zeros((), dtype=torch.int64)
+        if warm:
+            eng._suffix_cache.update_response("warm", warm)
+        channel = multihost.LeaderChannel(n - 1, channel_port,
+                                          bind_host="127.0.0.1",
+                                          accept_timeout=60)
+        channel.wait_connected()
+        server.engine.attach_channel(channel)
+        loop = asyncio.new_event_loop()
+        try:
+            port = loop.run_until_complete(server.app.start("127.0.0.1", 0))
+            url = f"http://127.0.0.1:{port}"
+            answers, seconds = [], []
+            for path, body in requests:
+                t = time.perf_counter()
+                answers.append(loop.run_until_complete(
+                    _post(url + path, body)))
+                seconds.append(time.perf_counter() - t)
+            if refusals:
+                res["refusals"] = _refusals(eng)
+            res.update(
+                answers=answers, seconds=seconds,
+                width_stats=eng.width_stats, spec=eng.spec_stats.summary(),
+                dispatches=eng.runner.dispatches,
+                digest=int(eng.runner.digest), sent=dict(channel.sent),
+                last_bytes=dict(channel.last_bytes),
+                dead=server.engine.dead)
+            # Stopping the app closes the engine and its channel: the
+            # followers get ``stop``.
+            loop.run_until_complete(server.app.stop())
+        finally:
+            server.engine.close()
+            loop.close()
+    else:
+        eng = LLMEngine(cfg, device="cpu", group=group)
+        eng.runner.digest = torch.zeros((), dtype=torch.int64)
+        channel = multihost.FollowerChannel("127.0.0.1", channel_port,
+                                            connect_timeout=60)
+        try:
+            res["replayed"] = multihost.follower_serve(eng, channel)
+        finally:
+            channel.close()
+        res.update(dispatches=eng.runner.dispatches,
+                   digest=int(eng.runner.digest))
+        eng.close()
+    res["offline"] = _offline(cfg, group, offline, drafter_rows)
+    return res
