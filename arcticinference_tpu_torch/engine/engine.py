@@ -136,8 +136,13 @@ class LLMEngine:
         self.config = config
         self.device = resolve_device(device)
         self.mesh = None
+        module, arch = resolve_model(config.model)
+        if spec is not None and spec.use_tree_spec and \
+                getattr(module, "NEEDS_SWIFT_SCHEDULE", False):
+            raise NotImplementedError(
+                "use_tree_spec does not compose with SwiftKV (the "
+                "early-exit halves re-run draft rows with different masks)")
         if config.parallel.world_size > 1:
-            module, arch = resolve_model(config.model)
             check_mesh(config, module, arch)
             self.mesh = build_mesh(config.parallel, group)
         module, arch, params = load_model(config.model, self.device,
@@ -148,10 +153,6 @@ class LLMEngine:
         self.tokenizer = None
         self.runner = ModelRunner(config, module, arch, params, self.device,
                                   mesh=self.mesh)
-        if spec is not None and spec.use_tree_spec and self.runner.swift:
-            raise NotImplementedError(
-                "use_tree_spec does not compose with SwiftKV (the "
-                "early-exit halves re-run draft rows with different masks)")
         self.scheduler = Scheduler(config.scheduler, config.cache,
                                    self.runner.num_blocks)
         self.engine_stats = EngineStats()

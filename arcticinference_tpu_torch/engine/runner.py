@@ -49,9 +49,11 @@ for each step; both read and write the same cache pages.  The rank holds
 its tp piece of the weights (fused with the interleave the shift re-slice
 needs), its ``Hkv/(sp*tp)`` cache heads and its column piece of the LM
 head, whose logits are gathered over tp, so every rank samples the same
-tokens from the same logits.  Not ported (they raise
-``NotImplementedError``, :func:`check_mesh`): dp, pp, int4, SwiftKV,
-MoE and token trees on a mesh.
+tokens from the same logits.  SwiftKV (its later layers in the shift
+layout), Mixtral (expert parallelism) and token trees run there too.
+Refused with ``NotImplementedError`` (:func:`check_mesh`): dp and pp
+(ROADMAP item 2b), int4, and experts that do not divide by the
+expert-parallel degree.
 
 A served mesh (``parallel/multihost.py``) runs the engine on the leader
 alone: with ``mh_channel`` attached, :meth:`ModelRunner.dispatch`
@@ -110,9 +112,16 @@ def swift_schedule(row_count, last_pos: np.ndarray, s_pad: int,
 
 
 def check_mesh(config: EngineConfig, module, arch) -> None:
-    """Refuse what the port does not run on a mesh yet, before any weight
-    is loaded; each refusal names the ROADMAP item that brings it."""
+    """Refuse what does not run on a mesh, before any weight is loaded;
+    each refusal names its cause (dp and pp: the ROADMAP item that brings
+    them)."""
     pcfg = config.parallel
+    spec = config.speculative
+    if spec is not None and spec.use_tree_spec and \
+            pcfg.data_parallel_size > 1:
+        raise NotImplementedError(
+            "token-tree speculation does not run with data parallelism "
+            "(data_parallel_size > 1), as in the JAX package")
     if pcfg.data_parallel_size > 1:
         raise NotImplementedError(
             "in-engine data parallelism (data_parallel_size > 1) is not "
@@ -127,16 +136,6 @@ def check_mesh(config: EngineConfig, module, arch) -> None:
         raise NotImplementedError(
             "int4 weight quantization is single-chip; use fp8/int8 on "
             "meshes")
-    if getattr(module, "NEEDS_SWIFT_SCHEDULE", False) or \
-            getattr(module, "RETURNS_SAMPLE_ROWS", False):
-        raise NotImplementedError(
-            "SwiftKV on a mesh (the sharded swift half) is not ported yet "
-            "(ROADMAP Queue 1 item 2d)")
-    spec = config.speculative
-    if spec is not None and spec.use_tree_spec:
-        raise NotImplementedError(
-            "token-tree speculation on a mesh is not ported yet (ROADMAP "
-            "Queue 1 item 2d)")
     check_supported(arch, pcfg)
 
 
@@ -203,17 +202,23 @@ class ModelRunner:
         # so the tp cut and the shift re-slice each hold whole
         # [q_f|k_f|v_f] groups; a rank fuses its tp piece with the
         # interleave left over.  Gated to whole heads and columns per
-        # piece, which keeps the kv-replication case unfused.  A module
-        # without fuse_params (Mixtral) runs its weights as they are.
+        # piece, which keeps the kv-replication case unfused (interleave
+        # None).  A module without fuse_params (Mixtral) runs its weights
+        # as they are.  SwiftKV's later layers take the shift layout
+        # first, in every mode (``llama_swiftkv.mesh_layout``), and its
+        # fuse_params fuses them whatever the gate says.
+        layout = getattr(module, "mesh_layout", None)
+        if mesh is not None and layout is not None:
+            params = layout(params, arch, mesh)
         fuse = getattr(module, "fuse_params", None)
         if fuse is not None:
             tp = pcfg.tensor_parallel_size
             fuse_w = tp * (pcfg.ulysses_sequence_parallel_size
                            if pcfg.enable_shift_parallel else 1)
-            if (arch.num_heads % fuse_w == 0
-                    and arch.num_kv_heads % fuse_w == 0
-                    and arch.intermediate_size % fuse_w == 0):
-                params = fuse(params, interleave=fuse_w // tp)
+            whole = (arch.num_heads % fuse_w == 0
+                     and arch.num_kv_heads % fuse_w == 0
+                     and arch.intermediate_size % fuse_w == 0)
+            params = fuse(params, interleave=fuse_w // tp if whole else None)
         self.params = params
         # SwiftKV: the second schedule over the sample rows, and forward
         # hands back those rows itself.

@@ -231,7 +231,7 @@ def embed_lookup(params: dict, ids: torch.Tensor) -> torch.Tensor:
     return e[ids.long()]
 
 
-def fuse_params(params: dict, interleave: int = 1) -> dict:
+def fuse_params(params: dict, interleave: Optional[int] = 1) -> dict:
     """Fuse q|k|v -> ``wqkv`` (and their biases -> ``bqkv``) and
     gate|up -> ``w_gateup`` (one matmul each), quantized parts through
     :func:`fuse_quantized` (per-part scales kept exactly, as per-column
@@ -242,7 +242,11 @@ def fuse_params(params: dict, interleave: int = 1) -> dict:
     ``[q_0|k_0|v_0|q_1|k_1|v_1|..]`` over W shards), so the order
     survives a contiguous W-way split of the out axis: the tp cut and
     the shift re-slice (``parallel/ulysses.py``).  Fusing a tp piece
-    with ``W / tp`` gives that piece of the global fusion with ``W``."""
+    with ``W / tp`` gives that piece of the global fusion with ``W``.
+    ``interleave=None`` fuses nothing (a mesh whose pieces would split a
+    head or a column group: the runner's gate)."""
+    if interleave is None:
+        return params
     def bias_fuse(parts):
         segs = []
         for f in range(interleave):
@@ -382,9 +386,10 @@ def _mlp(x, lp, groups: int = 1):
     return matmul(h, lp["w_down"])
 
 
-def _dense_mlp_fn(x, lp, arch):
+def _dense_mlp_fn(x, lp, arch, pctx=None):
     """The dense SwiGLU block, :func:`scan_layers`'s default ``mlp_fn``
     (``arch`` as the rank sees it under a parallel context)."""
+    del pctx
     return _mlp(x, lp, arch.fused_seg)
 
 
@@ -427,9 +432,10 @@ def scan_layers(layers: dict, arch: LlamaArch, kv: torch.Tensor,
     attention injects the layer's new K/V rows and the cache is written
     once after the stack (:func:`_bulk_write_kv`); never under a parallel
     context ``pctx`` (see :func:`forward`), as in the JAX package.
-    ``mlp_fn(x, lp, arch) -> y`` replaces the dense SwiGLU block (the
-    MoE models put their expert-routed block here); its result is summed
-    over the context's group like the dense block's."""
+    ``mlp_fn(x, lp, arch, pctx) -> y`` replaces the dense SwiGLU block
+    (the MoE models put their expert-routed block here, over the rank's
+    experts); its result is summed over the context's group like the
+    dense block's."""
     if attn_impl is None:
         attn_impl = _default_attn
     if mlp_fn is None:
@@ -466,7 +472,7 @@ def scan_layers(layers: dict, arch: LlamaArch, kv: torch.Tensor,
             o = pctx.combine(o)
         h = h + psum(matmul(o.reshape(o.shape[0], -1), lp["wo"]))
         x = rms_norm(h, lp["post_norm"], arch.rms_norm_eps)
-        h = h + psum(mlp_fn(x, lp, arch_q))
+        h = h + psum(mlp_fn(x, lp, arch_q, pctx))
     if defer:
         _bulk_write_kv(kv, torch.stack(new_k), torch.stack(new_v),
                        inputs["slot_mapping"])

@@ -1,10 +1,10 @@
 """LlamaSwiftKV: early-exit prefill with projected KV for the later layers.
 
-Counterpart of ``arcticinference_tpu/models/llama_swiftkv.py`` on one
-device.  The first ``num_key_value_layers`` (K) decoder layers run as
-Llama's; at the K-layer boundary one projection produces the K/V of every
-later layer from one normed hidden state (``norm_swiftkv`` and the
-stacked ``wk_swift`` / ``wv_swift``), and only the rows to be sampled
+Counterpart of ``arcticinference_tpu/models/llama_swiftkv.py``.  The
+first ``num_key_value_layers`` (K) decoder layers run as Llama's; at the
+K-layer boundary one projection produces the K/V of every later layer
+from one normed hidden state (``norm_swiftkv`` and the stacked
+``wk_swift`` / ``wv_swift``), and only the rows to be sampled
 (``logits_indices``) run the later layers: the token drop that cuts
 prefill compute by up to ~50%.
 
@@ -25,14 +25,21 @@ dequantizes quantized stacks to the activations' dtype before a float32
 einsum; the matmul kernel here scales the float32 sums of the bf16
 activations instead, so the two agree to a tolerance, not bit for bit.
 
-Not ported: the sharded (tp / sp / dp) layouts of the swift half.
+On a tp / sp / shift mesh (``parallel/``) the first K layers run in the
+step's mode; the later layers and the K / V projection run in the shift
+(fused ``(tp, sp)``) layout in both modes, after an all-gather of the
+hidden rows over sp in SP mode, so the projected pages are the ones the
+SP-mode cache holds.  :func:`mesh_layout` re-slices the later layers and
+the stacked projections to that layout once, at load, and only then
+fuses them: a contiguous piece of the fused ``wkv_swift`` is not a rank's
+piece.  dp and pp are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -47,6 +54,9 @@ from arcticinference_tpu_torch.ops.fp8 import (QuantizedLinear,
 from arcticinference_tpu_torch.ops.layers import (apply_rope,
                                                   compute_rope_freqs,
                                                   rms_norm)
+from arcticinference_tpu_torch.parallel import mesh as mesh_lib
+from arcticinference_tpu_torch.parallel.ulysses import (ParallelContext,
+                                                        all_gather_cat)
 from arcticinference_tpu_torch.utils import resolve_device
 
 # The runner adapts its step to these flags: forward returns the sample
@@ -73,6 +83,25 @@ class LlamaSwiftKVArch(LlamaArch):
 Arch = LlamaSwiftKVArch
 
 
+def param_specs() -> dict:
+    """Which axis of each leaf is cut over ``tp`` (the JAX module's
+    ``param_specs`` as tuples): the first K layers like Llama's, the
+    later ones without wk / wv, the stacked K / V projections ``[kb, D,
+    Hkv*Dh]`` on their out axis."""
+    base = mesh_lib.param_specs()
+    return {
+        "embed": base["embed"],
+        "final_norm": base["final_norm"],
+        "lm_head": base["lm_head"],
+        "layers_a": base["layers"],
+        "layers_b": {k: v for k, v in base["layers"].items()
+                     if k not in ("wk", "wv")},
+        "wk_swift": (None, None, "tp"),
+        "wv_swift": (None, None, "tp"),
+        "norm_swiftkv": (None,),
+    }
+
+
 def _llama_arch(arch: LlamaSwiftKVArch, **changes) -> LlamaArch:
     """The Llama arch of ``arch``'s dims with ``changes``."""
     fields = {f.name: getattr(arch, f.name)
@@ -83,19 +112,40 @@ def _llama_arch(arch: LlamaSwiftKVArch, **changes) -> LlamaArch:
 def init_params(arch: LlamaSwiftKVArch, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 quantization: Optional[str] = None,
-                device: torch.device | str | None = None) -> dict:
+                device: torch.device | str | None = None,
+                keep: Optional[Callable] = None) -> dict:
     """Randomly initialised parameters, drawn on ``device`` from
     ``generator`` as :func:`llama.init_params` draws them (Normal(0,
     0.02), each weight quantized as soon as it is drawn): the first K
     layers with the embedding and LM head, then the later layers'
-    q / o / MLP weights, then their stacked K and V projections."""
+    q / o / MLP weights, then their stacked K and V projections.
+
+    ``keep(path, leaf)`` (a rank of a mesh: its cut) takes each leaf as
+    :func:`llama.init_params` hands it over, a layer weight one layer at
+    a time (``path`` ``("layers_a", key)`` or ``("layers_b", key)``), a
+    stacked projection whole; the draws are the same with and without
+    it."""
     if device is None:
         device = generator.device
     kb = arch.num_swift_layers
     d, hkv, dh = arch.hidden_size, arch.num_kv_heads, arch.head_dim
+
+    def under(stack):
+        """``keep`` of the layers of ``stack`` (llama's ``layers``)."""
+        if keep is None:
+            return None
+
+        def keep_in(path, leaf):
+            if path[0] != "layers":
+                return keep(path, leaf)
+            if stack == "layers_b" and path[1] in ("wk", "wv"):
+                return leaf       # drawn for the draw order, then dropped
+            return keep((stack,) + path[1:], leaf)
+        return keep_in
+
     base = llama.init_params(
         _llama_arch(arch, num_layers=arch.num_key_value_layers), generator,
-        dtype, quantization, device)
+        dtype, quantization, device, keep=under("layers_a"))
     params = {k: v for k, v in base.items() if k != "layers"}
     params["layers_a"] = base["layers"]
     if kb > 0:
@@ -104,14 +154,15 @@ def init_params(arch: LlamaSwiftKVArch, generator: torch.Generator,
         layers_b = llama.init_params(
             _llama_arch(arch, num_layers=kb, vocab_size=1,
                         tie_word_embeddings=True),
-            generator, dtype, quantization, device)["layers"]
+            generator, dtype, quantization, device,
+            keep=under("layers_b"))["layers"]
         del layers_b["wk"], layers_b["wv"]
         params["layers_b"] = layers_b
         for key in ("wk_swift", "wv_swift"):
             w = torch.randn((kb, d, hkv * dh), generator=generator,
                             dtype=dtype, device=device).mul_(0.02)
-            params[key] = (quantize_layers(w, quantization)
-                           if quantization else w)
+            w = quantize_layers(w, quantization) if quantization else w
+            params[key] = w if keep is None else keep((key,), w)
         params["norm_swiftkv"] = torch.ones(d, dtype=dtype, device=device)
     return params
 
@@ -146,23 +197,80 @@ def fuse_swift_kv(wk, wv):
     return fuse_quantized([w[i] for w in (wk, wv) for i in range(kb)])
 
 
-def fuse_params(params: dict, interleave: int = 1) -> dict:
-    """:func:`llama.fuse_params` on the first K layers; gate|up fused in
-    the later layers (``wq`` stays alone: their K / V come from the
-    stacked projection), and the stacked K / V projections fused into
-    ``wkv_swift`` (:func:`fuse_swift_kv`)."""
+def fuse_params(params: dict, interleave: Optional[int] = 1) -> dict:
+    """:func:`llama.fuse_params` on the first K layers (``interleave``
+    None leaves them unfused, as it does); gate|up fused in the later
+    layers (``wq`` stays alone: their K / V come from the stacked
+    projection), and the stacked K / V projections fused into
+    ``wkv_swift`` (:func:`fuse_swift_kv`).  The later layers fuse with
+    no interleave: on a mesh they are already in the shift layout
+    (:func:`mesh_layout`), one fused piece a rank."""
     out = dict(params)
     out["layers_a"] = llama.fuse_params(
         {"layers": params["layers_a"]}, interleave)["layers"]
     if "layers_b" in params:
         layers = dict(params["layers_b"])
-        if "w_gate" in layers:
-            layers["w_gateup"] = fuse_quantized(
-                [layers.pop("w_gate"), layers.pop("w_up")], interleave)
+        layers["w_gateup"] = fuse_quantized(
+            [layers.pop("w_gate"), layers.pop("w_up")])
         out["layers_b"] = layers
     if "wk_swift" in out:
         out["wkv_swift"] = fuse_swift_kv(out.pop("wk_swift"),
                                          out.pop("wv_swift"))
+    return out
+
+
+def _slice_swift_kv_proj(w, b_ctx):
+    """This rank's fused ``(tp, sp)`` piece of a stacked ``[kb, D,
+    Hkv*Dh]`` projection from its tp piece (the sp-th sub-slice of the
+    out axis), as a contiguous copy.  Under kv-head replication
+    (``num_kv_heads < sp*tp``) the sub-slice is head-granular, as the
+    layers' wk / wv re-slice: rank ``(t, s)`` keeps the whole head
+    ``(s*g)//sp`` of its tp piece's ``g`` heads, so the ranks that share
+    a head project the same copy.  A per-layer scale is left whole, a
+    per-column one sliced alike."""
+    if b_ctx.sp == 1:
+        return w
+    s = b_ctx.mesh.sp_rank
+    if b_ctx.kv_rep > 1:
+        g = b_ctx.num_kv_heads // b_ctx.tp
+        d = b_ctx.head_dim
+        start, size = (s * g) // b_ctx.sp * d, d
+    else:
+        size = w.shape[-1] // b_ctx.sp
+        start = s * size
+
+    def cut(x, ax):
+        return x.narrow(ax, start, size).contiguous()
+
+    if isinstance(w, QuantizedLinear):
+        return QuantizedLinear(cut(w.weight, 2),
+                               ParallelContext._slice_scale(w, 2, cut))
+    return cut(w, 2)
+
+
+def mesh_layout(params: dict, arch: LlamaSwiftKVArch, mesh) -> dict:
+    """A rank's tp-cut parameters with the later layers in the shift
+    layout, which they run in in both modes: ``layers_b`` re-sliced to
+    the fused ``(tp, sp)`` piece (``ParallelContext.reslice_layers``,
+    its in-axis pieces copied too, so no tp piece stays alive) and the
+    stacked K / V projections too (:func:`_slice_swift_kv_proj`).  Once,
+    at load, before :func:`fuse_params` (the runner): a contiguous piece
+    of the fused ``wkv_swift`` is no rank's piece."""
+    if arch.num_swift_layers == 0:
+        return params
+    b_ctx = ParallelContext(mesh, "shift", num_kv_heads=arch.num_kv_heads,
+                            head_dim=arch.head_dim)
+    out = dict(params)
+
+    def own(x):
+        if isinstance(x, QuantizedLinear):
+            return QuantizedLinear(own(x.weight), own(x.scale))
+        return x.clone() if x._base is not None else x
+
+    out["layers_b"] = {k: own(v) for k, v in
+                       b_ctx.reslice_layers(params["layers_b"]).items()}
+    for key in ("wk_swift", "wv_swift"):
+        out[key] = _slice_swift_kv_proj(out[key], b_ctx)
     return out
 
 
@@ -177,18 +285,24 @@ def _live_rows(rows: torch.Tensor) -> torch.Tensor:
 
 def forward(params: dict, arch: LlamaSwiftKVArch, kv: torch.Tensor,
             inputs: dict[str, torch.Tensor], attn_impl=None,
-            allow_deferral: bool = True
+            allow_deferral: bool = True, pctx=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (kv, hidden states of the sample rows ``[S_pad, D]``, after
     the final norm); ``kv`` is updated in place.  ``params`` are
-    :func:`fuse_params`'s.
+    :func:`fuse_params`'s (on a mesh, :func:`mesh_layout`'s first).
 
     Needs ``inputs["logits_indices"]`` (the surviving rows) and, on a
     step through the ragged kernel, the ``swift_*`` schedule over them.
     Padding sample rows (:func:`_live_rows`) run the later layers as
     padding tokens (request -1), so no kernel leaves them unwritten.
     ``allow_deferral`` is ignored: SwiftKV writes each layer's K/V before
-    its attention, as the JAX package does."""
+    its attention, as the JAX package does.
+
+    ``pctx`` (``parallel/ulysses.py``) runs one rank's part of a mesh:
+    the first K layers in its mode (in SP mode over the rank's chunk of
+    the tokens, whose hidden rows are then gathered over sp), the
+    projection and the later layers in the shift layout of the same
+    rank; every rank returns the same sample rows."""
     del allow_deferral
     if attn_impl is None:
         attn_impl = llama._default_attn
@@ -196,7 +310,15 @@ def forward(params: dict, arch: LlamaSwiftKVArch, kv: torch.Tensor,
     kb = arch.num_swift_layers
     h = embed_lookup(params, inputs["input_ids"])
     kv, h = llama.scan_layers(params["layers_a"], arch, kv, h, inputs,
-                              attn_impl=attn_impl, allow_deferral=False)
+                              attn_impl=attn_impl, allow_deferral=False,
+                              pctx=pctx)
+    arch_b, b_psum = arch, (lambda x: x)
+    if pctx is not None:
+        if pctx.mode == "sp" and pctx.sp > 1:
+            h = all_gather_cat(h, pctx.mesh.sp_group)
+        b_ctx = pctx if pctx.mode == "shift" else ParallelContext(
+            pctx.mesh, "shift", pctx.num_kv_heads, pctx.head_dim)
+        arch_b, b_psum = b_ctx.arch_view(arch), b_ctx.psum
     rows = inputs["logits_indices"].long()
     if kb == 0:
         h = rms_norm(h, params["final_norm"], arch.rms_norm_eps)
@@ -204,7 +326,7 @@ def forward(params: dict, arch: LlamaSwiftKVArch, kv: torch.Tensor,
 
     # One projection for the K/V of every later layer, RoPE on K.
     t = h.shape[0]
-    hkv, dh = arch.num_kv_heads, arch.head_dim
+    hkv, dh = arch_b.num_kv_heads, arch.head_dim
     positions = inputs["positions"]
     inv_freq = compute_rope_freqs(dh, arch.rope_theta, arch.rope_scaling,
                                   device=h.device)
@@ -234,12 +356,12 @@ def forward(params: dict, arch: LlamaSwiftKVArch, kv: torch.Tensor,
                               inputs["slot_mapping"],
                               None if ks is None else ks[layer])
         x = rms_norm(hs, lp["input_norm"], arch.rms_norm_eps)
-        q = llama.matmul(x, lp["wq"]).reshape(s, arch.num_heads, dh)
+        q = llama.matmul(x, lp["wq"]).reshape(s, arch_b.num_heads, dh)
         q = apply_rope(q, swift_inputs["positions"], inv_freq)
         o = attn_impl(q, kv, layer, swift_inputs)
-        hs = hs + llama.matmul(o.reshape(s, -1), lp["wo"])
+        hs = hs + b_psum(llama.matmul(o.reshape(s, -1), lp["wo"]))
         x = rms_norm(hs, lp["post_norm"], arch.rms_norm_eps)
-        hs = hs + llama._mlp(x, lp)
+        hs = hs + b_psum(llama._mlp(x, lp))
     return kv, rms_norm(hs, params["final_norm"], arch.rms_norm_eps)
 
 

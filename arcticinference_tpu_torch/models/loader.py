@@ -65,9 +65,10 @@ def load_model(cfg: ModelConfig, device: torch.device | str | None = None,
 
     Random weights are drawn from a ``torch.Generator`` on ``device``
     seeded with ``cfg.seed``.  With ``mesh`` (``parallel/mesh.py``) the
-    params are this rank's cut of the global ones (``shard_params``);
-    random weights are cut as they are drawn, one global weight alive at
-    a time.
+    params are this rank's cut of the global ones (``shard_params``, by
+    the module's rules, ``specs_of``); random weights are cut as they are
+    drawn, one global weight (a layer of a stacked one) alive at a
+    time.
     """
     device = resolve_device(device)
     module, arch = resolve_model(cfg)
@@ -82,7 +83,8 @@ def load_model(cfg: ModelConfig, device: torch.device | str | None = None,
             from arcticinference_tpu_torch.parallel import mesh as mesh_lib
 
             kv_scales = params.pop("kv_scales", None)
-            params = mesh_lib.shard_params(params, mesh)
+            params = mesh_lib.shard_params(params, mesh,
+                                           mesh_lib.specs_of(module))
             if kv_scales is not None:
                 params["kv_scales"] = kv_scales
     else:
@@ -91,13 +93,13 @@ def load_model(cfg: ModelConfig, device: torch.device | str | None = None,
         if mesh is not None:
             from arcticinference_tpu_torch.parallel import mesh as mesh_lib
 
+            specs = mesh_lib.specs_of(module)
+
             def keep(path, leaf):
                 # A layer weight arrives one layer at a time: its rule
                 # without the layer axis.
-                spec = mesh_lib.leaf_spec(path)
-                if path[0] == "layers":
-                    spec = spec[1:]
-                return mesh_lib.shard_leaf(leaf, spec, mesh)
+                return mesh_lib.shard_leaf(
+                    leaf, mesh_lib.layer_leaf_spec(path, specs), mesh)
 
             kw["keep"] = keep
         params = module.init_params(arch, gen, dtype,

@@ -1,6 +1,6 @@
 """Mixtral-family sparse mixture of experts on the Llama decoder body.
 
-Counterpart of ``arcticinference_tpu/models/mixtral.py`` on one device.
+Counterpart of ``arcticinference_tpu/models/mixtral.py``.
 Attention, the embedding and the LM head are the Llama stack's; the
 expert block takes the dense MLP's place through ``scan_layers``'s
 ``mlp_fn`` hook.  The block is dropless (:func:`_moe_mlp`): the router
@@ -20,8 +20,15 @@ group and column (``[L, E, in/128, out]``), and are dequantized to bf16
 inside the products, as ``_deq`` does before ``ragged_dot``.  As in the
 JAX module the embedding stays unquantized, there is no ``fuse_params``
 (the runner runs q, k and v as three products), sliding-window attention
-is not applied, and ``moe_capacity_factor`` acts only under expert
-parallelism, which the port does not run.
+is not applied.
+
+Expert parallelism on a mesh (``parallel/``) is the expert axis of the
+stacked expert weights cut over tp (:func:`param_specs`; SP mode) or
+re-sliced to the fused ``(tp, sp)`` axis (:data:`SHIFT_SLICE_AXES`;
+shift mode): a rank runs the rows routed to its experts
+(``ParallelContext.moe_expert_range``) and the row-parallel sum adds the
+ranks' shares.  ``moe_capacity_factor > 0`` then bounds each rank's rows
+to a static window of the sorted assignments, as the JAX package does.
 
 Expert stacks are built one layer at a time (:func:`init_params`,
 :func:`load_hf_state`): Mixtral-8x7B's bf16 experts (~93 GB) never exist
@@ -31,6 +38,7 @@ whole; a quantized model holds one layer's bf16 experts at a time.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -39,8 +47,9 @@ from arcticinference_tpu_torch.models import llama as llama_mod
 from arcticinference_tpu_torch.models.llama import (  # noqa: F401
     LlamaArch, compute_logits, embed_lookup, make_attn_impl, plain_attn)
 from arcticinference_tpu_torch.ops import moe
-from arcticinference_tpu_torch.ops.fp8 import (QuantizedLinear,
-                                               fp8_quantize, quantize_layers,
+from arcticinference_tpu_torch.ops.fp8 import (FP8_DTYPE, QuantizedLinear,
+                                               fp8_quantize, fp8_scale,
+                                               quantize_layers,
                                                weight_quantize)
 from arcticinference_tpu_torch.ops.layers import rms_norm
 from arcticinference_tpu_torch.utils import resolve_device
@@ -67,6 +76,11 @@ class MixtralArch(LlamaArch):
 
 Arch = MixtralArch
 
+#: Shift-mode re-slice axes of the per-layer weights: attention's
+#: feature axes; the experts' leading expert axis (the JAX module's).
+SHIFT_SLICE_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 0,
+                    "w_gate": 0, "w_up": 0, "w_down": 0}
+
 _ATTN_KEYS = ("wq", "wk", "wv", "wo")
 _EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 _QUANT_KEYS = _ATTN_KEYS + _EXPERT_KEYS
@@ -76,11 +90,17 @@ def quantize_experts(w: torch.Tensor, mode: str) -> QuantizedLinear:
     """One layer's expert stack ``[E, in, out]`` quantized as the JAX
     package quantizes the whole ``[L, E, in, out]`` stack: fp8 with one
     scale over the layer (a 0-d scale), int8 / int4 per expert and
-    column (and group)."""
-    if mode == "fp8":
-        q = fp8_quantize(w.reshape(-1, w.shape[-1]))
-        return QuantizedLinear(q.weight.reshape(w.shape), q.scale)
-    return weight_quantize(w, mode)
+    column (and group).  fp8 is :func:`fp8_quantize` of the flattened
+    stack, one expert at a time against the layer's scale (the same
+    bytes), so its float32 working copies are one expert's, not the
+    layer's: ranks sharing a card draw their layers side by side."""
+    if mode != "fp8":
+        return weight_quantize(w, mode)
+    scale = fp8_scale(w)
+    q = torch.empty(w.shape, dtype=FP8_DTYPE, device=w.device)
+    for e in range(w.shape[0]):
+        q[e] = fp8_quantize(w[e], scale).weight
+    return QuantizedLinear(q, scale)
 
 
 def _stacked(num_layers: int, layer: Callable[[int], Any]):
@@ -100,57 +120,103 @@ def _stacked(num_layers: int, layer: Callable[[int], Any]):
     return QuantizedLinear(*stacks) if len(stacks) == 2 else stacks[0]
 
 
+def param_specs() -> dict:
+    """Which axis of each leaf is cut over ``tp`` (the JAX module's
+    ``param_specs`` as tuples): attention like Llama's, the expert stacks
+    ``[L, E, in, out]`` on their expert axis, the router whole.  An fp8
+    expert stack's one scale per layer stays whole; int8's ``[L, E,
+    out]`` scales are cut with the experts (``quantized_leaf_spec``)."""
+    col, row = (None, None, "tp"), (None, "tp", None)
+    experts = (None, "tp", None, None)
+    return {
+        "embed": (None, None),
+        "final_norm": (None,),
+        "lm_head": (None, "tp"),
+        "layers": {
+            "input_norm": (None, None), "post_norm": (None, None),
+            "wq": col, "wk": col, "wv": col, "wo": row,
+            "w_router": (None, None, None),
+            "w_gate": experts, "w_up": experts, "w_down": experts,
+        },
+    }
+
+
 def init_params(arch: MixtralArch, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 quantization: Optional[str] = None,
-                device: torch.device | str | None = None) -> dict:
+                device: torch.device | str | None = None,
+                keep: Optional[Callable] = None) -> dict:
     """Randomly initialised parameters (benchmarks / tests), drawn on
     ``device`` (by default the generator's) from ``generator``:
     Normal(0, 0.02) like the JAX package, not the same numbers.  Each
     layer's expert stack is drawn and, with ``quantization``, quantized
-    before the next is drawn."""
+    before the next is drawn.
+
+    ``keep(path, leaf)`` (a rank of a mesh: its cut) takes each leaf as
+    :func:`llama.init_params` hands it over, a layer weight one layer at
+    a time (``path`` ``("layers", key)``): a rank of Mixtral-8x7B keeps
+    one layer's share of the experts before the next layer is drawn.
+    The draws are the same with and without it."""
     if device is None:
         device = generator.device
     d, hq, hkv, dh = (arch.hidden_size, arch.num_heads, arch.num_kv_heads,
                       arch.head_dim)
     li, nl, e = arch.intermediate_size, arch.num_layers, arch.num_experts
     quant = quantization is not None
+    cut = keep is not None
+    if keep is None:
+        keep = lambda path, leaf: leaf  # noqa: E731
 
     def w(*shape):
         x = torch.randn(shape, generator=generator, dtype=dtype,
                         device=device)
         return x.mul_(0.02)
 
-    def qw(*shape):
-        return quantize_layers(w(*shape), quantization) if quant \
-            else w(*shape)
+    def layers_of(key, x):
+        """A stacked leaf drawn whole, kept one layer at a time."""
+        if not cut:
+            return x
+        if isinstance(x, QuantizedLinear):
+            return _stacked(nl, lambda i: keep(("layers", key),
+                                               QuantizedLinear(x.weight[i],
+                                                               x.scale[i])))
+        return _stacked(nl, lambda i: keep(("layers", key), x[i]))
 
-    def experts(n_in, n_out):
+    def qw(key, *shape):
+        x = w(*shape)
+        return layers_of(key, quantize_layers(x, quantization)
+                         if quant else x)
+
+    def experts(key, n_in, n_out):
         def layer(_):
             x = w(e, n_in, n_out)
-            return quantize_experts(x, quantization) if quant else x
+            return keep(("layers", key), quantize_experts(x, quantization)
+                        if quant else x)
         return _stacked(nl, layer)
 
+    ones = torch.ones((nl, d), dtype=dtype, device=device)
     params = {
-        "embed": w(arch.vocab_size, d),
+        "embed": keep(("embed",), w(arch.vocab_size, d)),
         "layers": {
-            "input_norm": torch.ones((nl, d), dtype=dtype, device=device),
-            "post_norm": torch.ones((nl, d), dtype=dtype, device=device),
-            "wq": qw(nl, d, hq * dh),
-            "wk": qw(nl, d, hkv * dh),
-            "wv": qw(nl, d, hkv * dh),
-            "wo": qw(nl, hq * dh, d),
-            "w_router": w(nl, d, e),
-            "w_gate": experts(d, li),
-            "w_up": experts(d, li),
-            "w_down": experts(li, d),
+            "input_norm": layers_of("input_norm", ones),
+            "post_norm": layers_of("post_norm", ones),
+            "wq": qw("wq", nl, d, hq * dh),
+            "wk": qw("wk", nl, d, hkv * dh),
+            "wv": qw("wv", nl, d, hkv * dh),
+            "wo": qw("wo", nl, hq * dh, d),
+            "w_router": layers_of("w_router", w(nl, d, e)),
+            "w_gate": experts("w_gate", d, li),
+            "w_up": experts("w_up", d, li),
+            "w_down": experts("w_down", li, d),
         },
-        "final_norm": torch.ones((d,), dtype=dtype, device=device),
+        "final_norm": keep(("final_norm",),
+                           torch.ones((d,), dtype=dtype, device=device)),
     }
     if not arch.tie_word_embeddings:
         head = w(d, arch.vocab_size)
-        params["lm_head"] = (weight_quantize(head, quantization)
-                             if quant else head)
+        params["lm_head"] = keep(("lm_head",),
+                                 weight_quantize(head, quantization)
+                                 if quant else head)
     return params
 
 
@@ -184,40 +250,84 @@ def quantize_params(params: dict, mode: str = "fp8") -> dict:
 grouped_matmul = moe.grouped_matmul
 
 
-def _moe_mlp(x: torch.Tensor, lp: dict, arch: MixtralArch) -> torch.Tensor:
-    """Routed SwiGLU over every expert, as the JAX ``_moe_mlp`` on one
-    device: ``g`` and ``u`` float32, ``silu(g) * u`` in float32 cast to
-    ``x.dtype``, the down product float32, the weighted sum float32, the
-    result cast to ``x.dtype`` (the dense ``_mlp``'s products come out in
-    ``x.dtype`` instead)."""
+def _moe_mlp(x: torch.Tensor, lp: dict, arch: MixtralArch,
+             pctx=None) -> torch.Tensor:
+    """Routed SwiGLU over the experts this rank holds, as the JAX
+    ``_moe_mlp``: ``g`` and ``u`` float32, ``silu(g) * u`` in float32
+    cast to ``x.dtype``, the down product float32, the weighted sum
+    float32, the result cast to ``x.dtype`` (the dense ``_mlp``'s
+    products come out in ``x.dtype`` instead).
+
+    Under a parallel context ``pctx`` the rank holds experts ``e0 ..
+    e0 + el - 1`` (``moe_expert_range``): every sorted row runs, its
+    expert id made local and clamped into ``[0, el)`` (a sorted list
+    stays sorted, so the out-of-range rows join the first or the last
+    group), and the gate of a row outside the range is zeroed; the
+    caller's row-parallel sum completes each token.  With
+    ``moe_capacity_factor > 0`` and more than one rank, a rank keeps only
+    a static window of ``cap = min(T*k, max(8, ceil(ceil(T*k * cf) /
+    ep)))`` sorted rows from its first expert's, clipped to the list
+    (rows past it lose their expert's share, as in the JAX package); the
+    window is taken on the device, so a step reads nothing back."""
     gate, top_i = moe.route(x, lp["w_router"], arch.num_experts_per_tok)
     order, sorted_e, tok = moe.sort_assignments(top_i)
-    offsets = moe.group_offsets(sorted_e, arch.num_experts)
+    if pctx is None:
+        e0, el = 0, arch.num_experts
+    else:
+        e0, el = pctx.moe_expert_range(arch.num_experts)
+    rows = sorted_e.shape[0]
+    ep = arch.num_experts // el
+    cf = arch.moe_capacity_factor
+    window = None
+    if cf and ep > 1:
+        cap = min(rows, max(8, -(-int(math.ceil(rows * cf)) // ep)))
+        if cap < rows:
+            first = torch.searchsorted(
+                sorted_e, torch.full((1,), e0, dtype=sorted_e.dtype,
+                                     device=sorted_e.device))
+            start = first.clamp(0, rows - cap)
+            window = start + torch.arange(cap, device=sorted_e.device)
+            sorted_e, tok = sorted_e[window], tok[window]
+    sharded = el < arch.num_experts
+    if sharded:
+        local = sorted_e - e0
+        valid = (local >= 0) & (local < el)
+        sorted_e = local.clamp(0, el - 1)
+    offsets = moe.group_offsets(sorted_e, el)
     xs = x[tok]
     g = grouped_matmul(xs, lp["w_gate"], offsets)
     u = grouped_matmul(xs, lp["w_up"], offsets)
     mid = (torch.nn.functional.silu(g) * u).to(x.dtype)
     y = grouped_matmul(mid, lp["w_down"], offsets)
+    if sharded:
+        y = torch.where(valid[:, None], y, 0.0)
+        if window is not None:
+            # The window's rows back at their places of the sorted list;
+            # the rows outside it contribute nothing.
+            y = y.new_zeros((rows, y.shape[1])).index_copy_(0, window, y)
     return moe.combine(y, gate, order).to(x.dtype)
 
 
 def scan_layers(layers: dict, arch: MixtralArch, kv: torch.Tensor,
                 h: torch.Tensor, inputs: dict, attn_impl=None,
-                allow_deferral: bool = True):
+                allow_deferral: bool = True, pctx=None):
     return llama_mod.scan_layers(layers, arch, kv, h, inputs,
                                  attn_impl=attn_impl,
                                  allow_deferral=allow_deferral,
-                                 mlp_fn=_moe_mlp)
+                                 mlp_fn=_moe_mlp, pctx=pctx)
 
 
 def forward(params: dict, arch: MixtralArch, kv: torch.Tensor,
             inputs: dict[str, torch.Tensor], attn_impl=None,
-            allow_deferral: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+            allow_deferral: bool = True,
+            pctx=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Llama's ``forward`` with the expert block (see there for the
-    inputs); returns (kv, hidden[T, D]) with ``kv`` updated in place."""
+    inputs and ``pctx``); returns (kv, hidden[T, D]) with ``kv`` updated
+    in place."""
     h = embed_lookup(params, inputs["input_ids"])
     kv, h = scan_layers(params["layers"], arch, kv, h, inputs,
-                        attn_impl=attn_impl, allow_deferral=allow_deferral)
+                        attn_impl=attn_impl, allow_deferral=allow_deferral,
+                        pctx=pctx)
     h = rms_norm(h, params["final_norm"], arch.rms_norm_eps)
     return kv, h
 

@@ -73,17 +73,26 @@ class QuantizedLinear:
                 f"{self.weight.dtype}, scale={tuple(self.scale.shape)})")
 
 
-def fp8_quantize(w: torch.Tensor) -> QuantizedLinear:
+def fp8_scale(w: torch.Tensor) -> torch.Tensor:
+    """The per-tensor e4m3 scale of ``w`` (0-d float32): its largest
+    magnitude over ``FP8_MAX``."""
+    return torch.clamp(w.abs().amax().float(), min=1e-12) / FP8_MAX
+
+
+def fp8_quantize(w: torch.Tensor,
+                 scale: Optional[torch.Tensor] = None) -> QuantizedLinear:
     """Per-tensor symmetric quantization to e4m3; stacked weights
-    (``ndim >= 3``) get one scale per layer (``[L]``)."""
+    (``ndim >= 3``) get one scale per layer (``[L]``).  ``scale`` (0-d)
+    quantizes ``w`` against a scale given instead: a piece of a larger
+    tensor quantized as that whole tensor (:func:`fp8_scale` of it)."""
     wf = w.float()
-    if w.dim() >= 3:
+    if scale is None and w.dim() >= 3:
         amax = wf.abs().amax(dim=tuple(range(1, w.dim())))
         scale = torch.clamp(amax, min=1e-12) / FP8_MAX
         q = wf / scale.reshape((-1,) + (1,) * (w.dim() - 1))
     else:
-        amax = wf.abs().max()
-        scale = torch.clamp(amax, min=1e-12) / FP8_MAX
+        if scale is None:
+            scale = fp8_scale(w)
         q = wf / scale
     q = torch.clamp(q, -FP8_MAX, FP8_MAX).to(FP8_DTYPE)
     return QuantizedLinear(q, scale.float())

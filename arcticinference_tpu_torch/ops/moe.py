@@ -2,8 +2,8 @@
 host read.
 
 Counterparts of the steps of ``arcticinference_tpu/models/mixtral.py``
-``_moe_mlp`` on one device (no expert parallelism, so no capacity
-window):
+``_moe_mlp`` (a rank's expert range and capacity window under expert
+parallelism are ``models/mixtral.py``'s):
 
 - :func:`route`: float32 router logits, the top ``k`` experts, a softmax
   over their values;

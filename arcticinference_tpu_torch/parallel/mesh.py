@@ -21,9 +21,10 @@ the fused axis: only reductions run over it, whose result does not depend
 on the order of the ranks.
 
 Parameters are cut by rule (:func:`param_specs`, the JAX
-``PartitionSpec``s as tuples): each rank keeps its piece of the global
-parameters (:func:`shard_params`).  A dimension that does not divide by
-its axis is kept whole (replicated), as the JAX ``put`` does.
+``PartitionSpec``s as tuples; a model module with a ``param_specs`` hook
+gives its own, :func:`specs_of`): each rank keeps its piece of the
+global parameters (:func:`shard_params`).  A dimension that does not
+divide by its axis is kept whole (replicated), as the JAX ``put`` does.
 """
 
 from __future__ import annotations
@@ -180,6 +181,18 @@ def param_specs() -> dict:
     }
 
 
+#: The stacked layer dicts of the model modules (``[L, ...]`` leaves).
+LAYER_KEYS = ("layers", "layers_a", "layers_b")
+
+
+def specs_of(module) -> dict:
+    """The cut rules of ``module``'s parameters: its ``param_specs`` hook
+    (SwiftKV, Mixtral), else the Llama family's (:func:`param_specs`), as
+    the JAX ``make_sharded_forward`` reads them."""
+    hook = getattr(module, "param_specs", None)
+    return hook() if hook is not None else param_specs()
+
+
 def quantized_leaf_spec(spec: tuple, w_ndim: Optional[int] = None,
                         s_ndim: Optional[int] = None) -> tuple:
     """(weight spec, scale spec) of a quantized leaf: group scales
@@ -246,6 +259,16 @@ def leaf_spec(path: tuple[str, ...], specs: Optional[dict] = None) -> tuple:
     for key in path:
         s = s[key]
     return s
+
+
+def layer_leaf_spec(path: tuple[str, ...],
+                    specs: Optional[dict] = None) -> tuple:
+    """The rule of one layer of a stacked leaf (``path`` under one of
+    :data:`LAYER_KEYS`: the rule without its layer axis), or of a whole
+    leaf elsewhere: the cut of a leaf ``init_params(keep=)`` hands over
+    as it is drawn."""
+    spec = leaf_spec(path, specs)
+    return spec[1:] if path[0] in LAYER_KEYS else spec
 
 
 # --------------------------------------------------------------------- #

@@ -18,6 +18,13 @@ In both modes a rank's cache holds the same ``H/(sp*tp)`` kv heads, so
 the two programs read and write the same pages, and a step may run
 either one.
 
+Expert parallelism (Mixtral) is the expert axis of the stacked expert
+weights cut over tp (SP mode) or the fused ``(tp, sp)`` axis (shift
+mode): a rank runs its experts' share of each token's sum, which the
+row-parallel sum completes (:meth:`ParallelContext.moe_expert_range`).
+SwiftKV's later layers run in the shift layout in both modes (see
+``models/llama_swiftkv.py``).
+
 The ranks run in lockstep: every rank calls the forward with the same
 inputs, and the collectives are ``dist.all_to_all_single``,
 ``dist.all_reduce`` and ``dist.all_gather`` on the caller's backend.
@@ -68,14 +75,15 @@ class ParallelContext:
     #: (the JAX ``DEFAULT_SLICE_AXES``): out for the column-cut weights,
     #: in for the row-cut ones; the fused layout's tp piece is sp
     #: consecutive ``[q_f|k_f|v_f]`` groups, so its contiguous sub-slice
-    #: is the fused piece.
+    #: is the fused piece.  A module's ``SHIFT_SLICE_AXES`` replaces it
+    #: (Mixtral's experts re-slice their expert axis).
     SLICE_AXES = {"wq": 1, "wk": 1, "wv": 1, "w_gate": 1,
                           "w_up": 1, "wo": 0, "w_down": 0,
                           "bq": 0, "bk": 0, "bv": 0,
                           "wqkv": 1, "w_gateup": 1, "bqkv": 0}
 
     def __init__(self, mesh: Mesh, mode: str, num_kv_heads: int = 0,
-                 head_dim: int = 0):
+                 head_dim: int = 0, slice_axes: Optional[dict] = None):
         assert mode in ("sp", "shift")
         self.mesh = mesh
         self.cfg = mesh.cfg
@@ -84,6 +92,8 @@ class ParallelContext:
         self.tp = mesh.tp
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
+        self.slice_axes = dict(self.SLICE_AXES if slice_axes is None
+                               else slice_axes)
         self.kv_rep = (max(self.sp * self.tp // num_kv_heads, 1)
                        if num_kv_heads else 1)
 
@@ -99,12 +109,13 @@ class ParallelContext:
         re-sliced to the fused ``(tp, sp)`` piece (the sp-th sub-slice):
         local slicing only.  A piece cut on its out axis is copied
         contiguous for the matmul kernels; one cut on its in axis (wo,
-        w_down) or a bias is contiguous per layer as a view."""
+        w_down), on the expert axis of an ``[E, in, out]`` stack, or a
+        bias is contiguous per layer as a view."""
         if not self.reslices:
             return layers
         s = self.mesh.sp_rank
         out = dict(layers)
-        for key, axis in self.SLICE_AXES.items():
+        for key, axis in self.slice_axes.items():
             if key not in layers:
                 continue
             w = layers[key]
@@ -150,6 +161,18 @@ class ParallelContext:
                 return sc
             return slice_fn(sc, axis if axis < wn - 2 else axis - 1)
         return sc
+
+    # -- expert parallelism ----------------------------------------------
+
+    def moe_expert_range(self, num_experts: int) -> tuple[int, int]:
+        """(first, count) of the experts this rank holds: the expert axis
+        cut over tp in SP mode, over the fused ``(tp, sp)`` axis,
+        tp-major (the shift re-slice's order), in shift mode."""
+        div = self.tp if self.mode == "sp" else self.tp * self.sp
+        el = num_experts // div
+        idx = (self.mesh.tp_rank if self.mode == "sp"
+               else self.mesh.fused_rank)
+        return idx * el, el
 
     # -- head counts at qkv time ----------------------------------------
 
@@ -222,12 +245,19 @@ class ParallelContext:
 def check_supported(arch, cfg) -> None:
     """The JAX ``make_sharded_forward`` refusals: kv heads that do not
     divide by sp*tp replicate only in whole heads per tp piece and an
-    integer factor; experts wait for expert parallelism."""
-    if getattr(arch, "num_experts", 0):
-        raise NotImplementedError(
-            "mixture-of-experts models on a mesh need expert parallelism "
-            "(ROADMAP Queue 1 item 2d)")
+    integer factor; experts must divide by the expert-parallel degree of
+    each mode the config runs (tp in SP mode, sp*tp in shift mode)."""
     tp, sp = cfg.tensor_parallel_size, cfg.ulysses_sequence_parallel_size
+    num_experts = getattr(arch, "num_experts", 0)
+    if num_experts:
+        modes = [("sp", tp)]
+        if cfg.enable_shift_parallel and sp > 1:
+            modes.append(("shift", tp * sp))
+        for mode, div in modes:
+            if num_experts % div:
+                raise NotImplementedError(
+                    f"num_experts={num_experts} must divide the expert-"
+                    f"parallel degree {div} ({mode} mode)")
     if arch.num_kv_heads % (sp * tp) != 0:
         if arch.num_kv_heads % tp != 0:
             raise NotImplementedError(
@@ -241,17 +271,24 @@ def check_supported(arch, cfg) -> None:
 def make_sharded_forward(module, arch, mesh: Mesh, mode: str,
                          attn_impl=None, reslice_cache: Optional[dict] = None):
     """The forward of one mode on this rank: ``fn(params, kv, inputs) ->
-    (kv, hidden [T, D])`` over the step's global inputs and this rank's
+    (kv, hidden)`` over the step's global inputs and this rank's
     parameters and cache.  In SP mode the rank runs its 1/sp chunk of the
     tokens (T must divide by sp) and the hidden rows are gathered over sp
-    at the end; in shift mode the layer weights are re-sliced once per
-    parameter set, into ``reslice_cache`` (share one dict between the
-    forwards of one parameter set, so they share one copy).  Every rank
-    returns the same hidden rows."""
+    at the end; a module that returns the sample rows
+    (``RETURNS_SAMPLE_ROWS``, SwiftKV) returns them on every rank
+    already.  In shift mode the stacked layer weights (``layers``, or
+    SwiftKV's first half ``layers_a``) are re-sliced once per parameter
+    set, into
+    ``reslice_cache`` (share one dict between the forwards of one
+    parameter set, so they share one copy).  Every rank returns the same
+    hidden rows."""
     check_supported(arch, mesh.cfg)
     pctx = ParallelContext(mesh, mode, num_kv_heads=arch.num_kv_heads,
-                           head_dim=arch.head_dim)
+                           head_dim=arch.head_dim,
+                           slice_axes=getattr(module, "SHIFT_SLICE_AXES",
+                                              None))
     split = mode == "sp" and mesh.sp > 1
+    rows_out = bool(getattr(module, "RETURNS_SAMPLE_ROWS", False))
     resliced = {} if reslice_cache is None else reslice_cache
 
     def mode_params(params: dict) -> dict:
@@ -259,8 +296,11 @@ def make_sharded_forward(module, arch, mesh: Mesh, mode: str,
             return params
         if resliced.get("src") is not params:
             resliced["src"] = params
-            resliced["out"] = dict(params, layers=pctx.reslice_layers(
-                params["layers"]))
+            # SwiftKV's later layers are in the shift layout already
+            # (``llama_swiftkv.mesh_layout``).
+            resliced["out"] = dict(params, **{
+                key: pctx.reslice_layers(params[key])
+                for key in ("layers", "layers_a") if key in params})
         return resliced["out"]
 
     def fn(params, kv, inputs):
@@ -277,7 +317,7 @@ def make_sharded_forward(module, arch, mesh: Mesh, mode: str,
             local["positions_local"] = inputs["positions"][s * c:(s + 1) * c]
         kv, h = module.forward(mode_params(params), arch, kv, local,
                                attn_impl=attn_impl, pctx=pctx)
-        if split:
+        if split and not rows_out:
             h = all_gather_cat(h, mesh.sp_group)
         return kv, h
 

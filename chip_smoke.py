@@ -350,6 +350,50 @@ Phases, each reported on its own lines:
              (a) prompt again, its continuation in the suffix cache: fused
              steps and drafts, each fused step replayed on every
              follower.  (d) Kernels 1, 2 and 5 launched on every rank.
+14. mesh_models: SwiftKV, Mixtral (expert parallelism), token trees
+             and guided decoding on meshes, ranks of one four-rank
+             world sharing cuda:0 over gloo (its first two ranks make
+             the tp 2 meshes).  First row R (fp8) on a rank's
+             Mixtral-8x7B expert stacks ([4, ...] at tp 2, [2, ...] in
+             the shift program; 128 and 512 rows, every row of the step
+             with the other ranks' experts' rows clamped in), kernel 5 on
+             SwiftKV-8B's fused K / V piece ([4096, 16384] and [4096,
+             8192]; 16 and 2048 rows) and kernel 1t on the tree verify
+             step at a rank's heads, against their plain versions, timed
+             beside the bound and ``torch._grouped_mm`` / ``torch.mm`` /
+             masked SDPA.  Then each model on one device (its logits and
+             pages on 2 prompts, prefilled in the SP program and decoded
+             one token in the shift one, written as references; the same
+             through the plain matmuls: its noise floor) and on its
+             worlds, each rank's logits, pages and tokens held against
+             it (the bounds :func:`floor_bounds` sets from phase 12's
+             and that floor): (a) Llama-3.1-SwiftKV-8B fp8 at 32 layers
+             (16 on the projected KV), 8 prompts of 128-1024 tokens x
+             16, on tp 2 (pipelined) and on sp 2 x tp 2 with shift and
+             suffix decoding on the fused loop (the cache seeded from the
+             single device's tokens), layer 31's pages those of the
+             later layers' projection; (b) Mixtral-8x7B fp8 at 32 layers
+             on tp 2 (4 experts a rank) and at 16 on sp 2 x tp 2 with
+             shift (2 experts a rank in the shift program), its routers
+             forced onto the single device's experts for the checks,
+             held to the single device with the rounding of the world's
+             row-parallel sums (the expert block's and attention's output
+             projection's: each rank's share rounded to bf16, then the
+             shares added), whose own reading against the plain single
+             device is printed beside, 4 prompts x 16; (c) token trees
+             on sp 2 x tp 2 with shift, Llama-3.1-8B fp8 at 32 layers, 4
+             prompts x 16, the suffix cache seeded as phase 5 seeds it:
+             drafts verified and
+             accepted on every rank, the tokens the single device's tree
+             run's up to a near tie (a parting only where its top-2
+             margin is within twice the world's largest logits
+             difference); (d) one guided request (a date) on world (a)
+             tp 2's pipelined step, each rank's grammar pool, the tokens
+             the single device's up to a near tie.  Every rank's tokens
+             equal; kernels 1 (1t for trees), 2, 5 and R launched on
+             every rank where the world's path runs them; step ms by
+             mode, init seconds and peak memory per rank (gloo,
+             host-staged, one card).
 Last, one BERT-base device batch of phase 9 (64 x 512 tokens), a
 shorter bf16 and fp8 run of phase 5, the drafter chains and the bench's
 device step (its CUDA graph) under ``torch.profiler``, each on an engine
@@ -442,7 +486,7 @@ Q_STD = 5.0
 
 PHASES = ("device", "build", "kernels", "forward", "generate", "bench",
           "pipeline", "serve", "embed", "quality", "moe", "parallel",
-          "serve_mesh")
+          "serve_mesh", "mesh_models")
 # Corruption rates of phase 6's curve (the bench's own sweep is 0.12, 0.3,
 # 0.6, 1.0; two points keep the script within its time).
 BENCH_CURVE_RATES = (0.3, 1.0)
@@ -1128,7 +1172,7 @@ class TreeCase(Case):
     token (the frontier) at depth-based positions and linear slots, with
     the ancestor bitmasks the runner builds."""
 
-    def __init__(self, name, tree_reqs, kv_dtype, rng, t_pad):
+    def __init__(self, name, tree_reqs, kv_dtype, rng, t_pad, **kw):
         import torch
 
         from arcticinference_tpu_torch.ops.cuda.ragged_attention import (
@@ -1137,7 +1181,7 @@ class TreeCase(Case):
         n_new = [c + len(p or ()) for _, c, p in tree_reqs]
         super().__init__(name, [(ctx, n) for (ctx, _, _), n in
                                 zip(tree_reqs, n_new)], kv_dtype, rng,
-                         t_pad=t_pad)
+                         t_pad=t_pad, **kw)
         self.row_mask_np = np.zeros(self.t, np.int32)
         self.tree_start_np = np.full(self.b, -1, np.int32)
         i = 0
@@ -5025,15 +5069,22 @@ def moe_engine_config(quantization, layers=None, spec=None):
 
 
 @contextlib.contextmanager
-def recorded_routing(forced=None):
+def recorded_routing(forced=None, sp_rank=0, save=None):
     """Record every MoE layer's chosen experts (``moe.route``'s top-k).
-    With ``forced`` (a list of each layer's top-k from another run) each
-    layer takes those experts instead, their gate weights a softmax over
-    this run's logits at them, and the record is this run's own top-k."""
+    With ``forced`` (a list of each layer's top-k from another run, or
+    the directory :func:`save_routes` wrote them into) each layer takes
+    those experts instead, their gate weights a softmax over this run's
+    logits at them, and the record is this run's own top-k.  A forced
+    top-k of more rows than the call routes is a whole step's, of which
+    a rank of the SP program routes its ``sp_rank``-th chunk.  ``save``:
+    a directory the record is written into at the end."""
     import torch
 
     from arcticinference_tpu_torch.ops import moe
 
+    if isinstance(forced, Path):
+        forced = [torch.from_numpy(np.load(forced / f"route_{i}.npy"))
+                  for i in range(len(list(forced.glob("route_*.npy"))))]
     orig = moe.route
     calls = []
 
@@ -5042,7 +5093,10 @@ def recorded_routing(forced=None):
         calls.append(top_i)
         if forced is None:
             return gate, top_i
-        top_i = forced[len(calls) - 1]
+        top_i = forced[len(calls) - 1].to(x.device)
+        if top_i.shape[0] != x.shape[0]:
+            c = x.shape[0]
+            top_i = top_i[sp_rank * c:(sp_rank + 1) * c]
         logits = torch.matmul(x.float(), w_router.float())
         return torch.softmax(logits.gather(1, top_i), dim=-1), top_i
 
@@ -5051,6 +5105,15 @@ def recorded_routing(forced=None):
         yield calls
     finally:
         moe.route = orig
+    if save is not None:
+        save_routes(calls, save)
+
+
+def save_routes(calls, path: Path) -> None:
+    """:func:`recorded_routing`'s record as ``route_<call>.npy`` files."""
+    path.mkdir(exist_ok=True)
+    for i, top_i in enumerate(calls):
+        np.save(path / f"route_{i}.npy", top_i.cpu().numpy())
 
 
 def moe_forward_pair(runner, si, inputs, num_layers) -> dict:
@@ -5478,7 +5541,9 @@ def sp_then_shift(eng, ids) -> dict:
                 si = runner.prepare_inputs(sched)
                 inputs = runner.upload(si.arrays)
                 h = runner.prefill_hidden(inputs, si.attn_qb)
-                row = h[inputs["logits_indices"][:1].long()]
+                # SwiftKV's forward returns the sample rows themselves.
+                row = (h[:1] if runner.returns_rows
+                       else h[inputs["logits_indices"][:1].long()])
                 out[f"{stage}_logits"] = runner.logits(row)[0].cpu().numpy()
                 blocks = torch.tensor(req.block_ids, device=runner.kv.device)
                 out[f"{stage}_pages"] = runner.kv[layers][:, blocks].float() \
@@ -5488,23 +5553,22 @@ def sp_then_shift(eng, ids) -> dict:
     return out
 
 
-def timed_generate(eng, prompts, max_tokens) -> tuple:
-    """``LLMEngine``'s step loop over ``prompts`` (the loop ``LLM.
-    generate`` runs); returns (tokens per prompt, wall ms of each step by
-    the mesh mode its forwards ran: ``sp``, ``shift`` or ``single``)."""
+def timed_generate(eng, prompts, params) -> tuple:
+    """``LLMEngine``'s step loop over ``prompts`` with the
+    ``SamplingParams`` ``params`` (the loop ``LLM.generate`` runs);
+    returns (tokens per prompt, each token's top log-probabilities (when
+    asked for), the wall ms of the steps by the mesh mode their forwards
+    ran: ``sp``, ``shift`` or ``single``)."""
     import torch
 
-    from arcticinference_tpu_torch.engine.request import SamplingParams
-
     runner = eng.runner
-    for i, p in enumerate(prompts):
-        eng.add_request(f"p{i}", p, SamplingParams(max_tokens=max_tokens,
-                                                   ignore_eos=True))
-    done, step_ms = {}, {}
+    reqs = [eng.add_request(f"p{i}", p, params)
+            for i, p in enumerate(prompts)]
+    step_ms = {}
     while eng.has_unfinished:
         before = dict(runner.mode_steps)
         t = time.perf_counter()
-        finished = eng.step()
+        eng.step()
         if runner.device.type == "cuda":
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
@@ -5512,49 +5576,63 @@ def timed_generate(eng, prompts, max_tokens) -> tuple:
                if c > before.get(m, 0)]
         if len(ran) == 1:
             step_ms.setdefault(ran[0], []).append(ms)
-        for r in finished:
-            done[r.req_id] = list(r.output_token_ids)
-    return [done[f"p{i}"] for i in range(len(prompts))], step_ms
+    return ([list(r.output_token_ids) for r in reqs],
+            [[{int(k): float(v) for k, v in d.items()}
+              for d in r.output_logprobs] for r in reqs],
+            {m: dict(steps=len(v), p50_ms=float(np.median(v)),
+                     mean_ms=float(np.mean(v))) for m, v in step_ms.items()})
 
 
-def engine_checks(eng, prompts, ref: Path, write: bool) -> dict:
+def engine_checks(eng, prompts, ref: Path, write: bool, save=None,
+                  also=None) -> dict:
     """:func:`sp_then_shift` over ``prompts``: the single device's
     kernel run (``write``) saves its logits and pages into ``ref``; any
     other run (a rank, or the single device through the plain matmuls)
-    holds its own against them (a rank: its head slice of the pages)."""
+    holds its own against them (a rank: its head slice of the pages).
+    ``save``: a directory this run's own are written into too (another
+    reference); ``also``: a second reference directory, its checks under
+    the keys ``also/<key>``."""
     from arcticinference_tpu_torch.parallel import mesh as mesh_lib
 
     ref.mkdir(exist_ok=True)
+    if save is not None:
+        save.mkdir(exist_ok=True)
+    count, first = eng.arch.num_kv_heads, 0
+    if eng.mesh is not None:
+        count, first = mesh_lib.kv_cache_heads(eng.arch.num_kv_heads,
+                                               eng.mesh)
+    d = eng.arch.head_dim
     checks = {}
+
+    def check(key, got):
+        for where in (ref, also):
+            if where is None:
+                continue
+            want = np.load(where / f"{key}.npy")
+            name = key if where is ref else f"also/{key}"
+            if "logits" in key:
+                checks[name] = logits_check(got, want)
+                continue
+            want = want[..., first * d:(first + count) * d]
+            checks[name] = [dict(
+                layer=layer,
+                rel_diff=float(np.linalg.norm(got[j] - want[j])
+                               / np.linalg.norm(want[j])),
+                max_abs_diff=float(np.abs(got[j] - want[j]).max()))
+                for j, layer in enumerate((0, eng.arch.num_layers - 1))]
+
     for i, ids in enumerate(prompts):
         got = sp_then_shift(eng, ids)
         for stage in ("prefill", "decode"):
-            key = f"{stage}_logits_{i}"
-            if write:
-                np.save(ref / f"{key}.npy", got[f"{stage}_logits"])
-            else:
-                checks[key] = logits_check(got[f"{stage}_logits"],
-                                           np.load(ref / f"{key}.npy"))
-            if i >= PARALLEL_PAGE_PROMPTS:
-                continue
-            key = f"{stage}_pages_{i}"
-            pages = got[f"{stage}_pages"]
-            if write:
-                np.save(ref / f"{key}.npy", pages)
-                continue
-            count, first = eng.arch.num_kv_heads, 0
-            if eng.mesh is not None:
-                count, first = mesh_lib.kv_cache_heads(
-                    eng.arch.num_kv_heads, eng.mesh)
-            d = eng.arch.head_dim
-            want = np.load(ref / f"{key}.npy")[..., first * d:
-                                               (first + count) * d]
-            checks[key] = [dict(
-                layer=layer,
-                rel_diff=float(np.linalg.norm(pages[j] - want[j])
-                               / np.linalg.norm(want[j])),
-                max_abs_diff=float(np.abs(pages[j] - want[j]).max()))
-                for j, layer in enumerate((0, eng.arch.num_layers - 1))]
+            for kind in ("logits", "pages"):
+                if kind == "pages" and i >= PARALLEL_PAGE_PROMPTS:
+                    continue
+                key = f"{stage}_{kind}_{i}"
+                for where in (ref if write else None, save):
+                    if where is not None:
+                        np.save(where / f"{key}.npy", got[f"{stage}_{kind}"])
+                if not write:
+                    check(key, got[f"{stage}_{kind}"])
     return checks
 
 
@@ -5622,6 +5700,7 @@ def parallel_run(par, prompts, ref_dir, device, dims) -> dict:
     import torch
 
     from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.engine.request import SamplingParams
 
     cuda = device.startswith("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5654,11 +5733,9 @@ def parallel_run(par, prompts, ref_dir, device, dims) -> dict:
         runs = {}
         for name, pipelined in (("pipelined", True), ("sync", False)):
             eng._pipeline = pipelined
-            toks, step_ms = timed_generate(eng, prompts, PARALLEL_NEW_TOKENS)
-            runs[name] = dict(tokens=toks, step_ms={
-                m: dict(steps=len(v), p50_ms=float(np.median(v)),
-                        mean_ms=float(np.mean(v)))
-                for m, v in step_ms.items()})
+            toks, _, step_ms = timed_generate(eng, prompts, SamplingParams(
+                max_tokens=PARALLEL_NEW_TOKENS, ignore_eos=True))
+            runs[name] = dict(tokens=toks, step_ms=step_ms)
         res["launches"] = launch_counts()
         res["runs"] = runs
         res["mode_steps"] = dict(eng.runner.mode_steps)
@@ -6090,6 +6167,623 @@ def phase_serve_mesh(rng, device="cuda:0", dims=None, card=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: SwiftKV, Mixtral, token trees and guided decoding on meshes
+# ---------------------------------------------------------------------------
+
+# Phase 14 runs phase 12's worlds (ranks sharing cuda:0 over gloo) in one
+# world of four ranks, whose first two make the tp 2 meshes.
+MESH_TP2, MESH_SHIFT = PARALLEL_WORLDS[0][1], PARALLEL_WORLDS[1][1]
+# Prompts whose logits and pages each world holds against the single
+# device's (a prefill in the SP program, then a decode step in the shift
+# one: sp_then_shift); two keep the whole script within its time (the
+# SP prefills of up to 1024 tokens cost 1-3 s a prompt over gloo).
+MESH_CHECK_PROMPTS = 2
+# A mesh sums in a third order.  The one device's noise floor (its plain
+# matmuls B against its kernels A) reads |A - B|; the mesh C lies within
+# |A - C| <= |A - T| + |T - C| of A, each term of the floor's size
+# around the exact T: twice the floor on the logits' and pages' relative
+# differences, four times on the cosine's deficit (quadratic in them).
+# A mesh also rounds each rank's share of a row-parallel sum before the
+# sum adds them, which the one device never does.  A mixture of experts'
+# A is the one device with that rounding (:func:`mesh_rounding`), whose
+# own reading against the plain one device is reported beside (PERF.md,
+# Findings).
+MESH_FLOOR_FACTOR = 2.0
+# The row-parallel sums whose rounding :func:`mesh_rounding` gives the
+# one device, each alone and then all (the reference).
+MESH_ROUNDINGS = (("experts",), ("wo",), ("experts", "wo"))
+# Mixtral-8x7B's depth in the sp 2 x tp 2 world: its four ranks each hold
+# half the experts (stored cut over tp), so 32 layers would need ~84 GiB
+# of fp8 experts on the one card; 16 layers hold ~42 GiB.
+MESH_MOE_SHIFT_LAYERS = 16
+# Traffic: SwiftKV 8 prompts of 128-1024 tokens x 16 (phase 12's);
+# Mixtral 4 x 16; token trees 4 x 16 (Llama-3.1-8B).
+MESH_MOE_PROMPTS = 4
+MESH_TREE_PROMPTS = 4
+# The guided request of world (a) tp 2: a date over the synthetic
+# 128256-token vocabulary (phase 7's grammar).
+MESH_GUIDED = GUIDED_SPECS[1][1]
+# Row R on a rank's Mixtral-8x7B expert stacks: (world, experts a rank
+# holds), at a decode step's 128 rows (64 x top-2) and 512.
+MESH_MOE_RANKS = (("tp2", 4), ("sp2tp2 shift", 2))
+MESH_MOE_ROWS = (128, 512)
+# Kernel 5 on Llama-3.1-SwiftKV-8B's fused K / V operand as a rank holds
+# it: the 16 later layers' K and V parts of 1024 / (tp [* sp]) columns,
+# per-column fp8 scales; a decode step's rows and a 2048-token step's.
+MESH_SWIFT_KV_SHAPES = (("tp2 wkv_swift", 4096, 16384, (512,) * 32),
+                        ("sp2tp2 shift wkv_swift", 4096, 8192, (256,) * 32))
+MESH_SWIFT_KV_ROWS = (16, 2048)
+
+
+def phase_mesh_model_kernels(rng, seed):
+    """Row R, kernel 5 and kernel 1t against their plain versions at the
+    shapes a rank of phase 14 runs them (timed, with the bound and the
+    library call beside): row R (fp8) on a rank's Mixtral-8x7B expert
+    stacks at :data:`MESH_MOE_ROWS` rows, every row of the step (the rows
+    routed to other ranks' experts clamped into the last group, as
+    ``_moe_mlp`` clamps them on rank 0); kernel 5 on SwiftKV-8B's fused
+    K / V piece; kernel 1t on the 30-node tree verify step at a rank's
+    heads.  Returns (grouped, fp8, tree) cases."""
+    import torch
+
+    from arcticinference_tpu_torch.models.mixtral import quantize_experts
+    from arcticinference_tpu_torch.ops.attention import (
+        ragged_paged_attention_reference)
+    from arcticinference_tpu_torch.ops.cuda import fp8_matmul as fm
+    from arcticinference_tpu_torch.ops.cuda import ragged_attention as ra
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    grouped, fp8_cases, tree = [], [], []
+    for tag, el in MESH_MOE_RANKS:
+        for wname, k, n in MOE_SHAPES:
+            q = quantize_experts(torch.randn(
+                (el, k, n), generator=gen, device="cuda").to(torch.bfloat16),
+                "fp8")
+            for r in MESH_MOE_ROWS:
+                c8 = moe_counts(rng, "uniform", r)
+                counts = np.concatenate([c8[:el - 1], [c8[el - 1:].sum()]])
+                offsets = torch.tensor(np.concatenate([[0], np.cumsum(
+                    counts)]), dtype=torch.int32, device="cuda")
+                xs = torch.randn((r, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                grouped.append(moe_kernel_case(
+                    f"fp8 {tag} {wname} [{el},{k},{n}] R={r} uniform", xs,
+                    q, offsets, counts, timed=True))
+            del q
+            torch.cuda.empty_cache()
+    for name, k, n, parts in MESH_SWIFT_KV_SHAPES:
+        q = quantized_weight("fp8", k, n, parts, gen)
+        for m in MESH_SWIFT_KV_ROWS:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            fp8_cases.append(run_matmul_case(
+                f"fp8 {name} [{k},{n}] M={m}", q, x, torch.bfloat16,
+                fm.fp8_matmul_kernel, fm.fp8_matmul_reference))
+        del q
+        torch.cuda.empty_cache()
+    trees = [(int(c), 1, TREE_PARENTS) for c in rng.integers(896, 1153, 16)]
+    for hq, hkv in SHARD_ATTN_HEADS:
+        name = (f"rank Hq={hq} Hkv={hkv} tree verify 16x(1+{TREE_NODES})"
+                "@ctx~1024 bf16")
+        case = TreeCase(name, trees, torch.bfloat16, rng, 512, hq=hq,
+                        hkv=hkv)
+        sched = case.schedule(32)
+
+        def kern(case=case, sched=sched):
+            return ra.ragged_paged_attention_kernel(
+                case.q, case.kv, case.positions, case.req_idx,
+                case.block_tables, case.seq_lens, qb=32, schedule=sched,
+                kv_scale=case.kv_scale, layer=case.layer)
+
+        def plain(case=case):
+            return ragged_paged_attention_reference(
+                case.q, case.kv[case.layer], case.positions, case.req_idx,
+                case.block_tables, case.seq_lens,
+                kv_scale=case.kv_scale[case.layer],
+                tree_start=case.tree_start, row_tree_mask=case.row_mask)
+
+        case.name = f"{name} qb=32"
+        tree.append(run_case(case, kern, plain))
+        del case
+        torch.cuda.empty_cache()
+    failed = [c["case"] for c in grouped + fp8_cases + tree if not c["ok"]]
+    if failed:
+        raise AssertionError(f"kernel disagrees with plain version: {failed}")
+    return grouped, fp8_cases, tree
+
+
+def mesh_model_config(job, par=None):
+    """Phase 14's engine of ``job`` (its ``model`` of :data:`MODELS` in
+    fp8, its ``layers``, its ``spec``: SpeculativeConfig keywords) on
+    ``par``'s mesh, sized as phase 12's (2048-token steps, 320 cache
+    blocks a rank, prefix caching off); the pipelined step unless a
+    speculator runs."""
+    from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
+                                                  ModelConfig,
+                                                  ParallelConfig,
+                                                  SchedulerConfig,
+                                                  SpeculativeConfig)
+
+    arch_name, dims = MODELS[job["model"]]
+    dims = dict(dims)
+    if job.get("layers"):
+        dims["num_hidden_layers"] = job["layers"]
+    spec = job.get("spec")
+    return EngineConfig(
+        model=ModelConfig(model=arch_name, dtype="bfloat16",
+                          max_model_len=2048, quantization="fp8",
+                          hf_overrides=dims),
+        cache=CacheConfig(num_blocks=PARALLEL_BLOCKS,
+                          enable_prefix_caching=False),
+        scheduler=SchedulerConfig(max_num_seqs=PARALLEL_PROMPTS,
+                                  max_num_batched_tokens=2048),
+        parallel=ParallelConfig(**(par or {})),
+        speculative=None if spec is None else SpeculativeConfig(**spec))
+
+
+@contextlib.contextmanager
+def mesh_rounding(par, parts, wo=None):
+    """Mixtral on one device with the rounding of the row-parallel sums of
+    a world ``par``: each sum that world splits over its ranks (tp of
+    them in the SP program; tp x sp in the shift program, which runs the
+    steps of at most its threshold's tokens) taken as that many shares,
+    each rounded to the activations' dtype and the shares added in it, as
+    each rank rounds its share before the sum adds them.  ``parts``:
+    ``"experts"``, the expert block (its experts cut into shards; the
+    router runs once a layer, the shards share its experts), and
+    ``"wo"``, attention's output projection (the rows of ``wo``, the
+    stacked projection, cut into the heads' shares)."""
+    import types
+
+    from arcticinference_tpu_torch.models import llama as llama_mod
+    from arcticinference_tpu_torch.models import mixtral
+    from arcticinference_tpu_torch.ops import moe
+    from arcticinference_tpu_torch.ops.fp8 import QuantizedLinear
+
+    tp = par.get("tensor_parallel_size", 1)
+    sp = par.get("ulysses_sequence_parallel_size", 1)
+    shift = par.get("enable_shift_parallel", False) and sp > 1
+    threshold = par.get("shift_parallel_threshold", 0)
+    moe_mlp0, matmul0 = mixtral._moe_mlp, llama_mod.matmul
+
+    def shares(rows):
+        return tp * sp if shift and rows <= threshold else tp
+
+    def cut(w, start, size, scale_too):
+        """Rows ``start .. start + size`` of ``w`` (an expert stack's
+        experts, with their scales; a product's input rows, whose scales
+        are per layer or column)."""
+        if isinstance(w, QuantizedLinear):
+            scale = w.scale.narrow(0, start, size) if (
+                scale_too and w.scale.dim() > 0) else w.scale
+            return QuantizedLinear(w.weight.narrow(0, start, size), scale)
+        return w.narrow(0, start, size)
+
+    def total(ys):
+        return sum(ys[1:], ys[0])
+
+    def moe_mlp(x, lp, arch, pctx=None):
+        el = arch.num_experts // shares(x.shape[0])
+        route, routed = moe.route, []
+
+        def once(*a):
+            if not routed:
+                routed.append(route(*a))
+            return routed[0]
+
+        moe.route = once
+        try:
+            return total([moe_mlp0(
+                x, dict(lp, **{k: cut(lp[k], e0, el, True)
+                               for k in ("w_gate", "w_up", "w_down")}),
+                arch, types.SimpleNamespace(
+                    moe_expert_range=lambda _, e0=e0: (e0, el)))
+                for e0 in range(0, arch.num_experts, el)])
+        finally:
+            moe.route = route
+
+    wo_ptrs = set()
+    if "wo" in parts:
+        w = wo.weight if isinstance(wo, QuantizedLinear) else wo
+        wo_ptrs = {w[i].data_ptr() for i in range(w.shape[0])}
+
+    def matmul(x, w, out_dtype=None):
+        if (w.weight if isinstance(w, QuantizedLinear)
+                else w).data_ptr() not in wo_ptrs:
+            return matmul0(x, w, out_dtype)
+        size = x.shape[-1] // shares(x.shape[0])
+        return total([matmul0(x[:, k0:k0 + size].contiguous(),
+                              cut(w, k0, size, False), out_dtype)
+                      for k0 in range(0, x.shape[-1], size)])
+
+    if "experts" in parts:
+        mixtral._moe_mlp = moe_mlp
+    llama_mod.matmul = matmul
+    try:
+        yield
+    finally:
+        mixtral._moe_mlp, llama_mod.matmul = moe_mlp0, matmul0
+
+
+def mesh_model_run(job, par, prompts, ref_dir, device, members=None,
+                   seed_tokens=None) -> dict:
+    """One engine of phase 14 on ``device`` (``cuda:0``; every rank
+    shares it): the single device (``par`` None; it writes the logits,
+    pages and, with ``job["routes"]``, Mixtral's experts into ``ref_dir``
+    and measures its own noise floor through the plain matmuls) or one
+    rank of a world over ``members`` (it holds its own against them,
+    Mixtral's routers forced onto the single device's experts).  Then
+    the job's traffic, the kernels' launches counted over it: greedy
+    tokens (with ``seed_tokens``, the suffix cache seeded from them as
+    phase 5 seeds it; ``job["tree"]`` on the single device first runs
+    once unseeded, which gives the seed); with ``job["guided"]`` one
+    guided request (the single device on the synchronous step with its
+    top-2 log-probabilities, a rank on the pipelined step and the grammar
+    pool).  A mixture of experts (``job["routes"]``): the single device
+    also runs the checks with the rounding of the row-parallel sums of
+    the world ``job["world"]`` (:func:`mesh_rounding`; all of them:
+    written as the ranks' reference)."""
+    import torch
+
+    from arcticinference_tpu_torch.engine.llm import LLM
+    from arcticinference_tpu_torch.engine.request import SamplingParams
+    from arcticinference_tpu_torch.parallel.world import subgroup
+    from arcticinference_tpu_torch.spec.suffix_cache import SuffixCache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device.startswith("cuda")
+    ref = Path(ref_dir)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = mesh_model_config(job, par)
+    llm = LLM(cfg, device=device,
+              group=subgroup(members) if par and members else None)
+    eng = llm.engine
+    runner, arch = eng.runner, eng.arch
+    if cuda:
+        torch.cuda.synchronize()
+    res = dict(init_s=time.perf_counter() - t0)
+    write = eng.mesh is None
+    check_prompts = prompts[:MESH_CHECK_PROMPTS]
+    routed = bool(job.get("routes"))
+
+    def routes(force):
+        if not routed:
+            return contextlib.nullcontext()
+        return recorded_routing(
+            ref / "routes" if force else None,
+            sp_rank=eng.mesh.sp_rank if eng.mesh is not None else 0,
+            save=None if force else ref / "routes")
+
+    t0 = time.perf_counter()
+    with routes(not write):
+        # A mixture of experts on a mesh: held to the single device with
+        # the mesh's rounding of its row-parallel sums (``ref / "mesh"``),
+        # and read against the plain single device too.
+        res["checks"] = engine_checks(
+            eng, check_prompts, ref / "mesh" if routed and not write else ref,
+            write=write, also=ref if routed and not write else None)
+    if write:
+        # The one device's own noise floor: its plain matmuls (another
+        # summation order) against its kernels, on a fresh cache.
+        runner.kv.zero_()
+        with plain_matmuls(), routes(True):
+            res["noise"] = engine_checks(eng, check_prompts, ref,
+                                         write=False)
+    if write and routed:
+        # The one device with the rounding of the world's row-parallel
+        # sums (:func:`mesh_rounding`), each part alone and all together
+        # (the world's reference), read against the plain single device.
+        res["rounding"] = {}
+        for parts in MESH_ROUNDINGS:
+            runner.kv.zero_()
+            with mesh_rounding(job["world"], parts,
+                               runner.params["layers"]["wo"]), routes(True):
+                res["rounding"][" + ".join(parts)] = engine_checks(
+                    eng, check_prompts, ref, write=False,
+                    save=ref / "mesh" if parts == MESH_ROUNDINGS[-1]
+                    else None)
+    res["checks_s"] = time.perf_counter() - t0
+    greedy = SamplingParams(max_tokens=job["new"], ignore_eos=True,
+                            logprobs=2 if job.get("tree") else None)
+    if job.get("tree") and write:
+        res["seed_tokens"] = seed_tokens = timed_generate(
+            eng, prompts, greedy)[0]
+        eng._suffix_cache = SuffixCache(
+            cfg.speculative.suffix_cache_max_depth)
+    if seed_tokens is not None:
+        seed_suffix_cache(eng._suffix_cache, prompts, seed_tokens,
+                          arch.vocab_size)
+    spec0 = (eng.spec_stats.num_drafts, eng.spec_stats.num_accepted_tokens)
+    reset_counts()
+    t0 = time.perf_counter()
+    tokens, logprobs, step_ms = timed_generate(eng, prompts, greedy)
+    res.update(tokens=tokens, logprobs=logprobs, step_ms=step_ms,
+               generate_s=time.perf_counter() - t0,
+               drafts=eng.spec_stats.num_drafts - spec0[0],
+               accepted=eng.spec_stats.num_accepted_tokens - spec0[1],
+               width_stats=dict(eng.width_stats or {}),
+               step_kinds=sorted(eng.step_times.summary()))
+    if job.get("guided"):
+        from arcticinference_tpu_torch.serving.structured import (
+            make_guided_decoder)
+
+        tok = SyntheticTokenizer(arch.vocab_size)
+        pipelined0 = eng.step_times.summary().get("pipelined", {}).get(
+            "count", 0)
+        dec = make_guided_decoder(tok, MESH_GUIDED,
+                                  vocab_size=arch.vocab_size)
+        t0 = time.perf_counter()
+        g_tok, g_lp, _ = timed_generate(eng, prompts[:1], SamplingParams(
+            max_tokens=job["new"], guided=dec,
+            logprobs=2 if write else None))
+        res["guided"] = dict(
+            tokens=g_tok[0], logprobs=g_lp[0], text=tok.decode(g_tok[0]),
+            pool=runner._guided_pool is not None,
+            pipelined_steps=eng.step_times.summary().get(
+                "pipelined", {}).get("count", 0) - pipelined0,
+            seconds=time.perf_counter() - t0)
+    res.update(launches=launch_counts(), mode_steps=dict(runner.mode_steps),
+               peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if cuda else None),
+               kv_shape=list(runner.kv.shape),
+               experts_held=(int(runner.params["layers"]["w_gate"].shape[1])
+                             if getattr(arch, "num_experts", 0) else None))
+    llm.close()
+    del llm, eng, runner
+    if cuda:
+        free_cuda_memory()
+    return res
+
+
+def clear_agreement(got, want, want_logprobs, threshold) -> dict:
+    """``got`` against the single device's ``want``, prompt by prompt: a
+    prompt may part from it only at a token whose top-2 log-probability
+    margin on the single device is within ``threshold`` (a near tie that
+    the summation order decides; past it the two runs continue from other
+    tokens).  Returns the prompts equal, where and at which margin the
+    others parted, and ``ok``."""
+    parted = {}
+    for i, (g, w, lp) in enumerate(zip(got, want, want_logprobs)):
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                 None if len(g) == len(w) else min(len(g), len(w)))
+        if j is None:
+            continue
+        top = sorted(lp[j].values(), reverse=True) if j < len(lp) else []
+        parted[i] = dict(at=j, margin=(top[0] - top[1]) if len(top) > 1
+                         else float("inf"))
+    return dict(equal=len(got) - len(parted), of=len(got), parted=parted,
+                threshold=threshold,
+                ok=all(p["margin"] <= threshold for p in parted.values()))
+
+
+def floor_bounds(noise: dict, depth: int) -> dict:
+    """Phase 14's bounds against the single device: phase 12's full-depth
+    bounds (:data:`FULL_LOGITS_TOL`, :data:`FULL_COS`,
+    :data:`FULL_PAGES_LAST_TOL`), widened to :data:`MESH_FLOOR_FACTOR`
+    times this model's own one-device noise floor (``noise``: its plain
+    matmuls against its kernels; its square for the cosine's deficit)
+    where that is larger; layer 0's pages within
+    :data:`PAGES_LAYER0_TOL`."""
+    w = worst_of([noise], depth)
+    rel = max(w[f"{depth} layers {k}_logits"]["max_rel_diff"]
+              for k in ("prefill", "decode"))
+    cos = min(w[f"{depth} layers {k}_logits"]["min_cosine"]
+              for k in ("prefill", "decode"))
+    last = max(w[f"{depth} layers {k}_pages"][f"layer {depth - 1}"]
+               for k in ("prefill", "decode"))
+    f = MESH_FLOOR_FACTOR
+    return dict(logits_rel=max(FULL_LOGITS_TOL, f * rel),
+                cosine=min(FULL_COS, 1 - f * f * (1 - cos)),
+                pages_last=max(FULL_PAGES_LAST_TOL, f * last),
+                pages_layer0=PAGES_LAYER0_TOL, noise_floor=w)
+
+
+def check_mesh_world(name, job, par, ranks, single, keys, wall_s,
+                     card) -> dict:
+    """A world of phase 14 against the single device by the bounds
+    :func:`floor_bounds` sets from its noise floor (a mixture of experts:
+    against the single device with the rounding of the world's
+    row-parallel sums, :func:`mesh_rounding`, that run's reading against the
+    plain single device and the world's reported beside), its tokens
+    across ranks, its launches of ``keys`` on every rank; Mixtral: ``E /
+    tp`` experts a rank; trees: drafts and accepted tokens on every rank,
+    the tokens the single device's up to a near tie
+    (:func:`clear_agreement`, the threshold twice the world's largest
+    logits difference); the guided request alike, on the pipelined step
+    with every rank's grammar pool.  Logs it."""
+    import types
+
+    depth = job.get("layers") or MODELS[job["model"]][1]["num_hidden_layers"]
+    bounds = floor_bounds(single["noise"], depth)
+    failed = []
+    r0 = ranks[0]
+    if any(r["tokens"] != r0["tokens"] for r in ranks):
+        failed.append("ranks returned different tokens")
+    diffs = []
+    for r_i, r in enumerate(ranks):
+        for key, c in r["checks"].items():
+            if key.startswith("also/"):
+                continue
+            if "logits" in key:
+                diffs.append(c["max_abs_diff"])
+                if not (c["finite"] and c["max_abs_diff"]
+                        <= bounds["logits_rel"] * c["max_abs_logit"]
+                        and c["cosine"] >= bounds["cosine"]):
+                    failed.append(f"rank {r_i} {key}: {c}")
+            elif not (c[0]["rel_diff"] <= bounds["pages_layer0"]
+                      and c[1]["rel_diff"] <= bounds["pages_last"]):
+                failed.append(f"rank {r_i} {key}: {c}")
+        missing = [k for k in keys if not r["launches"][k] > 0]
+        if missing:
+            failed.append(f"rank {r_i}: no launches of {missing}")
+    if par.get("enable_shift_parallel") and not (
+            r0["mode_steps"].get("sp", 0) > 0
+            and r0["mode_steps"].get("shift", 0) > 0):
+        failed.append(f"modes {r0['mode_steps']}")
+    threshold = 2 * max(diffs)
+    res = dict(
+        world=name, model=job["model"], layers=depth, parallel=par,
+        spec=job.get("spec"), ranks=len(ranks), wall_s=wall_s,
+        bounds={k: v for k, v in bounds.items() if k != "noise_floor"},
+        noise_floor=bounds["noise_floor"],
+        worst=worst_of([r["checks"] for r in ranks], depth),
+        single_agreement=token_agreement(
+            [types.SimpleNamespace(token_ids=t) for t in r0["tokens"]],
+            single["tokens"]),
+        mode_steps=r0["mode_steps"], step_ms=r0["step_ms"],
+        single_step_ms=single["step_ms"],
+        generate_s=[r["generate_s"] for r in ranks],
+        init_s=[r["init_s"] for r in ranks],
+        checks_s=[r["checks_s"] for r in ranks],
+        peak_gib=[r["peak_gib"] for r in ranks], kv_shape=r0["kv_shape"],
+        launches=[{k: r["launches"][k] for k in keys} for r in ranks],
+        all_launches=[{k: v for k, v in r["launches"].items() if v}
+                      for r in ranks],
+        drafts=[r["drafts"] for r in ranks],
+        accepted=[r["accepted"] for r in ranks],
+        width_stats=r0["width_stats"],
+        timing=f"gloo, host-staged, one card: {card}")
+    if "rounding" in single:
+        # The witnesses: the single device with the rounding of the
+        # world's row-parallel sums against the plain single device,
+        # beside the world against both.
+        res["reference"] = ("the single device with the rounding of the "
+                            "world's row-parallel sums")
+        res["rounding_vs_single"] = {
+            parts: worst_of([c], depth)
+            for parts, c in single["rounding"].items()}
+        res["world_vs_single"] = worst_of(
+            [{k[5:]: c for k, c in r["checks"].items()
+              if k.startswith("also/")} for r in ranks], depth)
+    if r0["experts_held"] is not None:
+        res["experts_held"] = [r["experts_held"] for r in ranks]
+        e = MODELS[job["model"]][1]["num_local_experts"]
+        if any(h != e // par["tensor_parallel_size"]
+               for h in res["experts_held"]):
+            failed.append(f"experts held {res['experts_held']}")
+    if job.get("tree"):
+        if not all(r["drafts"] > 0 and r["accepted"] > 0 for r in ranks):
+            failed.append("a rank verified no drafts or accepted none")
+        res["tree_agreement"] = clear_agreement(
+            r0["tokens"], single["tokens"], single["logprobs"], threshold)
+        if not res["tree_agreement"]["ok"]:
+            failed.append(f"tree tokens {res['tree_agreement']}")
+    if job.get("guided"):
+        g = [r["guided"] for r in ranks]
+        res["guided"] = dict(
+            text=g[0]["text"], single_text=single["guided"]["text"],
+            pools=[x["pool"] for x in g],
+            pipelined_steps=[x["pipelined_steps"] for x in g],
+            seconds=[x["seconds"] for x in g],
+            agreement=clear_agreement(
+                [g[0]["tokens"]], [single["guided"]["tokens"]],
+                [single["guided"]["logprobs"]], threshold))
+        if any(x["tokens"] != g[0]["tokens"] for x in g):
+            failed.append("guided: ranks returned different tokens")
+        if not all(x["pool"] and x["pipelined_steps"] > 0 for x in g):
+            failed.append(f"guided: pools / pipelined steps {res['guided']}")
+        if not res["guided"]["agreement"]["ok"]:
+            failed.append(f"guided tokens {res['guided']['agreement']}")
+    res.update(failed=failed, ok=not failed)
+    log("  mesh_models " + json.dumps(res))
+    return res
+
+
+# Phase 14's worlds: (name, job, mesh, kernels each rank must launch).
+_MESH_KERNELS = ("ragged_paged_attention_kernel",
+                 "grouped_decode_attention_kernel", "fp8_matmul_kernel")
+SWIFT_JOB = dict(model="llama-3.1-swiftkv-8b", new=PARALLEL_NEW_TOKENS)
+MOE_JOB = dict(model="mixtral-8x7b", routes=True, new=PARALLEL_NEW_TOKENS)
+MESH_MODEL_WORLDS = (
+    ("(a) swiftkv tp2, (d) guided", dict(SWIFT_JOB, guided=True), MESH_TP2,
+     _MESH_KERNELS),
+    ("(a) swiftkv sp2 x tp2 shift, suffix fused",
+     dict(SWIFT_JOB, spec=dict(method="suffix", **SUFFIX_KNOBS)),
+     MESH_SHIFT, _MESH_KERNELS),
+    ("(b) mixtral tp2", MOE_JOB, MESH_TP2,
+     _MESH_KERNELS + ("grouped_matmul_kernel",)),
+    (f"(b) mixtral {MESH_MOE_SHIFT_LAYERS} layers sp2 x tp2 shift",
+     dict(MOE_JOB, layers=MESH_MOE_SHIFT_LAYERS), MESH_SHIFT,
+     _MESH_KERNELS + ("grouped_matmul_kernel",)),
+    ("(c) llama trees sp2 x tp2 shift",
+     dict(model="llama-3.1-8b", tree=True, new=PARALLEL_NEW_TOKENS,
+          spec=dict(method="suffix", use_tree_spec=True,
+                    enable_fused_decode=False, **SUFFIX_KNOBS)),
+     MESH_SHIFT, ("ragged_paged_attention_kernel",
+                  "ragged_paged_attention_kernel (tree mask)",
+                  "fp8_matmul_kernel")),
+)
+
+
+def phase_mesh_models(rng, device="cuda:0", card=None) -> dict:
+    """Phase 14 (see the module docstring): each world of
+    :data:`MESH_MODEL_WORLDS` after the single device's run on the same
+    weights and prompts (one run per model and depth, shared by the
+    worlds that follow it; a suffix world seeds its cache from it), the
+    ranks those of one four-rank world over gloo."""
+    from arcticinference_tpu_torch.parallel.world import World
+
+    card = card or smi()
+
+    def prompts_of(model, n):
+        vocab = MODELS[model][1]["vocab_size"]
+        return [[int(x) for x in rng.integers(0, vocab, int(k))]
+                for k in rng.integers(128, 1025, n)]
+
+    prompts = {"llama-3.1-swiftkv-8b": prompts_of("llama-3.1-swiftkv-8b",
+                                                  PARALLEL_PROMPTS),
+               "mixtral-8x7b": prompts_of("mixtral-8x7b", MESH_MOE_PROMPTS),
+               "llama-3.1-8b": prompts_of("llama-3.1-8b",
+                                          MESH_TREE_PROMPTS)}
+    out, singles = {}, {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            World(4, backend="gloo", timeout_s=600,
+                  threads=PARALLEL_THREADS) as world:
+        for name, job, par, keys in MESH_MODEL_WORLDS:
+            key = (job["model"], job.get("layers"))
+            ref = Path(tmp) / f"{job['model']}-{job.get('layers')}"
+            ps = prompts[job["model"]]
+            if key not in singles:
+                # A suffix world's single run is its model's plain run;
+                # a tree world's runs trees itself.
+                free_cuda_memory()
+                ref.mkdir()
+                t0 = time.perf_counter()
+                single = mesh_model_run(
+                    dict(job, world=par, spec=job.get("spec")
+                         if job.get("tree") else None),
+                    None, ps, str(ref), device)
+                single["wall_s"] = time.perf_counter() - t0
+                singles[key] = single
+                free_cuda_memory()
+                log(f"  mesh_models single {job['model']} "
+                    f"({job.get('layers') or 'full depth'}): " + json.dumps(
+                        {k: single[k] for k in (
+                            "init_s", "checks_s", "wall_s", "generate_s",
+                            "step_ms",
+                            "peak_gib", "drafts", "accepted")}))
+            single = singles[key]
+            seed = single.get("seed_tokens") or (
+                single["tokens"] if job.get("spec") else None)
+            n = (par.get("tensor_parallel_size", 1)
+                 * par.get("ulysses_sequence_parallel_size", 1))
+            members = list(range(n)) if n < 4 else None
+            t0 = time.perf_counter()
+            ranks = world.run(mesh_model_run, job, par, ps, str(ref), device,
+                              members=members, seed_tokens=seed,
+                              ranks=range(n))
+            out[name] = check_mesh_world(name, job, par, ranks, single, keys,
+                                         time.perf_counter() - t0, card)
+    if any(not w["ok"] for w in out.values()):
+        raise AssertionError("phase 14: a world failed its checks: "
+                             + json.dumps({k: w["failed"]
+                                           for k, w in out.items()}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -6516,6 +7210,49 @@ def main() -> int:
                 for name, _, _ in SERVE_MESH_WORLDS}
             entry.setdefault("launches", served_worlds[
                 SERVE_MESH_WORLDS[0][0]]["launches"][0][key])
+    if "mesh_models" in phases:
+        t0 = time.perf_counter()
+        log("[mesh_models] row R, kernel 5 and kernel 1t at a mesh rank's "
+            "shapes (Mixtral-8x7B's expert stacks, SwiftKV-8B's fused K / V "
+            "piece, a tree verify step's heads)")
+        mesh_cases = phase_mesh_model_kernels(rng, args.seed)
+        log(f"[mesh_models] kernel cases {time.perf_counter() - t0:.1f} s")
+        log("[mesh_models] LLM.generate on meshes of ranks sharing cuda:0 "
+            "over gloo, each after the single device: "
+            + ", ".join(n for n, _, _, _ in MESH_MODEL_WORLDS))
+        # Its own seed: the same prompts whichever phases ran before.
+        mesh_worlds = phase_mesh_models(np.random.default_rng(args.seed
+                                                              + 14))
+        keys = sorted({k for _, _, _, ks in MESH_MODEL_WORLDS for k in ks})
+        for key in keys:
+            entry = kernels[key]
+            entry["launches_mesh_models"] = {
+                name: [r[key] for r in mesh_worlds[name]["all_launches"]
+                       if key in r] or [0]
+                for name, _, _, ks in MESH_MODEL_WORLDS if key in ks}
+            entry.setdefault("launches", max(
+                max(v) for v in entry["launches_mesh_models"].values()))
+        for key, cases, rep_name in (
+                ("grouped_matmul_kernel", mesh_cases[0],
+                 "fp8 tp2 w_gate [4,4096,14336] R=128 uniform"),
+                ("fp8_matmul_kernel", mesh_cases[1],
+                 "fp8 tp2 wkv_swift [4096,16384] M=16"),
+                ("ragged_paged_attention_kernel (tree mask)", mesh_cases[2],
+                 f"rank Hq=8 Hkv=2 tree verify 16x(1+{TREE_NODES})@ctx~1024 "
+                 "bf16 qb=32")):
+            entry = kernels[key]
+            rep = next(c for c in cases if c["case"] == rep_name)
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms"):
+                entry.setdefault(k, rep[k])
+            entry["max_abs_err"] = max(
+                [entry.get("max_abs_err", 0.0)]
+                + [c["max_abs_err"] for c in cases])
+            entry["cases_mesh_models"] = [{k: c[k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "rel_err") if k in c}
+                for c in cases]
+        log(f"[mesh_models] {time.perf_counter() - t0:.1f} s")
     if shard_cases is not None:
         # The cases at a mesh rank's shapes beside every earlier one; a
         # run without the kernels phase reports them as the row's.

@@ -13,11 +13,20 @@ intra-op thread each; 2-rank layouts run on a subgroup of it).
 - In the world: the sharded forward of both modes at dp = 1 against the
   JAX sharded and single forwards (hidden and the rank's cache slice, at
   the JAX tests' tolerances), the KV layout the two modes share, an SP
-  prefill followed by a shift decode step, quantized weights, and the
-  Qwen2 (q/k/v bias cut) and Qwen3 (per-head q / k norms) families.
+  prefill followed by a shift decode step, quantized weights, the
+  Qwen2 (q/k/v bias cut) and Qwen3 (per-head q / k norms) families, and
+  Llama-SwiftKV (the later layers in the shift layout) and Mixtral
+  (expert parallelism) at (sp, tp) of (1, 4) and (2, 2) in both modes
+  against the JAX single forward at 5e-4 (``tests/test_moe.py``'s
+  bound; its (2, 4) and (1, 8) cases need 8 ranks).
+- Without ranks: the expert-parallel capacity window, each shard's
+  ``_moe_mlp`` summed, against the JAX ``shard_map``'d one at tp 4 on a
+  balanced router (exact against dropless) and on a skewed one whose
+  windows drop rows (the same rows).
 """
 
 import dataclasses
+import functools
 import types
 
 import jax
@@ -29,6 +38,8 @@ import torch
 from arcticinference_tpu import config as jcfg
 from arcticinference_tpu.engine.runner import ModelRunner as JaxRunner
 from arcticinference_tpu.models import llama as jllama
+from arcticinference_tpu.models import llama_swiftkv as jsw
+from arcticinference_tpu.models import mixtral as jmix
 from arcticinference_tpu.models import qwen2 as jqwen2
 from arcticinference_tpu.models import qwen3 as jqwen3
 from arcticinference_tpu.ops import fp8 as jfp8
@@ -39,6 +50,7 @@ from arcticinference_tpu.parallel import ulysses as julysses
 from arcticinference_tpu_torch import config as tcfg
 from arcticinference_tpu_torch.engine.runner import ModelRunner
 from arcticinference_tpu_torch.models import llama as tllama
+from arcticinference_tpu_torch.models import mixtral as tmix
 from arcticinference_tpu_torch.ops import fp8 as tfp8
 from arcticinference_tpu_torch.parallel import mesh as tmesh
 from arcticinference_tpu_torch.parallel.ulysses import ParallelContext
@@ -506,3 +518,146 @@ def test_qwen_families_sharded_forward(world, family):
         for (h, _), in out:
             np.testing.assert_allclose(h, np.asarray(h_ref), rtol=2e-4,
                                        atol=2e-4)
+
+
+# --------------------------------------------------------------------- #
+# SwiftKV and Mixtral on the mesh
+# --------------------------------------------------------------------- #
+
+SWIFT_ARCH = jsw.LlamaSwiftKVArch(**ARCH_KW, num_key_value_layers=1)
+# tests/test_moe.py's ARCH: 8 experts, top 2.
+MOE_ARCH = jmix.MixtralArch(
+    vocab_size=64, hidden_size=64, intermediate_size=96, num_layers=2,
+    num_heads=8, num_kv_heads=8, head_dim=16, num_experts=8,
+    num_experts_per_tok=2)
+
+
+@pytest.fixture(scope="module")
+def family_refs():
+    """Per family: (arch, JAX params, the step's inputs, the JAX single
+    forward's cache and hidden rows); SwiftKV samples rows 3, 10 and 15
+    and a padding row."""
+    out = {}
+    for family, arch, jmod in (("llama_swiftkv", SWIFT_ARCH, jsw),
+                               ("mixtral", MOE_ARCH, jmix)):
+        inputs = build_inputs()
+        if family == "llama_swiftkv":
+            inputs["logits_indices"] = jnp.asarray([3, 10, 15, 0],
+                                                   jnp.int32)
+        jp = jmod.init_params(arch, jax.random.PRNGKey(1), jnp.float32)
+        kv_ref, h_ref = jmod.forward(jp, arch, jalloc(kv_spec(arch)),
+                                     inputs)
+        out[family] = (arch, jp, inputs, np.asarray(kv_ref),
+                       np.asarray(h_ref))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["sp", "shift"])
+@pytest.mark.parametrize("sp,tp", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("family", ["llama_swiftkv", "mixtral"])
+def test_swiftkv_and_moe_sharded_forward_match_jax(world, family_refs,
+                                                   family, sp, tp, mode):
+    """The JAX ``test_sharded_moe_matches_single_chip`` cases, and
+    SwiftKV's (the later layers in the shift layout in both modes):
+    hidden rows and each rank's cache pages against the JAX single
+    forward at 5e-4."""
+    arch, jp, inputs, kv_ref, h_ref = family_refs[family]
+    n = 3 if family == "llama_swiftkv" else 16
+    out = run_port(world, family, arch, port_params(jp),
+                   dict(tensor_parallel_size=tp,
+                        ulysses_sequence_parallel_size=sp), mode, [inputs])
+    d = arch.head_dim * arch.num_kv_heads // (sp * tp)
+    for r, ((h, kv),) in enumerate(out):
+        np.testing.assert_allclose(h[:n], h_ref[:n], rtol=5e-4, atol=5e-4)
+        f = (r % tp) * sp + r // tp
+        np.testing.assert_allclose(kv, kv_ref[..., f * d:(f + 1) * d],
+                                   rtol=5e-4, atol=5e-4)
+
+
+class _ExpertRange:
+    """A parallel context as ``_moe_mlp`` reads it: one shard's experts."""
+
+    def __init__(self, e0: int, el: int):
+        self.e0, self.el = e0, el
+
+    def moe_expert_range(self, num_experts):
+        return self.e0, self.el
+
+
+def _moe_layer(seed, d, f, e):
+    keys = jax.random.split(jax.random.PRNGKey(seed), 4)
+    return {"w_router": jax.random.normal(keys[0], (d, e)) * 0.2,
+            "w_gate": jax.random.normal(keys[1], (e, d, f)) * 0.2,
+            "w_up": jax.random.normal(keys[2], (e, d, f)) * 0.2,
+            "w_down": jax.random.normal(keys[3], (e, f, d)) * 0.2}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ep_moe(d, f, e, k, tp):
+    """(arch, arch at capacity factor 1.0, the JAX ``shard_map``'d
+    ``_moe_mlp`` + ``psum`` at tp ``tp``, jitted once for both routers:
+    the JAX test's construction)."""
+    arch = dataclasses.replace(MOE_ARCH, hidden_size=d, intermediate_size=f,
+                               num_experts=e, num_experts_per_tok=k)
+    arch_c = dataclasses.replace(arch, moe_capacity_factor=1.0)
+    cfg = jcfg.ParallelConfig(tensor_parallel_size=tp)
+    mesh = jmesh.build_mesh(cfg)
+    pctx = julysses.ParallelContext(cfg, "sp")
+    P = jax.sharding.PartitionSpec
+
+    def body(x, wr, wg, wu, wd):
+        lp_l = {"w_router": wr, "w_gate": wg, "w_up": wu, "w_down": wd}
+        return jax.lax.psum(jmix._moe_mlp(x, lp_l, arch_c, pctx), "tp")
+
+    return arch, arch_c, jax.jit(jax.shard_map(
+        body, mesh=mesh, in_specs=(P(), P(), P("tp"), P("tp"), P("tp")),
+        out_specs=P(), check_vma=False))
+
+
+@pytest.mark.parametrize("router", ["balanced", "skewed"])
+def test_ep_capacity_window_matches_jax(router):
+    """``moe_capacity_factor`` 1.0 at tp 4 (the JAX
+    ``test_ep_capacity_balanced_exact`` construction): the four shards'
+    ``_moe_mlp`` summed equals the JAX ``shard_map``'d ``_moe_mlp`` and
+    ``psum`` at 2e-4.  Balanced routing (token i on experts i % 8 and
+    (i + 3) % 8) loses nothing, so both equal the dropless block; the
+    skewed router sends every token to experts 0 and 1, past shard 0's
+    window of 8 of the 32 rows, so both drop the same rows."""
+    d, f, e, k, t, tp = 32, 48, 8, 2, 16, 4
+    lp = _moe_layer(4, d, f, e)
+    x = np.array(jax.random.normal(jax.random.PRNGKey(5), (t, d)))
+    wr = np.zeros((d, e), np.float32)
+    if router == "balanced":
+        wr[:e, :e] = np.eye(e, dtype=np.float32) * 8.0
+        x[:, :e] *= 0.01
+        for i in range(t):
+            x[i, i % e] += 2.0
+            x[i, (i + 3) % e] += 1.0
+    else:
+        wr[:, 0] = 1.0
+        wr[:, 1] = 0.5
+        x = np.abs(x)
+    lp = dict(lp, w_router=jnp.asarray(wr))
+    xj = jnp.asarray(x, jnp.float32)
+    arch, arch_c, ep_moe = _jax_ep_moe(d, f, e, k, tp)
+    want = np.asarray(ep_moe(xj, lp["w_router"], lp["w_gate"], lp["w_up"],
+                             lp["w_down"]))
+    dropless = np.asarray(jax.jit(
+        lambda x, lp: jmix._moe_mlp(x, lp, arch, None))(xj, lp))
+
+    tarch = tmix.MixtralArch(**{fl.name: getattr(arch_c, fl.name)
+                               for fl in dataclasses.fields(arch_c)})
+    tlp = {key: torch.from_numpy(np.array(v)) for key, v in lp.items()}
+    tx = torch.from_numpy(x.astype(np.float32))
+    el = e // tp
+    got = sum(tmix._moe_mlp(
+        tx, dict(tlp, **{key: tlp[key][s * el:(s + 1) * el]
+                         for key in ("w_gate", "w_up", "w_down")}),
+        tarch, _ExpertRange(s * el, el)) for s in range(tp)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    if router == "balanced":
+        np.testing.assert_allclose(got, dropless, rtol=2e-4, atol=2e-4)
+    else:
+        # Shard 0 keeps 8 of its 32 rows: most tokens lost their sum.
+        lost = np.abs(got - dropless).max(axis=1) > 1e-3
+        assert lost.sum() >= t // 2

@@ -55,7 +55,12 @@ def sharded_forward(module_name: str, arch_kw: dict, params: dict,
     arch = module.Arch(**arch_kw)
     cfg = ParallelConfig(**par_kw)
     mesh = mesh_lib.build_mesh(cfg, _group(members))
-    params = mesh_lib.shard_params(params, mesh)
+    params = mesh_lib.shard_params(params, mesh, mesh_lib.specs_of(module))
+    layout = getattr(module, "mesh_layout", None)
+    if layout is not None:
+        # SwiftKV: the later layers' layout, fused as the runner fuses
+        # them (its first layers left unfused).
+        params = module.fuse_params(layout(params, arch, mesh), None)
     heads = mesh_lib.kv_cache_heads(arch.num_kv_heads, mesh)[0]
     kv = allocate_kv_cache(KVCacheSpec(
         num_layers=arch.num_layers, num_kv_heads=heads,
@@ -76,36 +81,70 @@ def sharded_forward(module_name: str, arch_kw: dict, params: dict,
 # Engines
 # --------------------------------------------------------------------- #
 
+_LLAMA_NAMES = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+                "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+                "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+                "w_down": "mlp.down_proj"}
+
+
+def _layer_tensors(lay: dict, i: int, layer: int, names: dict) -> dict:
+    """HF tensors of layer ``i`` of the stacked ``lay`` as model layer
+    ``layer``: norms, the ``names`` weights transposed, q/k/v biases."""
+    pre = f"model.layers.{layer}."
+    t = {pre + "input_layernorm.weight": lay["input_norm"][i],
+         pre + "post_attention_layernorm.weight": lay["post_norm"][i]}
+    for key, name in names.items():
+        t[pre + name + ".weight"] = lay[key][i].t()
+    for key, name in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+        if key in lay:
+            t[pre + f"self_attn.{name}.bias"] = lay[key][i]
+    return t
+
+
 def write_checkpoint(path: str, hf: dict, seed: int = 0) -> None:
-    """A random float32 HF Llama checkpoint (``config.json`` and
-    ``model.safetensors``) from the port's ``init_params``, which both
+    """A random float32 HF checkpoint (``config.json`` and
+    ``model.safetensors``) of the architecture ``hf`` names (Llama,
+    Llama-SwiftKV or Mixtral) from the port's ``init_params``, which both
     packages' loaders read."""
-    from arcticinference_tpu_torch.models import llama
+    from arcticinference_tpu_torch.models import llama, llama_swiftkv, mixtral
 
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    arch = llama.LlamaArch.from_hf_config(hf)
+    kind = (hf.get("architectures") or ["LlamaForCausalLM"])[0]
+    module = {"LlamaSwiftKVForCausalLM": llama_swiftkv,
+              "MixtralForCausalLM": mixtral}.get(kind, llama)
+    arch = module.Arch.from_hf_config(hf)
     gen = torch.Generator().manual_seed(seed)
-    p = llama.init_params(arch, gen, torch.float32, device="cpu")
+    p = module.init_params(arch, gen, torch.float32, device="cpu")
     t = {"model.embed_tokens.weight": p["embed"],
          "model.norm.weight": p["final_norm"]}
     if "lm_head" in p:                        # untied
         t["lm_head.weight"] = p["lm_head"].t()
-    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
-             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
-             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
-             "w_down": "mlp.down_proj"}
-    lay = p["layers"]
-    for i in range(arch.num_layers):
-        pre = f"model.layers.{i}."
-        t[pre + "input_layernorm.weight"] = lay["input_norm"][i]
-        t[pre + "post_attention_layernorm.weight"] = lay["post_norm"][i]
-        for key, name in names.items():
-            t[pre + name + ".weight"] = lay[key][i].t()
-        for key, name in (("bq", "q_proj"), ("bk", "k_proj"),
-                          ("bv", "v_proj")):
-            if key in lay:
-                t[pre + f"self_attn.{name}.bias"] = lay[key][i]
+    if module is llama_swiftkv:
+        ka = arch.num_key_value_layers
+        for i in range(ka):
+            t.update(_layer_tensors(p["layers_a"], i, i, _LLAMA_NAMES))
+        names_b = dict(_LLAMA_NAMES, wq="self_attn.q_proj_swiftkv")
+        del names_b["wk"], names_b["wv"]
+        for i in range(arch.num_swift_layers):
+            t.update(_layer_tensors(p["layers_b"], i, ka + i, names_b))
+            t[f"model.layers.{ka + i}.self_attn.kv_proj_swiftkv.weight"] = \
+                torch.cat([p["wk_swift"][i].t(), p["wv_swift"][i].t()])
+        t["model.norm_swiftkv.weight"] = p["norm_swiftkv"]
+    elif module is mixtral:
+        lay = p["layers"]
+        attn = {k: _LLAMA_NAMES[k] for k in ("wq", "wk", "wv", "wo")}
+        experts = {"w_gate": "w1", "w_up": "w3", "w_down": "w2"}
+        for i in range(arch.num_layers):
+            t.update(_layer_tensors(lay, i, i, attn))
+            pre = f"model.layers.{i}.block_sparse_moe."
+            t[pre + "gate.weight"] = lay["w_router"][i].t()
+            for key, name in experts.items():
+                for e in range(arch.num_experts):
+                    t[pre + f"experts.{e}.{name}.weight"] = lay[key][i][e].t()
+    else:
+        for i in range(arch.num_layers):
+            t.update(_layer_tensors(p["layers"], i, i, _LLAMA_NAMES))
     st_io.save_file({k: v.contiguous() for k, v in t.items()},
                     path / "model.safetensors")
     (path / "config.json").write_text(json.dumps(hf))
@@ -123,17 +162,34 @@ def engine_config(model: str, par: dict | None = None,
         speculative=None if spec is None else SpeculativeConfig(**spec))
 
 
+def _leaves(tree, path=()):
+    """(path, tensor) of every tensor of a parameter tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, QuantizedLinear):
+        yield path, tree.weight
+        yield path + ("scale",), tree.scale
+    else:
+        yield path, tree
+
+
 def run_engine(model: str, par: dict | None, prompts, max_tokens: int = 10,
                quantization=None, spec: dict | None = None,
                unfused: bool = False, members=None, logits: bool = True,
                warm=None, sampling: dict | None = None,
-               pipeline=None) -> dict:
+               pipeline=None, responses: dict | None = None,
+               guided: str | None = None) -> dict:
     """``LLM.generate`` on this rank (``sampling``: more
     ``SamplingParams``; ``pipeline`` False: the synchronous step;
     ``unfused``: the model module without ``fuse_params``, so the runner
-    keeps q/k/v and gate/up apart); returns its tokens (and logprobs),
-    the modes its forwards ran, the step kinds, the fused loop's counts,
-    the layer keys and leaf shapes it holds, its cache's shape, and
+    keeps q/k/v and gate/up apart; ``warm`` / ``responses``: sequences
+    the suffix cache holds first; ``guided``: a regex each request is
+    guided by, a decoder over the checkpoint's tokenizer); returns its
+    tokens (and logprobs), the modes its forwards ran, the step kinds,
+    the fused loop's counts, the layer keys and leaf shapes it holds (the
+    first stack's, and every leaf's), the leaves that are not contiguous,
+    whether it allocated the grammar pool, its cache's shape, and
     (``logits``) the prompt logits of each prompt followed by its
     tokens."""
     with contextlib.ExitStack() as stack:
@@ -146,12 +202,25 @@ def run_engine(model: str, par: dict | None, prompts, max_tokens: int = 10,
         eng = llm.engine
         if warm:
             eng._suffix_cache.update_response("warm", warm)
+        for rid, seq in (responses or {}).items():
+            eng._suffix_cache.update_response(rid, seq)
         if pipeline is not None:
             eng._pipeline = pipeline
+        extra = dict(sampling or {})
+        params = SamplingParams(max_tokens=max_tokens, **extra)
+        if guided is not None:
+            from arcticinference_tpu_torch.serving.structured import (
+                make_guided_decoder)
+
+            params = [SamplingParams(max_tokens=max_tokens,
+                                     guided=make_guided_decoder(
+                                         llm.tokenizer, {"regex": guided}),
+                                     **extra) for _ in prompts]
         outs = llm.generate(prompt_token_ids=prompts,
-                            sampling_params=SamplingParams(
-                                max_tokens=max_tokens, **(sampling or {})))
+                            sampling_params=params)
         tokens = [o.token_ids for o in outs]
+        rp = eng.runner.params
+        first = rp["layers"] if "layers" in rp else rp["layers_a"]
         res = {
             "tokens": tokens,
             "logprobs": [o.logprobs for o in outs],
@@ -159,11 +228,14 @@ def run_engine(model: str, par: dict | None, prompts, max_tokens: int = 10,
             "fn_modes": sorted({k[3] for k in eng.runner._step_fns}),
             "width_stats": eng.width_stats,
             "step_kinds": sorted(eng.step_times.summary()),
-            "layers": {k: tuple(v.shape) for k, v in
-                       eng.runner.params["layers"].items()},
-            "scales": {k: tuple(v.scale.shape) for k, v in
-                       eng.runner.params["layers"].items()
+            "layers": {k: tuple(v.shape) for k, v in first.items()},
+            "scales": {k: tuple(v.scale.shape) for k, v in first.items()
                        if isinstance(v, QuantizedLinear)},
+            "shapes": {"/".join(p): tuple(v.shape)
+                       for p, v in _leaves(rp)},
+            "strided": ["/".join(p) for p, v in _leaves(rp)
+                        if not v.is_contiguous()],
+            "guided_pool": eng.runner._guided_pool is not None,
             "kv_shape": tuple(eng.runner.kv.shape),
             "spec": eng.spec_stats.summary(),
         }
@@ -184,21 +256,30 @@ def build_error(model: str, par: dict, members=None, **kw) -> str:
     return ""
 
 
-def random_config(par: dict | None, quantization=None) -> EngineConfig:
-    """A random-weight Llama (the loader's ``init_params``), GQA 8 / 4."""
-    cfg = engine_config("llama", par, quantization)
+#: Extra widths of the other families' random configs.
+_FAMILY_HF = {"llama": {}, "llama_swiftkv": dict(num_key_value_layers=1),
+              "mixtral": dict(num_local_experts=4, num_experts_per_tok=2)}
+
+
+def random_config(par: dict | None, quantization=None,
+                  family: str = "llama") -> EngineConfig:
+    """A random-weight model of ``family`` (the loader's ``init_params``),
+    GQA 8 / 4."""
+    cfg = engine_config(family, par, quantization)
     cfg.model.hf_overrides = dict(vocab_size=96, hidden_size=64,
                                   intermediate_size=128, num_hidden_layers=2,
                                   num_attention_heads=8,
-                                  num_key_value_heads=4, head_dim=8)
+                                  num_key_value_heads=4, head_dim=8,
+                                  **_FAMILY_HF[family])
     return cfg
 
 
-def rank_params(par: dict, quantization=None, members=None) -> dict:
+def rank_params(par: dict, quantization=None, members=None,
+                family: str = "llama") -> dict:
     """This rank's runner parameters from random weights cut as drawn,
     as numpy (a quantized leaf as (weight, scale), fp8 through
     float32)."""
-    llm = LLM(random_config(par, quantization), device="cpu",
+    llm = LLM(random_config(par, quantization, family), device="cpu",
               group=_group(members))
 
     def leaf(x):
