@@ -153,8 +153,10 @@ class LLMEngine:
         self.tokenizer = None
         self.runner = ModelRunner(config, module, arch, params, self.device,
                                   mesh=self.mesh)
+        # In-engine dp: one block space a dp group.
         self.scheduler = Scheduler(config.scheduler, config.cache,
-                                   self.runner.num_blocks)
+                                   self.runner.num_blocks_per_shard,
+                                   num_shards=self.runner.dp)
         self.engine_stats = EngineStats()
         self.step_times = StepTimeStats()
         self.spec_stats = SpecDecodingStats()
@@ -349,14 +351,17 @@ class LLMEngine:
         """Lay ``batch`` out as one prefill step in cache blocks borrowed
         from the block manager, call ``run`` on its step inputs and free
         the blocks, also when ``run`` or the borrowing raises (nothing
-        enters the scheduler); returns what ``run`` returns."""
+        enters the scheduler); returns what ``run`` returns.  With dp the
+        requests are dp group 0's, whose block space lends the blocks
+        (so the step's rows lie where one device's would)."""
         bm = self.scheduler.block_manager
         reqs = []
         sched = SchedulerOutput()
         try:
             for i, ids in enumerate(batch):
                 req = Request(req_id=f"prefill-{i}", prompt_token_ids=ids,
-                              sampling=SamplingParams(max_tokens=1))
+                              sampling=SamplingParams(max_tokens=1),
+                              dp_shard=0)
                 reqs.append(req)
                 bm.grow_to(req.block_ids, len(ids))
                 sched.scheduled.append(ScheduledRequest(req, len(ids), []))

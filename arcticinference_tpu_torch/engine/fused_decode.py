@@ -54,8 +54,17 @@ alone runs this controller: it announces the loop's initial state and
 its generator's seed at entry, broadcasts each step's program key and
 uploads (and the block table when it changed) before it dispatches, and
 ``fused_exit`` when it leaves; each follower replays the steps.  The
-drafter's parameters are a copy that every rank holds.  Not ported: dp
-and pp.
+drafter's parameters are a copy that every rank holds.
+
+With in-engine dp the slots are dp-major, as in the JAX loop: group g
+owns slots ``[g*Bs, (g+1)*Bs)``, filled with its requests, whose block
+tables hold its shard-local block ids; the state stays whole on every
+rank, each rank's forward runs its group's slots, and the rows are
+gathered over dp.  Under pp the step's ``B * rows`` rows are split into
+pp microbatches of ``B / pp`` whole slots (B is a multiple of pp, and of
+sp), and each microbatch runs the grouped decode kernel with its slots'
+block tables and lengths (``parallel/pp.py``), where the JAX loop runs
+its plain attention.
 """
 
 from __future__ import annotations
@@ -168,20 +177,31 @@ def build_fused_step(runner, drafter, num_spec: int, need_sampling: bool,
             blk = torch.gather(block_tables, 1,
                                (pos // bs).clamp(0, maxblk - 1).long())
             slot = torch.where(row_valid, blk * bs + pos % bs, -1)
+            bt, seqs = block_tables, n_comp + rr
+            if runner.dp > 1:
+                # This rank's dp group's slots; the forward gathers the
+                # groups' rows back into slot order.
+                nb = b // runner.dp
+                mine = slice(runner.mesh.dp_rank * nb,
+                             (runner.mesh.dp_rank + 1) * nb)
+                tokens, pos, row_valid, slot, bt, seqs = (
+                    x[mine] for x in (tokens, pos, row_valid, slot, bt,
+                                      seqs))
+            nb = bt.shape[0]
             inputs = {
                 "input_ids": tokens.reshape(-1),
                 "positions": pos.reshape(-1),
-                "req_idx": torch.where(row_valid, bidx[:, None],
+                "req_idx": torch.where(row_valid, bidx[:nb, None],
                                        -1).reshape(-1),
                 "slot_mapping": slot.reshape(-1).to(torch.int32),
-                "block_tables": block_tables,
-                "seq_lens": n_comp + rr,
+                "block_tables": bt,
+                "seq_lens": seqs,
                 "kv_scale": kv_scale,
             }
             if runner.swift:
                 # SwiftKV: every verify row is a sample row.
                 inputs["logits_indices"] = torch.arange(
-                    b * rr, dtype=torch.int32, device=dev)
+                    nb * rr, dtype=torch.int32, device=dev)
             # On a mesh the step's mode follows its B*rr rows.
             h = runner.forward(inputs, 1, decode_qlen=rr,
                                total_tokens=b * rr)
@@ -503,13 +523,24 @@ class FusedDecodeLoop:
         self._engage_gate = 0
         self._slot_arrays_ready = False
         running = [r for r in self._frontier_requests() if self._fusable(r)]
-        b = _bucket(len(running), eng.config.scheduler.max_num_seqs)
-        if self.runner.mesh is not None:
-            # SP mode cuts the B*(K+1) token rows into sp chunks: B is a
-            # multiple of sp (the extra slots stay dead).
-            sp = eng.config.parallel.ulysses_sequence_parallel_size
-            b = -(-b // sp) * sp
-        slot_of = list(running) + [None] * (b - len(running))
+        pcfg = eng.config.parallel
+        # SP mode cuts the B*(K+1) token rows into sp chunks and PP into
+        # pp microbatches of whole slots: B (a dp group's) is a multiple
+        # of sp * pp (the extra slots stay dead).
+        div = pcfg.ulysses_sequence_parallel_size * \
+            pcfg.pipeline_parallel_size
+        dp = self.runner.dp
+        # dp-major slots: group g owns slots [g*Bs, (g+1)*Bs).
+        per: list[list] = [[] for _ in range(dp)]
+        for r_ in running:
+            per[max(r_.dp_shard, 0)].append(r_)
+        bsh = _bucket(max(len(g) for g in per),
+                      eng.config.scheduler.max_num_seqs)
+        bsh = -(-bsh // div) * div
+        b = bsh * dp
+        slot_of: list = []
+        for g in per:
+            slot_of += g + [None] * (bsh - len(g))
         sc = eng.config.speculative
         if eng._drafter is not None:
             k = eng._drafter.n_predict

@@ -51,9 +51,26 @@ needs), its ``Hkv/(sp*tp)`` cache heads and its column piece of the LM
 head, whose logits are gathered over tp, so every rank samples the same
 tokens from the same logits.  SwiftKV (its later layers in the shift
 layout), Mixtral (expert parallelism) and token trees run there too.
-Refused with ``NotImplementedError`` (:func:`check_mesh`): dp and pp
-(ROADMAP item 2b), int4, and experts that do not divide by the
-expert-parallel degree.
+
+In-engine data parallelism (``data_parallel_size`` > 1): the scheduler
+keeps one block space a dp group, and :meth:`ModelRunner.prepare_inputs`
+lays the step out dp-major as the JAX runner's ``_prepare_inputs_dp``
+does (each group's tokens in its own ``T / dp`` window, per-group block
+tables, lengths and schedules stacked ``[dp, ...]``); every rank builds
+those arrays, uploads its own group's slice (:meth:`ModelRunner.upload`)
+and runs it on its group's cache, whose ``num_blocks / dp`` blocks the
+group's shard-local block ids address; the group's hidden rows are then
+gathered over dp, so the LM head, sampling, penalties and guided masks
+run on the whole batch on every rank, as the JAX step runs them on the
+global array.  Pipeline parallelism (``pipeline_parallel_size`` > 1,
+``parallel/pp.py``): a stage holds its ``L / pp`` layers and their
+pages; every step goes through the ragged kernel over per-microbatch
+schedules (the ``pp``-prefixed keys), in the ``"pp"`` program or, at or
+under the shift threshold, the ``"pp_shift"`` one.  Refused as in JAX
+(:func:`check_mesh`): token trees with dp, a model without
+``scan_layers`` under pp (SwiftKV), layers or token buckets that do not
+divide by the pipeline; also int4, and experts that do not divide by
+the expert-parallel degree.
 
 A served mesh (``parallel/multihost.py``) runs the engine on the leader
 alone: with ``mh_channel`` attached, :meth:`ModelRunner.dispatch`
@@ -84,8 +101,10 @@ from arcticinference_tpu_torch.ops.guided import (guided_advance,
 from arcticinference_tpu_torch.ops.sampling import (apply_penalties,
                                                     apply_vocab_mask, sample)
 from arcticinference_tpu_torch.parallel import mesh as mesh_lib
+from arcticinference_tpu_torch.parallel import pp as pp_lib
 from arcticinference_tpu_torch.parallel.ulysses import (all_gather_cat,
                                                         check_supported,
+                                                        make_dp_forward,
                                                         make_sharded_forward)
 from arcticinference_tpu_torch.utils import (cdiv, default_token_buckets,
                                              device_memory_bytes,
@@ -93,6 +112,19 @@ from arcticinference_tpu_torch.utils import (cdiv, default_token_buckets,
 
 _F32_KEYS = ("temperature", "top_p", "min_p", "rep_pen", "pres_pen",
              "freq_pen")
+
+#: The work-item schedule's seven arrays (the JAX ``_ATTN_SCHED_KEYS``).
+_ATTN_SCHED_KEYS = pp_lib.SCHEDULE_KEYS[:7]
+_SWIFT_KEYS = ("item_req", "item_qstart", "item_qlen", "item_pages",
+               "item_pos_base", "token_item", "token_off")
+
+#: Arrays that the dp layout stacks per dp group (``[dp, ...]``; the JAX
+#: ``DP_KEYS`` and, under pp, the ``pp``-prefixed schedules): a rank
+#: keeps its group's row of each.
+DP_KEYS = (("positions", "req_idx", "slot_mapping", "seq_lens",
+            "block_tables") + _ATTN_SCHED_KEYS + ("logits_indices_dp",)
+           + tuple(f"swift_{k}" for k in _SWIFT_KEYS)
+           + tuple("pp" + k for k in pp_lib.SCHEDULE_KEYS))
 
 
 def swift_schedule(row_count, last_pos: np.ndarray, s_pad: int,
@@ -112,24 +144,19 @@ def swift_schedule(row_count, last_pos: np.ndarray, s_pad: int,
 
 
 def check_mesh(config: EngineConfig, module, arch) -> None:
-    """Refuse what does not run on a mesh, before any weight is loaded;
-    each refusal names its cause (dp and pp: the ROADMAP item that brings
-    them)."""
+    """Refuse what does not run on a mesh, before any weight is loaded,
+    as the JAX package refuses it; each refusal names its cause."""
     pcfg = config.parallel
     spec = config.speculative
     if spec is not None and spec.use_tree_spec and \
             pcfg.data_parallel_size > 1:
         raise NotImplementedError(
             "token-tree speculation does not run with data parallelism "
-            "(data_parallel_size > 1), as in the JAX package")
-    if pcfg.data_parallel_size > 1:
-        raise NotImplementedError(
-            "in-engine data parallelism (data_parallel_size > 1) is not "
-            "ported yet (ROADMAP Queue 1 item 2b)")
+            "(data_parallel_size > 1): the dp-major row layout does not "
+            "carry tree schedules, as in the JAX package")
     if pcfg.pipeline_parallel_size > 1:
-        raise NotImplementedError(
-            "pipeline parallelism (pipeline_parallel_size > 1) is not "
-            "ported yet (ROADMAP Queue 1 item 2b)")
+        pp_lib.check_supported(module, arch, pcfg, default_token_buckets(
+            config.scheduler.max_num_batched_tokens))
     if config.model.quantization == "int4":
         # Split-half packing couples row u with row u + K/2 in one byte,
         # so the packed in axis cannot be cut or re-sliced (as in JAX).
@@ -232,15 +259,24 @@ class ModelRunner:
                                        self.block_size)
         kv_dtype = (torch.float8_e4m3fn
                     if cache_cfg.kv_cache_dtype == "fp8" else torch.bfloat16)
-        # A rank's cache holds its heads of the fused (tp, sp) cut.
+        # A rank's cache holds its heads of the fused (tp, sp) cut, its
+        # stage's layers and its dp group's blocks.
+        self.dp = pcfg.data_parallel_size
+        self.pp = pcfg.pipeline_parallel_size
         self.cache_kv_heads = arch.num_kv_heads
+        self.stage_layers = range(arch.num_layers)
         if self.mesh is not None:
             self.cache_kv_heads = mesh_lib.kv_cache_heads(
                 arch.num_kv_heads, self.mesh)[0]
-        self.num_blocks = cache_cfg.num_blocks or self._auto_num_blocks(
-            kv_dtype)
+            self.stage_layers = self.mesh.stage_layers(arch.num_layers)
+        num_blocks = cache_cfg.num_blocks or self._auto_num_blocks(kv_dtype)
+        # In-engine dp: the block axis is cut over dp, and block ids are
+        # shard-local (each group owns a private block space).
+        self.num_blocks = num_blocks - num_blocks % self.dp
+        self.num_blocks_per_shard = self.num_blocks // self.dp
         self.kv_spec = KVCacheSpec(
-            num_layers=arch.num_layers, num_blocks=self.num_blocks,
+            num_layers=len(self.stage_layers),
+            num_blocks=self.num_blocks_per_shard,
             num_kv_heads=self.cache_kv_heads, block_size=self.block_size,
             head_dim=arch.head_dim, dtype=kv_dtype)
         self.kv = allocate_kv_cache(self.kv_spec, device)
@@ -248,7 +284,8 @@ class ModelRunner:
             kv_scale = torch.as_tensor(loaded_kv_scales, dtype=torch.float32)
         else:
             kv_scale = torch.ones((arch.num_layers, 2), dtype=torch.float32)
-        self.kv_scale = kv_scale.to(device)
+        lo, hi = self.stage_layers.start, self.stage_layers.stop
+        self.kv_scale = kv_scale[lo:hi].contiguous().to(device)
 
         self.b_max = config.scheduler.max_num_seqs
         self.token_buckets = default_token_buckets(
@@ -325,17 +362,19 @@ class ModelRunner:
         quantized weight's values and scales) and a 1 GiB reserve for
         activations.  On a mesh this is one rank a device (ranks sharing
         a card set ``num_blocks``), and every rank takes the smallest
-        count of the mesh, so the block managers stay in lockstep."""
+        count of the mesh, so the block managers stay in lockstep; a
+        rank holds its stage's layers and ``1 / dp`` of the blocks."""
         param_bytes = _nbytes(self.params)
         budget = (int(device_memory_bytes(self.device)
                       * self.config.cache.hbm_utilization)
                   - param_bytes - (1 << 30))
         spec = KVCacheSpec(
-            num_layers=self.arch.num_layers, num_blocks=1,
+            num_layers=len(self.stage_layers), num_blocks=1,
             num_kv_heads=self.cache_kv_heads,
             block_size=self.block_size, head_dim=self.arch.head_dim,
             dtype=kv_dtype)
-        n = int(min(max(budget // spec.bytes_per_block, 16), 1 << 17))
+        n = int(min(max(budget // spec.bytes_per_block, 16) * self.dp,
+                    1 << 17))
         if self.mesh is not None:
             t = torch.tensor([n], dtype=torch.int64, device=self.device)
             torch.distributed.all_reduce(
@@ -352,10 +391,17 @@ class ModelRunner:
         ``shift_parallel_threshold`` tokens, the Ulysses program for
         larger ones (the JAX runner's rule); ``"single"`` off a mesh, and
         a mesh without sp runs the SP program, which with sp = 1 is plain
-        TP."""
+        TP.  Under pp the pipelined programs: ``"pp"`` (SP mode in each
+        stage) or ``"pp_shift"``."""
         if self.mesh is None:
             return "single"
         pcfg = self.config.parallel
+        if pcfg.pipeline_parallel_size > 1:
+            if (pcfg.ulysses_sequence_parallel_size > 1
+                    and pcfg.enable_shift_parallel
+                    and total_tokens <= pcfg.shift_parallel_threshold):
+                return "pp_shift"
+            return "pp"
         if pcfg.ulysses_sequence_parallel_size <= 1:
             return "sp"
         if pcfg.enable_shift_parallel and \
@@ -374,9 +420,16 @@ class ModelRunner:
                                       attn_impl=attn,
                                       allow_deferral=allow_deferral)
             return fwd
-        return make_sharded_forward(self.module, self.arch, self.mesh, mode,
-                                    attn_impl=attn,
-                                    reslice_cache=self._resliced)
+        if mode in ("pp", "pp_shift"):
+            fwd = pp_lib.make_pp_forward(
+                self.module, self.arch, self.mesh,
+                "shift" if mode == "pp_shift" else "sp", attn_impl=attn,
+                reslice_cache=self._resliced)
+        else:
+            fwd = make_sharded_forward(self.module, self.arch, self.mesh,
+                                       mode, attn_impl=attn,
+                                       reslice_cache=self._resliced)
+        return make_dp_forward(fwd, self.mesh) if self.dp > 1 else fwd
 
     def forward(self, inputs: dict, attn_qb: int, decode_qlen: int = 1,
                 total_tokens: Optional[int] = None,
@@ -423,7 +476,13 @@ class ModelRunner:
         reached the host yet (the pipelined step).  ``guided_dev`` maps
         req_id -> (pool slot, src, init state) for the device-resident
         guided path: src indexes the previous step's output vector (its
-        grammar-state segment), or is -1 to seed from the init state."""
+        grammar-state segment), or is -1 to seed from the init state.
+        With dp the step takes the dp layout (:meth:`_prepare_inputs_dp`);
+        under pp it also carries one work-item schedule per microbatch
+        (:meth:`_pp_schedules`)."""
+        if self.dp > 1:
+            return self._prepare_inputs_dp(sched_out, passthrough,
+                                           guided_dev)
         scheduled = sched_out.scheduled
         total = sum(s.num_new_tokens for s in scheduled)
         t_pad = pad_to_bucket(max(total, 1), self.token_buckets)
@@ -495,7 +554,63 @@ class ModelRunner:
         logits_indices = np.zeros(s_pad, np.int32)
         logits_indices[:len(sample_rows)] = sample_rows
 
-        # Sampling params per row (every verify row of a request).
+        arrays = dict(
+            input_ids=input_ids, input_src=input_src,
+            positions=positions, req_idx=req_idx,
+            slot_mapping=slot_mapping, block_tables=block_tables,
+            seq_lens=seq_lens, logits_indices=logits_indices)
+        any_penalties = self._sampling_arrays(arrays, scheduled, s_pad,
+                                              row_start, row_count)
+        guided_entries, dev_entries = self._guided_entries(
+            scheduled, row_start, row_count, guided_dev)
+
+        # attn_qb == 1 marks a pure-decode step (one frontier row per
+        # request, token order == request order): the model routes it to
+        # the grouped decode kernel.  The work-item schedule is still
+        # built (at qb=8), as in the JAX runner.  A step with tree rows
+        # never is one: the ancestor masks ride the work items; nor is a
+        # pipelined step (its microbatches' schedules).
+        max_qlen = int(query_lens.max(initial=1))
+        pure_decode = (max_qlen == 1 and bool(scheduled)
+                       and row_tree_mask is None and self.pp == 1)
+        attn_qb = 1 if pure_decode else (8 if max_qlen <= 8 else 32)
+        sched_qb = 8 if attn_qb == 1 else attn_qb
+        sched = build_work_items(query_lens, last_pos, sched_qb,
+                                 self.block_size, t_pad // sched_qb + b,
+                                 t_pad)
+        arrays.update(zip(_ATTN_SCHED_KEYS, sched))
+        if row_tree_mask is not None:
+            it_ts, it_mask = tree_work_items(row_tree_mask, tree_start,
+                                             sched[0], sched[5], sched[6],
+                                             attn_qb)
+            arrays.update(
+                attn_tree_start=tree_start,
+                attn_row_tree_mask=row_tree_mask,
+                attn_item_tree_start=it_ts,
+                attn_item_tree_mask=it_mask)
+        guided_index, gstate_count = self._guided_arrays(
+            arrays, guided_entries, dev_entries)
+        if any_penalties:
+            self._penalty_arrays(arrays, scheduled, s_pad, row_start,
+                                 row_count)
+        if self.swift:
+            arrays.update(swift_schedule(row_count, last_pos, s_pad,
+                                         self.block_size))
+        if self.pp > 1:
+            arrays.update(self._pp_schedules(
+                query_lens, last_pos, len(scheduled), t_pad, attn_qb,
+                row_tree_mask, tree_start))
+        return StepInputs(arrays=arrays, t_pad=t_pad, s_pad=s_pad,
+                          attn_qb=attn_qb, sample_row_start=row_start,
+                          sample_row_count=row_count, total_tokens=total,
+                          guided_index=guided_index,
+                          gstate_count=gstate_count)
+
+    def _sampling_arrays(self, arrays: dict, scheduled, s_pad: int,
+                         row_start, row_count) -> bool:
+        """The per-sample-row sampling parameters (every verify row of a
+        request carries its request's) into ``arrays``; returns whether
+        a request asks for penalties."""
         temperature = np.zeros(s_pad, np.float32)
         top_k = np.zeros(s_pad, np.int32)
         top_p = np.ones(s_pad, np.float32)
@@ -525,11 +640,19 @@ class ModelRunner:
                 pres_pen[lo:lo + k] = sp.presence_penalty
                 freq_pen[lo:lo + k] = sp.frequency_penalty
                 any_penalties = True
+        arrays.update(temperature=temperature, top_k=top_k, top_p=top_p,
+                      min_p=min_p, seeds=seeds, counters=counters,
+                      rep_pen=rep_pen, pres_pen=pres_pen,
+                      freq_pen=freq_pen)
+        return any_penalties
 
-        # Grammar-guided vocab bitmasks (DFA-backed decoders) for the
-        # row that commits a token: the host's mask of the automaton's
-        # state, or (pipelined) the device pool's row of a state that
-        # rides the output vector.
+    @staticmethod
+    def _guided_entries(scheduled, row_start, row_count, guided_dev):
+        """Grammar-guided vocab bitmasks (DFA-backed decoders) for the
+        row that commits a token: (host-mask entries ``(row, mask)``,
+        device-pool entries ``(row, slot, src, init, req_id)``), the
+        host's mask of the automaton's state or (pipelined) the device
+        pool's row of a state that rides the output vector."""
         guided_entries: list[tuple[int, np.ndarray]] = []
         dev_entries: list[tuple[int, int, int, int, str]] = []
         for r, s in enumerate(scheduled):
@@ -548,51 +671,15 @@ class ModelRunner:
                 guided_entries.append((row, g.mask_words()))
         assert not (guided_entries and dev_entries), \
             "host-mask and device-pool guided rows cannot mix in a step"
+        return guided_entries, dev_entries
 
-        # attn_qb == 1 marks a pure-decode step (one frontier row per
-        # request, token order == request order): the model routes it to
-        # the grouped decode kernel.  The work-item schedule is still
-        # built (at qb=8), as in the JAX runner.  A step with tree rows
-        # never is one: the ancestor masks ride the work items.
-        max_qlen = int(query_lens.max(initial=1))
-        pure_decode = (max_qlen == 1 and bool(scheduled)
-                       and row_tree_mask is None)
-        attn_qb = 1 if pure_decode else (8 if max_qlen <= 8 else 32)
-        sched_qb = 8 if attn_qb == 1 else attn_qb
-        (item_req, item_qstart, item_qlen, item_pages, item_pos_base,
-         token_item, token_off) = build_work_items(
-            query_lens, last_pos, sched_qb, self.block_size,
-            t_pad // sched_qb + b, t_pad)
-
-        tree_arrays = {}
-        if row_tree_mask is not None:
-            it_ts, it_mask = tree_work_items(row_tree_mask, tree_start,
-                                             item_req, token_item,
-                                             token_off, attn_qb)
-            tree_arrays = dict(
-                attn_tree_start=tree_start,
-                attn_row_tree_mask=row_tree_mask,
-                attn_item_tree_start=it_ts,
-                attn_item_tree_mask=it_mask)
-
-        arrays = dict(
-            input_ids=input_ids, input_src=input_src,
-            positions=positions, req_idx=req_idx,
-            slot_mapping=slot_mapping, block_tables=block_tables,
-            seq_lens=seq_lens, logits_indices=logits_indices,
-            temperature=temperature, top_k=top_k, top_p=top_p,
-            min_p=min_p, seeds=seeds, counters=counters,
-            rep_pen=rep_pen, pres_pen=pres_pen, freq_pen=freq_pen,
-            attn_item_req=item_req, attn_item_qstart=item_qstart,
-            attn_item_qlen=item_qlen, attn_item_pages=item_pages,
-            attn_item_pos_base=item_pos_base, attn_token_item=token_item,
-            attn_token_off=token_off,
-            **tree_arrays,
-        )
+    def _guided_arrays(self, arrays: dict, guided_entries, dev_entries):
+        """The guided rows' arrays into ``arrays``, padded to a bucket;
+        returns (req_id -> device-pool entry index or None, the grammar
+        state segment's length)."""
+        b = self.b_max
         g_buckets = [g for g in (1, 2, 4, 8, 16, 32, 64, 128)
                      if g <= max(b, 1)] + [b]
-        guided_index = None
-        gstate_count = 0
         if guided_entries:
             w = (self.arch.vocab_size + 31) // 32
             g_pad = pad_to_bucket(len(guided_entries), g_buckets)
@@ -603,45 +690,252 @@ class ModelRunner:
                 gmask[i, :len(mask)] = mask   # short mask: tail stays 0
             arrays["guided_rows"] = grows
             arrays["guided_mask"] = gmask.view(np.int32)
-        elif dev_entries:
-            g_pad = pad_to_bucket(len(dev_entries), g_buckets)
-            grows, gslot, gsrc, ginit = (np.full(g_pad, -1, np.int32)
-                                         for _ in range(4))
-            guided_index = {}
-            for i, (row, slot, src, init, rid) in enumerate(dev_entries):
-                grows[i], gslot[i] = row, slot
-                gsrc[i], ginit[i] = src, init
-                guided_index[rid] = i
-            arrays.update(guided_rows=grows, gd_slot=gslot, gd_src=gsrc,
-                          gd_init=ginit)
-            gstate_count = g_pad
-        if any_penalties:
-            # Token histories of the requests asking for penalties, -1
-            # padded to a bucketed length; every verify row of a request
-            # carries its history before this step (as in the JAX runner).
-            la = pad_to_bucket(
-                max(max(s.request.num_tokens for s in scheduled), 1),
-                self.token_buckets + [self.config.model.max_model_len])
-            pen_out = np.full((s_pad, la), -1, np.int32)
-            pen_all = np.full((s_pad, la), -1, np.int32)
-            for r, s in enumerate(scheduled):
-                req = s.request
-                if not req.sampling.needs_penalties:
-                    continue
-                lo, k = row_start[r], row_count[r]
-                pen_out[lo:lo + k, :len(req.output_token_ids)] = \
-                    req.output_token_ids
-                pen_all[lo:lo + k, :req.num_tokens] = req.all_token_ids
-            arrays["pen_out_tokens"] = pen_out
-            arrays["pen_all_tokens"] = pen_all
+            return None, 0
+        if not dev_entries:
+            return None, 0
+        g_pad = pad_to_bucket(len(dev_entries), g_buckets)
+        grows, gslot, gsrc, ginit = (np.full(g_pad, -1, np.int32)
+                                     for _ in range(4))
+        guided_index = {}
+        for i, (row, slot, src, init, rid) in enumerate(dev_entries):
+            grows[i], gslot[i] = row, slot
+            gsrc[i], ginit[i] = src, init
+            guided_index[rid] = i
+        arrays.update(guided_rows=grows, gd_slot=gslot, gd_src=gsrc,
+                      gd_init=ginit)
+        return guided_index, g_pad
+
+    def _penalty_arrays(self, arrays: dict, scheduled, s_pad: int,
+                        row_start, row_count) -> None:
+        """Token histories of the requests asking for penalties, -1
+        padded to a bucketed length; every verify row of a request
+        carries its history before this step (as in the JAX runner)."""
+        la = pad_to_bucket(
+            max(max(s.request.num_tokens for s in scheduled), 1),
+            self.token_buckets + [self.config.model.max_model_len])
+        pen_out = np.full((s_pad, la), -1, np.int32)
+        pen_all = np.full((s_pad, la), -1, np.int32)
+        for r, s in enumerate(scheduled):
+            req = s.request
+            if not req.sampling.needs_penalties:
+                continue
+            lo, k = row_start[r], row_count[r]
+            pen_out[lo:lo + k, :len(req.output_token_ids)] = \
+                req.output_token_ids
+            pen_all[lo:lo + k, :req.num_tokens] = req.all_token_ids
+        arrays["pen_out_tokens"] = pen_out
+        arrays["pen_all_tokens"] = pen_all
+
+    def _pp_schedules(self, query_lens, last_pos, n_reqs: int, t_pad: int,
+                      attn_qb: int, row_tree_mask=None,
+                      tree_start=None) -> dict[str, np.ndarray]:
+        """The per-microbatch work items of a pipelined step (the JAX
+        runner's ``pp``-prefixed arrays, stacked ``[pp, ...]``): the
+        flat batch split into pp contiguous windows of ``t_pad / pp``
+        rows, each request's query clipped to each window.  A step with
+        token trees also gets each microbatch's item tree arrays, so the
+        ragged kernel masks its tree rows as on one device."""
+        pp = self.pp
+        b = self.b_max
+        tm = t_pad // pp
+        n_items = tm // attn_qb + b
+        starts = np.zeros(b, np.int64)
+        if n_reqs:   # an empty group has no lengths to sum
+            starts[1:n_reqs] = np.cumsum(query_lens[:n_reqs - 1])
+        parts, trees = [], []
+        for mi in range(pp):
+            lo, hi = mi * tm, (mi + 1) * tm
+            ql = np.zeros(b, np.int64)
+            lpos = np.zeros(b, np.int64)
+            for r in range(n_reqs):
+                a = max(int(starts[r]), lo)
+                z = min(int(starts[r] + query_lens[r]), hi)
+                if z > a:
+                    ql[r] = z - a
+                    lpos[r] = last_pos[r] - (starts[r] + query_lens[r] - z)
+            part = build_work_items(ql, lpos, attn_qb, self.block_size,
+                                    n_items, tm)
+            parts.append(part)
+            if row_tree_mask is not None:
+                trees.append(tree_work_items(
+                    row_tree_mask[lo:hi], tree_start, part[0], part[5],
+                    part[6], attn_qb))
+        out = {"pp" + key: np.stack([p[i] for p in parts])
+               for i, key in enumerate(_ATTN_SCHED_KEYS)}
+        if trees:
+            out["ppattn_item_tree_start"] = np.stack([t[0] for t in trees])
+            out["ppattn_item_tree_mask"] = np.stack([t[1] for t in trees])
+        return out
+
+    def _prepare_inputs_dp(self, sched_out: SchedulerOutput,
+                           passthrough: Optional[dict] = None,
+                           guided_dev: Optional[dict] = None
+                           ) -> StepInputs:
+        """The in-engine dp layout, array for array the JAX runner's
+        ``_prepare_inputs_dp``: the token axis is dp-major (each group's
+        requests packed into its own ``t_shard`` window), and the
+        per-token and per-request arrays (positions, block tables, seq
+        lens, the attention schedule; SwiftKV's local sample-row indices
+        and second schedule; under pp the per-microbatch schedules) are
+        stacked with a leading ``[dp]`` axis (:data:`DP_KEYS`).  Sample
+        rows, sampling parameters, penalties and guided rows index the
+        dp-major rows of the whole step (with SwiftKV: its per-group
+        sample rows, dp-major), which every rank holds after the
+        forward's gather over dp."""
+        scheduled = sched_out.scheduled
+        dp = self.dp
+        b = self.b_max
+        groups: list[list] = [[] for _ in range(dp)]
+        for s in scheduled:
+            groups[s.request.dp_shard].append(s)
+        shard_tok = [sum(s.num_new_tokens for s in g) for g in groups]
+        t_shard = pad_to_bucket(max(max(shard_tok), 1), self.token_buckets)
+        t_pad = t_shard * dp
+
+        input_ids = np.zeros(t_pad, np.int32)
+        input_src = np.full(t_pad, -1, np.int32)
+        positions_flat = np.zeros(t_pad, np.int32)
+        positions = np.zeros((dp, t_shard), np.int32)
+        req_idx = np.full((dp, t_shard), -1, np.int32)
+        slot_mapping = np.full((dp, t_shard), -1, np.int32)
+        block_tables = np.zeros((dp, b, self.max_blocks_per_req), np.int32)
+        seq_lens = np.zeros((dp, b), np.int32)
+        query_lens = np.zeros((dp, b), np.int64)
+        last_pos = np.zeros((dp, b), np.int64)
+
+        sample_rows: list[int] = []
+        row_start: list[int] = []
+        row_count: list[int] = []
+        t_cur = [0] * dp
+        r_cur = [0] * dp
+        s_cnt = [0] * dp          # SwiftKV: sample rows per group so far
+        recs: list[tuple] = []    # SwiftKV: (group, ts, n, k, local off)
+        for s in scheduled:
+            req = s.request
+            sh = req.dp_shard
+            n = s.num_new_tokens
+            ctx = req.num_computed_tokens
+            r = r_cur[sh]
+            r_cur[sh] += 1
+            ts = t_cur[sh]
+            t0 = sh * t_shard + ts
+            toks = (req.all_token_ids + s.spec_token_ids)[ctx:ctx + n]
+            assert len(toks) == n, (len(toks), n, ctx)
+            if passthrough and req.req_id in passthrough:
+                input_src[t0] = passthrough[req.req_id]
+                toks = [0] + list(toks[1:])
+            input_ids[t0:t0 + n] = toks
+            positions_flat[t0:t0 + n] = np.arange(ctx, ctx + n)
+            positions[sh, ts:ts + n] = np.arange(ctx, ctx + n)
+            req_idx[sh, ts:ts + n] = r
+            bt = req.block_ids
+            block_tables[sh, r, :len(bt)] = bt
+            for i in range(n):
+                pos = ctx + i
+                slot_mapping[sh, ts + i] = (bt[pos // self.block_size]
+                                            * self.block_size
+                                            + pos % self.block_size)
+            seq_lens[sh, r] = ctx + n
+            query_lens[sh, r] = n
+            last_pos[sh, r] = ctx + n - 1
+            k = len(s.spec_token_ids) + 1
+            if self.swift:
+                recs.append((sh, ts, n, k, s_cnt[sh]))
+                s_cnt[sh] += k
+            else:
+                row_start.append(len(sample_rows))
+                row_count.append(k)
+                sample_rows.extend(range(t0 + n - k, t0 + n))
+            t_cur[sh] += n
+
         if self.swift:
-            arrays.update(swift_schedule(row_count, last_pos, s_pad,
+            # The sample rows are gathered inside each group's forward, so
+            # the rows come out dp-major with per-group padding.
+            s_sh = pad_to_bucket(max(max(s_cnt), 1), self.sample_buckets)
+            s_pad = s_sh * dp
+            li_dp = np.zeros((dp, s_sh), np.int32)
+            logits_indices = np.zeros(s_pad, np.int32)
+            for (sh, ts, n, k, off) in recs:
+                row_start.append(sh * s_sh + off)
+                row_count.append(k)
+                loc = np.arange(ts + n - k, ts + n, dtype=np.int32)
+                li_dp[sh, off:off + k] = loc
+                logits_indices[sh * s_sh + off:sh * s_sh + off + k] = \
+                    sh * t_shard + loc
+        else:
+            s_pad = pad_to_bucket(max(len(sample_rows), 1),
+                                  self.sample_buckets)
+            logits_indices = np.zeros(s_pad, np.int32)
+            logits_indices[:len(sample_rows)] = sample_rows
+
+        arrays = dict(input_ids=input_ids, input_src=input_src,
+                      positions_flat=positions_flat, positions=positions,
+                      req_idx=req_idx, slot_mapping=slot_mapping,
+                      block_tables=block_tables, seq_lens=seq_lens,
+                      logits_indices=logits_indices)
+        any_penalties = self._sampling_arrays(arrays, scheduled, s_pad,
+                                              row_start, row_count)
+        guided_entries, dev_entries = self._guided_entries(
+            scheduled, row_start, row_count, guided_dev)
+
+        # The same grouped-decode rule as one device's, per group.
+        max_qlen = int(query_lens.max(initial=1))
+        pure_decode = max_qlen == 1 and bool(scheduled) and self.pp == 1
+        attn_qb = 1 if pure_decode else (8 if max_qlen <= 8 else 32)
+        sched_qb = 8 if attn_qb == 1 else attn_qb
+        n_items = t_shard // sched_qb + b
+        parts = [build_work_items(query_lens[sh], last_pos[sh], sched_qb,
+                                  self.block_size, n_items, t_shard)
+                 for sh in range(dp)]
+        for i, key in enumerate(_ATTN_SCHED_KEYS):
+            arrays[key] = np.stack([p[i] for p in parts])
+        guided_index, gstate_count = self._guided_arrays(
+            arrays, guided_entries, dev_entries)
+        if self.swift:
+            arrays["logits_indices_dp"] = li_dp
+            sw = []
+            for sh in range(dp):
+                srow = [len(s.spec_token_ids) + 1 for s in groups[sh]]
+                sw.append(swift_schedule(srow, last_pos[sh], s_sh,
                                          self.block_size))
+            for key in sw[0]:
+                arrays[key] = np.stack([p[key] for p in sw])
+        if any_penalties:
+            self._penalty_arrays(arrays, scheduled, s_pad, row_start,
+                                 row_count)
+        if self.pp > 1:
+            # dp x pp: each group's window is split into pp microbatches.
+            pp_parts = [self._pp_schedules(query_lens[sh], last_pos[sh],
+                                           len(groups[sh]), t_shard,
+                                           attn_qb)
+                        for sh in range(dp)]
+            for key in pp_parts[0]:
+                arrays[key] = np.stack([p[key] for p in pp_parts])
         return StepInputs(arrays=arrays, t_pad=t_pad, s_pad=s_pad,
                           attn_qb=attn_qb, sample_row_start=row_start,
-                          sample_row_count=row_count, total_tokens=total,
+                          sample_row_count=row_count,
+                          total_tokens=sum(shard_tok),
                           guided_index=guided_index,
                           gstate_count=gstate_count)
+
+    def dp_local(self, arrays: dict) -> dict:
+        """This rank's dp group's slice of a dp-layout step (its row of
+        each :data:`DP_KEYS` array, its window of the token rows; with
+        SwiftKV its local sample-row indices as ``logits_indices``); the
+        sample-row arrays stay whole.  Other steps as they are."""
+        if "positions_flat" not in arrays:
+            return arrays
+        g = self.mesh.dp_rank
+        t_shard = arrays["positions"].shape[1]
+        out = {k: v for k, v in arrays.items() if k != "positions_flat"}
+        for k in DP_KEYS:
+            if k in arrays:
+                out[k] = arrays[k][g]
+        for k in ("input_ids", "input_src"):
+            out[k] = arrays[k][g * t_shard:(g + 1) * t_shard]
+        if "logits_indices_dp" in out:
+            out["logits_indices"] = out.pop("logits_indices_dp")
+        return out
 
     # ------------------------------------------------------------------ #
     # Device grammar pool (pipelined guided decoding)
@@ -708,7 +1002,10 @@ class ModelRunner:
         """All step arrays on the device, in one int32 and one float32
         host-to-device copy (views into the two buffers).  On the card
         the copies go through pinned memory and do not wait for the
-        device."""
+        device.  A dp-layout step uploads this rank's group's slice
+        (:meth:`dp_local`)."""
+        if self.dp > 1:
+            arrays = self.dp_local(arrays)
         out = {}
         for dtype, keys in (
                 (np.float32, [k for k in arrays if k in _F32_KEYS]),
@@ -901,7 +1198,11 @@ class ModelRunner:
             pooled = hf[:self.b_max]
         elif pooling == "mean":
             b = self.b_max
-            req_idx = inputs["req_idx"].long()
+            req_idx = inputs["req_idx"]
+            if self.dp > 1:
+                # The group's rows of the gathered hidden rows.
+                req_idx = all_gather_cat(req_idx, self.mesh.dp_group)
+            req_idx = req_idx.long()
             seg = torch.where(req_idx < 0, b, req_idx)
             sums = torch.zeros(b + 1, hf.shape[1], dtype=torch.float32,
                                device=hf.device).index_add_(0, seg, hf)

@@ -113,7 +113,8 @@ def init_params(arch: LlamaArch, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 quantization: Optional[str] = None,
                 device: torch.device | str | None = None,
-                keep: Optional[Callable] = None) -> dict:
+                keep: Optional[Callable] = None,
+                layers: Optional[range] = None) -> dict:
     """Randomly initialised parameters (benchmarks / tests).
 
     Drawn on ``device`` (by default the generator's) from ``generator``
@@ -128,7 +129,9 @@ def init_params(arch: LlamaArch, generator: torch.Generator,
     takes each leaf as soon as it is drawn, a layer weight one layer at a
     time (``path`` ``("layers", key)``, the leaf without its layer axis),
     so one layer of the global weights is alive at a time; the draws are
-    the same with and without it.
+    the same with and without it.  ``layers`` (a pipeline stage's range)
+    keeps only those layers of each stacked weight: the others are drawn,
+    to keep the draws the same, and dropped unquantized.
     """
     if device is None:
         device = generator.device
@@ -148,11 +151,16 @@ def init_params(arch: LlamaArch, generator: torch.Generator,
     if keep is None:
         keep = lambda path, leaf: leaf  # noqa: E731
 
+    kept = range(nl) if layers is None else layers
+
     def layer(key, draw, *shape, quantize=False):
-        """A stacked ``[nl, *shape]`` layer weight, one layer at a time."""
+        """A stacked ``[len(kept), *shape]`` layer weight, one layer at a
+        time."""
         parts = []
-        for _ in range(nl):
+        for i in range(nl):
             x = draw(*shape)
+            if i not in kept:
+                continue
             if quantize and quant:
                 x = weight_quantize(x, quantization)
             parts.append(keep(("layers", key), x))
@@ -418,8 +426,14 @@ def forward(params: dict, arch: LlamaArch, kv: torch.Tensor,
     kv, h = scan_layers(params["layers"], arch, kv, h, inputs,
                         attn_impl=attn_impl, allow_deferral=allow_deferral,
                         pctx=pctx)
-    h = rms_norm(h, params["final_norm"], arch.rms_norm_eps)
-    return kv, h
+    return kv, finalize_hidden(params, arch, h)
+
+
+def finalize_hidden(params: dict, arch: LlamaArch,
+                    h: torch.Tensor) -> torch.Tensor:
+    """The final norm after the layer stack (the pipeline's last stage
+    applies it to each microbatch)."""
+    return rms_norm(h, params["final_norm"], arch.rms_norm_eps)
 
 
 def scan_layers(layers: dict, arch: LlamaArch, kv: torch.Tensor,

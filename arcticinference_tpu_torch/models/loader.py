@@ -68,7 +68,7 @@ def load_model(cfg: ModelConfig, device: torch.device | str | None = None,
     params are this rank's cut of the global ones (``shard_params``, by
     the module's rules, ``specs_of``); random weights are cut as they are
     drawn, one global weight (a layer of a stacked one) alive at a
-    time.
+    time, and a pipeline stage draws and quantizes its own layers only.
     """
     device = resolve_device(device)
     module, arch = resolve_model(cfg)
@@ -102,6 +102,8 @@ def load_model(cfg: ModelConfig, device: torch.device | str | None = None,
                     leaf, mesh_lib.layer_leaf_spec(path, specs), mesh)
 
             kw["keep"] = keep
+            if mesh.stages > 1:
+                kw["layers"] = mesh.stage_layers(arch.num_layers)
         params = module.init_params(arch, gen, dtype,
                                     quantization=cfg.quantization,
                                     device=device, **kw)

@@ -45,13 +45,13 @@ import torch
 
 from arcticinference_tpu_torch.models import llama as llama_mod
 from arcticinference_tpu_torch.models.llama import (  # noqa: F401
-    LlamaArch, compute_logits, embed_lookup, make_attn_impl, plain_attn)
+    LlamaArch, compute_logits, embed_lookup, finalize_hidden,
+    make_attn_impl, plain_attn)
 from arcticinference_tpu_torch.ops import moe
 from arcticinference_tpu_torch.ops.fp8 import (FP8_DTYPE, QuantizedLinear,
                                                fp8_quantize, fp8_scale,
                                                quantize_layers,
                                                weight_quantize)
-from arcticinference_tpu_torch.ops.layers import rms_norm
 from arcticinference_tpu_torch.utils import resolve_device
 
 
@@ -145,7 +145,8 @@ def init_params(arch: MixtralArch, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 quantization: Optional[str] = None,
                 device: torch.device | str | None = None,
-                keep: Optional[Callable] = None) -> dict:
+                keep: Optional[Callable] = None,
+                layers: Optional[range] = None) -> dict:
     """Randomly initialised parameters (benchmarks / tests), drawn on
     ``device`` (by default the generator's) from ``generator``:
     Normal(0, 0.02) like the JAX package, not the same numbers.  Each
@@ -156,7 +157,10 @@ def init_params(arch: MixtralArch, generator: torch.Generator,
     :func:`llama.init_params` hands it over, a layer weight one layer at
     a time (``path`` ``("layers", key)``): a rank of Mixtral-8x7B keeps
     one layer's share of the experts before the next layer is drawn.
-    The draws are the same with and without it."""
+    The draws are the same with and without it.  ``layers`` (a pipeline
+    stage's range) keeps only those layers of each stacked weight: the
+    others are drawn, to keep the draws the same, and dropped before
+    they are quantized."""
     if device is None:
         device = generator.device
     d, hq, hkv, dh = (arch.hidden_size, arch.num_heads, arch.num_kv_heads,
@@ -166,6 +170,9 @@ def init_params(arch: MixtralArch, generator: torch.Generator,
     cut = keep is not None
     if keep is None:
         keep = lambda path, leaf: leaf  # noqa: E731
+    kept = range(nl) if layers is None else layers
+    mine = slice(kept.start, kept.stop)
+    nk = len(kept)
 
     def w(*shape):
         x = torch.randn(shape, generator=generator, dtype=dtype,
@@ -173,17 +180,18 @@ def init_params(arch: MixtralArch, generator: torch.Generator,
         return x.mul_(0.02)
 
     def layers_of(key, x):
-        """A stacked leaf drawn whole, kept one layer at a time."""
+        """A stacked leaf drawn whole (the stage's layers of it), kept
+        one layer at a time."""
         if not cut:
             return x
         if isinstance(x, QuantizedLinear):
-            return _stacked(nl, lambda i: keep(("layers", key),
+            return _stacked(nk, lambda i: keep(("layers", key),
                                                QuantizedLinear(x.weight[i],
                                                                x.scale[i])))
-        return _stacked(nl, lambda i: keep(("layers", key), x[i]))
+        return _stacked(nk, lambda i: keep(("layers", key), x[i]))
 
     def qw(key, *shape):
-        x = w(*shape)
+        x = w(*shape)[mine].contiguous()
         return layers_of(key, quantize_layers(x, quantization)
                          if quant else x)
 
@@ -192,9 +200,14 @@ def init_params(arch: MixtralArch, generator: torch.Generator,
             x = w(e, n_in, n_out)
             return keep(("layers", key), quantize_experts(x, quantization)
                         if quant else x)
-        return _stacked(nl, layer)
+        for _ in range(kept.start):      # earlier stages' layers
+            w(e, n_in, n_out)
+        out = _stacked(nk, layer)
+        for _ in range(kept.stop, nl):   # later stages' layers
+            w(e, n_in, n_out)
+        return out
 
-    ones = torch.ones((nl, d), dtype=dtype, device=device)
+    ones = torch.ones((nk, d), dtype=dtype, device=device)
     params = {
         "embed": keep(("embed",), w(arch.vocab_size, d)),
         "layers": {
@@ -204,7 +217,8 @@ def init_params(arch: MixtralArch, generator: torch.Generator,
             "wk": qw("wk", nl, d, hkv * dh),
             "wv": qw("wv", nl, d, hkv * dh),
             "wo": qw("wo", nl, hq * dh, d),
-            "w_router": layers_of("w_router", w(nl, d, e)),
+            "w_router": layers_of("w_router",
+                                  w(nl, d, e)[mine].contiguous()),
             "w_gate": experts("w_gate", d, li),
             "w_up": experts("w_up", d, li),
             "w_down": experts("w_down", li, d),
@@ -328,8 +342,7 @@ def forward(params: dict, arch: MixtralArch, kv: torch.Tensor,
     kv, h = scan_layers(params["layers"], arch, kv, h, inputs,
                         attn_impl=attn_impl, allow_deferral=allow_deferral,
                         pctx=pctx)
-    h = rms_norm(h, params["final_norm"], arch.rms_norm_eps)
-    return kv, h
+    return kv, finalize_hidden(params, arch, h)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,8 @@ from typing import Any
 
 # Re-exported module interface (registry contract, models/__init__.py):
 from arcticinference_tpu_torch.models.llama import (  # noqa: F401
-    LlamaArch, _QUANT_KEYS, compute_logits, embed_lookup, forward,
+    LlamaArch, _QUANT_KEYS, compute_logits, embed_lookup, finalize_hidden,
+    forward,
     fuse_params, init_params, load_hf_state, make_attn_impl, plain_attn,
     quantize_params, scan_layers)
 

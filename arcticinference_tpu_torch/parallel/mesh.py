@@ -14,7 +14,12 @@ groups built with ``dist.new_group`` on the caller's backend:
   weight stored cut over tp re-slices to the fused shard without moving
   a byte (:class:`~arcticinference_tpu_torch.parallel.ulysses.
   ParallelContext`), and the cache's head axis is cut over it in both
-  modes (the KV-layout invariance).
+  modes (the KV-layout invariance);
+- ``dp``: the ranks that differ only in their dp coordinate (in-engine
+  data parallelism gathers a step's hidden rows over it);
+- ``pp``: the ranks that differ only in their pipeline stage, and the
+  two-rank groups of a stage and its neighbours, over which a stage
+  hands its activations on (``parallel/pp.py``).
 
 A process group orders its ranks by global rank, which is sp-major for
 the fused axis: only reductions run over it, whose result does not depend
@@ -25,6 +30,12 @@ Parameters are cut by rule (:func:`param_specs`, the JAX
 gives its own, :func:`specs_of`): each rank keeps its piece of the
 global parameters (:func:`shard_params`).  A dimension that does not
 divide by its axis is kept whole (replicated), as the JAX ``put`` does.
+Under pipeline parallelism the stacked layer axis is cut over ``pp``
+(the JAX ``param_specs(pp=True)``): a stage keeps its own layers, and a
+stacked leaf's per-layer scale follows that cut.  The KV cache follows
+the JAX ``kv_cache_spec(pp, dp)``: its layer axis is cut over ``pp`` and
+its block axis over ``dp`` (a dp group owns ``num_blocks / dp``
+shard-local blocks).
 """
 
 from __future__ import annotations
@@ -83,6 +94,17 @@ class Mesh:
     tp_group: Any = None
     sp_group: Any = None
     sp_tp_group: Any = None
+    dp_group: Any = None
+    pp_group: Any = None
+    #: the global rank of the previous stage at this rank's (dp, sp,
+    #: tp), and the two-rank groups shared with the previous and the next
+    #: stage (None at the ends of the pipeline).
+    prev_rank: Optional[int] = None
+    prev_group: Any = None
+    next_group: Any = None
+    #: this rank's global rank and the last stage's at its (dp, sp, tp).
+    global_rank: int = 0
+    last_rank: int = 0
 
     @property
     def tp(self) -> int:
@@ -104,6 +126,24 @@ class Mesh:
     def fused_rank(self) -> int:
         """The rank's index on the fused ``("tp", "sp")`` axis."""
         return self.tp_rank * self.sp + self.sp_rank
+
+    @property
+    def dp_rank(self) -> int:
+        return self.coords["dp"]
+
+    @property
+    def stages(self) -> int:
+        return self.cfg.pipeline_parallel_size
+
+    @property
+    def stage(self) -> int:
+        return self.coords["pp"]
+
+    def stage_layers(self, num_layers: int) -> range:
+        """The layers this rank's stage holds: its ``num_layers / pp``
+        consecutive ones."""
+        per = num_layers // self.stages
+        return range(self.stage * per, (self.stage + 1) * per)
 
 
 def build_mesh(cfg: ParallelConfig, group=None,
@@ -131,17 +171,26 @@ def build_mesh(cfg: ParallelConfig, group=None,
     rank = dist.get_rank(group)
     coords = mesh_coords(rank, cfg)
 
-    def axis_group(axes: tuple[str, ...]):
-        """The ranks that share every coordinate outside ``axes``."""
-        members = sorted(
-            global_ranks[r] for r in range(size)
-            if all(mesh_coords(r, cfg)[a] == coords[a]
-                   for a in ("dp", "pp", "sp", "tp") if a not in axes))
+    def group_over(members):
+        members = sorted(members)
         if len(members) == 1:
             return None
         if len(members) == size:
             return group
         return group_of(members, timeout_s)
+
+    def axis_group(axes: tuple[str, ...]):
+        """The ranks that share every coordinate outside ``axes``."""
+        return group_over(
+            global_ranks[r] for r in range(size)
+            if all(mesh_coords(r, cfg)[a] == coords[a]
+                   for a in ("dp", "pp", "sp", "tp") if a not in axes))
+
+    def at_stage(stage: int) -> int:
+        """The global rank of ``stage`` at this rank's (dp, sp, tp)."""
+        return global_ranks[rank + (stage - coords["pp"])
+                            * cfg.tensor_parallel_size
+                            * cfg.ulysses_sequence_parallel_size]
 
     tp_group = axis_group(("tp",))
     sp_group = axis_group(("sp",))
@@ -151,9 +200,26 @@ def build_mesh(cfg: ParallelConfig, group=None,
         sp_tp_group = sp_group
     else:
         sp_tp_group = axis_group(SP_TP)
+    dp_group = axis_group(("dp",))
+    pp_group = axis_group(("pp",))
+    me, pp = global_ranks[rank], cfg.pipeline_parallel_size
+    stage = coords["pp"]
+    # The neighbours' two-rank groups, the previous one first: each pair
+    # is made by its two members alone, and along the pipeline the
+    # creations form a chain from stage 0, so none waits on a cycle.
+    prev_rank = at_stage(stage - 1) if stage > 0 else None
+    next_rank = at_stage(stage + 1) if stage < pp - 1 else None
+    prev_group = (None if prev_rank is None
+                  else group_over((prev_rank, me)))
+    next_group = (None if next_rank is None
+                  else group_over((me, next_rank)))
     return Mesh(cfg=cfg, group=group, rank=rank, coords=coords,
                 tp_group=tp_group, sp_group=sp_group,
-                sp_tp_group=sp_tp_group)
+                sp_tp_group=sp_tp_group, dp_group=dp_group,
+                pp_group=pp_group, prev_rank=prev_rank,
+                prev_group=prev_group, next_group=next_group,
+                global_rank=me,
+                last_rank=at_stage(pp - 1))
 
 
 # --------------------------------------------------------------------- #
@@ -193,17 +259,28 @@ def specs_of(module) -> dict:
     return hook() if hook is not None else param_specs()
 
 
+def pp_specs(specs: dict) -> dict:
+    """``specs`` with the layer axis of every stacked leaf cut over
+    ``pp`` (the JAX ``param_specs(pp=True)``)."""
+    return {k: ({n: ("pp",) + s[1:] for n, s in v.items()}
+                if k in LAYER_KEYS else v) for k, v in specs.items()}
+
+
 def quantized_leaf_spec(spec: tuple, w_ndim: Optional[int] = None,
                         s_ndim: Optional[int] = None) -> tuple:
     """(weight spec, scale spec) of a quantized leaf: group scales
     (``s_ndim == w_ndim``) follow the weight; per-out-channel scales
     (``s_ndim == w_ndim - 1``) take the weight's spec without its in
-    axis; per-layer / per-tensor scales are whole."""
+    axis; per-layer / per-tensor scales are whole, except that a stacked
+    leaf's layer axis follows the weight's pp cut (Mixtral's fp8 expert
+    scale ``[L]``)."""
     if w_ndim is not None and s_ndim is not None and len(spec) == w_ndim:
         if s_ndim == w_ndim:
             return spec, spec
         if s_ndim == w_ndim - 1:
             return spec, spec[:-2] + (spec[-1],)
+    if spec and spec[0] == "pp":
+        return spec, ("pp",)
     return spec, ()
 
 
@@ -211,8 +288,8 @@ def cut(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
     """This rank's piece of ``x`` under ``spec`` (a contiguous copy when
     cut); ``x`` itself when nothing is cut or a cut dimension does not
     divide by its axis (the JAX ``put`` replicates such a leaf)."""
-    sizes = {"tp": mesh.tp, "sp": mesh.sp}
-    idx = {"tp": mesh.tp_rank, "sp": mesh.sp_rank}
+    sizes = {"tp": mesh.tp, "sp": mesh.sp, "pp": mesh.stages}
+    idx = {"tp": mesh.tp_rank, "sp": mesh.sp_rank, "pp": mesh.stage}
     out = x
     for axis, name in enumerate(spec):
         if name is None or sizes[name] == 1:
@@ -237,8 +314,11 @@ def shard_leaf(leaf, spec: tuple, mesh: Mesh):
 def shard_params(params: dict, mesh: Mesh,
                  specs: Optional[dict] = None) -> dict:
     """This rank's piece of a global parameter dict, under the SP-mode
-    layout.  A leaf without a rule raises."""
+    layout (its stage's layers under pp).  A leaf without a rule
+    raises."""
     specs = param_specs() if specs is None else specs
+    if mesh.stages > 1:
+        specs = pp_specs(specs)
 
     def place(p, s, path):
         if isinstance(p, dict):

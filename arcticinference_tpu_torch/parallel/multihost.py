@@ -37,7 +37,11 @@ What the leader broadcasts, and the follower replays:
 - ``stop``: the leader closed the channel.
 
 Entries that run device work outside these (scoring, full logits, causal
-encode) refuse on a served mesh (``ModelRunner.check_unmirrored``).
+encode) refuse on a served mesh (``ModelRunner.check_unmirrored``).  With
+in-engine dp or a pipeline the broadcast is the same: a ``dispatch``
+carries the whole step's dp-layout arrays and each follower uploads its
+own dp group's slice of them; the fused loop's state stays whole on
+every rank, each running its group's slots and its stage's layers.
 """
 
 from __future__ import annotations

@@ -25,6 +25,10 @@ row-parallel sum completes (:meth:`ParallelContext.moe_expert_range`).
 SwiftKV's later layers run in the shift layout in both modes (see
 ``models/llama_swiftkv.py``).
 
+In-engine data parallelism wraps a rank's forward (:func:`make_dp_forward`):
+the rank runs its dp group's slice of the step and the groups' hidden
+rows are gathered over dp; the pipeline's forward is ``parallel/pp.py``.
+
 The ranks run in lockstep: every rank calls the forward with the same
 inputs, and the collectives are ``dist.all_to_all_single``,
 ``dist.all_reduce`` and ``dist.all_gather`` on the caller's backend.
@@ -291,18 +295,6 @@ def make_sharded_forward(module, arch, mesh: Mesh, mode: str,
     rows_out = bool(getattr(module, "RETURNS_SAMPLE_ROWS", False))
     resliced = {} if reslice_cache is None else reslice_cache
 
-    def mode_params(params: dict) -> dict:
-        if not pctx.reslices:
-            return params
-        if resliced.get("src") is not params:
-            resliced["src"] = params
-            # SwiftKV's later layers are in the shift layout already
-            # (``llama_swiftkv.mesh_layout``).
-            resliced["out"] = dict(params, **{
-                key: pctx.reslice_layers(params[key])
-                for key in ("layers", "layers_a") if key in params})
-        return resliced["out"]
-
     def fn(params, kv, inputs):
         local = inputs
         if split:
@@ -315,10 +307,42 @@ def make_sharded_forward(module, arch, mesh: Mesh, mode: str,
             local = dict(inputs)
             local["input_ids"] = inputs["input_ids"][s * c:(s + 1) * c]
             local["positions_local"] = inputs["positions"][s * c:(s + 1) * c]
-        kv, h = module.forward(mode_params(params), arch, kv, local,
-                               attn_impl=attn_impl, pctx=pctx)
+        kv, h = module.forward(mode_params(pctx, params, resliced), arch,
+                               kv, local, attn_impl=attn_impl, pctx=pctx)
         if split and not rows_out:
             h = all_gather_cat(h, mesh.sp_group)
         return kv, h
+
+    return fn
+
+
+def mode_params(pctx: ParallelContext, params: dict, resliced: dict) -> dict:
+    """``params`` as the mode of ``pctx`` runs them: in shift mode the
+    stacked layers re-sliced to the fused piece, once per parameter set
+    (kept in ``resliced``); as they are otherwise.  SwiftKV's later
+    layers are in the shift layout already (``llama_swiftkv.
+    mesh_layout``)."""
+    if not pctx.reslices:
+        return params
+    if resliced.get("src") is not params:
+        resliced["src"] = params
+        resliced["out"] = dict(params, **{
+            key: pctx.reslice_layers(params[key])
+            for key in ("layers", "layers_a") if key in params})
+    return resliced["out"]
+
+
+def make_dp_forward(inner, mesh: Mesh):
+    """In-engine data parallelism around a rank's forward ``inner``
+    (sharded or pipelined): the inputs are this rank's dp
+    group's slice of the step (``ModelRunner.upload``: its requests, its
+    ``T / dp`` token window, its shard-local block ids), and the group's
+    hidden rows are gathered over dp in dp-major order, so every rank
+    returns the step's whole ``[T, hidden]`` rows, the JAX dp forward's
+    global array (a SwiftKV model's per-group sample rows alike)."""
+
+    def fn(params, kv, inputs):
+        kv, h = inner(params, kv, inputs)
+        return kv, all_gather_cat(h, mesh.dp_group)
 
     return fn

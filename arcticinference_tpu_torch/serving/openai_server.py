@@ -23,7 +23,9 @@ Run (on ``cuda:0``; ``--device cpu`` on the CPU):
         --port 8000 [--model DIR]
 
 A mesh (``--tensor-parallel-size``, ``--ulysses-sequence-parallel-size``,
-``--enable-shift-parallel``) is served by one process per rank, each
+``--enable-shift-parallel``, or the config's ``parallel`` section, which
+also takes ``data_parallel_size`` and ``pipeline_parallel_size``) is
+served by one process per rank, each
 started with the same command and ``--multihost-num-processes N
 --multihost-process-id I --multihost-coordinator HOST:PORT`` (the
 process group's rendezvous at process 0) and, for the step channel,

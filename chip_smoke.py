@@ -315,23 +315,35 @@ Phases, each reported on its own lines:
              (:data:`SHARD_ATTN_HEADS`, :data:`SHARD_MATMUL_SHAPES`)
              against their plain versions, timed beside the bound and
              SDPA / ``torch.mm`` (in the kernels phase when it runs).
+             Also kernel 1 on a pipeline microbatch at a stage's heads
+             and kernel 2 at a dp group's batch and at a fused
+             microbatch's slots.
              (b) Llama-3.1-8B fp8 (random weights from the seed) on one
-             device, then on world (i) tp 2 and world (ii) sp 2 x tp 2
-             with shift (prefill steps on the Ulysses program, decode
-             steps on the shift program): at 2 layers and at full
-             depth, 8 prompts of 128-1024 tokens each prefilled (SP)
-             and then decoded one token (shift) in borrowed blocks, the
-             sample rows' logits and the first and last layers' pages
-             (a rank's head slice) against the single device's, as
-             are the single device's own through the plain matmuls
-             (its noise floor: another summation order) (2 layers:
-             phase 4's bound; full depth: the bounds above
-             :func:`logits_ok`, set from both readings);
-             then at full depth ``LLM.generate``'s step loop, pipelined
-             and synchronous, 8 prompts x 16 tokens: every rank's tokens
-             equal, both modes counted in world (ii), kernels 1, 2 and 5
-             launched on every rank; step wall ms by mode beside the
-             single device's and each collective's ms.
+             device, then, on one world of 4 ranks, world (i) tp 2 (its
+             ranks 0-1), (ii) sp 2 x tp 2 with shift (prefill steps on
+             the Ulysses program, decode steps on the shift program),
+             (iii) dp 2 x tp 2 (in-engine data parallelism) and (iv) pp
+             2 x sp 2 with shift (two pipeline stages of half the
+             layers; prefills on the ``pp`` program, decodes on
+             ``pp_shift``): at 2 layers (worlds (i) and (ii)) and at
+             full depth, 8 prompts of 128-1024 tokens each prefilled and
+             then decoded one token
+             in borrowed blocks (under dp, prompt i in group i mod 2),
+             the sample rows' logits and the first and last layers'
+             pages (a rank's head slice, of the layers its stage holds,
+             through its group's shard-local block ids) against the
+             single device's, as are the single device's own through
+             the plain matmuls (its noise floor: another summation
+             order) (2 layers: phase 4's bound; full depth: the bounds
+             above :func:`logits_ok`, set from both readings); then at
+             full depth ``LLM.generate``'s step loop, pipelined and
+             synchronous, 8 prompts x 16 tokens, and in world (iv) the
+             fused suffix loop too (kernel 2 on each microbatch's
+             slots): every rank's tokens and output-vector digest
+             equal, both modes counted in worlds (ii) and (iv), kernels
+             1, 2 and 5 launched on every rank; step wall ms by mode
+             beside the single device's, each collective's ms and each
+             rank's peak memory.
 13. serve_mesh: the OpenAI server on a mesh (``parallel/multihost.py``):
              Llama-3.1-8B fp8 at full width and depth (random weights
              drawn one layer at a time, as phase 12's), ranks sharing
@@ -1405,16 +1417,32 @@ def row_invariance(case, qlen, pos_base, paged=False) -> dict:
     return res
 
 
+_SASS: dict = {}
+
+
 def sass_text(lib) -> str:
-    """The library's SASS (``cuobjdump -sass``); raises if the tool is
-    missing."""
+    """The library's SASS (``cuobjdump -sass``, read once); raises if
+    the tool is missing."""
     from arcticinference_tpu_torch.ops.cuda import build
 
-    tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    if not tool.exists():
-        raise AssertionError(f"cuobjdump not found beside nvcc ({tool})")
-    return subprocess.run([str(tool), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
+    key = str(lib)
+    if key not in _SASS:
+        tool = Path(build.nvcc_path()).with_name("cuobjdump")
+        if not tool.exists():
+            raise AssertionError(
+                f"cuobjdump not found beside nvcc ({tool})")
+        _SASS[key] = subprocess.run(
+            [str(tool), "-sass", key], capture_output=True, text=True,
+            check=True).stdout
+    return _SASS[key]
+
+
+def read_sass(libs) -> None:
+    """Every library's SASS at once, one ``cuobjdump`` each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(sass_text, libs))
 
 
 def hgmma_counts(lib) -> dict:
@@ -5397,7 +5425,18 @@ PARALLEL_WORLDS = (
                              ulysses_sequence_parallel_size=2,
                              enable_shift_parallel=True,
                              shift_parallel_threshold=64)),
+    ("dp2 x tp2", dict(data_parallel_size=2, tensor_parallel_size=2)),
+    ("pp2 x sp2 shift", dict(pipeline_parallel_size=2,
+                             ulysses_sequence_parallel_size=2,
+                             enable_shift_parallel=True,
+                             shift_parallel_threshold=64)),
 )
+# The worlds that also run the fused suffix loop (with suffix decoding
+# configured; its first runs are pipelined and synchronous all the same).
+PARALLEL_FUSED_WORLDS = ("pp2 x sp2 shift",)
+# The worlds checked at full depth only (no 2-layer pass: the script's
+# time; the 2-layer pass of tp 2 and sp 2 x tp 2 stays).
+PARALLEL_FULL_DEPTH_ONLY = ("dp2 x tp2", "pp2 x sp2 shift")
 PARALLEL_LAYERS = 32          # Llama-3.1-8B's full depth
 PARALLEL_PROMPTS = 8          # of 128-1024 tokens
 PARALLEL_NEW_TOKENS = 16
@@ -5428,6 +5467,15 @@ SHARD_MATMUL_SHAPES = (
 SHARD_MATMUL_ROWS = (16, 1024)
 # Attention heads per rank: (Hq, Hkv) of tp2 and of sp2 x tp2.
 SHARD_ATTN_HEADS = ((16, 4), (8, 2))
+# dp 2 x tp 2 and pp 2 x sp 2: kernel 1 on a pp microbatch (the second
+# 1024-row half of a 2048-token prefill step: its rows at ctx 1024-2048)
+# at a stage's heads after the sp all-to-all; kernel 2 on a dp group's
+# decode step (4 of phase 12's 8 sequences, ctx 128-1040) at a tp 2
+# rank's heads, and on a fused microbatch (4 of 8 slots, qlen 8: the
+# suffix loop's wide step) at the shift program's heads.
+SHARD_PP_HEADS = (16, 4)
+SHARD_DP_DECODE = 4
+SHARD_FUSED_SLOTS, SHARD_FUSED_QLEN = 4, 8
 
 
 def phase_shard_kernels(rng, seed):
@@ -5474,6 +5522,38 @@ def phase_shard_kernels(rng, seed):
         grouped.append(run_case(case, kern, plain))
         del case, kern, plain
         torch.cuda.empty_cache()
+    hq, hkv = SHARD_PP_HEADS
+    case = Case(f"pp stage Hq={hq} Hkv={hkv} microbatch 1024@ctx2048 bf16 "
+                "qb=32", [(1024, 1024)], torch.bfloat16, rng, t_pad=1024,
+                hq=hq, hkv=hkv)
+    sched = case.schedule(32)
+
+    def kern(case=case, sched=sched):
+        return ra.ragged_paged_attention_kernel(
+            case.q, case.kv, case.positions, case.req_idx,
+            case.block_tables, case.seq_lens, qb=32, schedule=sched,
+            kv_scale=case.kv_scale, layer=case.layer)
+
+    def plain(case=case):
+        return ragged_paged_attention_reference(
+            case.q, case.kv[case.layer], case.positions, case.req_idx,
+            case.block_tables, case.seq_lens,
+            kv_scale=case.kv_scale[case.layer])
+
+    ragged.append(run_case(case, kern, plain))
+    del case
+    for tag, (hq, hkv), b, qlen in (
+            ("dp group", SHARD_ATTN_HEADS[0], SHARD_DP_DECODE, 1),
+            ("fused microbatch", SHARD_PP_HEADS, SHARD_FUSED_SLOTS,
+             SHARD_FUSED_QLEN)):
+        ctx = rng.integers(128, 1041, b)
+        case = Case(f"{tag} Hq={hq} Hkv={hkv} decode B={b} qlen={qlen} "
+                    "bf16", [(int(c), qlen) for c in ctx], torch.bfloat16,
+                    rng, t_pad=b * qlen, slot_rows=qlen, hq=hq, hkv=hkv)
+        _, kern, plain = decode_step(case, qlen)
+        grouped.append(run_case(case, kern, plain))
+        del case, kern, plain
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(seed + 12)
     for name, k, n, parts, f32 in SHARD_MATMUL_SHAPES:
         q = quantized_weight("fp8", k, n, parts, gen)
@@ -5493,30 +5573,46 @@ def phase_shard_kernels(rng, seed):
     return ragged, grouped, fp8_cases
 
 
-def parallel_config(par, dims):
+def mesh_world(world=None):
+    """``world`` when given (one world of 4 ranks shared by phases 12-14,
+    :func:`main`'s), else a new one, closed on exit."""
+    from arcticinference_tpu_torch.parallel.world import World
+
+    if world is not None:
+        return contextlib.nullcontext(world)
+    return World(4, backend="gloo", timeout_s=600,
+                 threads=PARALLEL_THREADS)
+
+
+def parallel_config(par, dims, spec=None):
     from arcticinference_tpu_torch.config import (CacheConfig, EngineConfig,
                                                   ModelConfig,
                                                   ParallelConfig,
-                                                  SchedulerConfig)
+                                                  SchedulerConfig,
+                                                  SpeculativeConfig)
 
+    dp = (par or {}).get("data_parallel_size", 1)
     return EngineConfig(
         model=ModelConfig(model="llama", dtype="bfloat16",
                           max_model_len=2048, quantization="fp8",
                           hf_overrides=dims),
-        cache=CacheConfig(num_blocks=PARALLEL_BLOCKS,
+        # A dp group holds 1 / dp of the blocks: each the single device's.
+        cache=CacheConfig(num_blocks=PARALLEL_BLOCKS * dp,
                           enable_prefix_caching=False),
         scheduler=SchedulerConfig(max_num_seqs=PARALLEL_PROMPTS,
                                   max_num_batched_tokens=2048),
-        parallel=ParallelConfig(**(par or {})))
+        parallel=ParallelConfig(**(par or {})),
+        speculative=None if spec is None else SpeculativeConfig(**spec))
 
 
-def sp_then_shift(eng, ids) -> dict:
+def sp_then_shift(eng, ids, shard=0) -> dict:
     """A prefill of ``ids[:-1]`` in blocks borrowed from the engine's
     cache (the SP program on the shift world: >= 128 tokens), then one
     decode step of ``ids[-1]`` reading its pages (the shift program: one
     token); the sample row's float32 logits of each and the request's
-    pages of the first and last layer after each (float32, on the
-    host)."""
+    slots of the first and last layer after each (float32, on the host;
+    ``{layer: [2, tokens, Hkv*D]}`` of the layers this rank's stage
+    holds, when its dp group is ``shard``, the request's group)."""
     import torch
 
     from arcticinference_tpu_torch.engine.request import (Request,
@@ -5525,11 +5621,14 @@ def sp_then_shift(eng, ids) -> dict:
                                                             SchedulerOutput)
 
     runner = eng.runner
-    bm = eng.scheduler.block_manager
+    bm = eng.scheduler.block_managers[shard]
     req = Request(req_id="pages", prompt_token_ids=list(ids),
-                  sampling=SamplingParams(max_tokens=1))
+                  sampling=SamplingParams(max_tokens=1), dp_shard=shard)
     bm.grow_to(req.block_ids, len(ids))
-    layers = [0, runner.arch.num_layers - 1]
+    mine = eng.mesh is None or eng.mesh.dp_rank == shard
+    held = runner.stage_layers
+    layers = [layer for layer in (0, runner.arch.num_layers - 1)
+              if layer in held and mine]
     out = {}
     try:
         with torch.inference_mode():
@@ -5545,9 +5644,14 @@ def sp_then_shift(eng, ids) -> dict:
                 row = (h[:1] if runner.returns_rows
                        else h[inputs["logits_indices"][:1].long()])
                 out[f"{stage}_logits"] = runner.logits(row)[0].cpu().numpy()
+                # The slots the request wrote, K and V: [2, ctx + n, Hkv*D]
+                # (a page's stale tail depends on which requests the
+                # blocks served before, which dp changes).
                 blocks = torch.tensor(req.block_ids, device=runner.kv.device)
-                out[f"{stage}_pages"] = runner.kv[layers][:, blocks].float() \
-                    .cpu().numpy()
+                out[f"{stage}_pages"] = {
+                    layer: runner.kv[layer - held.start][blocks]
+                    .transpose(0, 1).flatten(1, 2)[:, :ctx + n].float()
+                    .cpu().numpy() for layer in layers}
     finally:
         bm.free(req.block_ids)
     return out
@@ -5614,25 +5718,37 @@ def engine_checks(eng, prompts, ref: Path, write: bool, save=None,
                 checks[name] = logits_check(got, want)
                 continue
             want = want[..., first * d:(first + count) * d]
+            # The layers this rank's stage holds, of the first and last.
+            order = (0, eng.arch.num_layers - 1)
             checks[name] = [dict(
                 layer=layer,
-                rel_diff=float(np.linalg.norm(got[j] - want[j])
-                               / np.linalg.norm(want[j])),
-                max_abs_diff=float(np.abs(got[j] - want[j]).max()))
-                for j, layer in enumerate((0, eng.arch.num_layers - 1))]
+                rel_diff=float(np.linalg.norm(g - want[order.index(layer)])
+                               / np.linalg.norm(want[order.index(layer)])),
+                max_abs_diff=float(np.abs(
+                    g - want[order.index(layer)]).max()))
+                for layer, g in got.items()]
 
+    dp = eng.runner.dp
     for i, ids in enumerate(prompts):
-        got = sp_then_shift(eng, ids)
+        # Under dp, prompt i runs in group i mod dp, so each group's pages
+        # are held against the single device's.
+        got = sp_then_shift(eng, ids, shard=i % dp)
         for stage in ("prefill", "decode"):
             for kind in ("logits", "pages"):
                 if kind == "pages" and i >= PARALLEL_PAGE_PROMPTS:
                     continue
                 key = f"{stage}_{kind}_{i}"
+                val = got[f"{stage}_{kind}"]
+                if kind == "pages":
+                    if not val:
+                        continue       # another group's or stage's pages
+                    val_w = np.stack([val[k] for k in sorted(val)])
                 for where in (ref if write else None, save):
                     if where is not None:
-                        np.save(where / f"{key}.npy", got[f"{stage}_{kind}"])
+                        np.save(where / f"{key}.npy",
+                                val_w if kind == "pages" else val)
                 if not write:
-                    check(key, got[f"{stage}_{kind}"])
+                    check(key, val)
     return checks
 
 
@@ -5651,6 +5767,7 @@ def collective_ms(eng, rows: int = 1024) -> dict:
     dev = eng.runner.device
     d = arch.hidden_size
     hq = arch.num_heads // mesh.tp
+    rows = min(rows, 2048 // mesh.sp // mesh.stages)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     def timed(fn, iters=10):
@@ -5684,32 +5801,67 @@ def collective_ms(eng, rows: int = 1024) -> dict:
     if mesh.sp_tp_group is not None and mesh.sp > 1:
         out[f"sp_tp all_reduce [8, {d}] bf16"] = timed(
             lambda: dist.all_reduce(small, group=mesh.sp_tp_group))
+    if mesh.dp_group is not None:
+        # The gather of a group's hidden rows (a prefill step's, a
+        # decode step's).
+        for n in (rows, 8):
+            x = torch.zeros((n, d), **bf16)
+            out[f"dp all_gather [{n}, {d}] bf16"] = timed(
+                lambda x=x: all_gather_cat(x, mesh.dp_group))
+    if mesh.pp_group is not None:
+        # A microbatch's activation handed to the next stage (a broadcast
+        # over the pair; pp 2: each rank has one neighbour), and the last
+        # stage's rows to every stage.
+        from arcticinference_tpu_torch.parallel.pp import recv_prev, send_next
+
+        for n in (rows, 8):
+            x = torch.zeros((n, d), **bf16)
+            if mesh.next_group is not None:
+                fn = (lambda x=x: send_next(x, mesh))
+            else:
+                fn = (lambda n=n: recv_prev((n, d), torch.bfloat16, dev,
+                                            mesh))
+            out[f"pp stage hand-on [{n}, {d}] bf16"] = timed(fn)
+        x = torch.zeros((2 * rows, d), **bf16)
+        out[f"pp broadcast [{2 * rows}, {d}] bf16"] = timed(
+            lambda: dist.broadcast(x, src=mesh.last_rank,
+                                   group=mesh.pp_group))
     return out
 
 
-def parallel_run(par, prompts, ref_dir, device, dims) -> dict:
+def parallel_run(par, prompts, ref_dir, device, dims, members=None,
+                 fused=False, two_layers=True) -> dict:
     """Phase 12's engines on ``device`` (``cuda:0``; every rank of a world
     shares it): the single device (``par`` None; it writes the references
-    into ``ref_dir``) or one rank of a world (it holds its logits and
-    pages against them; then it runs the same checks through the plain
-    matmuls, the one device's own noise floor: another summation order).
-    First at ``dims``' width with 2 layers (phase 4's depth), then at
-    full depth: the checks, the collectives' ms, and the pipelined and
-    the synchronous generate runs, with the kernels' launches counted
-    over both."""
+    into ``ref_dir``) or one rank of a world over ``members`` (it holds
+    its logits and pages against them; then it runs the same checks
+    through the plain matmuls, the one device's own noise floor: another
+    summation order).  First at ``dims``' width with 2 layers (phase 4's
+    depth; not without ``two_layers``), then at full depth: the checks,
+    the collectives' ms, and the
+    pipelined and the synchronous generate runs, and with ``fused`` the
+    fused suffix loop (its suffix cache seeded by the synchronous run),
+    with the kernels' launches counted over them."""
     import torch
 
     from arcticinference_tpu_torch.engine.llm import LLM
     from arcticinference_tpu_torch.engine.request import SamplingParams
+    from arcticinference_tpu_torch.parallel.world import subgroup
 
     cuda = device.startswith("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     ref = Path(ref_dir)
+    group = None if members is None else subgroup(members)
     res = {}
-    for depth in (2, dims["num_hidden_layers"]):
+    full = dims["num_hidden_layers"]
+    for depth in (2, full) if two_layers else (full,):
         t0 = time.perf_counter()
-        llm = LLM(parallel_config(par, dict(dims, num_hidden_layers=depth)),
-                  device=device)
+        spec = (dict(method="suffix", **SUFFIX_KNOBS)
+                if fused and depth > 2 else None)
+        llm = LLM(parallel_config(par, dict(dims, num_hidden_layers=depth),
+                                  spec), device=device, group=group)
         if cuda:
             torch.cuda.synchronize()
         eng = llm.engine
@@ -5730,12 +5882,25 @@ def parallel_run(par, prompts, ref_dir, device, dims) -> dict:
         if eng.mesh is not None:
             res["collective_ms"] = collective_ms(eng)
         reset_counts()
+        eng.runner.digest = torch.zeros((), dtype=torch.int64,
+                                        device=eng.runner.device)
         runs = {}
-        for name, pipelined in (("pipelined", True), ("sync", False)):
+        loop = eng._fused
+        eng._fused = None
+        for name, pipelined in (("pipelined", True), ("sync", False),
+                                ("fused", False)):
+            if name == "fused":
+                if loop is None:
+                    continue
+                eng._fused = loop
             eng._pipeline = pipelined
             toks, _, step_ms = timed_generate(eng, prompts, SamplingParams(
                 max_tokens=PARALLEL_NEW_TOKENS, ignore_eos=True))
             runs[name] = dict(tokens=toks, step_ms=step_ms)
+        if loop is not None:
+            runs["fused"].update(width_stats=dict(loop.width_stats),
+                                 spec=eng.spec_stats.summary())
+        res["digest"] = int(eng.runner.digest)
         res["launches"] = launch_counts()
         res["runs"] = runs
         res["mode_steps"] = dict(eng.runner.mode_steps)
@@ -5794,9 +5959,10 @@ def logits_ok(c, depth: int) -> bool:
 
 
 def pages_ok(c, depth: int) -> bool:
-    return (c[0]["rel_diff"] <= PAGES_LAYER0_TOL
-            and c[1]["rel_diff"] <= (PAGES_LAST_TOL if depth == 2
-                                     else FULL_PAGES_LAST_TOL))
+    return all(e["rel_diff"] <= (
+        PAGES_LAYER0_TOL if e["layer"] == 0
+        else PAGES_LAST_TOL if depth == 2 else FULL_PAGES_LAST_TOL)
+        for e in c)
 
 
 def worst_of(runs: list, depth: int) -> dict:
@@ -5815,18 +5981,25 @@ def worst_of(runs: list, depth: int) -> dict:
             argmax_agree=sum(c["argmax_agree"] for c in cs),
             rows=len(cs))
     for key in ("prefill_pages", "decode_pages"):
-        cs = [c for r in runs for k, c in r.items() if k.startswith(key)]
-        worst[f"{depth} layers {key}"] = {
-            f"layer {cs[0][j]['layer']}": max(c[j]["rel_diff"] for c in cs)
-            for j in (0, 1)}
+        by_layer: dict = {}
+        for r in runs:
+            for k, c in r.items():
+                if k.startswith(key):
+                    for e in c:
+                        name = f"layer {e['layer']}"
+                        by_layer[name] = max(by_layer.get(name, 0.0),
+                                             e["rel_diff"])
+        worst[f"{depth} layers {key}"] = by_layer
     return worst
 
 
-def phase_parallel(rng, device="cuda:0", dims=None, card=None) -> dict:
+def phase_parallel(rng, device="cuda:0", dims=None, card=None,
+                   world=None) -> dict:
     """Phase 12 (see the module docstring): the single device, then each
     world of :data:`PARALLEL_WORLDS` on the same weights and prompts
-    (Llama-3.1-8B at :data:`PARALLEL_LAYERS` layers unless ``dims``)."""
-    from arcticinference_tpu_torch.parallel.world import World
+    (Llama-3.1-8B at :data:`PARALLEL_LAYERS` layers unless ``dims``), on
+    the ranks of ``world`` (4 ranks; a new one by default)."""
+    from arcticinference_tpu_torch.config import ParallelConfig
 
     if dims is None:
         dims = dict(LLAMA_8B, num_hidden_layers=PARALLEL_LAYERS)
@@ -5842,20 +6015,30 @@ def phase_parallel(rng, device="cuda:0", dims=None, card=None) -> dict:
         log("  parallel single " + json.dumps(dict(
             {k: v for k, v in single.items() if k != "runs"},
             step_ms={n: r["step_ms"] for n, r in single["runs"].items()})))
-        for name, par in PARALLEL_WORLDS:
-            n = (par.get("tensor_parallel_size", 1)
-                 * par.get("ulysses_sequence_parallel_size", 1))
-            t0 = time.perf_counter()
-            with World(n, backend="gloo", timeout_s=600,
-                       threads=PARALLEL_THREADS) as world:
+        # One world of 4 ranks for every mesh: a smaller one runs on its
+        # first ranks.
+        t0 = time.perf_counter()
+        with mesh_world(world) as world:
+            out["world_start_s"] = time.perf_counter() - t0
+            log(f"  parallel world of 4 ranks ready in "
+                f"{out['world_start_s']:.1f} s")
+            for name, par in PARALLEL_WORLDS:
+                n = ParallelConfig(**par).world_size
+                t0 = time.perf_counter()
                 ranks = world.run(parallel_run, par, prompts, ref_dir,
-                                  device, dims)
-            wall = time.perf_counter() - t0
-            out[name] = check_world(name, par, ranks, single, wall, card)
-    if any(not w["ok"] for k, w in out.items() if k != "single"):
+                                  device, dims,
+                                  members=list(range(n)) if n < 4 else None,
+                                  fused=name in PARALLEL_FUSED_WORLDS,
+                                  two_layers=name not in
+                                  PARALLEL_FULL_DEPTH_ONLY,
+                                  ranks=range(n))
+                wall = time.perf_counter() - t0
+                out[name] = check_world(name, par, ranks, single, wall, card)
+    worlds = {k: w for k, w in out.items() if k in dict(PARALLEL_WORLDS)}
+    if any(not w["ok"] for w in worlds.values()):
         raise AssertionError("phase 12: a world failed its checks: "
-                             + json.dumps({k: w["failed"] for k, w in
-                                           out.items() if k != "single"}))
+                             + json.dumps({k: w["failed"]
+                                           for k, w in worlds.items()}))
     return out
 
 
@@ -5864,18 +6047,23 @@ def check_world(name, par, ranks, single, wall_s, card) -> dict:
     :func:`logits_ok`); logs them."""
     keys = ("ragged_paged_attention_kernel",
             "grouped_decode_attention_kernel", "fp8_matmul_kernel")
-    depth = max(int(k[7:-1]) for k in ranks[0] if k.startswith("checks_"))
+    depths = sorted(int(k[7:-1]) for k in ranks[0]
+                    if k.startswith("checks_"))
+    depth = depths[-1]
     failed = []
     r0 = ranks[0]
-    for run in ("pipelined", "sync"):
+    for run in r0["runs"]:
         if any(r["runs"][run]["tokens"] != r0["runs"][run]["tokens"]
                for r in ranks):
             failed.append(f"{run}: ranks returned different tokens")
+    if any(r["digest"] != r0["digest"] for r in ranks):
+        failed.append("ranks' output vectors differ: "
+                      f"{[r['digest'] for r in ranks]}")
     prompts = r0["runs"]["pipelined"]["tokens"]
     agree = sum(a == b for a, b in zip(prompts,
                                        single["runs"]["pipelined"]["tokens"]))
     worst, noise = {}, {}
-    for d in (2, depth):
+    for d in depths:
         runs = [(f"rank {r_i}", r[f"checks_{d}l"])
                 for r_i, r in enumerate(ranks)]
         for who, run in runs + [("plain matmuls", single[f"noise_{d}l"])]:
@@ -5888,10 +6076,15 @@ def check_world(name, par, ranks, single, wall_s, card) -> dict:
     for r_i, r in enumerate(ranks):
         if not all(r["launches"][k] > 0 for k in keys):
             failed.append(f"rank {r_i} launches {r['launches']}")
-    if par.get("enable_shift_parallel") and not (
-            r0["mode_steps"].get("sp", 0) > 0
-            and r0["mode_steps"].get("shift", 0) > 0):
+    modes = (("pp", "pp_shift") if par.get("pipeline_parallel_size", 1) > 1
+             else ("sp", "shift"))
+    if par.get("enable_shift_parallel") and not all(
+            r0["mode_steps"].get(m, 0) > 0 for m in modes):
         failed.append(f"modes {r0['mode_steps']}")
+    fused = r0["runs"].get("fused")
+    if fused is not None and not (fused["width_stats"]["entries"] > 0
+                                  and fused["width_stats"]["wide"] > 0):
+        failed.append(f"the fused loop did not run: {fused}")
     res = dict(
         world=name, parallel=par, ranks=len(ranks), wall_s=wall_s,
         bound=f"2 layers: logits max|diff| <= 0.05 x max|logit| with the "
@@ -5905,9 +6098,11 @@ def check_world(name, par, ranks, single, wall_s, card) -> dict:
         launches=[{k: r["launches"][k] for k in keys} for r in ranks],
         init_s=[r["init_s"] for r in ranks],
         peak_gib=[r["peak_gib"] for r in ranks],
-        kv_shape=r0["kv_shape"], collective_ms=r0["collective_ms"],
-        step_ms={run: r0["runs"][run]["step_ms"]
-                 for run in ("pipelined", "sync")},
+        kv_shapes=[r["kv_shape"] for r in ranks],
+        collective_ms=r0["collective_ms"],
+        digests=[r["digest"] for r in ranks],
+        step_ms={run: r0["runs"][run]["step_ms"] for run in r0["runs"]},
+        fused={k: v for k, v in (fused or {}).items() if k != "tokens"},
         single_step_ms={run: single["runs"][run]["step_ms"]
                         for run in ("pipelined", "sync")},
         timing=f"gloo, host-staged, one card: {card}",
@@ -5956,7 +6151,7 @@ async def serve_mesh_burst(url: str, prompts) -> dict:
 
 
 def serve_mesh_rank(par, spec, alone, burst_prompts, channel_port, device,
-                    dims) -> dict:
+                    dims, members=None) -> dict:
     """One rank of a served world (phase 13).  Rank 0 builds the OpenAI
     server, waits for its followers, attaches the channel and sends over
     HTTP (a) each of ``alone`` by itself, (b) ``burst_prompts`` at once,
@@ -5968,7 +6163,8 @@ def serve_mesh_rank(par, spec, alone, burst_prompts, channel_port, device,
     were.  Before each (a) request and each offline prompt the
     engine's speculation state is made new on every rank (as a fresh
     engine's), so the two runs of a prompt start from the same state and
-    run the same program."""
+    run the same program.  ``members``: the world's ranks this served
+    mesh runs on (all by default)."""
     import torch
     import torch.distributed as dist
 
@@ -5985,13 +6181,18 @@ def serve_mesh_rank(par, spec, alone, burst_prompts, channel_port, device,
     torch.backends.cuda.matmul.allow_tf32 = False
     sync = (torch.cuda.synchronize if device.startswith("cuda")
             else (lambda: None))
+    from arcticinference_tpu_torch.parallel.world import subgroup
+
     cfg = parallel_config(par, dims)
     if spec is not None:
         cfg.speculative = SpeculativeConfig(**spec)
-    leader = dist.get_rank() == 0
+    group = None if members is None else subgroup(members)
+    leader = dist.get_rank(group) == 0
     t0 = time.perf_counter()
-    server = OpenAIServer(cfg, device=device) if leader else None
-    eng = server.engine.engine if leader else LLMEngine(cfg, device=device)
+    server = (OpenAIServer(cfg, device=device, group=group) if leader
+              else None)
+    eng = (server.engine.engine if leader
+           else LLMEngine(cfg, device=device, group=group))
     runner = eng.runner
     sync()
     res = dict(init_s=time.perf_counter() - t0)
@@ -6006,8 +6207,8 @@ def serve_mesh_rank(par, spec, alone, burst_prompts, channel_port, device,
     reset_counts()
     if leader:
         channel = multihost.LeaderChannel(
-            dist.get_world_size() - 1, channel_port, bind_host="127.0.0.1",
-            accept_timeout=600)
+            dist.get_world_size(group) - 1, channel_port,
+            bind_host="127.0.0.1", accept_timeout=600)
         channel.wait_connected()
         server.engine.attach_channel(channel)
         loop = asyncio.new_event_loop()
@@ -6074,15 +6275,20 @@ def serve_mesh_rank(par, spec, alone, burst_prompts, channel_port, device,
         offline.append(list(req.output_token_ids))
     res.update(offline=offline, offline_step_times=eng.step_times.summary())
     eng.close()
+    # The rank lives on (one world for phases 12-14): its engine's memory
+    # goes back to the card.
+    del eng, runner, server
+    if device.startswith("cuda"):
+        free_cuda_memory()
     return res
 
 
-def phase_serve_mesh(rng, device="cuda:0", dims=None, card=None) -> dict:
+def phase_serve_mesh(rng, device="cuda:0", dims=None, card=None,
+                     world=None) -> dict:
     """Phase 13 (see the module docstring): each world of
     :data:`SERVE_MESH_WORLDS` served from its leader over HTTP, its
-    checks (a)-(d)."""
-    from arcticinference_tpu_torch.parallel.world import World
-
+    checks (a)-(d), on the first ranks of ``world`` (4 ranks; a new one
+    by default)."""
     if dims is None:
         dims = dict(LLAMA_8B, num_hidden_layers=PARALLEL_LAYERS)
     vocab = dims["vocab_size"]
@@ -6094,14 +6300,21 @@ def phase_serve_mesh(rng, device="cuda:0", dims=None, card=None) -> dict:
     keys = ("ragged_paged_attention_kernel",
             "grouped_decode_attention_kernel", "fp8_matmul_kernel")
     out = {}
+    with mesh_world(world) as world:
+        ranks_of = {}
+        for name, par, spec in SERVE_MESH_WORLDS:
+            n = (par.get("tensor_parallel_size", 1)
+                 * par.get("ulysses_sequence_parallel_size", 1))
+            t0 = time.perf_counter()
+            ranks_of[name] = (world.run(
+                serve_mesh_rank, par, spec, alone, burst_prompts,
+                free_port(), device, dims,
+                members=list(range(n)) if n < 4 else None,
+                ranks=range(n)), time.perf_counter() - t0)
     for name, par, spec in SERVE_MESH_WORLDS:
         n = (par.get("tensor_parallel_size", 1)
              * par.get("ulysses_sequence_parallel_size", 1))
-        t0 = time.perf_counter()
-        with World(n, backend="gloo", timeout_s=600,
-                   threads=PARALLEL_THREADS) as world:
-            ranks = world.run(serve_mesh_rank, par, spec, alone,
-                              burst_prompts, free_port(), device, dims)
+        ranks, wall_s = ranks_of[name]
         lead, followers = ranks[0], ranks[1:]
         failed = []
         # (a) each prompt alone: the served tokens are LLM.generate's.
@@ -6137,7 +6350,7 @@ def phase_serve_mesh(rng, device="cuda:0", dims=None, card=None) -> dict:
                 failed.append(f"(d) rank {r_i} launches {r['launches']}")
         res = dict(
             world=name, parallel=par, speculative=spec, ranks=n,
-            wall_s=time.perf_counter() - t0,
+            wall_s=wall_s,
             init_s=[r["init_s"] for r in ranks],
             alone=[dict(prompt_tokens=len(p), ttft_ms=a["ttft_ms"],
                         tpot_ms=a["tpot_ms"])
@@ -6718,14 +6931,13 @@ MESH_MODEL_WORLDS = (
 )
 
 
-def phase_mesh_models(rng, device="cuda:0", card=None) -> dict:
+def phase_mesh_models(rng, device="cuda:0", card=None, world=None) -> dict:
     """Phase 14 (see the module docstring): each world of
     :data:`MESH_MODEL_WORLDS` after the single device's run on the same
     weights and prompts (one run per model and depth, shared by the
     worlds that follow it; a suffix world seeds its cache from it), the
-    ranks those of one four-rank world over gloo."""
-    from arcticinference_tpu_torch.parallel.world import World
-
+    ranks those of one four-rank world over gloo (``world``; a new one by
+    default)."""
     card = card or smi()
 
     def prompts_of(model, n):
@@ -6739,9 +6951,7 @@ def phase_mesh_models(rng, device="cuda:0", card=None) -> dict:
                "llama-3.1-8b": prompts_of("llama-3.1-8b",
                                           MESH_TREE_PROMPTS)}
     out, singles = {}, {}
-    with tempfile.TemporaryDirectory() as tmp, \
-            World(4, backend="gloo", timeout_s=600,
-                  threads=PARALLEL_THREADS) as world:
+    with tempfile.TemporaryDirectory() as tmp, mesh_world(world) as world:
         for name, job, par, keys in MESH_MODEL_WORLDS:
             key = (job["model"], job.get("layers"))
             ref = Path(tmp) / f"{job['model']}-{job.get('layers')}"
@@ -6808,6 +7018,45 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(args.seed)
+    # Each phase's seconds on the wall, printed before the kernels line.
+    phase_s: dict = {}
+    marks = [("device", time.perf_counter())]
+
+    def mark(name: str) -> None:
+        prev, t = marks[-1]
+        now = time.perf_counter()
+        phase_s[prev] = phase_s.get(prev, 0.0) + now - t
+        marks.append((name, now))
+
+    # Phases 12-14 run their meshes on one world of 4 ranks, started
+    # now, beside the build (its ranks touch no card until phase 12), and
+    # stopped at the end.
+    mesh: dict = {}
+    starter = None
+    if any(p in phases for p in ("parallel", "serve_mesh", "mesh_models")):
+        def start_world():
+            from arcticinference_tpu_torch.parallel.world import World
+
+            t = time.perf_counter()
+            mesh["world"] = World(4, backend="gloo", timeout_s=600,
+                                  threads=PARALLEL_THREADS)
+            mesh["start_s"] = time.perf_counter() - t
+
+        starter = threading.Thread(target=start_world, daemon=True)
+        starter.start()
+
+    def world4():
+        if "logged" not in mesh:
+            starter.join()
+            if "world" not in mesh:
+                raise RuntimeError("the world of phases 12-14 did not "
+                                   "start")
+            log(f"[mesh] one world of 4 ranks (gloo, cuda:0) for phases "
+                f"12-14, started beside the earlier phases in "
+                f"{mesh['start_s']:.1f} s")
+            mesh["logged"] = True
+        return mesh["world"]
+
     card = smi()
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {card} | torch {torch.__version__} cuda "
@@ -6815,6 +7064,7 @@ def main() -> int:
 
     sources = (ra.SOURCE, fm.SOURCE, im.SOURCE, hp.SOURCE, sm.SOURCE,
                gm.SOURCE)
+    mark("build")
     t0 = time.perf_counter()
     libs = build.build_all(sources)
     log(f"[build] {', '.join(sources)} in {time.perf_counter() - t0:.1f} s "
@@ -6827,6 +7077,9 @@ def main() -> int:
     # The attention kernels run their products on the tensor cores: every
     # instance (4 of kernel 1, 8 of kernels 2-3, 8 of kernel 4) must hold
     # HMMA instructions.
+    read_sass([lib for src, lib in zip(sources, libs)
+               if src in (ra.SOURCE, fm.SOURCE, im.SOURCE, sm.SOURCE,
+                          gm.SOURCE)])
     hmma = hmma_counts(libs[0])
     log(f"[build] HMMA instructions per attention kernel instance: "
         f"{json.dumps(hmma)}")
@@ -6905,6 +7158,7 @@ def main() -> int:
             sass=grouped_sass),
     }
     shard_cases = None
+    mark("kernels")
     if "kernels" in phases:
         log(f"[kernels] kernel vs plain, Hq={HQ} Hkv={HKV} D={D}, "
             f"{LAYERS}-layer cache")
@@ -6991,6 +7245,7 @@ def main() -> int:
         kernels["stream_matmul_kernel"]["hgmma"] = hgmma[sm.SOURCE]
         kernels["decode_paged_attention_kernel"]["hmma"] = {
             k: v for k, v in hmma.items() if k.startswith("decode_range")}
+    mark("forward")
     if "forward" in phases:
         for quantization in (None, "fp8", "int4"):
             log(f"[forward] Llama-3.1-8B width, 2 layers, "
@@ -7009,6 +7264,7 @@ def main() -> int:
             log(f"[forward] Llama-3.1-SwiftKV-8B width, 4 layers (2 + 2), "
                 f"{quantization or 'bf16'} weights, kernels vs plain")
             phase_forward(rng, quantization, "llama-3.1-swiftkv-8b")
+    mark("generate")
     if "generate" in phases:
         log("[generate] LLM.generate, Llama-3.1-8B shape, 32 layers, bf16, "
             "suffix speculation (linear, tree, fused loop, fused loop with "
@@ -7053,6 +7309,7 @@ def main() -> int:
                          ("fp8_matmul_kernel", "fp8"),
                          ("int4_matmul_kernel", "int4")):
             kernels[key]["launches"] = runs[run]["launches"][key]
+    mark("bench")
     if "bench" in phases:
         log("[bench] the serving matrix (benchmarks/serve_bench.py): "
             "baseline, suffix, spec, swiftkv, all; Llama-3.1-8B shapes, "
@@ -7067,6 +7324,7 @@ def main() -> int:
             res["bench_launches"]["hbm_read_probe"]
         kernels["stream_matmul_kernel"]["launches"] = \
             res["stream_launches"]["stream_matmul_kernel"]
+    mark("pipeline")
     if "pipeline" in phases:
         log("[pipeline] LLM.generate, Llama-3.1-8B shape, 32 layers, bf16 "
             "and fp8: the pipelined step against the synchronous one; "
@@ -7086,6 +7344,7 @@ def main() -> int:
             kernels[key]["launches_pipeline"]["fp8 guided pipelined"] = \
                 dict(launches=r["launches"][key],
                      dispatches=r["dispatches"])
+    mark("serve")
     if "serve" in phases:
         log("[serve] the OpenAI server (subprocess), the offline engine and "
             "an in-process server over the synthetic tokenizer; "
@@ -7095,6 +7354,7 @@ def main() -> int:
         # before it).
         for key in SERVE_TRACE_KERNELS:
             kernels[key]["launches_serve"] = served["launches"][key]
+    mark("embed")
     if "embed" in phases:
         log("[embed] LLM.encode on BERT (arctic-embed-m-v1.5 and -l widths) "
             "and on Llama-3.1-8B fp8; the embedding fleet (1 and 2 "
@@ -7104,6 +7364,7 @@ def main() -> int:
         # to 0 just before it).
         for key in ("ragged_paged_attention_kernel", "fp8_matmul_kernel"):
             kernels[key]["launches_embed"] = embedded["launches"][key]
+    mark("quality")
     if "quality" in phases:
         log("[quality] the tiny trained checkpoint (2 layers, hidden 128, 2 "
             "q heads of 64 over 1): trained here, the quality gate, the "
@@ -7142,6 +7403,7 @@ def main() -> int:
                 if k in c} for c in cases]
         kernels["grouped_decode_attention_kernel"][
             "row_invariance_quality"] = invariance_q
+    mark("moe")
     if "moe" in phases:
         log("[moe] Mixtral-8x7B: the grouped matmul at its expert shapes; "
             "LLM.generate in fp8 (32 layers) and bf16 "
@@ -7176,6 +7438,7 @@ def main() -> int:
                     dispatches=moe_res[name][run]["dispatches"])
                 for name in ("fp8", "bf16") for run in ("pipelined",
                                                         "sync")}
+    mark("parallel")
     if "parallel" in phases:
         if shard_cases is None:
             log("[parallel] kernels 1, 2 and 5 at a mesh rank's shapes "
@@ -7185,7 +7448,7 @@ def main() -> int:
             "layers, on one device, then on worlds of ranks sharing cuda:0 "
             "over gloo: " + ", ".join(n for n, _ in PARALLEL_WORLDS))
         t0 = time.perf_counter()
-        worlds = phase_parallel(rng)
+        worlds = phase_parallel(rng, world=world4())
         log(f"[parallel] {time.perf_counter() - t0:.1f} s")
         for key in ("ragged_paged_attention_kernel",
                     "grouped_decode_attention_kernel", "fp8_matmul_kernel"):
@@ -7195,12 +7458,13 @@ def main() -> int:
                 for name, _ in PARALLEL_WORLDS}
             entry.setdefault("launches", worlds[PARALLEL_WORLDS[-1][0]][
                 "launches"][0][key])
+    mark("serve_mesh")
     if "serve_mesh" in phases:
         log(f"[serve_mesh] the OpenAI server on a mesh: Llama-3.1-8B fp8, "
             f"{PARALLEL_LAYERS} layers, ranks sharing cuda:0 over gloo: "
             + ", ".join(n for n, _, _ in SERVE_MESH_WORLDS))
         t0 = time.perf_counter()
-        served_worlds = phase_serve_mesh(rng)
+        served_worlds = phase_serve_mesh(rng, world=world4())
         log(f"[serve_mesh] {time.perf_counter() - t0:.1f} s")
         for key in ("ragged_paged_attention_kernel",
                     "grouped_decode_attention_kernel", "fp8_matmul_kernel"):
@@ -7210,6 +7474,7 @@ def main() -> int:
                 for name, _, _ in SERVE_MESH_WORLDS}
             entry.setdefault("launches", served_worlds[
                 SERVE_MESH_WORLDS[0][0]]["launches"][0][key])
+    mark("mesh_models")
     if "mesh_models" in phases:
         t0 = time.perf_counter()
         log("[mesh_models] row R, kernel 5 and kernel 1t at a mesh rank's "
@@ -7222,7 +7487,8 @@ def main() -> int:
             + ", ".join(n for n, _, _, _ in MESH_MODEL_WORLDS))
         # Its own seed: the same prompts whichever phases ran before.
         mesh_worlds = phase_mesh_models(np.random.default_rng(args.seed
-                                                              + 14))
+                                                              + 14),
+                                        world=world4())
         keys = sorted({k for _, _, _, ks in MESH_MODEL_WORLDS for k in ks})
         for key in keys:
             entry = kernels[key]
@@ -7275,6 +7541,7 @@ def main() -> int:
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err", "rel_err", "host_us")
                 if k in c} for c in cases]
+    mark("profile")
     if "embed" in phases:
         log("[profile] one BERT-base batch (64 x 512) under torch.profiler")
         log("  profile bert " + json.dumps(dict(profile_bert(),
@@ -7283,6 +7550,14 @@ def main() -> int:
         log("[profile] shorter bf16 and fp8 runs and the drafter chains "
             "under torch.profiler")
         phase_profile(rng)
+    if starter is not None:
+        starter.join()
+        if "world" in mesh:
+            mesh["world"].close()
+    mark("end")
+    log(json.dumps({"phase_seconds": {k: round(v, 1)
+                                      for k, v in phase_s.items()
+                                      if k in phases or v >= 0.05}}))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(smi())
     print(json.dumps({"ok": True, "device": {

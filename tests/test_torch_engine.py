@@ -99,11 +99,9 @@ def test_prepare_inputs_matches_jax_runner(monkeypatch):
 def trained(tmp_path_factory):
     """A tiny HF Llama trained for a short run (CPU torch, no download);
     head_dim 32, so both engines run their reference attention."""
-    from tests.quality_utils import train_tiny_checkpoint
+    from tests.torch_shared import tiny_trained_checkpoint
 
-    d = tmp_path_factory.mktemp("torch_port_ckpt")
-    _, heldout = train_tiny_checkpoint(d, steps=60)
-    return str(d), heldout
+    return tiny_trained_checkpoint(tmp_path_factory)
 
 
 @pytest.mark.parametrize("quantization", [None, "fp8", "int8", "int4"])

@@ -166,10 +166,9 @@ def world():
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    from tests.quality_utils import train_tiny_checkpoint
+    from tests.torch_shared import tiny_trained_checkpoint
 
-    d = tmp_path_factory.mktemp("torch_served_mesh")
-    _, heldout = train_tiny_checkpoint(d, steps=60)
+    d, heldout = tiny_trained_checkpoint(tmp_path_factory)
     prompts = [[int(t) for t in heldout[s:s + n]]
                for s, n in ((0, 12), (40, 30), (120, 20), (200, 9))]
     return str(d), prompts
@@ -203,8 +202,9 @@ def _completion(prompt, **kw):
 
 
 def _run(world, path, par, requests, offline, **kw):
-    n = par.get("tensor_parallel_size", 1) * \
-        par.get("ulysses_sequence_parallel_size", 1)
+    from arcticinference_tpu_torch.config import ParallelConfig
+
+    n = ParallelConfig(**par).world_size
     members = list(range(n)) if n < 4 else None
     return world.run(tasks.serve_session, path, par, free_port(), requests,
                      offline, members=members, ranks=range(n), **kw)
@@ -304,6 +304,25 @@ def test_served_suffix_decoding_runs_the_fused_loop(world, trained, single):
     assert lead["width_stats"]["wide"] + lead["width_stats"]["narrow"] > 0
     assert lead["spec"]["num_drafts"] > 0
     assert lead["sent"]["fused"] > 0 and lead["sent"]["fused_exit"] > 0
+    _check_mirror(res)
+
+
+def test_served_dp_mesh_matches_generate(world, trained, single):
+    """In-engine dp on a served mesh (dp 2 x tp 2; the JAX
+    ``test_multihost_dp_engine``): the leader broadcasts each step's
+    dp-layout arrays and every follower uploads its own group's slice.
+    Each request alone and a burst of all four (both dp groups at once)
+    return ``LLM.generate``'s tokens on the same world and the single
+    device's; every follower replays every dispatch to the leader's
+    digest."""
+    path, prompts = trained
+    requests = [_completion(p, **GREEDY) for p in prompts]
+    res = _run(world, path, dict(data_parallel_size=2, **TP2), requests,
+               [(prompts, GREEDY)], burst=requests)
+    assert [_tokens(a) for a in res[0]["answers"]] == single["greedy"]
+    assert [_tokens(a) for a in res[0]["burst_answers"]] == \
+        single["greedy"]
+    assert res[0]["offline"]["tokens"][0] == single["greedy"]
     _check_mirror(res)
 
 

@@ -336,7 +336,12 @@ def test_choose_mode_matches_jax():
                dict(tensor_parallel_size=2, ulysses_sequence_parallel_size=2,
                     enable_shift_parallel=True, shift_parallel_threshold=8),
                dict(ulysses_sequence_parallel_size=4,
-                    enable_shift_parallel=True, shift_parallel_threshold=64)]
+                    enable_shift_parallel=True, shift_parallel_threshold=64),
+               dict(data_parallel_size=2, tensor_parallel_size=2),
+               dict(pipeline_parallel_size=2, tensor_parallel_size=2),
+               dict(pipeline_parallel_size=2,
+                    ulysses_sequence_parallel_size=2,
+                    enable_shift_parallel=True, shift_parallel_threshold=8)]
     for lay in layouts:
         j = types.SimpleNamespace(
             mesh=None if not lay else object(),

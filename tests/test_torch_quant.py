@@ -429,11 +429,9 @@ def test_kv_scale_computation_matches_jax():
 
 @pytest.fixture(scope="module")
 def trained_ckpt(tmp_path_factory):
-    from tests.quality_utils import train_tiny_checkpoint
+    from tests.torch_shared import tiny_trained_checkpoint
 
-    d = tmp_path_factory.mktemp("torch_quant_ckpt")
-    _, heldout = train_tiny_checkpoint(d, steps=60)
-    return str(d), heldout
+    return tiny_trained_checkpoint(tmp_path_factory)
 
 
 def _e4m3_step(v: np.ndarray) -> np.ndarray:

@@ -180,8 +180,9 @@ def run_engine(model: str, par: dict | None, prompts, max_tokens: int = 10,
                warm=None, sampling: dict | None = None,
                pipeline=None, responses: dict | None = None,
                guided: str | None = None) -> dict:
-    """``LLM.generate`` on this rank (``sampling``: more
-    ``SamplingParams``; ``pipeline`` False: the synchronous step;
+    """``LLM.generate`` on this rank (``max_tokens``: one count, or one
+    per prompt; ``sampling``: more ``SamplingParams``; ``pipeline``
+    False: the synchronous step;
     ``unfused``: the model module without ``fuse_params``, so the runner
     keeps q/k/v and gate/up apart; ``warm`` / ``responses``: sequences
     the suffix cache holds first; ``guided``: a regex each request is
@@ -207,7 +208,10 @@ def run_engine(model: str, par: dict | None, prompts, max_tokens: int = 10,
         if pipeline is not None:
             eng._pipeline = pipeline
         extra = dict(sampling or {})
-        params = SamplingParams(max_tokens=max_tokens, **extra)
+        params = (SamplingParams(max_tokens=max_tokens, **extra)
+                  if isinstance(max_tokens, int) else
+                  [SamplingParams(max_tokens=m, **extra)
+                   for m in max_tokens])
         if guided is not None:
             from arcticinference_tpu_torch.serving.structured import (
                 make_guided_decoder)
@@ -244,6 +248,26 @@ def run_engine(model: str, par: dict | None, prompts, max_tokens: int = 10,
                              for p, t in zip(prompts, tokens)]
         llm.close()
         return res
+
+
+def stage_pages(model: str, par: dict | None, prompt, members=None) -> dict:
+    """The KV pages of ``prompt``'s prefill on this rank (the engine's
+    ``prompt_logits``, in blocks borrowed from a fresh cache: 1, 2, ...),
+    float32: ``pages`` [this stage's layers, blocks, 2, Bs, heads*D], with
+    the global ``layers`` and the model's kv heads the rank holds
+    (``heads``: count, first)."""
+    llm = LLM(engine_config(model, par), device="cpu", group=_group(members))
+    eng = llm.engine
+    eng.prompt_logits(list(prompt))
+    runner = eng.runner
+    nblk = -(-len(prompt) // runner.block_size)
+    heads = (runner.cache_kv_heads, 0)
+    if eng.mesh is not None:
+        heads = mesh_lib.kv_cache_heads(eng.arch.num_kv_heads, eng.mesh)
+    res = dict(layers=list(runner.stage_layers), heads=heads,
+               pages=runner.kv[:, 1:1 + nblk].float().numpy().copy())
+    llm.close()
+    return res
 
 
 def build_error(model: str, par: dict, members=None, **kw) -> str:
@@ -353,11 +377,13 @@ def _offline(cfg, group, offline: list, drafter_rows=None) -> dict:
 def serve_session(model: str, par: dict, channel_port: int,
                   requests: list, offline: list, members=None,
                   spec: dict | None = None, warm=None,
-                  refusals: bool = False, drafter_rows=None) -> dict:
+                  refusals: bool = False, drafter_rows=None,
+                  burst: list | None = None) -> dict:
     """One served mesh on this rank, then ``LLM.generate`` on the same
     world.  Rank 0 builds the server, waits for its followers, attaches
     the channel and sends ``requests`` ((path, body), each alone, in
-    order) through HTTP; the other ranks replay its steps
+    order), then ``burst`` (the same, all at once), through HTTP; the
+    other ranks replay its steps
     (``follower_serve``).  Each rank returns what it saw: the leader its
     answers, step counts, the channel's message counts and bytes and (with
     ``refusals``) the errors of the refused engine entries; a follower
@@ -397,6 +423,13 @@ def serve_session(model: str, par: dict, channel_port: int,
                 answers.append(loop.run_until_complete(
                     _post(url + path, body)))
                 seconds.append(time.perf_counter() - t)
+            if burst:
+                async def at_once():
+                    return await asyncio.gather(
+                        *(_post(url + path, body) for path, body in burst))
+
+                res["burst_answers"] = list(loop.run_until_complete(
+                    at_once()))
             if refusals:
                 res["refusals"] = _refusals(eng)
             res.update(
